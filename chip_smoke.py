@@ -10,7 +10,7 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    K1 (weighted-NMS core) at B = 16 for k = 896 with a sparse valid
    prefix, k = 896 all valid and k = 2304 (leaders equal, boxes within
    1e-6); K2 (ROI warp + normalize) at 16 frames x 16 faces x 192 px with
-   mixed mirrors (within 1e-6); it prints each kernel's time, the plain
+   mixed mirrors (bit for bit); it prints each kernel's time, the plain
    version's and, for K2, ``F.grid_sample``'s (CUDA events, warm-up,
    median of 20);
 4. drives the main path: ``FaceDetector`` in STANDARD mode over 16 seeded
@@ -20,6 +20,10 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    be > 0, with at least one face on every image; then profiles one
    steady batch (``torch.profiler``: device time by layer and kernel, and
    the device's idle share);
+   it times each kernel on the main path's own inputs twice over the same
+   20 calls: CUDA events around each call (``ms``, which includes the host
+   path of the ctypes call) and the kernel's own device time in
+   ``torch.profiler`` (``device_ms``, median);
 5. checks the card's output against the port on the CPU (plain kernels,
    fp32 convolutions) on two of the frames;
 6. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
@@ -72,6 +76,31 @@ def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _kernel_ms(fn, layer: str, iters: int = 20) -> tuple[float, float]:
+    """(event ms, device ms) of a kernel wrapper that launches one kernel per
+    call: the CUDA-event median of ``iters`` timed calls, which includes the
+    host path of the call, and the median of the same calls' device time of
+    the kernel in ``torch.profiler``, found by its layer (:func:`_layer`).
+    Raises when the profiler did not record one kernel per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms = _median_ms(fn, iters=iters, warmup=0)
+    device_us = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and _layer(e.name) == layer]
+    if len(device_us) != iters:
+        print(f"profile: torch.profiler recorded {len(device_us)} device "
+              f"launches of {layer} for {iters} timed calls")
+        raise RuntimeError(f"no device time for {layer}")
+    return ms, statistics.median(device_us) / 1e3
 
 
 def _clustered_candidates(rng, b: int, k: int, valid_frac: float):
@@ -169,7 +198,7 @@ def _profile_batch(det, frames_np, mode, card: str) -> None:
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
         print("profile: torch.profiler recorded no device activity")
-        return
+        raise RuntimeError("no device activity in the profiled batch")
     by_layer: dict[str, float] = {}
     by_name: dict[str, list] = {}
     busy, cur_s, cur_e = 0.0, None, None
@@ -286,7 +315,7 @@ def main() -> int:
     ref = warp_mod.warp_normalize_plain(frames, cx, cy, size, ct, st,
                                         out_size=s, flip=flip)
     k2_err = (out - ref).abs().max().item()
-    if k2_err > 1e-6:
+    if k2_err != 0:
         raise AssertionError(f"K2: kernel differs from plain by {k2_err}")
     print(f"K2 warp_normalize 16x16x{s}^2 mixed flips: max_abs_err={k2_err:.3g}")
 
@@ -344,7 +373,8 @@ def main() -> int:
         tb, tkp, ts, tv = _topk_candidates(boxes, kp, scores, valid, 896)
         counts = tv.sum(1).tolist()
         print(f"valid candidates per image: {counts}")
-        nms_ms = _median_ms(lambda: nms_mod.nms_core(tb, ts, tv))
+        nms_ms, nms_dev_ms = _kernel_ms(
+            lambda: nms_mod.nms_core(tb, ts, tv), "K1 nms_core")
         nms_plain_ms = _median_ms(lambda: nms_mod.nms_core_plain(tb, ts, tv),
                                   iters=5, warmup=1)
         leader, blended = nms_mod.nms_core(tb, ts, tv)
@@ -359,14 +389,14 @@ def main() -> int:
             slab["raw_keypoints"], float(WIDTH), float(HEIGHT))
         mroi = [t.contiguous() for t in
                 (cx_m, cy_m, size_m, torch.cos(-theta_m), torch.sin(-theta_m))]
-        warp_ms = _median_ms(lambda: warp_mod.warp_normalize(
-            frames, *mroi, out_size=s))
+        warp_ms, warp_dev_ms = _kernel_ms(lambda: warp_mod.warp_normalize(
+            frames, *mroi, out_size=s), "K2 warp_normalize")
         warp_plain_ms = _median_ms(lambda: warp_mod.warp_normalize_plain(
             frames, *mroi, out_size=s), iters=5, warmup=1)
         w_out = warp_mod.warp_normalize(frames, *mroi, out_size=s)
         w_ref = warp_mod.warp_normalize_plain(frames, *mroi, out_size=s)
         k2_err = max(k2_err, (w_out - w_ref).abs().max().item())
-        if k2_err > 1e-6:
+        if k2_err != 0:
             raise AssertionError(f"K2 on the main path: error {k2_err}")
 
         # Library yardstick: grid_sample over the same sample points.
@@ -396,10 +426,11 @@ def main() -> int:
         lib_ms = _median_ms(library)
         lib_err = (library().reshape(FRAMES, 3, -1, s, s).permute(
             0, 2, 3, 4, 1) - w_out).abs().max().item()
-    print(f"K1 main-path inputs: kernel {nms_ms:.4f} ms, plain "
-          f"{nms_plain_ms:.4f} ms  [{card}]")
+    print(f"K1 main-path inputs: kernel {nms_ms:.4f} ms (device "
+          f"{nms_dev_ms:.4f} ms), plain {nms_plain_ms:.4f} ms  [{card}]")
     print(f"K2 main-path inputs ({FRAMES}x{MAX_FACES} ROIs, taps touch "
-          f"{touched_px} source pixels): kernel {warp_ms:.4f} ms, plain "
+          f"{touched_px} source pixels): kernel {warp_ms:.4f} ms (device "
+          f"{warp_dev_ms:.4f} ms), plain "
           f"{warp_plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms (max diff "
           f"{lib_err:.3g})  [{card}]")
 
@@ -437,13 +468,15 @@ def main() -> int:
          "source": f"{PACKAGE}/csrc/nms.cu",
          "replaces": "face_detection_tflite_tpu/ops/nms_pallas.py:36",
          "launches": launches["nms_core"], "max_abs_err": k1_err,
-         "ms": nms_ms, "plain_ms": nms_plain_ms, "bound_ms": nms_bound,
+         "ms": nms_ms, "device_ms": nms_dev_ms, "plain_ms": nms_plain_ms,
+         "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},
         {"name": "warp_normalize", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
          "launches": launches["warp_normalize"], "max_abs_err": k2_err,
-         "ms": warp_ms, "plain_ms": warp_plain_ms, "bound_ms": warp_bound,
+         "ms": warp_ms, "device_ms": warp_dev_ms, "plain_ms": warp_plain_ms,
+         "bound_ms": warp_bound,
          "bound_by": warp_by, "library_ms": lib_ms},
     ]
     det.dispose()

@@ -29,6 +29,10 @@ __all__ = ["extract_rois_normalized", "warp_normalize",
            "warp_normalize_plain", "extract_rois"]
 
 _INV_127_5 = 1.0 / 127.5
+#: Largest crop the kernel takes: it keeps two floats per output column in
+#: shared memory, which stays within 48 KB up to this size
+#: (``csrc/warp.cu::kMaxOutSize``).
+MAX_OUT_SIZE = 4096
 
 
 def _bilinear_sample(frames: torch.Tensor, sx: torch.Tensor,
@@ -107,7 +111,11 @@ def warp_normalize(frames: torch.Tensor, cx, cy, sizes, cos_t, sin_t, *,
     0..255), per-ROI ``[B, F]`` float32 parameters, optional ``flip
     [B, F]`` -> ``[B, F, S, S, 3]`` float32 in [-1, 1].  The kernel for
     CUDA tensors (one launch), the plain version for CPU tensors.
-    ``warp_normalize.launches`` counts kernel launches."""
+    ``warp_normalize.launches`` counts kernel launches.  ``out_size`` is
+    1 to :data:`MAX_OUT_SIZE` on every device."""
+    if not 1 <= out_size <= MAX_OUT_SIZE:
+        raise ValueError(f"warp_normalize: out_size must be 1 to "
+                         f"{MAX_OUT_SIZE}, got {out_size}")
     if frames.device.type == "cpu":
         return warp_normalize_plain(frames, cx, cy, sizes, cos_t, sin_t,
                                     out_size=out_size, flip=flip)
@@ -120,6 +128,9 @@ def warp_normalize(frames: torch.Tensor, cx, cy, sizes, cos_t, sin_t, *,
     if frames.dtype not in (torch.uint8, torch.float32):
         raise TypeError("warp_normalize: frames must be uint8 or float32")
     b, h, w, _ = frames.shape
+    if h < 1 or w < 1:
+        raise ValueError("warp_normalize: frames must hold at least one "
+                         "pixel")
     params = (cx, cy, sizes, cos_t, sin_t)
     f = cx.shape[1] if cx.dim() == 2 else -1
     for p in params + ((flip,) if flip is not None else ()):

@@ -102,14 +102,39 @@ def test_nms_kernel_matches_plain(cuda_device, k, frac):
     assert (blended - p_blended).abs().max().item() <= 1e-6
 
 
+def _warp_rois(kind, b, f, h, w):
+    """ROIs that upsample (size 10-100), downsample (400-1300, the main
+    path's range) or lie wholly outside the frame."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "down":
+        size = rng.uniform(400, 1300, (b, f))
+        cx, cy = rng.uniform(0, w, (b, f)), rng.uniform(0, h, (b, f))
+    else:
+        size = rng.uniform(10, 100, (b, f))
+        cx, cy = rng.uniform(-20, w + 20, (b, f)), rng.uniform(-20, h + 20,
+                                                               (b, f))
+    if kind == "outside":
+        cx = rng.uniform(w + 200, w + 400, (b, f)) * rng.choice([-1, 1],
+                                                                (b, f))
+        cy = rng.uniform(-400, -200, (b, f))
+    theta = rng.uniform(-math.pi, math.pi, (b, f))
+    return [torch.from_numpy(a.astype(np.float32))
+            for a in (cx, cy, size, theta)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
-def test_warp_kernel_matches_plain(cuda_device, dtype):
-    b, f, h, w, s = 4, 16, 853, 1280, 192
+@pytest.mark.parametrize("kind", ["up", "down", "outside"])
+@pytest.mark.parametrize("s", [17, 64, 112, 192])
+def test_warp_kernel_matches_plain(cuda_device, s, kind, dtype):
+    """Bit for bit, at every crop size of the pipeline (17 leaves a ragged
+    band of output rows), with mixed mirrors; one launch per call."""
+    b, f, h, w = 4, 16, 853, 1280
     frames = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(0))
     frames = frames.to(cuda_device, dtype)
-    cx, cy, size, theta = (t.to(cuda_device) for t in _rois(2, b, f, h, w))
+    cx, cy, size, theta = (t.to(cuda_device)
+                           for t in _warp_rois(kind, b, f, h, w))
     flip = (torch.arange(b * f).reshape(b, f) % 3 == 0).to(cuda_device)
     ct, st = theta.cos(), theta.sin()
     before = warp.warp_normalize.launches
@@ -119,7 +144,18 @@ def test_warp_kernel_matches_plain(cuda_device, dtype):
     assert warp.warp_normalize.launches == before + 1
     want = warp.warp_normalize_plain(frames, cx, cy, size, ct, st,
                                      out_size=s, flip=flip)
-    assert (got - want).abs().max().item() <= 1e-6
+    assert (got - want).abs().max().item() == 0
+
+
+@pytest.mark.parametrize("s", [0, warp.MAX_OUT_SIZE + 1])
+def test_warp_rejects_unsupported_out_size(s):
+    """The wrapper takes the crop sizes the kernel takes, on every device."""
+    frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    z = torch.zeros((1, 2))
+    before = warp.warp_normalize.launches
+    with pytest.raises(ValueError, match="out_size"):
+        warp.warp_normalize(frames, z, z, z, z, z, out_size=s)
+    assert warp.warp_normalize.launches == before
 
 
 @pytest.mark.cuda

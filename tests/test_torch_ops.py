@@ -85,21 +85,29 @@ def test_decode_and_remove_letterbox_exact():
     np.testing.assert_array_equal(gk.numpy(), np.asarray(rk))
 
 
-def _rois(b, f, h, w):
-    cx = _rng.uniform(-20, w + 20, (b, f)).astype(np.float32)
-    cy = _rng.uniform(-20, h + 20, (b, f)).astype(np.float32)
-    size = _rng.uniform(10, 1.5 * max(h, w), (b, f)).astype(np.float32)
+def _rois(b, f, h, w, rng=_rng):
+    cx = rng.uniform(-20, w + 20, (b, f)).astype(np.float32)
+    cy = rng.uniform(-20, h + 20, (b, f)).astype(np.float32)
+    size = rng.uniform(10, 1.5 * max(h, w), (b, f)).astype(np.float32)
     size[0, 0] = 40.5  # exact .5: Dart rounding
-    theta = _rng.uniform(-math.pi, math.pi, (b, f)).astype(np.float32)
+    theta = rng.uniform(-math.pi, math.pi, (b, f)).astype(np.float32)
     return cx, cy, size, theta
 
 
-@pytest.mark.parametrize("flip", [False, True])
-def test_warp_plain_matches_jax(flip):
-    b, f, h, w, s = 2, 5, 60, 80, 24
-    frames = _rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
-    cx, cy, size, theta = _rois(b, f, h, w)
-    flips = _rng.uniform(size=(b, f)) < 0.5 if flip else None
+# The 24-px cases keep their names and draw from the module's generator;
+# the iris (64) and embedding (112) crop sizes draw from their own.
+@pytest.mark.parametrize("s,flip", [
+    pytest.param(24, False, id="False"), pytest.param(24, True, id="True"),
+    pytest.param(64, False, id="64-False"),
+    pytest.param(64, True, id="64-True"),
+    pytest.param(112, False, id="112-False"),
+    pytest.param(112, True, id="112-True")])
+def test_warp_plain_matches_jax(s, flip):
+    b, f, h, w = 2, 5, 60, 80
+    rng = _rng if s == 24 else np.random.default_rng(s + flip)
+    frames = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    cx, cy, size, theta = _rois(b, f, h, w, rng)
+    flips = rng.uniform(size=(b, f)) < 0.5 if flip else None
     t = torch.from_numpy
     # cos/sin as XLA computes them inside extract_rois: the comparison then
     # measures the warp (measured exact), not the libraries' trigonometry.
