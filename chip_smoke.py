@@ -7,27 +7,40 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
 2. builds the hand-written kernels (``face_detection_tflite_torch/csrc``)
    with ``nvcc`` and prints the build time and ptxas resource usage;
 3. holds each kernel against its plain PyTorch version on the card:
-   K1 (weighted-NMS core) at B = 16 for k = 896 with a sparse valid
-   prefix, k = 896 all valid and k = 2304 (leaders equal, boxes within
-   1e-6); K2 (ROI warp + normalize) at 16 frames x 16 faces x 192 px with
-   mixed mirrors (bit for bit); it prints each kernel's time, the plain
-   version's and, for K2, ``F.grid_sample``'s (CUDA events, warm-up,
-   median of 20);
+   the weighted-NMS core (``nms_core``) at B = 16 for k = 896 with a
+   sparse valid prefix, k = 896 all valid and k = 2304 (leaders equal,
+   boxes within 1e-6); K1, the fused detection postprocess
+   (``detection_postprocess``: decode, select, weighted NMS, slab,
+   letterbox removal), at B = 16 on seeded raw outputs with every anchor
+   valid (A = 896), on the full-range anchors (A = 2304, 192 px) with 5%
+   and with all valid, with ``num_candidates=64``, with more leaders than
+   D, with no valid anchor and with equal scores (valid, scores and
+   keypoints equal, boxes within 1e-6); K2 (ROI warp + normalize) at 16
+   frames x 16 faces x 192 px with mixed mirrors (bit for bit); it prints
+   the kernels' times, the plain versions' and, for K2,
+   ``F.grid_sample``'s (CUDA events, warm-up, median of 20);
 4. drives the main path: ``FaceDetector`` in STANDARD mode over 16 seeded
    853x1280 uint8 frames, with the full-depth, full-width seeded
    BlazeFace-back and FaceMesh; prints ms per batch, faces/s, candidates
-   and faces per image and the kernels' launch counts, all of which must
-   be > 0, with at least one face on every image; then profiles one
-   steady batch (``torch.profiler``: device time by layer and kernel, and
-   the device's idle share);
+   and faces per image and the kernels' launch counts: one K1 launch per
+   batch, at least one K2, no ``nms_core``, at least one face on every
+   image; then profiles one steady batch (``torch.profiler``: device time
+   by layer and kernel, and the device's idle share);
    it times each kernel on the main path's own inputs twice over the same
    20 calls: CUDA events around each call (``ms``, which includes the host
    path of the ctypes call) and the kernel's own device time in
-   ``torch.profiler`` (``device_ms``, median);
+   ``torch.profiler`` (``device_ms``, median); for K1 also the host time
+   of a call (host clock over 1,000 calls, no synchronise), an empty
+   kernel's device time (the launch floor, context only) and, as the
+   yardstick, the stage K1 replaced (``decode_detections``,
+   ``weighted_nms`` through ``nms_core``, ``remove_letterbox``): its event
+   ms, device ms summed over its kernels and device launches per call;
 5. checks the card's output against the port on the CPU (plain kernels,
    fp32 convolutions) on two of the frames;
 6. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
-   line.
+   line.  Each kernel's ``launches`` is its count over the main path's
+   batches; ``nms_core`` is off the main path (0) and its launches in
+   step 3 are ``check_launches``.
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -55,6 +68,15 @@ PEAK_FP32_OPS_PER_S = 67e12
 NMS_PAIR_OPS = 13
 NMS_MEMBER_OPS = 10
 WARP_VALUE_OPS = 15
+# K1 postprocess: per anchor the clipped sigmoid and its test (2 clamp,
+# exp, add, div, compare); per valid candidate the decode of its box (4
+# div, 2 add, 2 mul, 4 add/sub); per leader in the slab the decode of its
+# keypoints (12 div, 12 add); per slab value the letterbox removal (sub,
+# div).
+POST_ANCHOR_OPS = 6
+POST_BOX_OPS = 12
+POST_KP_OPS = 24
+SLAB_VALUE_OPS = 2
 
 SEED = 3
 FRAMES, HEIGHT, WIDTH = 16, 853, 1280
@@ -83,7 +105,8 @@ def _kernel_ms(fn, layer: str, iters: int = 20) -> tuple[float, float]:
     call: the CUDA-event median of ``iters`` timed calls, which includes the
     host path of the call, and the median of the same calls' device time of
     the kernel in ``torch.profiler``, found by its layer (:func:`_layer`).
-    Raises when the profiler did not record one kernel per call."""
+    Raises when the profiler recorded none of them; the profiler can lose
+    some device records, which the median then leaves out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -99,8 +122,47 @@ def _kernel_ms(fn, layer: str, iters: int = 20) -> tuple[float, float]:
     if len(device_us) != iters:
         print(f"profile: torch.profiler recorded {len(device_us)} device "
               f"launches of {layer} for {iters} timed calls")
+    if not device_us:
         raise RuntimeError(f"no device time for {layer}")
     return ms, statistics.median(device_us) / 1e3
+
+
+def _stage_ms(fn, iters: int = 20) -> tuple[float, float, float, set]:
+    """(event ms, device ms, device launches, layers) per call of ``fn``,
+    which may launch many kernels: the CUDA-event median of ``iters`` calls
+    and, over the same calls in ``torch.profiler``, the summed device time
+    and the count of device activities divided by ``iters`` (a lower bound
+    where the profiler lost records), and the layers they belong to."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms = _median_ms(fn, iters=iters, warmup=0)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("no device activity in the profiled stage")
+    spans = [e.time_range.end - e.time_range.start for e in events]
+    return (ms, sum(spans) / 1e3 / iters, len(spans) / iters,
+            {_layer(e.name) for e in events})
+
+
+def _host_ms(fn, calls: int = 1000) -> float:
+    """Host time of one call of ``fn``: a host clock over ``calls`` calls
+    with no synchronise in between (the enqueue, not the device work)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def _clustered_candidates(rng, b: int, k: int, valid_frac: float):
@@ -139,6 +201,50 @@ def _nms_bound(valid_counts, b: int, k: int) -> tuple[float, str]:
     return _bound(nbytes, ops)
 
 
+def _postprocess_bound(valid_counts, slab_leaders: int, b: int, a: int,
+                       d: int) -> tuple[float, str]:
+    """Least time for K1 on these inputs.  Bytes: all A raw scores, the raw
+    box (16 B) and anchor (8 B) of each valid candidate and the raw
+    keypoints (48 B) of each of the ``slab_leaders`` leaders that fill the
+    slab, read once; the [B, D] slab (69 B a row) written once.
+    Operations: the score test of every anchor, the decode of each valid
+    candidate's box and each slab leader's keypoints, n^2/2 IoUs and the
+    blend of the n valid candidates, the letterbox removal of the slab."""
+    nbytes = (b * a * 4 + sum(valid_counts) * (16 + 8) + slab_leaders * 48
+              + b * d * 69)
+    ops = (b * a * POST_ANCHOR_OPS + sum(valid_counts) * POST_BOX_OPS
+           + slab_leaders * POST_KP_OPS
+           + sum(n * (n + 1) // 2 * NMS_PAIR_OPS + n * NMS_MEMBER_OPS
+                 for n in valid_counts) + b * d * 16 * SLAB_VALUE_OPS)
+    return _bound(nbytes, ops)
+
+
+def _check_postprocess(label: str, args, kw: dict, card: str) -> float:
+    """Holds K1 against its plain version on ``args`` (raw_boxes,
+    raw_scores, anchors, input_size, padding): valid, scores and
+    keypoints equal, boxes within 1e-6.  Returns the boxes' max error."""
+    import torch
+    from face_detection_tflite_torch.ops import detections
+    got = detections.detection_postprocess(*args, **kw)
+    torch.cuda.synchronize()
+    want = detections.detection_postprocess_plain(*args, **kw)
+    names = ("boxes", "keypoints", "scores", "valid")
+    for name, g, w in zip(names[1:], got[1:], want[1:]):
+        if not torch.equal(g, w):
+            bits = (g.view(torch.int32).long() - w.view(torch.int32).long()
+                    ).abs().max().item() if g.dtype == torch.float32 else 0
+            raise AssertionError(f"K1 detection_postprocess {label}: {name} "
+                                 f"differ (max {bits} ulp)")
+    err = (got[0] - want[0]).abs().max().item()
+    if err > 1e-6:
+        raise AssertionError(f"K1 detection_postprocess {label}: boxes "
+                             f"differ by {err}")
+    print(f"K1 detection_postprocess {label}: slab rows per image "
+          f"{got[3].sum(1).tolist()}, max_abs_err={err:.3g} (valid, scores, "
+          f"keypoints equal)  [{card}]")
+    return err
+
+
 def _tap_footprint(sx, sy, h: int, w: int) -> int:
     """Distinct in-image source pixels that the four bilinear taps at
     ``sx, sy [B, F, S, S]`` read, summed over the frames."""
@@ -171,8 +277,12 @@ def _layer(kernel_name: str) -> str:
     n = kernel_name.lower()
     if "memcpy" in n or "memset" in n:
         return "copies"
+    if "detection_postprocess" in n:
+        return "K1 detection_postprocess"
     if "nms_core" in n:
-        return "K1 nms_core"
+        return "nms_core"
+    if "empty_kernel" in n:
+        return "launch floor"
     if "warp_normalize" in n:
         return "K2 warp_normalize"
     if any(t in n for t in ("conv", "cudnn", "xmma", "implicit", "sm90",
@@ -244,15 +354,18 @@ def main() -> int:
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
     from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.ops import detections
     from face_detection_tflite_torch.ops import nms as nms_mod
     from face_detection_tflite_torch.ops import warp as warp_mod
+    from face_detection_tflite_torch.ops.anchors import (SSD_BACK, SSD_FULL,
+                                                         generate_anchors)
     from face_detection_tflite_torch.ops.detections import (
-        _topk_candidates, decode_detections)
+        _topk_candidates, decode_detections, remove_letterbox, weighted_nms)
     from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
                                                            letterbox_params)
     from face_detection_tflite_torch.pipeline import geometry
     from face_detection_tflite_torch.pipeline.programs import (
-        PipelineModels, build_pipeline_program)
+        PipelineModels, _identify_detector_outputs, build_pipeline_program)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -277,7 +390,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # -- 2. K1 against its plain version ------------------------------------
+    # -- 2. nms_core and K1 against their plain versions ---------------------
+    nms_mod.nms_core.launches = 0
     k1_err = 0.0
     for k, frac in ((896, 30 / 896), (896, 1.0), (2304, 0.05)):
         args = [torch.from_numpy(a).to(dev)
@@ -287,17 +401,40 @@ def main() -> int:
         torch.cuda.synchronize()
         p_leader, p_blended = nms_mod.nms_core_plain(tb, ts, tv)
         if not torch.equal(leader, p_leader):
-            raise AssertionError(f"K1 k={k}: leader masks differ")
+            raise AssertionError(f"nms_core k={k}: leader masks differ")
         err = (blended - p_blended).abs().max().item()
         if err > 1e-6:
-            raise AssertionError(f"K1 k={k}: blended boxes differ by {err}")
+            raise AssertionError(f"nms_core k={k}: blended boxes differ by "
+                                 f"{err}")
         k1_err = max(k1_err, err)
         ms = _median_ms(lambda: nms_mod.nms_core(tb, ts, tv))
         plain = _median_ms(lambda: nms_mod.nms_core_plain(tb, ts, tv),
                            iters=5, warmup=1)
-        print(f"K1 nms_core B=16 k={k} valid/image~{int(tv.sum(1).float().mean())}"
+        print(f"nms_core B=16 k={k} valid/image~{int(tv.sum(1).float().mean())}"
               f" leaders={int(leader.sum())}: max_abs_err={err:.3g} "
               f"kernel {ms:.4f} ms, plain {plain:.4f} ms  [{card}]")
+    check_launches = nms_mod.nms_core.launches
+
+    # Seeded raw outputs: (anchors, input size, valid per image, clusters,
+    # num_candidates, equal scores); the main path's own come in phase 4.
+    post_err = 0.0
+    for case, (label, (opts, size, nv, clusters, cand, equal)) in enumerate({
+            "A=896 all valid": (SSD_BACK, 256, 896, 200, None, False),
+            "A=2304 5% valid": (SSD_FULL, 192, 115, 30, None, False),
+            "A=2304 all valid": (SSD_FULL, 192, 2304, 400, None, False),
+            "num_candidates=64": (SSD_BACK, 256, 200, 40, 64, False),
+            "more leaders than D": (SSD_BACK, 256, 120, 80, None, False),
+            "no valid anchor": (SSD_BACK, 256, 0, 1, None, False),
+            "equal scores": (SSD_BACK, 256, 40, 10, None, True)}.items()):
+        anchors_np = generate_anchors(opts)
+        raw = random_init.random_raw_detections(
+            SEED + 2 + case, FRAMES, anchors_np, float(size), nv,
+            clusters=clusters, equal_scores=equal)
+        args = [torch.from_numpy(a).to(dev) for a in (*raw, anchors_np)]
+        pad = letterbox_params(HEIGHT, WIDTH, size, size).padding
+        post_err = max(post_err, _check_postprocess(
+            label, (*args, float(size), pad),
+            {"max_detections": MAX_FACES, "num_candidates": cand}, card))
 
     # -- 3. K2 against its plain version and grid_sample ---------------------
     s = 192
@@ -329,6 +466,7 @@ def main() -> int:
           f"seed {SEED}, built in {time.perf_counter() - t0:.2f} s")
     det = FaceDetector(models=models, device="cuda", max_faces=MAX_FACES)
     mode = FaceDetectionMode.STANDARD
+    detections.detection_postprocess.launches = 0
     nms_mod.nms_core.launches = 0
     warp_mod.warp_normalize.launches = 0
     batch_ms, faces = [], None
@@ -339,8 +477,10 @@ def main() -> int:
         faces = det.detect_faces_batch(frames_np, mode)
         torch.cuda.synchronize()
         batch_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"nms_core": nms_mod.nms_core.launches,
-                "warp_normalize": warp_mod.warp_normalize.launches}
+    launches = {
+        "detection_postprocess": detections.detection_postprocess.launches,
+        "warp_normalize": warp_mod.warp_normalize.launches,
+        "nms_core": nms_mod.nms_core.launches}
     per_image = [len(f) for f in faces]
     steady = statistics.median(batch_ms[2:])
     print(f"main path: {runs} batches of {FRAMES} x {HEIGHT}x{WIDTH}: "
@@ -352,9 +492,10 @@ def main() -> int:
     print(f"timings: {det.timings!r}")
     if min(per_image) < 1:
         raise AssertionError("an image came back with no face")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel never ran on the main path: "
-                             f"{launches}")
+    if launches["detection_postprocess"] != runs or \
+            launches["warp_normalize"] < 1 or launches["nms_core"]:
+        raise AssertionError(f"the main path did not run one K1 launch per "
+                             f"batch and K2: {launches}")
     for f in faces:
         for face in f:
             if face.mesh.points.shape != (468, 3) or \
@@ -366,21 +507,54 @@ def main() -> int:
     # The main path's own kernel inputs, for the timed kernel rows.
     lbp = letterbox_params(HEIGHT, WIDTH, 256, 256)
     with torch.inference_mode():
-        raw_boxes, raw_scores = models.detector(letterbox_image(frames, lbp))
-        boxes, kp, scores, valid = decode_detections(
-            raw_boxes.reshape(FRAMES, -1, 16), raw_scores, models.anchors,
-            256.0)
+        raw_boxes, raw_scores = _identify_detector_outputs(
+            models.detector(letterbox_image(frames, lbp)))
+        post_args = (raw_boxes, raw_scores, models.anchors, 256.0,
+                     lbp.padding)
+        post_kw = {"max_detections": MAX_FACES}
+        post_err = max(post_err, _check_postprocess(
+            "main path", post_args, post_kw, card))
+
+        def fused():
+            return detections.detection_postprocess(*post_args, **post_kw)
+
+        def replaced_stage():
+            b_, k_, s_, v_ = decode_detections(*post_args[:4])
+            b_, k_, s_, v_ = weighted_nms(b_, k_, s_, v_, **post_kw)
+            return (*remove_letterbox(b_, k_, lbp.padding), s_, v_)
+
+        post_ms, post_dev_ms = _kernel_ms(fused, "K1 detection_postprocess")
+        post_host_ms = _host_ms(fused)
+        before = detections.detection_postprocess.launches
+        fused()
+        fused_launches = detections.detection_postprocess.launches - before
+        _, _, recorded, layers = _stage_ms(fused)
+        if fused_launches != 1 or layers != {"K1 detection_postprocess"}:
+            raise AssertionError(f"K1 made {fused_launches} launches a call "
+                                 f"and device work in {layers}")
+        post_plain_ms = _median_ms(lambda: detections.detection_postprocess_plain(
+            *post_args, **post_kw), iters=5, warmup=1)
+        stage_ms, stage_dev_ms, stage_launches, _ = _stage_ms(replaced_stage)
+        lib = build.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        _, empty_dev_ms = _kernel_ms(lambda: build.check(
+            lib.fdt_empty_kernel(stream), "empty kernel"), "launch floor")
+
+        boxes, kp, scores, valid = decode_detections(*post_args[:4])
         tb, tkp, ts, tv = _topk_candidates(boxes, kp, scores, valid, 896)
         counts = tv.sum(1).tolist()
-        print(f"valid candidates per image: {counts}")
+        slab_leaders = int(fused()[3].sum())
+        print(f"valid candidates per image: {counts}; leaders in the slab: "
+              f"{slab_leaders}")
         nms_ms, nms_dev_ms = _kernel_ms(
-            lambda: nms_mod.nms_core(tb, ts, tv), "K1 nms_core")
+            lambda: nms_mod.nms_core(tb, ts, tv), "nms_core")
         nms_plain_ms = _median_ms(lambda: nms_mod.nms_core_plain(tb, ts, tv),
                                   iters=5, warmup=1)
         leader, blended = nms_mod.nms_core(tb, ts, tv)
         p_leader, p_blended = nms_mod.nms_core_plain(tb, ts, tv)
         if not torch.equal(leader, p_leader):
-            raise AssertionError("K1 on the main path: leader masks differ")
+            raise AssertionError("nms_core on the main path: leader masks "
+                                 "differ")
         k1_err = max(k1_err, (blended - p_blended).abs().max().item())
         prog = build_pipeline_program(models, HEIGHT, WIDTH, mode,
                                       max_faces=MAX_FACES, min_score=0.5)
@@ -426,7 +600,17 @@ def main() -> int:
         lib_ms = _median_ms(library)
         lib_err = (library().reshape(FRAMES, 3, -1, s, s).permute(
             0, 2, 3, 4, 1) - w_out).abs().max().item()
-    print(f"K1 main-path inputs: kernel {nms_ms:.4f} ms (device "
+    print(f"K1 detection_postprocess main-path inputs: kernel {post_ms:.4f} "
+          f"ms (device {post_dev_ms:.4f} ms, host {post_host_ms:.4f} ms a "
+          f"call, {fused_launches:g} launch and no other device work a call,"
+          f" {recorded:g} recorded by the profiler), plain "
+          f"{post_plain_ms:.4f} ms; empty kernel device {empty_dev_ms:.4f} "
+          f"ms  [{card}]")
+    print(f"replaced stage (decode_detections + weighted_nms via nms_core "
+          f"+ remove_letterbox) on the same inputs: {stage_ms:.4f} ms event, "
+          f"{stage_dev_ms:.4f} ms device over {stage_launches:g} device "
+          f"launches a call  [{card}]")
+    print(f"nms_core main-path candidates: kernel {nms_ms:.4f} ms (device "
           f"{nms_dev_ms:.4f} ms), plain {nms_plain_ms:.4f} ms  [{card}]")
     print(f"K2 main-path inputs ({FRAMES}x{MAX_FACES} ROIs, taps touch "
           f"{touched_px} source pixels): kernel {warp_ms:.4f} ms (device "
@@ -459,15 +643,30 @@ def main() -> int:
         raise AssertionError("card and CPU disagree beyond tolerance")
 
     # -- 6. result lines ------------------------------------------------------
+    post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
+                                             896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
     warp_bound, warp_by = _warp_bound(touched_px, FRAMES, MAX_FACES, s)
-    print(f"bounds: K1 {nms_bound:.6f} ms ({nms_by}), K2 {warp_bound:.6f} ms "
+    print(f"bounds: K1 detection_postprocess {post_bound:.7f} ms ({post_by}),"
+          f" nms_core {nms_bound:.7f} ms ({nms_by}), K2 {warp_bound:.6f} ms "
           f"({warp_by})")
     kernels = [
+        {"name": "detection_postprocess", "route": "cuda",
+         "source": f"{PACKAGE}/csrc/nms.cu",
+         "replaces": "face_detection_tflite_tpu/ops/nms_pallas.py:36",
+         "fuses": "face_detection_tflite_tpu/ops/detections.py:219",
+         "launches": launches["detection_postprocess"],
+         "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
+         "host_ms": post_host_ms, "plain_ms": post_plain_ms,
+         "bound_ms": post_bound, "bound_by": post_by, "library_ms": None,
+         "empty_kernel_device_ms": empty_dev_ms,
+         "replaced_stage": {"ms": stage_ms, "device_ms": stage_dev_ms,
+                            "device_launches": stage_launches}},
         {"name": "nms_core", "route": "cuda",
          "source": f"{PACKAGE}/csrc/nms.cu",
          "replaces": "face_detection_tflite_tpu/ops/nms_pallas.py:36",
-         "launches": launches["nms_core"], "max_abs_err": k1_err,
+         "launches": launches["nms_core"], "check_launches": check_launches,
+         "max_abs_err": k1_err,
          "ms": nms_ms, "device_ms": nms_dev_ms, "plain_ms": nms_plain_ms,
          "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},

@@ -20,7 +20,9 @@ import subprocess
 import threading
 import types
 
-__all__ = ["load", "build", "check", "build_log", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["load", "build", "check", "build_log", "stream", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -39,6 +41,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # boxes, scores, valid, leader, blended, batch, k, thr, device, stream
     "fdt_nms_core": (_VP, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP),
+    # raw_boxes, raw_scores, anchors, out, batch, A, D, k, input_size, pl,
+    # pt, sx, sy, thr, device, stream
+    "fdt_detection_postprocess": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _F, _F,
+                                  _F, _F, _F, _F, _I, _VP),
+    # stream (an empty kernel: the launch floor)
+    "fdt_empty_kernel": (_VP,),
     # frames, batch, h, w, cx, cy, size, cos, sin, flip, faces, out_size,
     # inv, out, device, stream
     "fdt_warp_normalize_u8": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP,
@@ -123,6 +131,20 @@ def build_log() -> str:
     """nvcc's output (ptxas resource usage) of this process's build, or
     "" when the library was already built."""
     return _log
+
+
+#: PyTorch's current CUDA stream on a device, as the raw handle a kernel is
+#: launched on: the C accessor where this PyTorch has it (it skips building
+#: a ``torch.cuda.Stream`` object, the larger part of a launch's host time).
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device
+    ``device_index``."""
+    if _raw_stream is not None:
+        return _raw_stream(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
 
 
 def check(rc: int, what: str) -> None:

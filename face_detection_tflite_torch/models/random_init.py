@@ -47,7 +47,8 @@ from ..ops.letterbox import letterbox_image, letterbox_params
 from ..pipeline.programs import PipelineModels
 
 __all__ = ["blazeface_back_ir", "face_mesh_ir", "calibrate_score_bias",
-           "random_pipeline_models", "BLAZEFACE_BLOCKS", "MESH_BLOCKS"]
+           "random_pipeline_models", "random_raw_detections",
+           "BLAZEFACE_BLOCKS", "MESH_BLOCKS"]
 
 #: Full depth: non-strided blocks per stage of the published topologies.
 BLAZEFACE_BLOCKS = 7
@@ -276,3 +277,49 @@ def random_pipeline_models(frames: torch.Tensor, *, seed: int = 0,
         convert_model(det_ir, name="blazeface-back-random"), "back",
         mesh=convert_model(mesh_ir, name="face-mesh-random"), device=device)
     return models, det_ir, mesh_ir
+
+
+def random_raw_detections(seed: int, batch: int, anchors: np.ndarray,
+                          input_size: float, valid_per_image: int, *,
+                          clusters: int = 12, equal_scores: bool = False
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded raw detector outputs for the postprocess: ``raw_boxes
+    [B, A, 16]`` and ``raw_scores [B, A, 1]`` (float32) for ``anchors
+    [A, 2]``.
+
+    Per image, ``valid_per_image`` anchors get a passing logit and a box in
+    one of ``clusters`` clusters (centre jitter 0.01, size 0.05-0.3, so
+    clusters overlap and NMS blends them); their scores are distinct and
+    spread over [0.5002, 0.99], at least 2e-4 apart and from MIN_SCORE (so
+    two sigmoid implementations a few ulp apart agree on order and
+    validity), or all equal with ``equal_scores``.  Two more anchors pass
+    the score but have w <= 0 or h <= 0.  The rest get logits in
+    [-8, -0.05] and random boxes.
+    """
+    rng = np.random.default_rng(seed)
+    a = anchors.shape[0]
+    raw_boxes = rng.normal(0, 20, (batch, a, 16)).astype(np.float32)
+    raw_scores = rng.uniform(-8, -0.05, (batch, a, 1)).astype(np.float32)
+    nv = min(valid_per_image, a)
+    for i in range(batch):
+        picks = rng.permutation(a)
+        on, degenerate = picks[:nv], picks[nv:nv + 2]
+        if equal_scores:
+            s = np.full(nv, 0.8)
+        else:
+            s = 0.5002 + (0.99 - 0.5002) * (rng.permutation(nv) + 0.5) / nv
+        raw_scores[i, on, 0] = np.log(s / (1 - s))
+        ctr = rng.uniform(0.1, 0.9, (clusters, 2))
+        wh = rng.uniform(0.05, 0.3, (clusters, 2))
+        c = rng.integers(0, clusters, nv)
+        centre = ctr[c] + rng.normal(0, 0.01, (nv, 2))
+        size = wh[c] * rng.uniform(0.9, 1.1, (nv, 2))
+        kp = centre[:, None, :] + rng.uniform(-0.5, 0.5, (nv, 6, 2)) * \
+            size[:, None, :]
+        raw_boxes[i, on, 0:2] = (centre - anchors[on]) * input_size
+        raw_boxes[i, on, 2:4] = size * input_size
+        raw_boxes[i, on, 4:16] = ((kp - anchors[on][:, None, :]) *
+                                  input_size).reshape(nv, 12)
+        raw_scores[i, degenerate, 0] = 2.0
+        raw_boxes[i, degenerate, 2] = -np.abs(raw_boxes[i, degenerate, 2])
+    return raw_boxes, raw_scores

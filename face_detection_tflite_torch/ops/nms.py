@@ -115,9 +115,7 @@ def nms_core(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
             valid.view(torch.uint8).data_ptr(),
             leader.view(torch.uint8).data_ptr(),
             blended.data_ptr(), b, k, float(iou_threshold),
-            boxes.device.index if boxes.device.index is not None
-            else torch.cuda.current_device(),
-            torch.cuda.current_stream(boxes.device).cuda_stream)
+            boxes.device.index, _build.stream(boxes.device.index))
         _build.check(rc, "nms_core")
         nms_core.launches += 1
     return leader, blended

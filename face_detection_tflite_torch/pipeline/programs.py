@@ -3,7 +3,7 @@
 Port of the JAX package's ``pipeline/programs.py``.  Each program is a
 plain function over an image batch ``[B, H, W, 3]``:
 
-    letterbox -> BlazeFace -> decode -> weighted NMS (K1)      (all modes)
+    letterbox -> BlazeFace -> detection postprocess (K1)       (all modes)
     -> alignment -> ROI warp + normalize (K2) -> FaceMesh      (standard)
 
 Dynamic face counts are fixed-size slabs with validity masks.  Batch
@@ -20,8 +20,7 @@ import torch
 
 from ..convert.executor import ConvertedModel
 from ..ops.anchors import anchor_options_for, generate_anchors
-from ..ops.detections import (_take, decode_detections, remove_letterbox,
-                              weighted_nms)
+from ..ops.detections import _take, detection_postprocess
 from ..ops.letterbox import letterbox_image, letterbox_params
 from ..ops.warp import extract_rois_normalized
 from . import geometry
@@ -128,12 +127,10 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
     def detect_stage(images):
         x = letterbox_image(images, lbp)
         raw_boxes, raw_scores = _identify_detector_outputs(models.detector(x))
-        boxes, kp, scores, valid = decode_detections(
-            raw_boxes, raw_scores, models.anchors, float(size))
-        boxes, kp, scores, valid = weighted_nms(
-            boxes, kp, scores, valid, max_detections=max_faces,
-            num_candidates=num_candidates)
-        boxes, kp = remove_letterbox(boxes, kp, lbp.padding)
+        # decode -> weighted NMS -> letterbox removal: one kernel launch.
+        boxes, kp, scores, valid = detection_postprocess(
+            raw_boxes, raw_scores, models.anchors, float(size), lbp.padding,
+            max_detections=max_faces, num_candidates=num_candidates)
         valid = apply_detection_gates_mask(
             valid, scores, boxes, min_score=min_score,
             min_face_size=min_face_size, image_width=float(img_w))

@@ -16,8 +16,11 @@ import torch
 from face_detection_tflite_torch.convert.executor import convert_model
 from face_detection_tflite_torch.kernels import build
 from face_detection_tflite_torch.models import random_init
-from face_detection_tflite_torch.ops import nms, warp
+from face_detection_tflite_torch.ops import detections, nms, warp
+from face_detection_tflite_torch.ops.anchors import (SSD_BACK, SSD_FULL,
+                                                     generate_anchors)
 from face_detection_tflite_torch.ops.detections import _topk_candidates
+from face_detection_tflite_torch.ops.letterbox import letterbox_params
 
 
 @pytest.fixture
@@ -88,7 +91,7 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,frac", [(896, 30 / 896), (896, 1.0),
-                                    (2304, 0.05)])
+                                    (2304, 0.05), (2304, 1.0)])
 def test_nms_kernel_matches_plain(cuda_device, k, frac):
     boxes, kp, scores, valid = (torch.from_numpy(a).to(cuda_device)
                                 for a in _candidates(k, 16, k, frac))
@@ -100,6 +103,98 @@ def test_nms_kernel_matches_plain(cuda_device, k, frac):
     p_leader, p_blended = nms.nms_core_plain(tb, ts, tv)
     assert torch.equal(leader, p_leader)
     assert (blended - p_blended).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_nms_kernel_at_max_k(cuda_device):
+    """k = MAX_K fits the kernel's shared memory (26 bytes a candidate);
+    one more is rejected before any launch."""
+    k = nms.MAX_K
+    boxes, kp, scores, valid = (torch.from_numpy(a).to(cuda_device)
+                                for a in _candidates(k, 2, k, 0.02))
+    tb, _, ts, tv = _topk_candidates(boxes, kp, scores, valid, k)
+    leader, blended = nms.nms_core(tb, ts, tv)
+    torch.cuda.synchronize()
+    p_leader, p_blended = nms.nms_core_plain(tb, ts, tv)
+    assert torch.equal(leader, p_leader)
+    assert (blended - p_blended).abs().max().item() <= 1e-6
+    before = nms.nms_core.launches
+    with pytest.raises(ValueError, match="exceeds"):
+        nms.nms_core(*(torch.cat([t, t[:, :1]], 1).contiguous()
+                       for t in (tb, ts, tv)))
+    assert nms.nms_core.launches == before
+
+
+#: Postprocess cases: (anchors, input size, valid anchors per image,
+#: clusters, num_candidates, D, equal scores).  The main path's load
+#: (about 30 valid of 896), every anchor valid (the sort, the bit rows at
+#: n = 896), the full-range model at 5% and 100% valid (the on-the-fly
+#: scan past n ~ 1,100), a candidate cap, more leaders than D, k < D, no
+#: valid anchor and equal scores.
+POSTPROCESS_CASES = {
+    "main": ("back", 30, 12, None, 16, False),
+    "all_valid": ("back", 896, 200, None, 16, False),
+    "full_5pct": ("full", 115, 30, None, 16, False),
+    "full_all_valid": ("full", 2304, 400, None, 16, False),
+    "candidates_64": ("back", 200, 40, 64, 16, False),
+    "more_leaders": ("back", 120, 80, None, 16, False),
+    "k_below_d": ("back", 30, 12, 8, 16, False),
+    "none_valid": ("back", 0, 1, None, 16, False),
+    "equal_scores": ("back", 40, 10, None, 16, True),
+}
+
+
+def postprocess_inputs(case, batch=4, seed=0):
+    """(raw_boxes, raw_scores, anchors, input_size, padding, kwargs) of a
+    case, as numpy arrays; padding is the 853x1280 frame's letterbox."""
+    variant, nv, clusters, cand, d, equal = POSTPROCESS_CASES[case]
+    opts, size = (SSD_BACK, 256) if variant == "back" else (SSD_FULL, 192)
+    anchors = generate_anchors(opts)
+    raw_boxes, raw_scores = random_init.random_raw_detections(
+        seed, batch, anchors, float(size), nv, clusters=clusters,
+        equal_scores=equal)
+    padding = letterbox_params(853, 1280, size, size).padding
+    return (raw_boxes, raw_scores, anchors, float(size), padding,
+            {"max_detections": d, "num_candidates": cand})
+
+
+def test_postprocess_routing():
+    """A CPU tensor takes the plain version (no launch); other devices
+    raise."""
+    rb, rs, anchors, size, pad, kw = postprocess_inputs("main", batch=2)
+    args = [torch.from_numpy(a) for a in (rb, rs, anchors)]
+    before = detections.detection_postprocess.launches
+    got = detections.detection_postprocess(*args, size, pad, **kw)
+    want = detections.detection_postprocess_plain(*args, size, pad, **kw)
+    assert detections.detection_postprocess.launches == before
+    assert got[3].any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    meta = [torch.empty(a.shape, device="meta") for a in (rb, rs, anchors)]
+    with pytest.raises(ValueError, match="device"):
+        detections.detection_postprocess(*meta, size, pad, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(POSTPROCESS_CASES))
+def test_postprocess_kernel_matches_plain(cuda_device, case):
+    """One launch per batch; valid, scores and keypoints equal to the plain
+    version on the card, boxes within 1e-6 (the plain blend is a matmul)."""
+    rb, rs, anchors, size, pad, kw = postprocess_inputs(case)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (rb, rs, anchors)]
+    before = detections.detection_postprocess.launches
+    boxes, kp, scores, valid = detections.detection_postprocess(
+        *args, size, pad, **kw)
+    torch.cuda.synchronize()
+    assert detections.detection_postprocess.launches == before + 1
+    p_boxes, p_kp, p_scores, p_valid = \
+        detections.detection_postprocess_plain(*args, size, pad, **kw)
+    assert torch.equal(valid, p_valid)
+    assert torch.equal(scores, p_scores)
+    assert torch.equal(kp, p_kp)
+    assert (boxes - p_boxes).abs().max().item() <= 1e-6
+    nv = POSTPROCESS_CASES[case][1]
+    assert bool(valid.any()) == (nv > 0)
 
 
 def _warp_rois(kind, b, f, h, w):
