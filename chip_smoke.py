@@ -19,26 +19,38 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    frames x 16 faces x 192 px with mixed mirrors (bit for bit); it prints
    the kernels' times, the plain versions' and, for K2,
    ``F.grid_sample``'s (CUDA events, warm-up, median of 20);
-4. drives the main path: ``FaceDetector`` in STANDARD mode over 16 seeded
-   853x1280 uint8 frames, with the full-depth, full-width seeded
-   BlazeFace-back and FaceMesh; prints ms per batch, faces/s, candidates
-   and faces per image and the kernels' launch counts: one K1 launch per
-   batch, at least one K2, no ``nms_core``, at least one face on every
-   image; then profiles one steady batch (``torch.profiler``: device time
-   by layer and kernel, and the device's idle share);
-   it times each kernel on the main path's own inputs twice over the same
-   20 calls: CUDA events around each call (``ms``, which includes the host
-   path of the ctypes call) and the kernel's own device time in
-   ``torch.profiler`` (``device_ms``, median); for K1 also the host time
-   of a call (host clock over 1,000 calls, no synchronise), an empty
-   kernel's device time (the launch floor, context only) and, as the
-   yardstick, the stage K1 replaced (``decode_detections``,
+4. drives the STANDARD main path (``_drive_main_path``): ``FaceDetector``
+   over 16 seeded 853x1280 uint8 frames with the full-depth, full-width
+   seeded BlazeFace-back, FaceMesh, iris and blendshape nets; prints ms
+   per batch, faces/s, faces per image and the kernels' launch counts:
+   one K1 launch a batch, one K2 a batch (plus one on each overflow
+   re-run), no ``nms_core``, at least one face on every image; profiles
+   one steady batch (``torch.profiler``: device time by layer and kernel,
+   and the device's idle share); holds the card against the port on the
+   CPU (plain kernels, fp32 convolutions) on two of the frames;
+   then it times each kernel on the main path's own inputs twice over
+   the same 20 calls: CUDA events around each call (``ms``, which
+   includes the host path of the ctypes call) and the kernel's own device
+   time in ``torch.profiler`` (``device_ms``, median); for K1 also the
+   host time of a call (host clock over 1,000 calls, no synchronise), an
+   empty kernel's device time (the launch floor, context only) and, as
+   the yardstick, the stage K1 replaced (``decode_detections``,
    ``weighted_nms`` through ``nms_core``, ``remove_letterbox``): its event
    ms, device ms summed over its kernels and device launches per call;
-5. checks the card's output against the port on the CPU (plain kernels,
-   fp32 convolutions) on two of the frames;
+   for K2 (``_time_warp``) its plain version and, as the yardstick,
+   ``grid_sample`` on the same sample points;
+5. drives the FULL main path (``FaceDetector``'s default mode) the same
+   way over the same frames and networks, with one K1 and two K2 launches
+   a batch (192 px mesh crops, 64 px eye crops, each once more on an
+   overflow re-run); checks every face for 152 iris points, 52
+   coefficients in [0, 1] and head angles (``_check_full_faces``); holds
+   and times K2 at its iris site on the main path's own eye ROIs (right
+   eyes mirrored); the card-vs-CPU check adds the refined keypoints, the
+   iris, the blendshapes, head angles and ``blendshapes_valid``;
 6. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
-   line.  Each kernel's ``launches`` is its count over the main path's
+   line.  Each kernel's ``launches`` is its count over the STANDARD main
+   path's batches (``full_launches``: over the FULL path's); the iris
+   site's (``warp_normalize_iris64``) is its count over the FULL path's
    batches; ``nms_core`` is off the main path (0) and its launches in
    step 3 are ``check_launches``.
 
@@ -81,6 +93,12 @@ SLAB_VALUE_OPS = 2
 SEED = 3
 FRAMES, HEIGHT, WIDTH = 16, 853, 1280
 MAX_FACES = 16
+MESH_SIZE, IRIS_SIZE = 192, 64
+# Card-vs-CPU tolerances of the programs' outputs (head angles in degrees);
+# the mesh and the iris are held to 1e-2 px or 1e-5 of their largest
+# magnitude.
+CPU_TOLERANCES = {"boxes": 1e-4, "raw_keypoints": 1e-4, "keypoints": 1e-4,
+                  "blendshapes": 1e-4, "head_angles": 0.1}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -272,6 +290,46 @@ def _warp_bound(touched_px: int, b: int, faces: int, s: int
     return _bound(nbytes, b * faces * s * s * 3 * WARP_VALUE_OPS)
 
 
+def _sample_grid(cx, cy, size, cos_t, sin_t, s: int, flip=None):
+    """Source coordinates ``sx, sy [B, F, S, S]`` of K2's bilinear taps
+    (``ops/warp.py::extract_rois``), the columns mirrored where ``flip``."""
+    import torch
+    size_int = torch.clamp_min(torch.floor(size + 0.5), 1.0)
+    scale = torch.full_like(size_int, s) / size_int
+    center = s / 2.0 + 0.5 * (scale - 1.0)
+    g = torch.arange(s, dtype=torch.float32, device=cx.device)
+    gx = g.expand(*cx.shape, s)
+    if flip is not None:
+        gx = torch.where(flip[..., None], (s - 1) - gx, gx)
+    dx = (gx[..., None, :] - center[..., None, None]) / scale[..., None, None]
+    dy = (g[None, None, :, None] - center[..., None, None]) / \
+        scale[..., None, None]
+    sx = cx[..., None, None] + cos_t[..., None, None] * dx + \
+        sin_t[..., None, None] * dy
+    sy = cy[..., None, None] - sin_t[..., None, None] * dx + \
+        cos_t[..., None, None] * dy
+    return sx, sy
+
+
+def _grid_sample_fn(frames, sx, sy):
+    """One ``F.grid_sample`` call over the same sample points as K2 (and
+    the normalize): K2's library yardstick, returning [B, F, S, S, 3]."""
+    import torch
+    import torch.nn.functional as F
+    b, h, w = frames.shape[:3]
+    f, s = sx.shape[1], sx.shape[-1]
+    grid = torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1],
+                       -1).reshape(b, -1, s, 2)
+
+    def library():
+        img = frames.permute(0, 3, 1, 2).float()
+        o = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=False)
+        return o * (1.0 / 127.5) - 1.0
+
+    return library, lambda o: o.reshape(b, 3, f, s, s).permute(0, 2, 3, 4, 1)
+
+
 def _layer(kernel_name: str) -> str:
     """Layer of a device activity, from its name."""
     n = kernel_name.lower()
@@ -285,9 +343,11 @@ def _layer(kernel_name: str) -> str:
         return "launch floor"
     if "warp_normalize" in n:
         return "K2 warp_normalize"
-    if any(t in n for t in ("conv", "cudnn", "xmma", "implicit", "sm90",
-                            "winograd", "gemm", "nhwc", "fprop")):
+    if any(t in n for t in ("conv", "cudnn", "implicit", "winograd", "nhwc",
+                            "fprop")):
         return "convolutions"
+    if any(t in n for t in ("gemm", "xmma", "sm90", "sm80")):
+        return "matmuls"
     return "other torch ops"
 
 
@@ -336,10 +396,192 @@ def _profile_batch(det, frames_np, mode, card: str) -> None:
         print(f"  kernel {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
 
 
+def _card_vs_cpu(got: dict, want: dict, label: str) -> None:
+    """Holds a program's output on the card against the same program's on
+    the CPU: valid and blendshapes_valid equal, head angles NaN in the same
+    places, each value within its tolerance (:data:`CPU_TOLERANCES`; the
+    mesh and the iris within 1e-2 px or 1e-5 of their largest
+    magnitude)."""
+    import numpy as np
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.numpy() for k, v in want.items()}
+    for key in ("valid", "blendshapes_valid"):
+        if key in want and not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"{label}: card and CPU disagree on {key}")
+    if "head_angles" in want and not np.array_equal(
+            np.isnan(got["head_angles"]), np.isnan(want["head_angles"])):
+        raise AssertionError(f"{label}: card and CPU disagree on NaN head "
+                             f"angles")
+    tols = {k: CPU_TOLERANCES.get(k)
+            or float(max(1e-2, 1e-5 * np.abs(want[k]).max()))
+            for k in want if k in CPU_TOLERANCES or k in ("mesh", "iris")}
+    errs = {k: float(np.nanmax(np.abs(got[k] - want[k]))) for k in tols}
+    print(f"{label} card vs CPU (2 frames): max errors {errs}, tolerances "
+          f"{tols}")
+    if any(errs[k] > tols[k] for k in tols):
+        raise AssertionError(f"{label}: card and CPU disagree beyond "
+                             f"tolerance")
+
+
+def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
+                     card: str) -> dict:
+    """Drives ``mode`` through ``FaceDetector`` for ``runs`` batches (FULL,
+    the default, without a mode argument), with every launch count set to
+    0 just before, and checks one K1 launch a batch, one K2 launch a batch
+    for each crop size of the mode (plus one on each overflow re-run), no
+    ``nms_core`` and a face with a finite mesh on every image; profiles
+    one steady batch; builds the slab of every frame on the card
+    (``min_score=0.5``: the kernel rows' inputs) and holds the card against
+    the CPU on two frames.  Returns the last batch's faces, the launches
+    and that slab."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
+    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops import nms as nms_mod
+    from face_detection_tflite_torch.ops import warp as warp_mod
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+
+    full = mode is FaceDetectionMode.FULL
+    name = mode.name
+    det = FaceDetector(models=models, device="cuda", max_faces=MAX_FACES)
+    detections.detection_postprocess.launches = 0
+    nms_mod.nms_core.launches = 0
+    warp_mod.warp_normalize.launches = 0
+    warp_mod.warp_normalize.launches_by_size = {}
+    mode_args = () if full else (mode,)
+    batch_ms, faces = [], None
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        faces = det.detect_faces_batch(frames_np, *mode_args)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {
+        "detection_postprocess": detections.detection_postprocess.launches,
+        "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size),
+        "nms_core": nms_mod.nms_core.launches}
+    reruns = sum(n for k, n in det.timings.calls.items()
+                 if k.startswith("face_stages["))
+    per_image = [len(f) for f in faces]
+    steady = statistics.median(batch_ms[2:])
+    print(f"{name} main path: {runs} batches of {FRAMES} x {HEIGHT}x{WIDTH}:"
+          f" ms/batch {['%.2f' % t for t in batch_ms]}, steady median "
+          f"{steady:.2f} ms = {FRAMES * np.mean(per_image) * 1e3 / steady:.1f}"
+          f" faces/s  [{card}]")
+    print(f"{name} faces per image: {per_image}")
+    print(f"{name} launches over the {runs} batches ({reruns} overflow "
+          f"re-runs): {launches}")
+    print(f"{name} timings: {det.timings!r}")
+    sizes = (MESH_SIZE, IRIS_SIZE) if full else (MESH_SIZE,)
+    if launches["detection_postprocess"] != runs or launches["nms_core"] \
+            or launches["warp_normalize"] != {s: runs + reruns
+                                              for s in sizes}:
+        raise AssertionError(f"{name}: the main path did not run one K1 "
+                             f"launch a batch and one K2 a batch and crop "
+                             f"size (plus one a re-run): {launches}")
+    if min(per_image) < 1:
+        raise AssertionError(f"{name}: an image came back with no face")
+    for face in (f for per in faces for f in per):
+        if face.mesh.points.shape != (468, 3) or \
+                not np.isfinite(face.mesh.points).all():
+            raise AssertionError("mesh is not a finite [468, 3] array")
+    _profile_batch(det, frames_np, mode, card)
+    det.dispose()
+
+    two = torch.from_numpy(frames_np[:2])
+    with torch.inference_mode():
+        slab = build_pipeline_program(models, HEIGHT, WIDTH, mode,
+                                      max_faces=MAX_FACES, min_score=0.5)(
+            frames)
+        got = build_pipeline_program(models, HEIGHT, WIDTH, mode,
+                                     max_faces=MAX_FACES)(
+            two.to(frames.device))
+        want = build_pipeline_program(cpu_models, HEIGHT, WIDTH, mode,
+                                      max_faces=MAX_FACES)(two)
+    _card_vs_cpu(got, want, name)
+    return {"faces": faces, "launches": launches, "slab": slab}
+
+
+def _check_full_faces(faces, slab) -> None:
+    """FULL's own checks: every face has a finite [152, 3] iris, 52
+    coefficients in [0, 1] and head angles that are finite or NaN; and in
+    the slab each iris's nearest point to its centroid wins by more than
+    1e-3 px^2 (else the refined keypoint would hang on an ulp)."""
+    import numpy as np
+    import torch
+    for face in (f for per in faces for f in per):
+        angles = face.head_euler_angles
+        bs = face.blendshapes
+        if face.iris_points.shape != (152, 3) or \
+                not np.isfinite(face.iris_points).all():
+            raise AssertionError("iris is not a finite [152, 3] array")
+        if bs is None or bs.scores.shape != (52,) or \
+                not ((bs.scores >= 0) & (bs.scores <= 1)).all():
+            raise AssertionError("blendshapes are not 52 values in [0, 1]")
+        if angles is None or np.isinf([angles.x, angles.y, angles.z]).any():
+            raise AssertionError("head angles are missing or infinite")
+    gaps = []
+    for sl in (slice(71, 76), slice(147, 152)):
+        pts = slab["iris"][..., sl, :2].double()
+        d = torch.sort(((pts - pts.mean(-2, keepdim=True)) ** 2).sum(-1),
+                       dim=-1).values
+        gaps.append((d[..., 1] - d[..., 0])[slab["valid"]].min().item())
+    print(f"iris centers: nearest point wins by >= {min(gaps):.4g} px^2 on "
+          f"the main path's {int(slab['valid'].sum())} faces")
+    if min(gaps) <= 1e-3:
+        raise AssertionError("an iris center is within 1e-3 px^2 of a tie: "
+                             "pick another seed")
+
+
+def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
+               ) -> dict:
+    """Holds K2 bit for bit against its plain version on ``roi`` (cx, cy,
+    size, cos, sin, each [B, F]) at ``s`` px, times it (event and device
+    ms), its plain version and ``grid_sample`` on the same sample points,
+    and bounds it; ``sizes`` are the valid ROIs' sizes, for the printout.
+    Returns those fields of a ``kernels`` entry."""
+    import torch
+    from face_detection_tflite_torch.ops import warp as warp_mod
+
+    def kernel():
+        return warp_mod.warp_normalize(frames, *roi, out_size=s, flip=flip)
+
+    def plain():
+        return warp_mod.warp_normalize_plain(frames, *roi, out_size=s,
+                                             flip=flip)
+
+    with torch.inference_mode():
+        out = kernel()
+        torch.cuda.synchronize()
+        err = (out - plain()).abs().max().item()
+        if err != 0:
+            raise AssertionError(f"K2 {label}: kernel differs from plain by "
+                                 f"{err}")
+        ms, dev_ms = _kernel_ms(kernel, "K2 warp_normalize")
+        plain_ms = _median_ms(plain, iters=5, warmup=1)
+        sx, sy = _sample_grid(*roi, s, flip)
+        touched_px = _tap_footprint(sx, sy, HEIGHT, WIDTH)
+        library, lib_layout = _grid_sample_fn(frames, sx, sy)
+        lib_ms = _median_ms(library)
+        lib_err = (lib_layout(library()) - out).abs().max().item()
+    b, f = roi[0].shape
+    bound, by = _warp_bound(touched_px, b, f, s)
+    print(f"K2 {label} ({b}x{f} ROIs at {s} px, valid ones "
+          f"{sizes.min().item():.1f}-{sizes.max().item():.1f} px, taps touch "
+          f"{touched_px} source pixels): max_abs_err={err:.3g}, kernel "
+          f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"grid_sample {lib_ms:.4f} ms (max diff {lib_err:.3g}), bound "
+          f"{bound:.6f} ms ({by})  [{card}]")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
 def main() -> int:
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -350,7 +592,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
+    from face_detection_tflite_torch import FaceDetectionMode
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
     from face_detection_tflite_torch.models import random_init
@@ -365,7 +607,7 @@ def main() -> int:
                                                            letterbox_params)
     from face_detection_tflite_torch.pipeline import geometry
     from face_detection_tflite_torch.pipeline.programs import (
-        PipelineModels, _identify_detector_outputs, build_pipeline_program)
+        PipelineModels, _identify_detector_outputs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -436,8 +678,8 @@ def main() -> int:
             label, (*args, float(size), pad),
             {"max_detections": MAX_FACES, "num_candidates": cand}, card))
 
-    # -- 3. K2 against its plain version and grid_sample ---------------------
-    s = 192
+    # -- 3. K2 against its plain version -------------------------------------
+    s = MESH_SIZE
     frames = torch.from_numpy(frames_np).to(dev)
     roi = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
         rng.uniform(0, WIDTH, (FRAMES, 16)), rng.uniform(0, HEIGHT, (FRAMES, 16)),
@@ -456,53 +698,25 @@ def main() -> int:
         raise AssertionError(f"K2: kernel differs from plain by {k2_err}")
     print(f"K2 warp_normalize 16x16x{s}^2 mixed flips: max_abs_err={k2_err:.3g}")
 
-    # -- 4. the main path -----------------------------------------------------
+    # -- 4. the STANDARD main path --------------------------------------------
     t0 = time.perf_counter()
-    models, det_ir, mesh_ir = random_init.random_pipeline_models(
-        frames, seed=SEED)
+    models, det_ir, mesh_ir, iris_ir, bs_ir = \
+        random_init.random_pipeline_models(frames, seed=SEED)
     print(f"models: BlazeFace back {len(det_ir.ops)} ops / "
           f"{models.detector.num_params} weights, FaceMesh "
           f"{len(mesh_ir.ops)} ops / {models.mesh.num_params} weights, "
-          f"seed {SEED}, built in {time.perf_counter() - t0:.2f} s")
-    det = FaceDetector(models=models, device="cuda", max_faces=MAX_FACES)
-    mode = FaceDetectionMode.STANDARD
-    detections.detection_postprocess.launches = 0
-    nms_mod.nms_core.launches = 0
-    warp_mod.warp_normalize.launches = 0
-    batch_ms, faces = [], None
+          f"iris {len(iris_ir.ops)} ops / {models.iris.num_params} weights, "
+          f"blendshapes {len(bs_ir.ops)} ops / "
+          f"{models.blendshapes.num_params} weights (fp16 behind "
+          f"DEQUANTIZE), seed {SEED}, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cpu_models = PipelineModels(convert_model(det_ir), "back",
+                                mesh=convert_model(mesh_ir), device="cpu",
+                                iris=convert_model(iris_ir),
+                                blendshapes=convert_model(bs_ir))
     runs = 7
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        faces = det.detect_faces_batch(frames_np, mode)
-        torch.cuda.synchronize()
-        batch_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {
-        "detection_postprocess": detections.detection_postprocess.launches,
-        "warp_normalize": warp_mod.warp_normalize.launches,
-        "nms_core": nms_mod.nms_core.launches}
-    per_image = [len(f) for f in faces]
-    steady = statistics.median(batch_ms[2:])
-    print(f"main path: {runs} batches of {FRAMES} x {HEIGHT}x{WIDTH}: "
-          f"ms/batch {['%.2f' % t for t in batch_ms]}, steady median "
-          f"{steady:.2f} ms = {FRAMES * np.mean(per_image) * 1e3 / steady:.1f}"
-          f" faces/s  [{card}]")
-    print(f"faces per image: {per_image}")
-    print(f"launches over the {runs} batches: {launches}")
-    print(f"timings: {det.timings!r}")
-    if min(per_image) < 1:
-        raise AssertionError("an image came back with no face")
-    if launches["detection_postprocess"] != runs or \
-            launches["warp_normalize"] < 1 or launches["nms_core"]:
-        raise AssertionError(f"the main path did not run one K1 launch per "
-                             f"batch and K2: {launches}")
-    for f in faces:
-        for face in f:
-            if face.mesh.points.shape != (468, 3) or \
-                    not np.isfinite(face.mesh.points).all():
-                raise AssertionError("mesh is not a finite [468, 3] array")
-
-    _profile_batch(det, frames_np, mode, card)
+    std = _drive_main_path(models, cpu_models, frames, frames_np,
+                           FaceDetectionMode.STANDARD, runs, card)
 
     # The main path's own kernel inputs, for the timed kernel rows.
     lbp = letterbox_params(HEIGHT, WIDTH, 256, 256)
@@ -556,50 +770,11 @@ def main() -> int:
             raise AssertionError("nms_core on the main path: leader masks "
                                  "differ")
         k1_err = max(k1_err, (blended - p_blended).abs().max().item())
-        prog = build_pipeline_program(models, HEIGHT, WIDTH, mode,
-                                      max_faces=MAX_FACES, min_score=0.5)
-        slab = prog(frames)
+        slab = std["slab"]
         theta_m, cx_m, cy_m, size_m = geometry.compute_face_alignment(
             slab["raw_keypoints"], float(WIDTH), float(HEIGHT))
         mroi = [t.contiguous() for t in
                 (cx_m, cy_m, size_m, torch.cos(-theta_m), torch.sin(-theta_m))]
-        warp_ms, warp_dev_ms = _kernel_ms(lambda: warp_mod.warp_normalize(
-            frames, *mroi, out_size=s), "K2 warp_normalize")
-        warp_plain_ms = _median_ms(lambda: warp_mod.warp_normalize_plain(
-            frames, *mroi, out_size=s), iters=5, warmup=1)
-        w_out = warp_mod.warp_normalize(frames, *mroi, out_size=s)
-        w_ref = warp_mod.warp_normalize_plain(frames, *mroi, out_size=s)
-        k2_err = max(k2_err, (w_out - w_ref).abs().max().item())
-        if k2_err != 0:
-            raise AssertionError(f"K2 on the main path: error {k2_err}")
-
-        # Library yardstick: grid_sample over the same sample points.
-        cx_, cy_, sz_, c_, s_ = mroi
-        size_int = torch.clamp_min(torch.floor(sz_ + 0.5), 1.0)
-        scale = torch.full_like(size_int, s) / size_int
-        center = s / 2.0 + 0.5 * (scale - 1.0)
-        g = torch.arange(s, dtype=torch.float32, device=dev)
-        dx = (g[None, None, None, :] - center[..., None, None]) / \
-            scale[..., None, None]
-        dy = (g[None, None, :, None] - center[..., None, None]) / \
-            scale[..., None, None]
-        sx = cx_[..., None, None] + c_[..., None, None] * dx + \
-            s_[..., None, None] * dy
-        sy = cy_[..., None, None] - s_[..., None, None] * dx + \
-            c_[..., None, None] * dy
-        touched_px = _tap_footprint(sx, sy, HEIGHT, WIDTH)
-        grid =torch.stack([(2 * sx + 1) / WIDTH - 1, (2 * sy + 1) / HEIGHT - 1],
-                           -1).reshape(FRAMES, -1, s, 2)
-
-        def library():
-            img = frames.permute(0, 3, 1, 2).float()
-            o = F.grid_sample(img, grid, mode="bilinear",
-                              padding_mode="zeros", align_corners=False)
-            return o * (1.0 / 127.5) - 1.0
-
-        lib_ms = _median_ms(library)
-        lib_err = (library().reshape(FRAMES, 3, -1, s, s).permute(
-            0, 2, 3, 4, 1) - w_out).abs().max().item()
     print(f"K1 detection_postprocess main-path inputs: kernel {post_ms:.4f} "
           f"ms (device {post_dev_ms:.4f} ms, host {post_host_ms:.4f} ms a "
           f"call, {fused_launches:g} launch and no other device work a call,"
@@ -612,50 +787,41 @@ def main() -> int:
           f"launches a call  [{card}]")
     print(f"nms_core main-path candidates: kernel {nms_ms:.4f} ms (device "
           f"{nms_dev_ms:.4f} ms), plain {nms_plain_ms:.4f} ms  [{card}]")
-    print(f"K2 main-path inputs ({FRAMES}x{MAX_FACES} ROIs, taps touch "
-          f"{touched_px} source pixels): kernel {warp_ms:.4f} ms (device "
-          f"{warp_dev_ms:.4f} ms), plain "
-          f"{warp_plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms (max diff "
-          f"{lib_err:.3g})  [{card}]")
+    mesh_site = _time_warp(frames, mroi, s, None, "mesh site",
+                           size_m[slab["valid"]], card)
 
-    # -- 5. the card against the CPU, on two frames --------------------------
-    cpu_models = PipelineModels(convert_model(det_ir), "back",
-                                mesh=convert_model(mesh_ir), device="cpu")
-    two = frames_np[:2]
+    # -- 5. the FULL main path ------------------------------------------------
+    full = _drive_main_path(models, cpu_models, frames, frames_np,
+                            FaceDetectionMode.FULL, runs, card)
+    _check_full_faces(full["faces"], full["slab"])
     with torch.inference_mode():
-        got = build_pipeline_program(models, HEIGHT, WIDTH, mode,
-                                     max_faces=MAX_FACES)(
-            torch.from_numpy(two).to(dev))
-        want = build_pipeline_program(cpu_models, HEIGHT, WIDTH, mode,
-                                      max_faces=MAX_FACES)(
-            torch.from_numpy(two))
-    got = {k: v.cpu().numpy() for k, v in got.items()}
-    want = {k: v.numpy() for k, v in want.items()}
-    if not np.array_equal(got["valid"], want["valid"]):
-        raise AssertionError("card and CPU disagree on the valid mask")
-    box_err = max(np.abs(got[k] - want[k]).max()
-                  for k in ("boxes", "raw_keypoints"))
-    mesh_err = np.abs(got["mesh"] - want["mesh"]).max()
-    mesh_tol = max(1e-2, 1e-5 * np.abs(want["mesh"]).max())
-    print(f"card vs CPU (2 frames): box/keypoint max err {box_err:.3g}, "
-          f"mesh max err {mesh_err:.3g} px (tolerance {mesh_tol:.3g})")
-    if box_err > 1e-4 or mesh_err > mesh_tol:
-        raise AssertionError("card and CPU disagree beyond tolerance")
+        ecx, ecy, esize, etheta = (
+            t.reshape(FRAMES, -1) for t in
+            geometry.eye_rois_from_mesh(full["slab"]["mesh"]))
+        iroi = [t.contiguous() for t in (ecx, ecy, esize, torch.cos(etheta),
+                                         torch.sin(etheta))]
+        # Odd slots are right eyes, mirrored, as the iris stage has them.
+        eye_flip = (torch.arange(2 * MAX_FACES, device=dev) % 2 == 1
+                    ).expand(FRAMES, -1).contiguous()
+    iris_site = _time_warp(
+        frames, iroi, IRIS_SIZE, eye_flip, "iris site, right eyes mirrored",
+        esize[full["slab"]["valid"].repeat_interleave(2, dim=1)], card)
 
     # -- 6. result lines ------------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
-    warp_bound, warp_by = _warp_bound(touched_px, FRAMES, MAX_FACES, s)
     print(f"bounds: K1 detection_postprocess {post_bound:.7f} ms ({post_by}),"
-          f" nms_core {nms_bound:.7f} ms ({nms_by}), K2 {warp_bound:.6f} ms "
-          f"({warp_by})")
+          f" nms_core {nms_bound:.7f} ms ({nms_by})")
+    std_k2 = std["launches"]["warp_normalize"]
+    full_k2 = full["launches"]["warp_normalize"]
     kernels = [
         {"name": "detection_postprocess", "route": "cuda",
          "source": f"{PACKAGE}/csrc/nms.cu",
          "replaces": "face_detection_tflite_tpu/ops/nms_pallas.py:36",
          "fuses": "face_detection_tflite_tpu/ops/detections.py:219",
-         "launches": launches["detection_postprocess"],
+         "launches": std["launches"]["detection_postprocess"],
+         "full_launches": full["launches"]["detection_postprocess"],
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
          "bound_ms": post_bound, "bound_by": post_by, "library_ms": None,
@@ -665,20 +831,21 @@ def main() -> int:
         {"name": "nms_core", "route": "cuda",
          "source": f"{PACKAGE}/csrc/nms.cu",
          "replaces": "face_detection_tflite_tpu/ops/nms_pallas.py:36",
-         "launches": launches["nms_core"], "check_launches": check_launches,
-         "max_abs_err": k1_err,
+         "launches": std["launches"]["nms_core"],
+         "check_launches": check_launches, "max_abs_err": k1_err,
          "ms": nms_ms, "device_ms": nms_dev_ms, "plain_ms": nms_plain_ms,
          "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},
         {"name": "warp_normalize", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
-         "launches": launches["warp_normalize"], "max_abs_err": k2_err,
-         "ms": warp_ms, "device_ms": warp_dev_ms, "plain_ms": warp_plain_ms,
-         "bound_ms": warp_bound,
-         "bound_by": warp_by, "library_ms": lib_ms},
+         "launches": std_k2[MESH_SIZE], "full_launches": full_k2[MESH_SIZE],
+         **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
+        {"name": "warp_normalize_iris64", "route": "cuda",
+         "source": f"{PACKAGE}/csrc/warp.cu",
+         "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
+         "launches": full_k2[IRIS_SIZE], **iris_site},
     ]
-    det.dispose()
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

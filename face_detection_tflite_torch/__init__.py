@@ -1,11 +1,12 @@
 """face_detection_tflite_torch — the PyTorch/CUDA port of the face pipeline.
 
 A second package beside ``face_detection_tflite_tpu`` (the JAX reference),
-built slice by slice.  This slice runs the STANDARD mode (BlazeFace back
-detection plus the 468-point mesh) of :class:`FaceDetector` on an NVIDIA
-Hopper GPU, with hand-written CUDA kernels for the weighted-NMS core and
-the ROI warp.  It imports ``torch`` and numpy, never ``jax`` or the JAX
-package.
+built slice by slice.  It runs :class:`FaceDetector` on an NVIDIA Hopper
+GPU in FULL mode, the default (BlazeFace back detection, the 468-point
+mesh, iris landmarks, blendshapes, head pose and iris-refined keypoints),
+and in STANDARD and FAST, with hand-written CUDA kernels for the detection
+postprocess and the ROI warp.  It imports ``torch`` and numpy, never
+``jax`` or the JAX package.
 
 Quick start::
 

@@ -1,7 +1,7 @@
 """ModelIR -> ``torch.nn.Module``.
 
 Port of the JAX package's ``convert/executor.py::convert_model`` for the ops
-the BlazeFace and FaceMesh graphs use.  Each ``.tflite`` graph is converted
+the BlazeFace, FaceMesh, iris and blendshape graphs use.  Each ``.tflite`` graph is converted
 once into a module whose weights are buffers; the module runs eagerly on the
 device its buffers live on.
 
@@ -10,12 +10,15 @@ Differences from the JAX executor, all deliberate:
 * the leading batch dimension may be any ``N >= 1`` where the graph says 1
   (the JAX function checks the exact shape and is vmapped instead);
   a RESHAPE whose target starts with the graph's batch of 1 takes ``N``
-  there, and a graph that reshapes, pads or concatenates across the batch
-  raises when ``N > 1``;
+  there; a FULLY_CONNECTED without ``keep_num_dims`` on more than one row
+  a sample flattens to ``[N * rows, in]``, and then only RESHAPEs may
+  consume it; a graph that reshapes, pads, concatenates, transposes or
+  averages across the batch raises when ``N > 1``;
 * tensors stay NHWC at the graph boundary and between ops; each conv runs
   as ``F.conv2d`` on ``x.permute(0, 3, 1, 2)``, which is a channels_last
   view, so cuDNN takes it without a copy;
-* only ``precision="highest"`` is supported: convolutions run with TF32 off.
+* only ``precision="highest"`` is supported: convolutions and matrix
+  products run with TF32 off.
 
 Conversion-time passes (numpy, no device work) are those of the JAX
 executor: constant fp16 ``DEQUANTIZE`` and ``DENSIFY`` fold into fp32
@@ -37,13 +40,18 @@ from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 __all__ = ["ConvertedModel", "SUPPORTED_OPS", "convert_model", "convert_file",
            "params_from_jax"]
 
-#: Ops this executor runs: the op mix of the BlazeFace and FaceMesh graphs.
+#: Ops this executor runs: the op mix of the BlazeFace, FaceMesh and iris
+#: graphs (convolutional) and of the blendshape MLP-Mixer (fully connected
+#: layers, transposes and the layer norms TensorFlow emits as MEAN, NEG,
+#: SQUARED_DIFFERENCE, RSQRT, MUL and ADD).
 SUPPORTED_OPS = frozenset({
     "CONV_2D", "DEPTHWISE_CONV_2D", "ADD", "MUL", "PAD", "MAX_POOL_2D",
-    "PRELU", "RELU", "RESHAPE", "CONCATENATION"})
+    "PRELU", "RELU", "RESHAPE", "CONCATENATION",
+    "FULLY_CONNECTED", "SUB", "NEG", "SQUARED_DIFFERENCE", "RSQRT",
+    "LOGISTIC", "GELU", "TRANSPOSE", "MEAN"})
 
 # Ops whose listed inputs at these positions are static (shape-like) values.
-_STATIC_INPUTS = {"RESHAPE": {1}, "PAD": {1}}
+_STATIC_INPUTS = {"RESHAPE": {1}, "PAD": {1}, "TRANSPOSE": {1}, "MEAN": {1}}
 
 _QUANTIZED = (np.int8, np.uint8, np.int16)
 
@@ -249,6 +257,16 @@ class ConvertedModel(nn.Module):
         self.input_shapes = input_shapes
         self.output_shapes = output_shapes
         self.name = name
+        # Outputs that a FULLY_CONNECTED may flatten to [N * rows, out]:
+        # those read only by RESHAPEs, which put N back in front.
+        readers: dict[int, set[str]] = {}
+        for op in ops:
+            for t in op.inputs:
+                readers.setdefault(t, set()).add(op.name)
+        self._row_flat_ok = frozenset(
+            op.outputs[0] for op in ops if op.name == "FULLY_CONNECTED"
+            and readers.get(op.outputs[0]) == {"RESHAPE"}
+            and op.outputs[0] not in output_ixs)
 
     @property
     def num_params(self) -> int:
@@ -359,6 +377,50 @@ class ConvertedModel(nn.Module):
                                  "with N > 1")
             env[op.outputs[0]] = _act(torch.cat(xs, dim=axis),
                                       o["activation"])
+        elif nm == "FULLY_CONNECTED":
+            x = get(op.inputs[0])
+            w = get(op.inputs[1])  # [out, in]
+            if not o.get("keep_num_dims") and x.dim() > 2:
+                # TFLite flattens all but the feature dim into rows.
+                if n > 1 and op.outputs[0] not in self._row_flat_ok:
+                    raise ValueError(
+                        "FULLY_CONNECTED flattens the batch dimension into "
+                        f"rows with N = {n} and no RESHAPE restores it")
+                x = x.reshape(-1, w.shape[1])
+            bias = get(op.inputs[2]) if len(op.inputs) > 2 and \
+                op.inputs[2] >= 0 else None
+            env[op.outputs[0]] = _act(F.linear(x, w, bias), o["activation"])
+        elif nm == "SUB":
+            env[op.outputs[0]] = _act(
+                get(op.inputs[0]) - get(op.inputs[1]), o["activation"])
+        elif nm == "NEG":
+            env[op.outputs[0]] = -get(op.inputs[0])
+        elif nm == "SQUARED_DIFFERENCE":
+            d = get(op.inputs[0]) - get(op.inputs[1])
+            env[op.outputs[0]] = d * d
+        elif nm == "RSQRT":
+            env[op.outputs[0]] = torch.rsqrt(get(op.inputs[0]))
+        elif nm == "LOGISTIC":
+            env[op.outputs[0]] = torch.sigmoid(get(op.inputs[0]))
+        elif nm == "GELU":
+            env[op.outputs[0]] = F.gelu(
+                get(op.inputs[0]),
+                approximate="tanh" if o.get("approximate") else "none")
+        elif nm == "TRANSPOSE":
+            perm = [int(v) for v in self._statics[op.inputs[1]]]
+            if n > 1 and perm[0] != 0:
+                raise ValueError(f"TRANSPOSE {perm} moves the batch "
+                                 f"dimension with N = {n}")
+            env[op.outputs[0]] = get(op.inputs[0]).permute(perm)
+        elif nm == "MEAN":
+            x = get(op.inputs[0])
+            axes = sorted({int(v) % x.dim() for v in
+                           np.atleast_1d(self._statics[op.inputs[1]])})
+            if n > 1 and 0 in axes:
+                raise ValueError(f"MEAN over the batch dimension with N = "
+                                 f"{n}")
+            env[op.outputs[0]] = torch.mean(x, dim=axes,
+                                            keepdim=bool(o["keep_dims"]))
         else:  # _fold admits only SUPPORTED_OPS
             raise NotImplementedError(f"op {nm} not implemented")
 

@@ -1,11 +1,16 @@
-"""Seeded full-width BlazeFace-back and FaceMesh graphs, built in numpy.
+"""Seeded full-width BlazeFace-back, FaceMesh, iris and blendshape graphs,
+built in numpy.
 
 The trained MediaPipe ``.tflite`` files are not part of the repository, so
 the port's main path runs the published topologies with seeded weights
 instead.  Each network is a :class:`~..convert.tflite.ModelIR` — the IR
 that ``parse_tflite`` produces — made of the op mix the real files use
 (CONV_2D, DEPTHWISE_CONV_2D, ADD with a fused ReLU, PAD, MAX_POOL_2D,
-PRELU, RESHAPE, CONCATENATION), at the published widths and resolutions.
+PRELU, RESHAPE, CONCATENATION; for the blendshape MLP-Mixer
+FULLY_CONNECTED, TRANSPOSE, GELU, LOGISTIC and the layer-norm ops, with
+fp16 weights behind DEQUANTIZE), at the published widths and
+resolutions, or, where no width is published, at the parameter count of
+the published file.
 The same IR runs through this package's executor and through the JAX
 package's, so both compute the same function on the same weights.
 
@@ -26,6 +31,8 @@ Topologies (public descriptions):
   and 128 channels down to 6x6x128; a landmark head (stride-2 block to
   3x3, 1x1 to 32, one block, 3x3 VALID conv to ``[1, 1, 1, 1404]``) and
   a presence head ending in ``[1, 1, 1, 1]``.
+* Iris landmarks and blendshapes: :func:`iris_landmark_ir` and
+  :func:`face_blendshapes_ir` give their layouts.
 
 Weights use fan-in scaling with the residual branch scaled down, so that
 activations stay O(1) through full depth.  The detector's box head is
@@ -46,13 +53,17 @@ from ..convert.tflite import (PADDING_SAME, PADDING_VALID, ModelIR, OpIR,
 from ..ops.letterbox import letterbox_image, letterbox_params
 from ..pipeline.programs import PipelineModels
 
-__all__ = ["blazeface_back_ir", "face_mesh_ir", "calibrate_score_bias",
+__all__ = ["blazeface_back_ir", "face_mesh_ir", "iris_landmark_ir",
+           "face_blendshapes_ir", "calibrate_score_bias",
            "random_pipeline_models", "random_raw_detections",
-           "BLAZEFACE_BLOCKS", "MESH_BLOCKS"]
+           "BLAZEFACE_BLOCKS", "MESH_BLOCKS", "IRIS_BLOCKS", "MIXER_BLOCKS"]
 
-#: Full depth: non-strided blocks per stage of the published topologies.
+#: Full depth: non-strided blocks per stage of the published topologies,
+#: and Mixer blocks of the blendshape net.
 BLAZEFACE_BLOCKS = 7
 MESH_BLOCKS = 2
+IRIS_BLOCKS = 4
+MIXER_BLOCKS = 4
 
 # Residual-branch gain: keeps activations O(1) over ~30 residual blocks.
 _RES_GAIN = 0.35
@@ -62,6 +73,13 @@ _RES_GAIN = 0.35
 _BOX_BIAS = np.asarray([0, 0, 44, 44,
                         -9, -8, 9, -8, 0, 2, 0, 12, -20, -4, 20, -4],
                        np.float32)
+
+# FaceMesh landmark-head bias of the eye corners in 192-px crop units: mesh
+# point -> (x, y).  Outer and inner corners of the image-left eye (33, 133)
+# and inner and outer of the image-right eye (362, 263): eyes 26 px wide,
+# 26 px apart, on one row, as in MediaPipe's canonical face.
+_EYE_CORNERS = {33: (57.0, 80.0), 133: (83.0, 80.0),
+                362: (109.0, 80.0), 263: (135.0, 80.0)}
 
 
 class _Graph:
@@ -156,6 +174,62 @@ class _Graph:
                       activation=None if prelu else "RELU")
         return self.prelu(out) if prelu else out
 
+    def half(self, arr: np.ndarray) -> int:
+        """A constant stored as float16 behind a DEQUANTIZE op, the form
+        of the fp16 ``.tflite`` files' weights."""
+        return self.op("DEQUANTIZE", [self.const(arr.astype(np.float16))],
+                       arr.shape)
+
+    def fc(self, x, cout, gain=1.0, bias_std=0.0):
+        """FULLY_CONNECTED over the last axis (keep_num_dims), fp16
+        weights [cout, cin] with fan-in scaling."""
+        cin = self.shape(x)[-1]
+        w = self.rng.normal(0.0, gain / np.sqrt(cin), (cout, cin))
+        b = self.rng.normal(0.0, bias_std, cout)
+        return self.op("FULLY_CONNECTED", [x, self.half(w), self.half(b)],
+                       self.shape(x)[:-1] + (cout,), activation=None,
+                       keep_num_dims=True)
+
+    def mean(self, x, axes):
+        shp = tuple(1 if i in axes else d for i, d in enumerate(self.shape(x)))
+        return self.op("MEAN", [x, self.const(np.asarray(axes, np.int32))],
+                       shp, keep_dims=True)
+
+    def layer_norm(self, x, eps=1e-6):
+        """Layer norm over the last axis in the ops TensorFlow emits for
+        ``keras.layers.LayerNormalization``: MEAN, NEG, SQUARED_DIFFERENCE,
+        MEAN, ADD, RSQRT, MUL and ADD."""
+        c = self.shape(x)[-1]
+        last = len(self.shape(x)) - 1
+        m = self.mean(x, [last])
+        var = self.mean(self.op("SQUARED_DIFFERENCE", [x, m], self.shape(x)),
+                        [last])
+        r = self.op("RSQRT", [self.op(
+            "ADD", [var, self.const(np.asarray(eps, np.float32))],
+            self.shape(var), activation=None)], self.shape(var))
+        gamma = self.half(1.0 + self.rng.normal(0.0, 0.1, (1, 1, c)))
+        beta = self.half(self.rng.normal(0.0, 0.1, (1, 1, c)))
+        s = self.op("MUL", [r, gamma], self.shape(x), activation=None)
+        shift = self.op("ADD", [self.op(
+            "MUL", [self.op("NEG", [m], self.shape(m)), s], self.shape(x),
+            activation=None), beta], self.shape(x), activation=None)
+        return self.op("ADD", [self.op("MUL", [x, s], self.shape(x),
+                                       activation=None), shift],
+                       self.shape(x), activation=None)
+
+    def transpose(self, x, perm):
+        shp = tuple(self.shape(x)[p] for p in perm)
+        return self.op("TRANSPOSE", [x, self.const(np.asarray(perm,
+                                                              np.int32))],
+                       shp)
+
+    def mlp(self, x, hidden):
+        """FC -> GELU -> FC back to the input width (scaled down as a
+        residual branch)."""
+        y = self.fc(x, hidden, bias_std=0.1)
+        y = self.op("GELU", [y], self.shape(y), approximate=False)
+        return self.fc(y, self.shape(x)[-1], gain=_RES_GAIN, bias_std=0.1)
+
     def head(self, x, per_anchor, gain, bias, weights=None):
         """1x1 head flattened to [1, cells * anchors, per_anchor]."""
         _, h, w, _ = self.shape(x)
@@ -205,7 +279,12 @@ def blazeface_back_ir(seed: int = 0,
 
 def face_mesh_ir(seed: int = 0, blocks_per_stage: int = MESH_BLOCKS
                  ) -> ModelIR:
-    """The 468-point FaceMesh landmark net (192 px) with its presence head."""
+    """The 468-point FaceMesh landmark net (192 px) with its presence head.
+
+    The landmark head's biases scatter the points over [40, 152] px of the
+    crop, except the eye corners (:data:`_EYE_CORNERS`), which sit where
+    a trained mesh puts them, so that the eye ROIs come out about a third
+    of the face ROI's size."""
     g = _Graph(np.random.default_rng(seed))
     inp = g.tensor((1, 192, 192, 3))
     x = g.pad(inp, [[0, 0], [0, 1], [0, 1], [0, 0]])
@@ -223,6 +302,7 @@ def face_mesh_ir(seed: int = 0, blocks_per_stage: int = MESH_BLOCKS
     y = g.block(y, 32, prelu=True)
     lm_bias = np.zeros((468, 3), np.float32)
     lm_bias[:, :2] = g.rng.uniform(40.0, 152.0, (468, 2))
+    lm_bias[list(_EYE_CORNERS), :2] = list(_EYE_CORNERS.values())
     lm_bias[:, 2] = g.rng.uniform(-10.0, 10.0, 468)
     lm = g.conv(y, 1404, 3, padding=PADDING_VALID, gain=0.5,
                 bias=lm_bias.reshape(-1))
@@ -230,6 +310,95 @@ def face_mesh_ir(seed: int = 0, blocks_per_stage: int = MESH_BLOCKS
     presence = g.conv(p, 1, 3, padding=PADDING_VALID, gain=0.05,
                       bias=np.asarray([3.0], np.float32))
     return g.ir([inp], [lm, presence], f"random FaceMesh, seed {seed}")
+
+
+def iris_landmark_ir(seed: int = 0, blocks_per_stage: int = IRIS_BLOCKS
+                     ) -> ModelIR:
+    """The iris landmark net (64 px): ``[1, 71 * 3]`` eye contour, then
+    ``[1, 5 * 3]`` iris, in crop pixels.
+
+    64x64x3 in; 3x3/2 conv to 64 ch with PReLU; PReLU BlazeBlocks at 64
+    (32x32), 128 (16x16) and 128 (8x8) channels; then two branches, each a
+    stride-2 block and blocks at 4x4, a stride-2 block and blocks at 2x2,
+    and a 2x2 VALID conv (the contour and iris heads).  At 4 blocks per
+    stage: 667,044 fp32 parameters, 2.67 MB, the size of the 2,640,568 B
+    ``iris_landmark.tflite``.  The heads' biases put the contour inside the
+    crop ([12, 52] px) and the iris as a centre point with four points
+    5 px around it.
+    """
+    g = _Graph(np.random.default_rng(seed))
+    inp = g.tensor((1, 64, 64, 3))
+    x = g.pad(inp, [[0, 0], [0, 1], [0, 1], [0, 0]])
+    x = g.prelu(g.conv(x, 64, 3, stride=2, padding=PADDING_VALID))
+    for i, cout in enumerate((64, 128, 128)):
+        if i:
+            x = g.block(x, cout, stride=2, prelu=True)
+        for _ in range(blocks_per_stage):
+            x = g.block(x, cout, prelu=True)
+    feat = x                                         # 8x8x128
+    ctr = g.rng.uniform(29.0, 35.0, 2)
+    iris_bias = np.zeros((5, 3), np.float32)
+    iris_bias[:, :2] = ctr + np.asarray([[0, 0], [5, 0], [0, -5], [-5, 0],
+                                         [0, 5]], np.float32)
+    iris_bias[:, 2] = g.rng.uniform(-2.0, 2.0, 5)
+    contour_bias = np.zeros((71, 3), np.float32)
+    contour_bias[:, :2] = g.rng.uniform(12.0, 52.0, (71, 2))
+    contour_bias[:, 2] = g.rng.uniform(-4.0, 4.0, 71)
+    outs = []
+    for bias in (contour_bias, iris_bias):
+        y = feat
+        for _ in range(2):                           # 4x4, then 2x2
+            y = g.block(y, 128, stride=2, prelu=True)
+            for _ in range(blocks_per_stage):
+                y = g.block(y, 128, prelu=True)
+        y = g.conv(y, bias.size, 2, padding=PADDING_VALID, gain=0.2,
+                   bias=bias.reshape(-1))
+        shp = np.asarray([1, bias.size], np.int32)
+        outs.append(g.op("RESHAPE", [y, g.const(shp)], tuple(shp),
+                         new_shape=shp.tolist()))
+    return g.ir([inp], outs, f"random iris landmark, seed {seed}")
+
+
+def face_blendshapes_ir(seed: int = 0, blocks: int = MIXER_BLOCKS
+                        ) -> ModelIR:
+    """The blendshape MLP-Mixer: ``[1, 146, 2]`` landmarks in image pixels
+    -> ``[1, 52]`` coefficients in (0, 1).
+
+    The landmark cloud is centred and scaled to unit variance in the graph
+    (MEAN, SUB, SQUARED_DIFFERENCE, RSQRT, MUL: a cloud of one point
+    yields NaN, which the pipeline's blendshape stage sanitizes), embedded
+    to 64 channels, then ``blocks`` Mixer blocks (layer norm, token MLP
+    146 -> 256 -> 146 across a transpose, residual add; layer norm,
+    channel MLP 64 -> 320 -> 64, residual add), a layer norm, the mean over
+    the 146 tokens and a 64 -> 52 FULLY_CONNECTED with LOGISTIC.  Every
+    weight is float16 behind a DEQUANTIZE op.  At 4 blocks: 470,725
+    parameters, 0.94 MB in fp16, the size of the 955,312 B
+    ``face_blendshapes.tflite``.
+    """
+    g = _Graph(np.random.default_rng(seed))
+    inp = g.tensor((1, 146, 2))
+    centre = g.mean(inp, [1])
+    x = g.op("SUB", [inp, centre], (1, 146, 2), activation=None)
+    var = g.mean(g.op("SQUARED_DIFFERENCE", [inp, centre], (1, 146, 2)),
+                 [1, 2])
+    x = g.op("MUL", [x, g.op("RSQRT", [var], (1, 1, 1))], (1, 146, 2),
+             activation=None)
+    x = g.fc(x, 64, bias_std=0.1)
+    for _ in range(blocks):
+        y = g.transpose(g.layer_norm(x), [0, 2, 1])      # [1, 64, 146]
+        y = g.transpose(g.mlp(y, 256), [0, 2, 1])
+        x = g.op("ADD", [x, y], g.shape(x), activation=None)
+        y = g.mlp(g.layer_norm(x), 320)
+        x = g.op("ADD", [x, y], g.shape(x), activation=None)
+    x = g.layer_norm(x)
+    pooled = g.op("MEAN", [x, g.const(np.asarray(1, np.int32))], (1, 64),
+                  keep_dims=False)
+    w = g.rng.normal(0.0, 1.5 / np.sqrt(64), (52, 64))
+    logits = g.op("FULLY_CONNECTED",
+                  [pooled, g.half(w), g.half(g.rng.normal(0, 0.5, 52))],
+                  (1, 52), activation=None, keep_num_dims=False)
+    out = g.op("LOGISTIC", [logits], (1, 52))
+    return g.ir([inp], [out], f"random blendshape MLP-Mixer, seed {seed}")
 
 
 def _score_bias_tensors(ir: ModelIR) -> list[int]:
@@ -259,13 +428,18 @@ def calibrate_score_bias(ir: ModelIR, logits: np.ndarray,
 def random_pipeline_models(frames: torch.Tensor, *, seed: int = 0,
                            detector_blocks: int = BLAZEFACE_BLOCKS,
                            mesh_blocks: int = MESH_BLOCKS,
-                           per_image: int = 32
-                           ) -> tuple[PipelineModels, ModelIR, ModelIR]:
-    """Builds both networks, calibrates the detector's scores on
-    ``frames`` ([B, H, W, 3] RGB, on the device the models should run on)
-    and returns ``(PipelineModels, detector IR, mesh IR)``."""
+                           per_image: int = 32,
+                           iris_blocks: int = IRIS_BLOCKS,
+                           mixer_blocks: int = MIXER_BLOCKS) -> tuple:
+    """Builds the four networks (detector, mesh, iris and blendshape nets
+    from seeds ``seed`` to ``seed + 3``), calibrates the detector's scores
+    on ``frames`` ([B, H, W, 3] RGB, on the device the models should run
+    on) and returns ``(PipelineModels, detector IR, mesh IR, iris IR,
+    blendshape IR)``."""
     det_ir = blazeface_back_ir(seed, detector_blocks)
     mesh_ir = face_mesh_ir(seed + 1, mesh_blocks)
+    iris_ir = iris_landmark_ir(seed + 2, iris_blocks)
+    bs_ir = face_blendshapes_ir(seed + 3, mixer_blocks)
     device = frames.device
     det = convert_model(det_ir, name="blazeface-back-random").to(device)
     lbp = letterbox_params(frames.shape[1], frames.shape[2], 256, 256)
@@ -275,8 +449,10 @@ def random_pipeline_models(frames: torch.Tensor, *, seed: int = 0,
                          .double().cpu().numpy(), per_image)
     models = PipelineModels(
         convert_model(det_ir, name="blazeface-back-random"), "back",
-        mesh=convert_model(mesh_ir, name="face-mesh-random"), device=device)
-    return models, det_ir, mesh_ir
+        mesh=convert_model(mesh_ir, name="face-mesh-random"), device=device,
+        iris=convert_model(iris_ir, name="iris-random"),
+        blendshapes=convert_model(bs_ir, name="blendshapes-random"))
+    return models, det_ir, mesh_ir, iris_ir, bs_ir
 
 
 def random_raw_detections(seed: int, batch: int, anchors: np.ndarray,

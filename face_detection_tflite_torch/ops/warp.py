@@ -111,8 +111,9 @@ def warp_normalize(frames: torch.Tensor, cx, cy, sizes, cos_t, sin_t, *,
     0..255), per-ROI ``[B, F]`` float32 parameters, optional ``flip
     [B, F]`` -> ``[B, F, S, S, 3]`` float32 in [-1, 1].  The kernel for
     CUDA tensors (one launch), the plain version for CPU tensors.
-    ``warp_normalize.launches`` counts kernel launches.  ``out_size`` is
-    1 to :data:`MAX_OUT_SIZE` on every device."""
+    ``warp_normalize.launches`` counts kernel launches, and
+    ``warp_normalize.launches_by_size`` counts them per ``out_size``.
+    ``out_size`` is 1 to :data:`MAX_OUT_SIZE` on every device."""
     if not 1 <= out_size <= MAX_OUT_SIZE:
         raise ValueError(f"warp_normalize: out_size must be 1 to "
                          f"{MAX_OUT_SIZE}, got {out_size}")
@@ -160,10 +161,14 @@ def warp_normalize(frames: torch.Tensor, cx, cy, sizes, cos_t, sin_t, *,
                    torch.cuda.current_stream(frames.device).cuda_stream)
         _build.check(rc, "warp_normalize")
         warp_normalize.launches += 1
+        by_size = warp_normalize.launches_by_size
+        by_size[out_size] = by_size.get(out_size, 0) + 1
     return out
 
 
 warp_normalize.launches = 0
+#: Kernel launches per crop size (192 the mesh site, 64 the iris site).
+warp_normalize.launches_by_size = {}
 
 
 def extract_rois_normalized(frames: torch.Tensor, cx, cy, sizes, theta, *,

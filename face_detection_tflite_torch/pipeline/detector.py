@@ -1,18 +1,18 @@
 """FaceDetector — the public orchestration API, on PyTorch.
 
-Port of the STANDARD-mode subset of the JAX package's
+Port of the FAST, STANDARD and FULL modes of the JAX package's
 ``pipeline/detector.py`` (the reference's `FaceDetector`,
 `lib/src/face_detector.dart:53`): the constructor surface, ``detect_faces``
-and ``detect_faces_batch`` with the adaptive speculative dispatch, batch
-bucketing, the int16 quantized readback, ``_materialize`` and ``dispose``.
+and ``detect_faces_batch`` (FULL by default, as there) with the adaptive
+speculative dispatch, batch bucketing, the int16 quantized readback,
+``_materialize`` and ``dispose``.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
-and no explicit device the constructor raises.  Deliberate differences
-from the JAX detector: a keyword-only ``models=`` replaces loading the
-``.tflite`` files from ``model_dir``; ``detect_faces`` defaults to
-STANDARD mode, since FULL is not ported.  Tracking, segmentation,
-embeddings, FULL mode, data-parallel serving and detector variants other
-than BACK_CAMERA raise ``NotImplementedError`` naming their ROADMAP item.
+and no explicit device the constructor raises.  Deliberate difference
+from the JAX detector: a keyword-only ``models=`` may replace loading the
+``.tflite`` files from ``model_dir``.  Tracking, segmentation,
+embeddings, data-parallel serving and detector variants other than
+BACK_CAMERA raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -137,12 +137,13 @@ class FaceDetector:
         self.detailed_timings = detailed_timings
         if models is None:
             mdir = resolve_model_dir(model_dir)
+            def load(key):
+                return convert_file(os.path.join(mdir, MODEL_FILES[key]))
+
             models = PipelineModels(
-                convert_file(os.path.join(mdir, MODEL_FILES[model.value])),
-                model.value,
-                mesh=convert_file(os.path.join(mdir,
-                                               MODEL_FILES["face_landmark"])),
-                device=self.device)
+                load(model.value), model.value, mesh=load("face_landmark"),
+                device=self.device, iris=load("iris_landmark"),
+                blendshapes=load("face_blendshapes"))
         elif models.device != self.device:
             raise ValueError(f"models live on {models.device}, the detector "
                              f"on {self.device}")
@@ -189,7 +190,7 @@ class FaceDetector:
 
     # -- readback ------------------------------------------------------------
 
-    _QUANT_KEYS = frozenset({"mesh"})
+    _QUANT_KEYS = frozenset({"mesh", "iris"})
 
     def _readback_scale(self, img_h: int, img_w: int) -> Optional[float]:
         """px -> int16 scale for the landmark readback (0.08 px steps at
@@ -358,19 +359,17 @@ class FaceDetector:
     # -- public detection ----------------------------------------------------
 
     def detect_faces(self, image,
-                     mode: FaceDetectionMode = FaceDetectionMode.STANDARD
+                     mode: FaceDetectionMode = FaceDetectionMode.FULL
                      ) -> list[Face]:
         """Detects faces in one RGB image ([H, W, 3], uint8 or 0..255
         float, numpy or tensor)."""
         return self.detect_faces_batch(image[None], mode)[0]
 
     def detect_faces_batch(self, images,
-                           mode: FaceDetectionMode = FaceDetectionMode.STANDARD
+                           mode: FaceDetectionMode = FaceDetectionMode.FULL
                            ) -> list[list[Face]]:
         """Batched detection: [B, H, W, 3] -> per-image Face lists."""
         self._check_disposed()
-        if mode == FaceDetectionMode.FULL:
-            raise _not_ported("FULL mode", "§1 item 5")
         with torch.inference_mode():
             prep = self._prepare_batch(images)
             if prep is None:
@@ -441,6 +440,7 @@ class FaceDetector:
         (face_gates.dart:84), preserving slab order."""
         faces: list[Face] = []
         valid = out["valid"][i]
+        full = mode == FaceDetectionMode.FULL
         has_mesh = mode != FaceDetectionMode.FAST
         for d in range(valid.shape[0]):
             if not valid[d]:
@@ -466,8 +466,15 @@ class FaceDetector:
                     continue
             mesh = (FaceMesh(out["mesh"][i, d], score=mesh_score)
                     if has_mesh else None)
-            faces.append(Face(detection=det, mesh=mesh,
-                              irises=np.zeros((0, 3)), original_size=size_wh))
+            bs = None
+            if full and bool(out["blendshapes_valid"][i, d]):
+                bs = out["blendshapes"][i, d]
+            faces.append(Face(
+                detection=det, mesh=mesh,
+                irises=out["iris"][i, d] if full else np.zeros((0, 3)),
+                original_size=size_wh, blendshape_scores=bs,
+                # The program solved the head pose (fp32 in the readback).
+                head_angles=out["head_angles"][i, d] if full else None))
         return faces
 
     # -- lifetime ------------------------------------------------------------

@@ -1,15 +1,21 @@
-"""The pipeline programs: FAST and STANDARD over a fixed-size face slab.
+"""The pipeline programs: FAST, STANDARD and FULL over a fixed-size face
+slab.
 
 Port of the JAX package's ``pipeline/programs.py``.  Each program is a
 plain function over an image batch ``[B, H, W, 3]``:
 
     letterbox -> BlazeFace -> detection postprocess (K1)       (all modes)
-    -> alignment -> ROI warp + normalize (K2) -> FaceMesh      (standard)
+    -> alignment -> ROI warp + normalize (K2, 192 px) -> FaceMesh
+                                                     (standard and full)
+    -> eye ROIs -> K2 at 64 px, right eyes mirrored -> iris net
+    -> blendshape packing -> blendshape MLP-Mixer -> head pose
+    -> iris-refined keypoints                                   (full)
 
 Dynamic face counts are fixed-size slabs with validity masks.  Batch
-dimensions are written out: the detector runs once on ``[B, 256, 256, 3]``
-and the mesh net once on ``[B * slab, 192, 192, 3]``.  FULL mode (iris,
-blendshapes, head pose) is not ported yet.
+dimensions are written out: the detector runs once on ``[B, 256, 256, 3]``,
+the mesh net once on ``[B * slab, 192, 192, 3]``, the iris net once on
+``[B * 2 * slab, 64, 64, 3]`` and the blendshape net once on
+``[B * slab, 146, 2]``.  The embedding stage is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from ..ops.detections import _take, detection_postprocess
 from ..ops.letterbox import letterbox_image, letterbox_params
 from ..ops.warp import extract_rois_normalized
 from . import geometry
-from .config import MESH_INPUT_SIZE, RAW_SCORE_LIMIT, FaceDetectionMode
+from .blendshape_input import pack_blendshape_input
+from .config import (IRIS_INPUT_SIZE, MESH_INPUT_SIZE, RAW_SCORE_LIMIT,
+                     FaceDetectionMode)
 from .gates import apply_detection_gates_mask
 
 __all__ = ["PipelineModels", "build_pipeline_program", "resolve_device"]
@@ -48,11 +56,15 @@ class PipelineModels:
 
     def __init__(self, detector: ConvertedModel, variant: str,
                  mesh: Optional[ConvertedModel] = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, *,
+                 iris: Optional[ConvertedModel] = None,
+                 blendshapes: Optional[ConvertedModel] = None):
         self.device = resolve_device(device)
         self.detector = detector.to(self.device).eval()
         self.variant = variant
-        self.mesh = mesh.to(self.device).eval() if mesh is not None else None
+        self.mesh, self.iris, self.blendshapes = (
+            m.to(self.device).eval() if m is not None else None
+            for m in (mesh, iris, blendshapes))
         self.detector_input_size = detector.input_shapes[0][1]
         self.anchors = torch.from_numpy(
             generate_anchors(anchor_options_for(variant))).to(self.device)
@@ -78,13 +90,19 @@ def _identify_landmark_outputs(outs):
     return lm, score
 
 
-def _unpack_landmarks(flat, in_size: int):
-    """`helpers.dart:138-172` with zero padding, x/y clamped to [0, 1] and
-    z normalized (the mesh-stage settings)."""
+def _unpack_landmarks(flat, in_size: int, *, clamp: bool,
+                      normalize_z: bool):
+    """`helpers.dart:138-172` with zero padding (crops are warped straight
+    to the model input): x and y over ``in_size``, clamped to [0, 1] with
+    ``clamp``; z over ``in_size`` with ``normalize_z``.  The mesh stage
+    takes both, the iris stage neither."""
     pts = flat.reshape(*flat.shape[:-1], flat.shape[-1] // 3, 3)
-    x = torch.clamp(pts[..., 0] / in_size, 0.0, 1.0)
-    y = torch.clamp(pts[..., 1] / in_size, 0.0, 1.0)
-    z = pts[..., 2] / in_size
+    x = pts[..., 0] / in_size
+    y = pts[..., 1] / in_size
+    z = pts[..., 2] / in_size if normalize_z else pts[..., 2]
+    if clamp:
+        x = torch.clamp(x, 0.0, 1.0)
+        y = torch.clamp(y, 0.0, 1.0)
     return torch.stack([x, y, z], dim=-1)
 
 
@@ -93,19 +111,24 @@ def _sigmoid_clipped(x):
 
 
 def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
-                           mode: FaceDetectionMode = FaceDetectionMode.STANDARD,
+                           mode: FaceDetectionMode = FaceDetectionMode.FULL,
                            *, max_faces: int = 16,
                            num_candidates: Optional[int] = None,
                            min_score: float = 0.0, min_face_size: float = 0.0,
                            from_detections: bool = False,
-                           face_slab: Optional[int] = None):
+                           face_slab: Optional[int] = None,
+                           with_embeddings: bool = False):
     """Builds the pipeline function for one image size.
 
     Returns ``fn(images) -> dict`` of ``[B, ...]`` tensors for ``images``
     ``[B, img_h, img_w, 3]`` (uint8 or float 0..255, RGB, on the models'
     device).  The slab holds boxes ``[D, 4]``, raw_keypoints ``[D, 6, 2]``,
-    scores ``[D]`` and valid ``[D]``; STANDARD adds mesh ``[D, 468, 3]``
-    (absolute px) and mesh_scores ``[D]``.
+    scores ``[D]`` and valid ``[D]``; STANDARD and FULL add mesh
+    ``[D, 468, 3]`` (absolute px) and mesh_scores ``[D]``; FULL adds
+    keypoints ``[D, 6, 2]`` (iris-refined eyes), iris ``[D, 152, 3]``,
+    blendshapes ``[D, 52]``, blendshapes_valid ``[D]`` and head_angles
+    ``[D, 3]`` (pitch, yaw, roll in degrees; NaN for a degenerate head
+    frame).
 
     ``face_slab`` < max_faces is the speculative form: NMS still emits the
     full max_faces slab (returned compacted as det_boxes,
@@ -113,16 +136,20 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
     det_count), but the mesh stage runs on the top ``face_slab`` prefix
     only.  ``from_detections`` returns ``fn(images, boxes, kp, scores,
     valid)`` that runs the face stages on given detections.
+    ``with_embeddings`` (the fused MobileFaceNet stage) is not ported.
     """
-    if mode == FaceDetectionMode.FULL:
-        raise NotImplementedError(
-            "FULL mode (iris, blendshapes, head pose) is not ported yet "
-            "(ROADMAP §1 item 5)")
+    if with_embeddings:
+        raise NotImplementedError("the embedding stage is not ported yet "
+                                  "(ROADMAP §1 item 8)")
     size = models.detector_input_size
     lbp = letterbox_params(img_h, img_w, size, size)
-    compute_mesh = mode == FaceDetectionMode.STANDARD
+    compute_mesh = mode in (FaceDetectionMode.STANDARD,
+                            FaceDetectionMode.FULL)
+    compute_iris = mode == FaceDetectionMode.FULL
     if compute_mesh and models.mesh is None:
         raise ValueError(f"mode {mode} requires the face mesh model")
+    if compute_iris and (models.iris is None or models.blendshapes is None):
+        raise ValueError(f"mode {mode} requires iris and blendshape models")
 
     def detect_stage(images):
         x = letterbox_image(images, lbp)
@@ -152,10 +179,55 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         if score_raw is None:
             score_raw = torch.zeros(b * f, device=crops.device)
         lm_norm = _unpack_landmarks(lm_flat.reshape(b, f, -1),
-                                    MESH_INPUT_SIZE)
+                                    MESH_INPUT_SIZE, clamp=True,
+                                    normalize_z=True)
         mesh_abs = geometry.transform_mesh_to_absolute(lm_norm, cx, cy, fsize,
                                                        theta)
         return mesh_abs, _sigmoid_clipped(score_raw.reshape(b, f)), valid
+
+    def iris_stage(images, mesh_abs):
+        """[B, F, 152, 3] absolute iris stream: two eye crops per face,
+        the right eye mirrored, warped with the un-negated eye angle
+        (face_detector_core.dart:544-556)."""
+        b, f = mesh_abs.shape[:2]
+        ecx, ecy, esize, etheta = (t.reshape(b, 2 * f) for t in
+                                   geometry.eye_rois_from_mesh(mesh_abs))
+        # Odd slots are right eyes; made on the device (no host copy).
+        flip = (torch.arange(2 * f, device=mesh_abs.device) % 2 == 1
+                ).expand(b, 2 * f)
+        crops = extract_rois_normalized(images, ecx, ecy, esize, etheta,
+                                        out_size=IRIS_INPUT_SIZE, flip=flip)
+        outs = models.iris(crops.reshape(b * 2 * f, IRIS_INPUT_SIZE,
+                                         IRIS_INPUT_SIZE, 3))
+        # All outputs in graph order: 71 * 3 contour, then 5 * 3 iris.
+        pts_flat = torch.cat([o.reshape(b * 2 * f, -1) for o in outs], 1)
+        pts = _unpack_landmarks(pts_flat.reshape(b, 2 * f, -1),
+                                IRIS_INPUT_SIZE, clamp=False,
+                                normalize_z=False)     # [B, 2F, 76, 3]
+        abs_pts = geometry.transform_iris_norm_to_absolute(
+            pts, ecx, ecy, esize, etheta, flip[..., None])
+        return abs_pts.reshape(b, f, 152, 3)
+
+    def blendshape_stage(mesh_abs, iris_abs):
+        """([B, F, 52] coefficients, [B, F] no-NaN flags): NaN-sanitized
+        and clamped to [0, 1] (face_blendshapes.dart:191-200)."""
+        b, f = mesh_abs.shape[:2]
+        packed = pack_blendshape_input(mesh_abs, iris_abs)  # [B, F, 146, 2]
+        (raw,) = models.blendshapes(packed.reshape(b * f, 146, 2))
+        raw = raw.reshape(b, f, -1)
+        ok = ~torch.isnan(raw).any(dim=-1)
+        return torch.clamp(torch.nan_to_num(raw), 0.0, 1.0), ok
+
+    def refine_keypoints(kp, iris_abs):
+        """Iris-refined eye keypoints (face_detector_core.dart:356-373)."""
+        left = geometry.iris_center_from_points(iris_abs[..., 71:76, :])
+        right = geometry.iris_center_from_points(iris_abs[..., 147:152, :])
+        kp = kp.clone()
+        kp[..., 0, 0] = left[..., 0] / img_w
+        kp[..., 0, 1] = left[..., 1] / img_h
+        kp[..., 1, 0] = right[..., 0] / img_w
+        kp[..., 1, 1] = right[..., 1] / img_h
+        return kp
 
     def face_stages(images, boxes, kp, scores, valid):
         out = {"boxes": boxes, "raw_keypoints": kp, "scores": scores,
@@ -169,6 +241,14 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
             return out
         mesh_abs, mesh_scores, valid = mesh_stage(images, kp, valid)
         out.update(mesh=mesh_abs, mesh_scores=mesh_scores, valid=valid)
+        if not compute_iris:
+            return out
+        iris_abs = iris_stage(images, mesh_abs)
+        coeffs, bs_ok = blendshape_stage(mesh_abs, iris_abs)
+        out.update(iris=iris_abs, blendshapes=coeffs,
+                   blendshapes_valid=bs_ok & valid,
+                   head_angles=geometry.head_euler_angles_from_mesh(mesh_abs),
+                   keypoints=refine_keypoints(kp, iris_abs))
         return out
 
     if from_detections:

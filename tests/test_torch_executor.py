@@ -221,3 +221,173 @@ def test_parse_tflite_matches_jax_parser():
     assert rel_err(tm(torch.from_numpy(xin))[0], jm.fn(jm.params, xin)[0]) \
         <= 2e-6
     assert jax_ir(mine).description == mine.description
+
+
+def _fc_ir(in_shape, cout, keep, act=None, bias=True, reshape_to=None):
+    """FULLY_CONNECTED over the last axis, optionally followed by a
+    RESHAPE (the form TFLite gives a flattening FULLY_CONNECTED)."""
+    cin = in_shape[-1]
+    rows = int(np.prod(in_shape[:-1]))
+    out_shape = tuple(in_shape[:-1]) + (cout,) if keep else (rows, cout)
+    tensors = [TensorIR(0, "x", tuple(in_shape), np.float32, None),
+               TensorIR(1, "fc", out_shape, np.float32, None),
+               TensorIR(2, "w", (cout, cin), np.float32, _w(cout, cin)),
+               TensorIR(3, "b", (cout,), np.float32, _w(cout))]
+    ops = [OpIR("FULLY_CONNECTED", [0, 2, 3 if bias else -1], [1],
+                {"activation": act, "keep_num_dims": keep})]
+    out = 1
+    if reshape_to is not None:
+        shp = np.asarray(reshape_to, np.int32)
+        tensors += [TensorIR(4, "shape", shp.shape, np.int32, shp),
+                    TensorIR(5, "y", tuple(reshape_to), np.float32, None)]
+        ops.append(OpIR("RESHAPE", [1, 4], [5],
+                        {"new_shape": list(reshape_to)}))
+        out = 5
+    return ModelIR(tensors, ops, [0], [out], "fully connected")
+
+
+#: The ops of the iris and blendshape graphs that the BlazeFace and
+#: FaceMesh graphs lack: name -> (IR builder, input range).
+MIXER_OPS = {
+    "fc_keep_num_dims": (lambda: _fc_ir((1, 7, 8), 5, True), (-2, 2)),
+    "fc_2d_relu": (lambda: _fc_ir((1, 12), 5, False, "RELU"), (-2, 2)),
+    "fc_no_bias": (lambda: _fc_ir((1, 3, 12), 4, True, bias=False),
+                   (-2, 2)),
+    "fc_rows_then_reshape": (
+        lambda: _fc_ir((1, 6, 8), 5, False, reshape_to=(1, 6, 5)), (-2, 2)),
+    "sub_relu": (lambda: _ir("SUB", (1, 5, 4), (1, 5, 4),
+                             {"activation": "RELU"}, [_w(1, 1, 4)]), (-2, 2)),
+    "neg": (lambda: _ir("NEG", (1, 5, 4), (1, 5, 4), {}), (-2, 2)),
+    "squared_difference": (lambda: _ir("SQUARED_DIFFERENCE", (1, 6, 4),
+                                       (1, 6, 4), {}, [_w(1, 6, 1)]),
+                           (-2, 2)),
+    "rsqrt": (lambda: _ir("RSQRT", (1, 5, 4), (1, 5, 4), {}), (0.05, 3)),
+    "logistic": (lambda: _ir("LOGISTIC", (1, 5, 4), (1, 5, 4), {}), (-8, 8)),
+    "gelu": (lambda: _ir("GELU", (1, 5, 4), (1, 5, 4),
+                         {"approximate": False}), (-4, 4)),
+    "gelu_tanh": (lambda: _ir("GELU", (1, 5, 4), (1, 5, 4),
+                              {"approximate": True}), (-4, 4)),
+    "transpose_3d": (lambda: _ir("TRANSPOSE", (1, 4, 6), (1, 6, 4), {},
+                                 [np.asarray([0, 2, 1], np.int32)]), (-2, 2)),
+    "transpose_4d": (lambda: _ir("TRANSPOSE", (1, 3, 4, 5), (1, 5, 3, 4), {},
+                                 [np.asarray([0, 3, 1, 2], np.int32)]),
+                     (-2, 2)),
+    "mean_keep": (lambda: _ir("MEAN", (1, 7, 4), (1, 1, 4),
+                              {"keep_dims": True},
+                              [np.asarray([1], np.int32)]), (-2, 2)),
+    "mean_two_axes": (lambda: _ir("MEAN", (1, 3, 4, 5), (1, 5),
+                                  {"keep_dims": False},
+                                  [np.asarray([1, 2], np.int32)]), (-2, 2)),
+    "mean_scalar_last_axis": (lambda: _ir("MEAN", (1, 7, 4), (1, 7),
+                                          {"keep_dims": False},
+                                          [np.asarray(-1, np.int32)]),
+                              (-2, 2)),
+}
+
+
+def _jax_batched(jm, x):
+    """The JAX function (one sample of the graph's batch 1) vmapped over
+    the leading axis of ``x``."""
+    import jax
+    return jax.vmap(lambda xi: jm.fn(jm.params, xi[None]))(x)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("name", sorted(MIXER_OPS))
+def test_mixer_op_matches_jax(name, n):
+    """Each op against the JAX executor, at the graph's batch of 1 and at
+    N = 3 against the JAX function vmapped (an op that mixes the samples
+    gives wrong rows only at N > 1)."""
+    build, (lo, hi) = MIXER_OPS[name]
+    ir = build()
+    jm, tm = both_models(ir)
+    x = _rng.uniform(lo, hi, (n,) + ir.tensors[0].shape[1:]).astype(
+        np.float32)
+    (ref,) = _jax_batched(jm, x)
+    (got,) = tm(torch.from_numpy(x))
+    ref = np.asarray(ref)
+    assert got.shape[0] == (n * ref.shape[1] if got.dim() == 2 and
+                            ref.shape[1] != 1 else n)
+    assert got.numel() == ref.size
+    assert rel_err(got.reshape(ref.shape), ref) <= 2e-6
+
+
+def test_mixer_ops_refuse_to_mix_the_batch():
+    """An op that would move or reduce the batch dimension raises at N > 1
+    and runs at N = 1."""
+    cases = [
+        _ir("TRANSPOSE", (1, 4, 6), (4, 1, 6), {},
+            [np.asarray([1, 0, 2], np.int32)]),
+        _ir("MEAN", (1, 4, 6), (4, 6), {"keep_dims": False},
+            [np.asarray([0], np.int32)]),
+        # A flattening FULLY_CONNECTED whose rows nothing puts back.
+        _fc_ir((1, 6, 8), 5, False),
+    ]
+    for ir in cases:
+        tm = convert_model(ir)
+        tm(torch.zeros((1,) + ir.tensors[0].shape[1:]))
+        with pytest.raises(ValueError, match="batch"):
+            tm(torch.zeros((2,) + ir.tensors[0].shape[1:]))
+
+
+def _tf_mixer_blob(tf):
+    """A tiny Keras MLP-Mixer on [1, 146, 2], converted by TensorFlow with
+    random (non-zero) weights: FULLY_CONNECTED, TRANSPOSE, GELU, the layer
+    norms' MEAN / NEG / SQUARED_DIFFERENCE / RSQRT, LOGISTIC."""
+    keras = tf.keras
+    inp = keras.Input((146, 2), batch_size=1)
+    x = keras.layers.Dense(16)(inp)
+    y = keras.layers.LayerNormalization(epsilon=1e-6)(x)
+    y = keras.layers.Permute((2, 1))(y)
+    y = keras.layers.Dense(32, activation="gelu")(y)
+    y = keras.layers.Permute((2, 1))(keras.layers.Dense(146)(y))
+    x = keras.layers.Add()([x, y])
+    y = keras.layers.LayerNormalization(epsilon=1e-6)(x)
+    y = keras.layers.Dense(16)(keras.layers.Dense(24, activation="gelu")(y))
+    x = keras.layers.GlobalAveragePooling1D()(keras.layers.Add()([x, y]))
+    model = keras.Model(inp, keras.layers.Dense(52, activation="sigmoid")(x))
+    rng = np.random.default_rng(5)
+    model.set_weights([rng.normal(0, 0.3, w.shape).astype(np.float32) +
+                       (1.0 if w.ndim == 1 and i % 2 == 0 else 0.0)
+                       for i, w in enumerate(model.get_weights())])
+    return tf.lite.TFLiteConverter.from_keras_model(model).convert()
+
+
+def test_tf_mixer_matches_jax():
+    """A TensorFlow-built MLP-Mixer ``.tflite`` through both executors, at
+    N = 1 and N = 3 (the JAX function vmapped)."""
+    tf = pytest.importorskip("tensorflow")
+    ir = parse_tflite(_tf_mixer_blob(tf))
+    names = {op.name for op in ir.ops}
+    assert {"FULLY_CONNECTED", "TRANSPOSE", "GELU", "MEAN", "RSQRT",
+            "SQUARED_DIFFERENCE", "LOGISTIC"} <= names
+    jm, tm = both_models(ir)
+    for n in (1, 3):
+        x = _rng.uniform(-3, 3, (n, 146, 2)).astype(np.float32)
+        (ref,) = _jax_batched(jm, x)
+        with torch.inference_mode():
+            (got,) = tm(torch.from_numpy(x))
+        assert got.shape == (n, 52)
+        assert rel_err(got, np.asarray(ref).reshape(n, 52)) <= 2e-6
+
+
+@pytest.mark.parametrize("which", ["iris", "blendshapes"])
+def test_random_full_models_match_jax(which):
+    """The seeded iris and blendshape nets at full width and depth, at
+    N = 1 and N = 2 (the JAX function vmapped)."""
+    if which == "iris":
+        ir = random_init.iris_landmark_ir(6)
+        x = _rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    else:
+        ir = random_init.face_blendshapes_ir(7)
+        x = _rng.uniform(0, 1280, (2, 146, 2)).astype(np.float32)
+    jm, tm = both_models(ir)
+    for n in (1, 2):
+        refs = _jax_batched(jm, x[:n])
+        with torch.inference_mode():
+            gots = tm(torch.from_numpy(x[:n]))
+        assert len(gots) == len(refs) == (2 if which == "iris" else 1)
+        for g, r in zip(gots, refs):
+            r = np.asarray(r).reshape(g.shape)
+            assert np.isfinite(g.numpy()).all()
+            assert rel_err(g, r) <= 2e-6

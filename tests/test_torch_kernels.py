@@ -265,3 +265,69 @@ def test_executor_runs_fp32_on_the_card(cuda_device):
     for g, r in zip(got, want):
         err = (g.cpu() - r).abs().max() / r.abs().max()
         assert err.item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_warp_iris_site_matches_plain(cuda_device):
+    """K2 at its iris site: 64 px crops, two eyes a face with every right
+    eye mirrored, and eye ROIs whose size rounds to 0 (a degenerate mesh),
+    bit for bit; one launch."""
+    b, f, h, w = 4, 16, 853, 1280
+    frames = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(2)
+                           ).to(cuda_device)
+    cx, cy, size, theta = (t.to(cuda_device)
+                           for t in _rois(3, b, 2 * f, h, w))
+    size[:, :4] = torch.tensor([0.0, 0.3, 0.49, 0.5])
+    flip = (torch.arange(2 * f, device=cuda_device) % 2 == 1).expand(b, -1)
+    ct, st = theta.cos(), theta.sin()
+    before = warp.warp_normalize.launches
+    got = warp.warp_normalize(frames, cx, cy, size, ct, st, out_size=64,
+                              flip=flip.contiguous())
+    torch.cuda.synchronize()
+    assert warp.warp_normalize.launches == before + 1
+    want = warp.warp_normalize_plain(frames, cx, cy, size, ct, st,
+                                     out_size=64, flip=flip)
+    assert (got - want).abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_full_path_card_matches_cpu(cuda_device):
+    """The seeded FULL program (one block per stage) on the card against
+    the CPU on two 853x1280 frames: valid and blendshapes_valid equal,
+    keypoints within 1e-4, mesh and iris within 1e-2 px or 1e-5 of their
+    largest magnitude, blendshapes within 1e-4, head angles within 0.1
+    degree."""
+    from face_detection_tflite_torch.pipeline.config import FaceDetectionMode
+    from face_detection_tflite_torch.pipeline.programs import (
+        PipelineModels, build_pipeline_program)
+    frames = torch.randint(0, 256, (2, 853, 1280, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4))
+    _, *irs = random_init.random_pipeline_models(
+        frames, seed=3, detector_blocks=1, mesh_blocks=1, iris_blocks=1,
+        mixer_blocks=1)
+
+    def models(device):
+        det, mesh, iris, bs = (convert_model(ir) for ir in irs)
+        return PipelineModels(det, "back", mesh=mesh, device=device,
+                              iris=iris, blendshapes=bs)
+
+    with torch.inference_mode():
+        got = build_pipeline_program(models(cuda_device), 853, 1280,
+                                     FaceDetectionMode.FULL)(
+            frames.to(cuda_device))
+        want = build_pipeline_program(models("cpu"), 853, 1280,
+                                      FaceDetectionMode.FULL)(frames)
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.numpy() for k, v in want.items()}
+    assert want["valid"].any()
+    for key in ("valid", "blendshapes_valid"):
+        np.testing.assert_array_equal(got[key], want[key])
+    for key in ("boxes", "raw_keypoints", "keypoints", "blendshapes"):
+        assert np.abs(got[key] - want[key]).max() <= 1e-4, key
+    for key in ("mesh", "iris"):
+        tol = max(1e-2, 1e-5 * np.abs(want[key]).max())
+        assert np.abs(got[key] - want[key]).max() <= tol, key
+    np.testing.assert_array_equal(np.isnan(got["head_angles"]),
+                                  np.isnan(want["head_angles"]))
+    assert np.nanmax(np.abs(got["head_angles"] - want["head_angles"])) <= 0.1

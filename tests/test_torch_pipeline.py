@@ -13,8 +13,6 @@ import pytest
 import torch
 
 from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
-from face_detection_tflite_torch.convert.executor import params_from_jax
-from face_detection_tflite_torch.models import random_init
 from face_detection_tflite_torch.ops.detections import (_topk_candidates,
                                                         decode_detections)
 from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
@@ -22,33 +20,16 @@ from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
 from face_detection_tflite_torch.ops.nms import _iou_matrix
 from face_detection_tflite_torch.pipeline.programs import \
     build_pipeline_program
-from face_detection_tflite_tpu.convert.executor import \
-    convert_model as j_convert
 from face_detection_tflite_tpu.pipeline import programs as j_programs
 from face_detection_tflite_tpu.pipeline.config import \
     FaceDetectionMode as JMode
 
-from .torch_parity import jax_ir
-
-H, W, B, MAX_FACES = 96, 144, 2, 4
-SEED = 11
+from .torch_parity import B, H, MAX_FACES, W, small_pipeline
 
 
 @pytest.fixture(scope="module")
 def setup():
-    rng = np.random.default_rng(SEED)
-    frames = rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
-    models, det_ir, mesh_ir = random_init.random_pipeline_models(
-        torch.from_numpy(frames), seed=SEED, detector_blocks=1,
-        mesh_blocks=1, per_image=12)
-    jdet = j_convert(jax_ir(det_ir))
-    jmesh = j_convert(jax_ir(mesh_ir))
-    for ir, jm, tm in ((det_ir, jdet, models.detector),
-                       (mesh_ir, jmesh, models.mesh)):
-        tm.load_state_dict(params_from_jax(
-            ir, {k: np.asarray(v) for k, v in jm.params.items()}))
-    jmodels = j_programs.PipelineModels(jdet, "back", mesh=jmesh)
-    return frames, models, jmodels
+    return small_pipeline()
 
 
 def _jax_slab(jmodels, frames, **kw):
@@ -185,7 +166,27 @@ def test_detector_surface_raises_for_unported_features(setup):
                {"precision": "high"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FaceDetector(models=models, device="cpu", **kw)
-    det = FaceDetector(models=models, device="cpu")
-    with pytest.raises(NotImplementedError, match="FULL"):
-        det.detect_faces_batch(np.zeros((1, H, W, 3), np.uint8),
-                               FaceDetectionMode.FULL)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_pipeline_program(models, H, W, with_embeddings=True)
+
+
+def test_detector_full_mode_runs(setup):
+    """FULL is the default mode: every face carries 152 iris points, 52
+    coefficients in [0, 1] and head angles."""
+    frames, models, _ = setup
+    det = FaceDetector(models=models, device="cpu", max_faces=MAX_FACES)
+    faces = det.detect_faces_batch(frames)
+    assert [len(f) for f in faces] == \
+        [len(f) for f in det.detect_faces_batch(frames,
+                                                FaceDetectionMode.FULL)]
+    assert sum(len(f) for f in faces) >= B
+    for face in (f for per_image in faces for f in per_image):
+        assert face.iris_points.shape == (152, 3)
+        assert face.eyes is not None and face.eyes.right_eye is not None
+        scores = face.blendshapes.scores
+        assert len(scores) == 52 and 0.0 <= min(scores) <= max(scores) <= 1
+        assert face.head_euler_angles is not None
+    with pytest.raises(ValueError, match="iris"):
+        build_pipeline_program(
+            type(models)(models.detector, "back", mesh=models.mesh,
+                         device="cpu"), H, W, FaceDetectionMode.FULL)

@@ -118,8 +118,9 @@ def test_standard_program_uses_the_same_slab():
     h, w, d = 96, 144, 4
     frames = torch.from_numpy(np.random.default_rng(11).integers(
         0, 256, (2, h, w, 3), dtype=np.uint8))
-    models, _, _ = random_init.random_pipeline_models(
-        frames, seed=11, detector_blocks=1, mesh_blocks=1, per_image=12)
+    models, *_ = random_init.random_pipeline_models(
+        frames, seed=11, detector_blocks=1, mesh_blocks=1, per_image=12,
+        iris_blocks=1, mixer_blocks=1)
     with torch.inference_mode():
         out = build_pipeline_program(models, h, w, FaceDetectionMode.STANDARD,
                                      max_faces=d, face_slab=2)(frames)

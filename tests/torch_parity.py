@@ -4,10 +4,18 @@ package: the same IR and the same numpy inputs reach both."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from face_detection_tflite_torch.convert import executor as t_exec
+from face_detection_tflite_torch.models import random_init
 from face_detection_tflite_tpu.convert import executor as j_exec
 from face_detection_tflite_tpu.convert import tflite as j_tflite
+from face_detection_tflite_tpu.pipeline import programs as j_programs
+
+#: The small pipeline setup: two 96x144 frames, a 4-face slab, one block
+#: per stage of every seeded network, about 12 candidates per frame.
+H, W, B, MAX_FACES = 96, 144, 2, 4
+SEED = 11
 
 
 def jax_ir(ir):
@@ -36,3 +44,24 @@ def rel_err(got, ref) -> float:
     ref = np.asarray(ref, np.float64)
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
+
+
+def small_pipeline():
+    """(frames, port PipelineModels on the CPU, JAX PipelineModels) of the
+    small setup: all four seeded networks (detector, mesh, iris,
+    blendshapes), the port's carrying the JAX params."""
+    frames = np.random.default_rng(SEED).integers(0, 256, (B, H, W, 3),
+                                                  dtype=np.uint8)
+    models, *irs = random_init.random_pipeline_models(
+        torch.from_numpy(frames), seed=SEED, detector_blocks=1,
+        mesh_blocks=1, per_image=12, iris_blocks=1, mixer_blocks=1)
+    jms = []
+    for ir, tm in zip(irs, (models.detector, models.mesh, models.iris,
+                            models.blendshapes)):
+        jm = j_exec.convert_model(jax_ir(ir))
+        tm.load_state_dict(t_exec.params_from_jax(
+            ir, {k: np.asarray(v) for k, v in jm.params.items()}))
+        jms.append(jm)
+    jmodels = j_programs.PipelineModels(jms[0], "back", mesh=jms[1],
+                                        iris=jms[2], blendshapes=jms[3])
+    return frames, models, jmodels
