@@ -31,7 +31,11 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    then it times each kernel on the main path's own inputs twice over
    the same 20 calls: CUDA events around each call (``ms``, which
    includes the host path of the ctypes call) and the kernel's own device
-   time in ``torch.profiler`` (``device_ms``, median); for K1 also the
+   time in ``torch.profiler`` (``device_ms``, median; where two profiler
+   sessions kept no device record, CUDA events around the same calls
+   queued back to back behind a spin kernel, and ``device_ms_by`` says
+   which; a profiled batch that kept none is printed as not
+   measured); for K1 also the
    host time of a call (host clock over 1,000 calls, no synchronise), an
    empty kernel's device time (the launch floor, context only) and, as
    the yardstick, the stage K1 replaced (``decode_detections``,
@@ -47,12 +51,27 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    and times K2 at its iris site on the main path's own eye ROIs (right
    eyes mirrored); the card-vs-CPU check adds the refined keypoints, the
    iris, the blendshapes, head angles and ``blendshapes_valid``;
-6. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+6. drives FULL with the fused embedding stage (``FaceDetector(
+   embed_in_full=True)``, the seeded full-width MobileFaceNet added) the
+   same way, with one K1 and three K2 launches a batch (192, 64 and
+   112 px, each once more on an overflow re-run); its profiled batch
+   shows MobileFaceNet as a layer of its own (the device work between two
+   marker kernels launched around the network's call); checks every face
+   for a 192-dim embedding of norm 1 (within 1e-4); prints the embedding
+   ROIs' sizes against the face ROIs'; holds and times K2 at its 112 px site on
+   the path's own embedding ROIs; times MobileFaceNet alone on the path's
+   own crops (event and summed device ms, launches, its fp32 operations'
+   bound); holds ``get_face_embeddings`` on one frame's faces against
+   their fused embeddings (fp32 readback, within 1e-3) and checks that
+   the frame was uploaded once; the card-vs-CPU check adds the
+   embeddings;
+7. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's); the iris
    site's (``warp_normalize_iris64``) is its count over the FULL path's
-   batches; ``nms_core`` is off the main path (0) and its launches in
-   step 3 are ``check_launches``.
+   batches and the embedding site's (``warp_normalize_embed112``) over
+   the embedding phase's; ``nms_core`` is off the main path (0) and its
+   launches in step 3 are ``check_launches``.
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -93,12 +112,16 @@ SLAB_VALUE_OPS = 2
 SEED = 3
 FRAMES, HEIGHT, WIDTH = 16, 853, 1280
 MAX_FACES = 16
-MESH_SIZE, IRIS_SIZE = 192, 64
-# Card-vs-CPU tolerances of the programs' outputs (head angles in degrees);
-# the mesh and the iris are held to 1e-2 px or 1e-5 of their largest
-# magnitude.
+MESH_SIZE, IRIS_SIZE, EMBED_SIZE = 192, 64, 112
+# The name of the empty kernel of torch.cuda._sleep(0), which marks the
+# embedding network's calls in the profiled batch.
+MARKER = "spin_kernel"
+# Card-vs-CPU tolerances of the programs' outputs (head angles in degrees;
+# embeddings are unit vectors); the mesh and the iris are held to 1e-2 px
+# or 1e-5 of their largest magnitude.
 CPU_TOLERANCES = {"boxes": 1e-4, "raw_keypoints": 1e-4, "keypoints": 1e-4,
-                  "blendshapes": 1e-4, "head_angles": 0.1}
+                  "blendshapes": 1e-4, "head_angles": 0.1,
+                  "embeddings": 1e-3}
 
 
 def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -118,54 +141,120 @@ def _median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _kernel_ms(fn, layer: str, iters: int = 20) -> tuple[float, float]:
-    """(event ms, device ms) of a kernel wrapper that launches one kernel per
-    call: the CUDA-event median of ``iters`` timed calls, which includes the
-    host path of the call, and the median of the same calls' device time of
-    the kernel in ``torch.profiler``, found by its layer (:func:`_layer`).
-    Raises when the profiler recorded none of them; the profiler can lose
-    some device records, which the median then leaves out."""
+def _profiled(run, keep, what: str, sessions: int = 2):
+    """``run()`` inside ``torch.profiler`` and the device activities that
+    ``keep`` accepts, as (result of run, [(start us, end us, name)]).  The
+    profiler can lose every device record of a session once a process has
+    opened many sessions, so a session that kept none is repeated, up to
+    ``sessions`` in all; after that the activities are empty and the
+    caller falls back to CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    for attempt in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            result = run()
+        device = [(e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and keep(e.name)]
+        if device:
+            return result, device
+        print(f"profile: torch.profiler session {attempt + 1} of "
+              f"{sessions} recorded no device activity of {what}")
+    return result, []
+
+
+def _queued_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` without the profiler: a spin kernel
+    holds the stream while the host enqueues ``iters`` calls between two
+    CUDA events, so the events time the calls' device work back to back
+    (the gaps between launches included).  The hold is sized from the
+    host's own enqueue time and doubled, twice at most, until the start
+    event was still pending when the last call was enqueued; None where
+    it never was (``fn`` waits for the device on the host)."""
+    import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ms = _median_ms(fn, iters=iters, warmup=0)
-    device_us = [e.time_range.end - e.time_range.start
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and _layer(e.name) == layer]
-    if len(device_us) != iters:
-        print(f"profile: torch.profiler recorded {len(device_us)} device "
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        # Clock cycles at ~2 GHz: four times the host's enqueue time.
+        cycles = int(8e9 * host_s * 2 ** attempt) + 1_000_000
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / iters
+    return None
+
+
+def _kernel_ms(fn, layer: str, iters: int = 20) -> tuple[float, float, str]:
+    """(event ms, device ms, where the device ms comes from) of a kernel
+    wrapper that launches one kernel per call: the CUDA-event median of
+    ``iters`` timed calls, which includes the host path of the call, and
+    the median of the same calls' device time of the kernel in
+    ``torch.profiler``, found by its layer (:func:`_layer`).  The profiler
+    can lose some device records, which the median then leaves out; where
+    it kept none (:func:`_profiled`), the device ms is :func:`_queued_ms`."""
+    for _ in range(3):
+        fn()
+    ms, device = _profiled(lambda: _median_ms(fn, iters=iters, warmup=0),
+                           lambda name: _layer(name) == layer, layer)
+    if len(device) != iters:
+        print(f"profile: torch.profiler recorded {len(device)} device "
               f"launches of {layer} for {iters} timed calls")
-    if not device_us:
-        raise RuntimeError(f"no device time for {layer}")
-    return ms, statistics.median(device_us) / 1e3
+    if not device:
+        dev_ms = _queued_ms(fn, iters)
+        if dev_ms is None:
+            raise RuntimeError(f"no device time for {layer}: the profiler "
+                               f"kept no record and the wrapper waits for "
+                               f"the device on the host")
+        print(f"profile: {layer} device time from queued CUDA events: "
+              f"{dev_ms:.4f} ms a call")
+        return ms, dev_ms, "queued events"
+    return ms, statistics.median(e - s for s, e, _ in device) / 1e3, \
+        "profiler"
 
 
-def _stage_ms(fn, iters: int = 20) -> tuple[float, float, float, set]:
+def _stage_ms(fn, iters: int = 20
+              ) -> tuple[float, float | None, float | None, set]:
     """(event ms, device ms, device launches, layers) per call of ``fn``,
     which may launch many kernels: the CUDA-event median of ``iters`` calls
     and, over the same calls in ``torch.profiler``, the summed device time
     and the count of device activities divided by ``iters`` (a lower bound
-    where the profiler lost records), and the layers they belong to."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    where the profiler lost records), and the layers they belong to.
+    Where the profiler kept no record (:func:`_profiled`), the device ms
+    is :func:`_queued_ms` (None where ``fn`` waits on the host), and the
+    launches (None) and layers (empty) are not measured."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ms = _median_ms(fn, iters=iters, warmup=0)
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("no device activity in the profiled stage")
-    spans = [e.time_range.end - e.time_range.start for e in events]
-    return (ms, sum(spans) / 1e3 / iters, len(spans) / iters,
-            {_layer(e.name) for e in events})
+    ms, device = _profiled(lambda: _median_ms(fn, iters=iters, warmup=0),
+                           lambda name: True, "the stage")
+    if not device:
+        dev_ms = _queued_ms(fn, iters)
+        print(f"profile: stage device time from queued CUDA events: "
+              f"{_num(dev_ms, '.4f')} ms a call; its launches and layers "
+              f"are not measured")
+        return ms, dev_ms, None, set()
+    return (ms, sum(e - s for s, e, _ in device) / 1e3 / iters,
+            len(device) / iters, {_layer(name) for _, _, name in device})
+
+
+def _num(x, spec: str = "g") -> str:
+    """A measured number for a printout; None is not measured."""
+    return "(not measured)" if x is None else format(x, spec)
 
 
 def _host_ms(fn, calls: int = 1000) -> float:
@@ -351,29 +440,63 @@ def _layer(kernel_name: str) -> str:
     return "other torch ops"
 
 
-def _profile_batch(det, frames_np, mode, card: str) -> None:
+def _profile_batch(det, frames_np, mode, card: str, net=None) -> None:
     """One steady main-path batch under torch.profiler: device time by
-    layer and by kernel, and the device's idle share of the window."""
+    layer and by kernel, and the device's idle share of the window.  With
+    ``net`` (the embedding network the batch runs), an empty marker kernel
+    (``torch.cuda._sleep(0)``) is launched just before and just after each
+    of its calls; the device work between a pair of markers on the one
+    stream is a layer of its own, ``MobileFaceNet``, split again by
+    :func:`_layer`, and the markers themselves are left out.  Where the
+    profiler kept no record of the batch (:func:`_profiled`), or not a
+    pair of markers a network call, the breakdown is printed as not
+    measured."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if net is not None:
+        call = net.forward
+
+        def marked(*args):
+            torch.cuda._sleep(0)
+            out = call(*args)
+            torch.cuda._sleep(0)
+            return out
+        net.forward = marked
+    def run():
         t0 = time.perf_counter()
         det.detect_faces_batch(frames_np, mode)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = [(e.time_range.start, e.time_range.end, e.name)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not spans:
-        print("profile: torch.profiler recorded no device activity")
-        raise RuntimeError("no device activity in the profiled batch")
+        return (time.perf_counter() - t0) * 1e3
+
+    try:
+        wall_ms, device = _profiled(run, lambda name: True, "the batch")
+    finally:
+        if net is not None:
+            del net.forward
+    device.sort()
+    if not any(MARKER not in name for _, _, name in device):
+        print("profile: the batch's breakdown is not measured")
+        return
+    marks = [s for s, _, name in device if MARKER in name]
+    if (net is None and marks) or \
+            (net is not None and (not marks or len(marks) % 2)):
+        print(f"profile: {len(marks)} {MARKER} markers around the embedding "
+              f"network, not a pair a call; the batch's breakdown is not "
+              f"measured")
+        return
+    windows = list(zip(marks[0::2], marks[1::2]))
+    spans = [(s, e, name, any(a < s < b for a, b in windows))
+             for s, e, name in device if MARKER not in name]
     by_layer: dict[str, float] = {}
     by_name: dict[str, list] = {}
+    net_layers: dict[str, list] = {}
     busy, cur_s, cur_e = 0.0, None, None
-    for s, e, name in sorted(spans):
-        by_layer[_layer(name)] = by_layer.get(_layer(name), 0.0) + (e - s)
+    for s, e, name, mine in sorted(spans):
+        layer = "MobileFaceNet" if mine else _layer(name)
+        by_layer[layer] = by_layer.get(layer, 0.0) + (e - s)
+        if mine:
+            acc = net_layers.setdefault(_layer(name), [0.0, 0])
+            acc[0] += e - s
+            acc[1] += 1
         acc = by_name.setdefault(name, [0.0, 0])
         acc[0] += e - s
         acc[1] += 1
@@ -384,13 +507,21 @@ def _profile_batch(det, frames_np, mode, card: str) -> None:
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    window = max(e for _, e, _ in spans) - min(s for s, _, _ in spans)
+    window = max(sp[1] for sp in spans) - min(sp[0] for sp in spans)
     print(f"profile (one steady batch, host wall {wall_ms:.2f} ms) "
           f"[{card}]: device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms device window "
           f"(idle share {1 - busy / window:.3f})")
     for layer, us in sorted(by_layer.items(), key=lambda kv: -kv[1]):
         print(f"  layer {layer}: {us / 1e3:.3f} ms")
+    if net is not None:
+        if not net_layers:
+            print("  MobileFaceNet: no device work recorded between its "
+                  "markers; not measured")
+        for layer, (us, n) in sorted(net_layers.items(),
+                                     key=lambda kv: -kv[1][0]):
+            print(f"  MobileFaceNet's {layer}: {us / 1e3:.3f} ms over {n} "
+                  f"device activities")
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:12]:
         print(f"  kernel {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
@@ -424,16 +555,16 @@ def _card_vs_cpu(got: dict, want: dict, label: str) -> None:
 
 
 def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
-                     card: str) -> dict:
+                     card: str, embed: bool = False) -> dict:
     """Drives ``mode`` through ``FaceDetector`` for ``runs`` batches (FULL,
-    the default, without a mode argument), with every launch count set to
-    0 just before, and checks one K1 launch a batch, one K2 launch a batch
-    for each crop size of the mode (plus one on each overflow re-run), no
-    ``nms_core`` and a face with a finite mesh on every image; profiles
-    one steady batch; builds the slab of every frame on the card
-    (``min_score=0.5``: the kernel rows' inputs) and holds the card against
-    the CPU on two frames.  Returns the last batch's faces, the launches
-    and that slab."""
+    the default, without a mode argument; with ``embed``, a detector with
+    ``embed_in_full``), with every launch count set to 0 just before, and
+    checks one K1 launch a batch, one K2 launch a batch for each crop size
+    of the mode (plus one on each overflow re-run), no ``nms_core`` and a
+    face with a finite mesh on every image; profiles one steady batch;
+    builds the slab of every frame on the card (``min_score=0.5``: the
+    kernel rows' inputs) and holds the card against the CPU on two frames.
+    Returns the last batch's faces, the launches and that slab."""
     import numpy as np
     import torch
     from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
@@ -444,8 +575,10 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
         build_pipeline_program
 
     full = mode is FaceDetectionMode.FULL
-    name = mode.name
-    det = FaceDetector(models=models, device="cuda", max_faces=MAX_FACES)
+    name = mode.name + ("+embeddings" if embed else "")
+    det = FaceDetector(models=models, device=frames.device,
+                       max_faces=MAX_FACES, embed_in_full=embed,
+                       allow_untrained_embeddings=True)
     detections.detection_postprocess.launches = 0
     nms_mod.nms_core.launches = 0
     warp_mod.warp_normalize.launches = 0
@@ -474,7 +607,8 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
     print(f"{name} launches over the {runs} batches ({reruns} overflow "
           f"re-runs): {launches}")
     print(f"{name} timings: {det.timings!r}")
-    sizes = (MESH_SIZE, IRIS_SIZE) if full else (MESH_SIZE,)
+    sizes = (MESH_SIZE,) + ((IRIS_SIZE,) if full else ()) + \
+        ((EMBED_SIZE,) if embed else ())
     if launches["detection_postprocess"] != runs or launches["nms_core"] \
             or launches["warp_normalize"] != {s: runs + reruns
                                               for s in sizes}:
@@ -487,19 +621,19 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
         if face.mesh.points.shape != (468, 3) or \
                 not np.isfinite(face.mesh.points).all():
             raise AssertionError("mesh is not a finite [468, 3] array")
-    _profile_batch(det, frames_np, mode, card)
+    _profile_batch(det, frames_np, mode, card,
+                   net=models.embedding if embed else None)
     det.dispose()
 
     two = torch.from_numpy(frames_np[:2])
+    kw = {"max_faces": MAX_FACES, "with_embeddings": embed}
     with torch.inference_mode():
         slab = build_pipeline_program(models, HEIGHT, WIDTH, mode,
-                                      max_faces=MAX_FACES, min_score=0.5)(
-            frames)
-        got = build_pipeline_program(models, HEIGHT, WIDTH, mode,
-                                     max_faces=MAX_FACES)(
+                                      min_score=0.5, **kw)(frames)
+        got = build_pipeline_program(models, HEIGHT, WIDTH, mode, **kw)(
             two.to(frames.device))
         want = build_pipeline_program(cpu_models, HEIGHT, WIDTH, mode,
-                                      max_faces=MAX_FACES)(two)
+                                      **kw)(two)
     _card_vs_cpu(got, want, name)
     return {"faces": faces, "launches": launches, "slab": slab}
 
@@ -535,6 +669,70 @@ def _check_full_faces(faces, slab) -> None:
                              "pick another seed")
 
 
+def _check_embeddings(faces) -> None:
+    """Every face of the fused embedding stage has a finite 192-dim
+    embedding of norm 1 (within 1e-4)."""
+    import numpy as np
+    for face in (f for per in faces for f in per):
+        e = face.embedding
+        if e is None or e.shape != (192,) or not np.isfinite(e).all() or \
+                abs(float(np.linalg.norm(e)) - 1.0) > 1e-4:
+            raise AssertionError("a face lacks a unit 192-dim embedding")
+
+
+def _check_standalone_embeddings(models, frames_np, card: str) -> None:
+    """``get_face_embeddings`` on one frame's faces against their fused
+    embeddings, within 1e-3 (the JAX package's bound for the same
+    comparison): with the fp32 readback both align on the program's own
+    eye points, in float64 on the host and float32 in the program.  The frame must be uploaded once for the
+    detection and the embeddings (the one-entry upload cache)."""
+    import numpy as np
+    from face_detection_tflite_torch import FaceDetector
+    det = FaceDetector(models=models, device=models.device,
+                       max_faces=MAX_FACES, embed_in_full=True,
+                       allow_untrained_embeddings=True,
+                       quantized_readback=False)
+    img = frames_np[0]
+    faces = det.detect_faces(img)
+    uploaded = det._devput_cache[2]
+    sep = det.get_face_embeddings(faces, img)
+    if det._devput_cache[2] is not uploaded:
+        raise AssertionError("get_face_embeddings uploaded the frame again")
+    err = max(float(np.abs(f.embedding - e).max())
+              for f, e in zip(faces, sep))
+    print(f"get_face_embeddings on frame 0's {len(faces)} faces vs their "
+          f"fused embeddings: max_abs_err={err:.3g} (one upload)  [{card}]")
+    if err > 1e-3:
+        raise AssertionError("standalone and fused embeddings disagree")
+    det.dispose()
+
+
+def _time_mobilefacenet(net, frames, roi, card: str) -> dict:
+    """MobileFaceNet alone on the embedding path's own ``[B * D]`` crops:
+    event ms, device ms summed over its kernels and device launches per
+    call (:func:`_stage_ms`), and the least time of its convolutions' fp32
+    operations (``torch.utils.flop_counter``) at the fp32 peak."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from face_detection_tflite_torch.ops import warp as warp_mod
+    with torch.inference_mode():
+        x = warp_mod.warp_normalize(frames, *roi, out_size=EMBED_SIZE
+                                    ).reshape(-1, EMBED_SIZE, EMBED_SIZE, 3)
+        with FlopCounterMode(display=False) as counter:
+            net(x)
+        flops = counter.get_total_flops()
+        ms, dev_ms, launches, layers = _stage_ms(lambda: net(x), iters=10)
+    bound = flops / PEAK_FP32_OPS_PER_S * 1e3
+    print(f"MobileFaceNet on the path's {x.shape[0]} crops: {ms:.3f} ms event,"
+          f" {_num(dev_ms, '.3f')} ms device over {_num(launches)} device "
+          f"launches a call (layers {sorted(layers)}); "
+          f"{flops / 1e9:.1f} GFLOP of "
+          f"convolutions, {flops / x.shape[0] / 2e6:.1f} M multiply-adds a "
+          f"face, fp32-peak bound {bound:.3f} ms  [{card}]")
+    return {"ms": ms, "device_ms": dev_ms, "launches": launches,
+            "gflop": flops / 1e9, "bound_ms": bound}
+
+
 def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
                ) -> dict:
     """Holds K2 bit for bit against its plain version on ``roi`` (cx, cy,
@@ -559,7 +757,7 @@ def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
         if err != 0:
             raise AssertionError(f"K2 {label}: kernel differs from plain by "
                                  f"{err}")
-        ms, dev_ms = _kernel_ms(kernel, "K2 warp_normalize")
+        ms, dev_ms, dev_by = _kernel_ms(kernel, "K2 warp_normalize")
         plain_ms = _median_ms(plain, iters=5, warmup=1)
         sx, sy = _sample_grid(*roi, s, flip)
         touched_px = _tap_footprint(sx, sy, HEIGHT, WIDTH)
@@ -575,8 +773,47 @@ def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
           f"grid_sample {lib_ms:.4f} ms (max diff {lib_err:.3g}), bound "
           f"{bound:.6f} ms ({by})  [{card}]")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_by": dev_by,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}
+
+
+def _embedding_phase(models, cpu_models, frames, frames_np, runs: int,
+                     card: str) -> tuple[dict, dict]:
+    """Step 6: FULL with the fused embedding stage through
+    :func:`_drive_main_path`, its faces' embeddings, the embedding ROIs'
+    sizes, K2 at its 112 px site on the path's own ROIs, MobileFaceNet
+    alone, and the standalone embeddings.  Returns the path's result and
+    the 112 px site's ``kernels`` fields."""
+    import torch
+    from face_detection_tflite_torch import FaceDetectionMode
+    from face_detection_tflite_torch.models.embedding import \
+        alignment_from_eyes
+    from face_detection_tflite_torch.pipeline import geometry
+    emb = _drive_main_path(models, cpu_models, frames, frames_np,
+                           FaceDetectionMode.FULL, runs, card, embed=True)
+    _check_embeddings(emb["faces"])
+    with torch.inference_mode():
+        kp, valid = emb["slab"]["keypoints"], emb["slab"]["valid"]
+        ecx, ecy, esize, etheta = alignment_from_eyes(
+            kp[..., 0, 0] * WIDTH, kp[..., 0, 1] * HEIGHT,
+            kp[..., 1, 0] * WIDTH, kp[..., 1, 1] * HEIGHT)
+        # The embedding stage warps with the negated angle.
+        eroi = [t.contiguous() for t in (ecx, ecy, esize, torch.cos(-etheta),
+                                         torch.sin(-etheta))]
+        face_size = geometry.compute_face_alignment(
+            emb["slab"]["raw_keypoints"], float(WIDTH), float(HEIGHT))[3]
+        ratio = (esize / face_size)[valid]
+    print(f"embedding ROIs of the {int(valid.sum())} faces: "
+          f"{esize[valid].min().item():.1f}-{esize[valid].max().item():.1f} "
+          f"px, {ratio.min().item():.3f}-{ratio.max().item():.3f} of the "
+          f"face ROI; face ROIs {face_size[valid].min().item():.1f}-"
+          f"{face_size[valid].max().item():.1f} px")
+    embed_site = _time_warp(frames, eroi, EMBED_SIZE, None, "embedding site",
+                            esize[valid], card)
+    _time_mobilefacenet(models.embedding, frames, eroi, card)
+    _check_standalone_embeddings(models, frames_np, card)
+    return emb, embed_site
 
 
 def main() -> int:
@@ -596,6 +833,8 @@ def main() -> int:
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
     from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.models.embedding import \
+        build_mobilefacenet
     from face_detection_tflite_torch.ops import detections
     from face_detection_tflite_torch.ops import nms as nms_mod
     from face_detection_tflite_torch.ops import warp as warp_mod
@@ -708,12 +947,14 @@ def main() -> int:
           f"iris {len(iris_ir.ops)} ops / {models.iris.num_params} weights, "
           f"blendshapes {len(bs_ir.ops)} ops / "
           f"{models.blendshapes.num_params} weights (fp16 behind "
-          f"DEQUANTIZE), seed {SEED}, built in "
+          f"DEQUANTIZE), MobileFaceNet {models.embedding.num_params} "
+          f"weights, seed {SEED}, built in "
           f"{time.perf_counter() - t0:.2f} s")
     cpu_models = PipelineModels(convert_model(det_ir), "back",
                                 mesh=convert_model(mesh_ir), device="cpu",
                                 iris=convert_model(iris_ir),
-                                blendshapes=convert_model(bs_ir))
+                                blendshapes=convert_model(bs_ir),
+                                embedding=build_mobilefacenet(SEED + 4))
     runs = 7
     std = _drive_main_path(models, cpu_models, frames, frames_np,
                            FaceDetectionMode.STANDARD, runs, card)
@@ -737,13 +978,15 @@ def main() -> int:
             b_, k_, s_, v_ = weighted_nms(b_, k_, s_, v_, **post_kw)
             return (*remove_letterbox(b_, k_, lbp.padding), s_, v_)
 
-        post_ms, post_dev_ms = _kernel_ms(fused, "K1 detection_postprocess")
+        post_ms, post_dev_ms, post_dev_by = _kernel_ms(
+            fused, "K1 detection_postprocess")
         post_host_ms = _host_ms(fused)
         before = detections.detection_postprocess.launches
         fused()
         fused_launches = detections.detection_postprocess.launches - before
         _, _, recorded, layers = _stage_ms(fused)
-        if fused_launches != 1 or layers != {"K1 detection_postprocess"}:
+        if fused_launches != 1 or (recorded is not None and
+                                   layers != {"K1 detection_postprocess"}):
             raise AssertionError(f"K1 made {fused_launches} launches a call "
                                  f"and device work in {layers}")
         post_plain_ms = _median_ms(lambda: detections.detection_postprocess_plain(
@@ -751,7 +994,7 @@ def main() -> int:
         stage_ms, stage_dev_ms, stage_launches, _ = _stage_ms(replaced_stage)
         lib = build.load()
         stream = torch.cuda.current_stream().cuda_stream
-        _, empty_dev_ms = _kernel_ms(lambda: build.check(
+        _, empty_dev_ms, _ = _kernel_ms(lambda: build.check(
             lib.fdt_empty_kernel(stream), "empty kernel"), "launch floor")
 
         boxes, kp, scores, valid = decode_detections(*post_args[:4])
@@ -760,7 +1003,7 @@ def main() -> int:
         slab_leaders = int(fused()[3].sum())
         print(f"valid candidates per image: {counts}; leaders in the slab: "
               f"{slab_leaders}")
-        nms_ms, nms_dev_ms = _kernel_ms(
+        nms_ms, nms_dev_ms, nms_dev_by = _kernel_ms(
             lambda: nms_mod.nms_core(tb, ts, tv), "nms_core")
         nms_plain_ms = _median_ms(lambda: nms_mod.nms_core_plain(tb, ts, tv),
                                   iters=5, warmup=1)
@@ -777,14 +1020,15 @@ def main() -> int:
                 (cx_m, cy_m, size_m, torch.cos(-theta_m), torch.sin(-theta_m))]
     print(f"K1 detection_postprocess main-path inputs: kernel {post_ms:.4f} "
           f"ms (device {post_dev_ms:.4f} ms, host {post_host_ms:.4f} ms a "
-          f"call, {fused_launches:g} launch and no other device work a call,"
-          f" {recorded:g} recorded by the profiler), plain "
+          f"call, {fused_launches:g} launch a call, device work in "
+          f"{sorted(layers) or 'layers not measured'}, {_num(recorded)} "
+          f"recorded by the profiler), plain "
           f"{post_plain_ms:.4f} ms; empty kernel device {empty_dev_ms:.4f} "
           f"ms  [{card}]")
     print(f"replaced stage (decode_detections + weighted_nms via nms_core "
           f"+ remove_letterbox) on the same inputs: {stage_ms:.4f} ms event, "
-          f"{stage_dev_ms:.4f} ms device over {stage_launches:g} device "
-          f"launches a call  [{card}]")
+          f"{_num(stage_dev_ms, '.4f')} ms device over "
+          f"{_num(stage_launches)} device launches a call  [{card}]")
     print(f"nms_core main-path candidates: kernel {nms_ms:.4f} ms (device "
           f"{nms_dev_ms:.4f} ms), plain {nms_plain_ms:.4f} ms  [{card}]")
     mesh_site = _time_warp(frames, mroi, s, None, "mesh site",
@@ -807,7 +1051,11 @@ def main() -> int:
         frames, iroi, IRIS_SIZE, eye_flip, "iris site, right eyes mirrored",
         esize[full["slab"]["valid"].repeat_interleave(2, dim=1)], card)
 
-    # -- 6. result lines ------------------------------------------------------
+    # -- 6. FULL with the fused embedding stage --------------------------------
+    emb, embed_site = _embedding_phase(models, cpu_models, frames, frames_np,
+                                       runs, card)
+
+    # -- 7. result lines ------------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -823,6 +1071,7 @@ def main() -> int:
          "launches": std["launches"]["detection_postprocess"],
          "full_launches": full["launches"]["detection_postprocess"],
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
+         "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
          "bound_ms": post_bound, "bound_by": post_by, "library_ms": None,
          "empty_kernel_device_ms": empty_dev_ms,
@@ -833,7 +1082,8 @@ def main() -> int:
          "replaces": "face_detection_tflite_tpu/ops/nms_pallas.py:36",
          "launches": std["launches"]["nms_core"],
          "check_launches": check_launches, "max_abs_err": k1_err,
-         "ms": nms_ms, "device_ms": nms_dev_ms, "plain_ms": nms_plain_ms,
+         "ms": nms_ms, "device_ms": nms_dev_ms, "device_ms_by": nms_dev_by,
+         "plain_ms": nms_plain_ms,
          "bound_ms": nms_bound,
          "bound_by": nms_by, "library_ms": None},
         {"name": "warp_normalize", "route": "cuda",
@@ -845,6 +1095,11 @@ def main() -> int:
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
          "launches": full_k2[IRIS_SIZE], **iris_site},
+        {"name": "warp_normalize_embed112", "route": "cuda",
+         "source": f"{PACKAGE}/csrc/warp.cu",
+         "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
+         "launches": emb["launches"]["warp_normalize"][EMBED_SIZE],
+         **embed_site},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

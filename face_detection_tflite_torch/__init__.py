@@ -3,10 +3,11 @@
 A second package beside ``face_detection_tflite_tpu`` (the JAX reference),
 built slice by slice.  It runs :class:`FaceDetector` on an NVIDIA Hopper
 GPU in FULL mode, the default (BlazeFace back detection, the 468-point
-mesh, iris landmarks, blendshapes, head pose and iris-refined keypoints),
-and in STANDARD and FAST, with hand-written CUDA kernels for the detection
-postprocess and the ROI warp.  It imports ``torch`` and numpy, never
-``jax`` or the JAX package.
+mesh, iris landmarks, blendshapes, head pose and iris-refined keypoints,
+and on request face embeddings), and in STANDARD and FAST, with
+hand-written CUDA kernels for the detection postprocess and the ROI warp;
+:class:`FaceEmbedding` (MobileFaceNet) embeds faces on its own.  It
+imports ``torch`` and numpy, never ``jax`` or the JAX package.
 
 Quick start::
 
@@ -15,8 +16,12 @@ Quick start::
     faces = det.detect_faces_batch(frames)    # [B, H, W, 3] uint8
 """
 
+from .convert.checkpoint import load_params_npz, save_params_npz
 from .convert.executor import (ConvertedModel, convert_file, convert_model,
                                params_from_jax)
+from .models.embedding import (FaceEmbedding, UntrainedEmbeddingWarning,
+                               compute_embedding_alignment, cosine_similarity,
+                               euclidean_distance)
 from .convert.tflite import parse_tflite
 from .ops.letterbox import LetterboxParams, letterbox_params
 from .pipeline.config import (MODEL_FILES, FaceDetectionMode,
@@ -35,5 +40,7 @@ __all__ = [
     "build_pipeline_program", "ConvertedModel", "convert_file",
     "convert_model", "params_from_jax", "parse_tflite", "resolve_model_dir",
     "DetectTimings", "FpsCounter", "LetterboxParams", "letterbox_params",
-    "MODEL_FILES", "BLENDSHAPE_NAMES",
+    "MODEL_FILES", "BLENDSHAPE_NAMES", "FaceEmbedding",
+    "UntrainedEmbeddingWarning", "cosine_similarity", "euclidean_distance",
+    "compute_embedding_alignment", "load_params_npz", "save_params_npz",
 ]

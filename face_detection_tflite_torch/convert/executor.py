@@ -38,7 +38,7 @@ from torch import nn
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
 __all__ = ["ConvertedModel", "SUPPORTED_OPS", "convert_model", "convert_file",
-           "params_from_jax"]
+           "params_from_jax", "resolve_device"]
 
 #: Ops this executor runs: the op mix of the BlazeFace, FaceMesh and iris
 #: graphs (convolutional) and of the blendshape MLP-Mixer (fully connected
@@ -212,6 +212,18 @@ def _port_tensor(kind: str | None, arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given (``cuda`` resolved to ``cuda:N``), else
+    ``cuda``; raises when CUDA is absent and the caller did not ask for
+    the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                               "the CPU")
+        device = "cuda"
+    return torch.empty(0, device=device).device
+
+
 @contextlib.contextmanager
 def _fp32_exact(device: torch.device):
     """fp32 convolutions and matmuls on the card: cuDNN would otherwise
@@ -271,6 +283,25 @@ class ConvertedModel(nn.Module):
     @property
     def num_params(self) -> int:
         return sum(b.numel() for b in self.buffers())
+
+    def jax_params(self) -> dict[str, np.ndarray]:
+        """The weights as the JAX ``ConvertedModel.params`` of the same
+        graph (keys ``t{index}``, OHWI and [1, kh, kw, C] filters)."""
+        kinds = _weight_kinds(self._ops)
+        perm = {"conv": (0, 2, 3, 1), "dw": (1, 2, 3, 0)}
+        out = {}
+        for tix, key in self._param_key.items():
+            t = getattr(self, key)
+            kind = kinds.get(tix)
+            out[key] = np.ascontiguousarray(
+                (t.permute(perm[kind]) if kind else t).cpu().numpy())
+        return out
+
+    def load_jax_params(self, params: dict[str, np.ndarray]
+                        ) -> "ConvertedModel":
+        """Loads the JAX ``ConvertedModel.params`` of the same graph."""
+        self.load_state_dict(_port_params(self._ops, params))
+        return self
 
     def forward(self, *inputs):
         if len(inputs) != len(self._input_ixs):
@@ -474,7 +505,11 @@ def params_from_jax(ir: ModelIR, jax_params: dict[str, np.ndarray]
     and [1, kh, kw, C] filter layouts) as a state dict of this executor's
     :class:`ConvertedModel` for the same IR: load it with
     ``model.load_state_dict(params_from_jax(ir, params))``."""
-    _, ops = _fold(ir)
+    return _port_params(_fold(ir)[1], jax_params)
+
+
+def _port_params(ops: list[OpIR], jax_params: dict[str, np.ndarray]
+                 ) -> dict[str, torch.Tensor]:
     kinds = _weight_kinds(ops)
     out: dict[str, torch.Tensor] = {}
     for key, arr in jax_params.items():

@@ -52,6 +52,7 @@ from ..convert.tflite import (PADDING_SAME, PADDING_VALID, ModelIR, OpIR,
                               TensorIR)
 from ..ops.letterbox import letterbox_image, letterbox_params
 from ..pipeline.programs import PipelineModels
+from .embedding import build_mobilefacenet
 
 __all__ = ["blazeface_back_ir", "face_mesh_ir", "iris_landmark_ir",
            "face_blendshapes_ir", "calibrate_score_bias",
@@ -435,7 +436,8 @@ def random_pipeline_models(frames: torch.Tensor, *, seed: int = 0,
     from seeds ``seed`` to ``seed + 3``), calibrates the detector's scores
     on ``frames`` ([B, H, W, 3] RGB, on the device the models should run
     on) and returns ``(PipelineModels, detector IR, mesh IR, iris IR,
-    blendshape IR)``."""
+    blendshape IR)``.  The models also carry the seeded full-width
+    MobileFaceNet (``build_mobilefacenet(seed + 4)``)."""
     det_ir = blazeface_back_ir(seed, detector_blocks)
     mesh_ir = face_mesh_ir(seed + 1, mesh_blocks)
     iris_ir = iris_landmark_ir(seed + 2, iris_blocks)
@@ -451,7 +453,8 @@ def random_pipeline_models(frames: torch.Tensor, *, seed: int = 0,
         convert_model(det_ir, name="blazeface-back-random"), "back",
         mesh=convert_model(mesh_ir, name="face-mesh-random"), device=device,
         iris=convert_model(iris_ir, name="iris-random"),
-        blendshapes=convert_model(bs_ir, name="blendshapes-random"))
+        blendshapes=convert_model(bs_ir, name="blendshapes-random"),
+        embedding=build_mobilefacenet(seed + 4))
     return models, det_ir, mesh_ir, iris_ir, bs_ir
 
 

@@ -14,6 +14,7 @@ pair, mirroring `computeLetterboxParams` from flutter_litert.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -90,26 +91,33 @@ def resize_taps(in_size: int, out_size: int
     return lo, hi, frac
 
 
+@functools.lru_cache(maxsize=32)
+def _device_taps(in_size: int, out_size: int, device: torch.device
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`resize_taps` as tensors on ``device``, uploaded once per
+    (in size, out size, device): a host-to-device copy in every call would
+    wait for the stream."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in resize_taps(in_size, out_size))
+
+
 def resize_bilinear_exact(x: torch.Tensor, out_h: int, out_w: int
                           ) -> torch.Tensor:
     """cv2.INTER_LINEAR-exact separable resize of ``[B, H, W, C]`` to
     float32 ``[B, out_h, out_w, C]``.  The vertical pass gathers rows in
     the source dtype and casts after the gather (exact for uint8)."""
     h, w = x.shape[1], x.shape[2]
-    dev = x.device
     if out_h != h:
-        lo, hi, frac = resize_taps(h, out_h)
-        f = torch.from_numpy(frac).to(dev)[:, None, None]
-        x = (x.index_select(1, torch.from_numpy(lo).to(dev)).float()
-             * (1.0 - f)
-             + x.index_select(1, torch.from_numpy(hi).to(dev)).float() * f)
+        lo, hi, frac = _device_taps(h, out_h, x.device)
+        f = frac[:, None, None]
+        x = (x.index_select(1, lo).float() * (1.0 - f)
+             + x.index_select(1, hi).float() * f)
     else:
         x = x.float()
     if out_w != w:
-        lo, hi, frac = resize_taps(w, out_w)
-        f = torch.from_numpy(frac).to(dev)[None, :, None]
-        x = (x.index_select(2, torch.from_numpy(lo).to(dev)) * (1.0 - f)
-             + x.index_select(2, torch.from_numpy(hi).to(dev)) * f)
+        lo, hi, frac = _device_taps(w, out_w, x.device)
+        f = frac[None, :, None]
+        x = x.index_select(2, lo) * (1.0 - f) + x.index_select(2, hi) * f
     return x
 
 

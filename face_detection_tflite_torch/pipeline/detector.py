@@ -5,26 +5,33 @@ Port of the FAST, STANDARD and FULL modes of the JAX package's
 `lib/src/face_detector.dart:53`): the constructor surface, ``detect_faces``
 and ``detect_faces_batch`` (FULL by default, as there) with the adaptive
 speculative dispatch, batch bucketing, the int16 quantized readback,
-``_materialize`` and ``dispose``.
+``_materialize``, ``warmup`` and ``dispose``; the face embeddings, fused
+into the FULL program (``embed_in_full``) or standalone
+(``get_face_embedding*``, ``compare_faces``, ``face_distance``), with the
+one-entry upload cache; and the packed-pixel entry points.
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
 and no explicit device the constructor raises.  Deliberate difference
 from the JAX detector: a keyword-only ``models=`` may replace loading the
 ``.tflite`` files from ``model_dir``.  Tracking, segmentation,
-embeddings, data-parallel serving and detector variants other than
-BACK_CAMERA raise ``NotImplementedError`` naming their ROADMAP item.
+data-parallel serving and detector variants other than BACK_CAMERA raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import Optional
+import zlib
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..convert.executor import convert_file
+from ..kernels import build as _build
+from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
+                                cosine_similarity, euclidean_distance, roi_ok)
 from .config import (DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE, MIN_SCORE,
                      MODEL_FILES, FaceDetectionMode, FaceDetectionModel)
 from .gates import validate_face_gates
@@ -34,9 +41,10 @@ from .types import Detection, Face, FaceMesh, RectF
 
 __all__ = ["FaceDetector", "resolve_model_dir", "resolve_device"]
 
-_DEFAULT_MODEL_DIR = os.path.join(
+_JAX_ASSETS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), "face_detection_tflite_tpu", "assets", "models")
+        __file__)))), "face_detection_tflite_tpu", "assets")
+_DEFAULT_MODEL_DIR = os.path.join(_JAX_ASSETS, "models")
 
 
 def resolve_model_dir(model_dir: Optional[str] = None) -> str:
@@ -53,6 +61,31 @@ def resolve_model_dir(model_dir: Optional[str] = None) -> str:
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _image_from_packed_bytes(data, width: int, height: int, channels: int,
+                             channel_order: str) -> np.ndarray:
+    """Raw packed pixel buffer -> RGB(A) array (Mat-bytes convention).
+    The array owns a writable copy of the bytes, so it can become a tensor
+    without a copy."""
+    buf = np.frombuffer(bytearray(data), np.uint8)
+    expected = width * height * channels
+    if buf.size != expected:
+        raise ValueError(
+            f"packed buffer holds {buf.size} bytes; {width}x{height}x"
+            f"{channels} needs {expected}")
+    img = buf.reshape(height, width, channels)
+    order = channel_order.lower()
+    if order not in ("bgr", "rgb", "bgra", "rgba"):
+        raise ValueError(f"unknown channel_order {channel_order!r}")
+    if len(order) != channels:
+        raise ValueError(
+            f"channel_order {channel_order!r} does not match "
+            f"channels={channels}")
+    if order.startswith("bgr"):
+        img = (np.concatenate([img[..., 2::-1], img[..., 3:]], axis=-1)
+               if channels == 4 else img[..., ::-1])
+    return img
 
 
 def _normalize_channels(images, device: torch.device) -> torch.Tensor:
@@ -106,6 +139,7 @@ class FaceDetector:
                  num_candidates: Optional[int] = None,
                  quantized_readback: bool = True,
                  detailed_timings: bool = False,
+                 allow_untrained_embeddings: bool = False,
                  embed_in_full: bool = False,
                  device=None,
                  models: Optional[PipelineModels] = None):
@@ -117,8 +151,6 @@ class FaceDetector:
             raise _not_ported("temporal tracking", "§1 item 7")
         if with_segmentation:
             raise _not_ported("segmentation", "§1 item 8")
-        if embed_in_full:
-            raise _not_ported("embeddings", "§1 item 8")
         if data_parallel:
             raise _not_ported("data-parallel serving", "§1 item 7")
         if precision != "highest":
@@ -135,19 +167,46 @@ class FaceDetector:
         self.bucket_batches = bucket_batches
         self.quantized_readback = quantized_readback
         self.detailed_timings = detailed_timings
+        self._disposed = False
+        try:
+            self._model_dir: Optional[str] = resolve_model_dir(model_dir)
+        except FileNotFoundError:
+            if models is None:
+                raise
+            self._model_dir = None
+        self._embedding: Optional[FaceEmbedding] = None
+        self._allow_untrained_embeddings = allow_untrained_embeddings
+        #: Fuse MobileFaceNet into the FULL program: every FULL face comes
+        #: back with its embedding from the same batch call.  Constructor
+        #: only (read-only property): the program cache is built from it.
+        self._embed_in_full = embed_in_full
         if models is None:
-            mdir = resolve_model_dir(model_dir)
             def load(key):
-                return convert_file(os.path.join(mdir, MODEL_FILES[key]))
+                return convert_file(os.path.join(self._model_dir,
+                                                 MODEL_FILES[key]))
 
             models = PipelineModels(
                 load(model.value), model.value, mesh=load("face_landmark"),
                 device=self.device, iris=load("iris_landmark"),
-                blendshapes=load("face_blendshapes"))
+                blendshapes=load("face_blendshapes"),
+                embedding=(self.embedding_model.model if embed_in_full
+                           else None))
         elif models.device != self.device:
             raise ValueError(f"models live on {models.device}, the detector "
                              f"on {self.device}")
+        elif models.embedding is not None:
+            # The fused stage and the standalone calls share one network.
+            self._embedding = FaceEmbedding(
+                models.embedding, allow_untrained=allow_untrained_embeddings,
+                device=self.device)
+        elif embed_in_full:
+            raise ValueError("embed_in_full needs an embedding model: pass "
+                             "models=PipelineModels(..., embedding=...)")
         self.models = models
+        if embed_in_full:
+            # The fused stage bypasses FaceEmbedding's per-call check, so
+            # the untrained-weights state is warned once, here.
+            self.embedding_model._check_trained()
         #: A score-less mesh graph's zero substitute must not gate on 0.5
         #: (face_detector_core.dart:101-103: a null meshScore passes).
         self._mesh_emits_score = any(
@@ -157,8 +216,47 @@ class FaceDetector:
         #: Sticky speculation bucket per (H, W, mode).
         self._spec_state: dict[tuple, dict] = {}
         self._spec_lock = threading.Lock()
-        self._disposed = False
+        #: One-entry host-to-device upload cache (see _device_put_cached).
+        self._devput_cache = None
+        self._devput_lock = threading.Lock()
         self.timings = DetectTimings()
+
+    @property
+    def embed_in_full(self) -> bool:
+        """Whether MobileFaceNet rides the fused FULL program (read-only:
+        the programs are built from the constructor's value)."""
+        return self._embed_in_full
+
+    def _embedding_weight_path(self) -> Optional[str]:
+        """The first trained-weight source for MobileFaceNet that exists,
+        or None (random-init weights, which cannot tell identities
+        apart)."""
+        candidates = [os.path.join(_JAX_ASSETS, "checkpoints",
+                                   "mobilefacenet.npz")]
+        if self._model_dir is not None:
+            candidates[:0] = [
+                os.path.join(self._model_dir, MODEL_FILES["embedding"]),
+                os.path.join(self._model_dir, "mobilefacenet.npz")]
+        return next((c for c in candidates if os.path.exists(c)), None)
+
+    @property
+    def is_embedding_pretrained(self) -> bool:
+        """Whether trained MobileFaceNet weights back the embeddings."""
+        if self._embedding is not None:
+            return self._embedding.is_pretrained
+        return self._embedding_weight_path() is not None
+
+    @property
+    def embedding_model(self) -> FaceEmbedding:
+        """The embedding network: ``models.embedding`` where the models
+        carry one, else loaded at first use."""
+        self._check_disposed()
+        if self._embedding is None:
+            self._embedding = FaceEmbedding.load(
+                self._embedding_weight_path(),
+                allow_untrained=self._allow_untrained_embeddings,
+                device=self.device)
+        return self._embedding
 
     # -- programs ----------------------------------------------------------
 
@@ -176,8 +274,12 @@ class FaceDetector:
                     self.models, img_h, img_w, mode,
                     max_faces=self.max_faces, min_score=self.min_score,
                     min_face_size=mfs, num_candidates=self.num_candidates,
-                    face_slab=face_slab)
+                    face_slab=face_slab,
+                    with_embeddings=self._with_embeddings(mode))
             return self._programs[key]
+
+    def _with_embeddings(self, mode: FaceDetectionMode) -> bool:
+        return self._embed_in_full and mode == FaceDetectionMode.FULL
 
     def _face_stage_program(self, img_h: int, img_w: int,
                             mode: FaceDetectionMode):
@@ -185,7 +287,8 @@ class FaceDetector:
         with self._programs_lock:
             if key not in self._programs:
                 self._programs[key] = build_pipeline_program(
-                    self.models, img_h, img_w, mode, from_detections=True)
+                    self.models, img_h, img_w, mode, from_detections=True,
+                    with_embeddings=self._with_embeddings(mode))
             return self._programs[key]
 
     # -- readback ------------------------------------------------------------
@@ -362,7 +465,12 @@ class FaceDetector:
                      mode: FaceDetectionMode = FaceDetectionMode.FULL
                      ) -> list[Face]:
         """Detects faces in one RGB image ([H, W, 3], uint8 or 0..255
-        float, numpy or tensor)."""
+        float, numpy or tensor).  A follow-up embedding of the same
+        ndarray reuses its upload (:meth:`_device_put_cached`)."""
+        if not isinstance(image, torch.Tensor):
+            image = np.asarray(image)
+        if image.ndim == 3 and image.shape[-1] in (1, 3, 4):
+            image = self._device_put_cached(image)
         return self.detect_faces_batch(image[None], mode)[0]
 
     def detect_faces_batch(self, images,
@@ -473,19 +581,172 @@ class FaceDetector:
                 detection=det, mesh=mesh,
                 irises=out["iris"][i, d] if full else np.zeros((0, 3)),
                 original_size=size_wh, blendshape_scores=bs,
+                embedding=(out["embeddings"][i, d] if "embeddings" in out
+                           else None),
                 # The program solved the head pose (fp32 in the readback).
                 head_angles=out["head_angles"][i, d] if full else None))
         return faces
 
+    # -- uploads and warm-up ---------------------------------------------------
+
+    def _device_put_cached(self, arr) -> torch.Tensor:
+        """One-entry host-to-device upload cache: detect + embed on the
+        SAME frame uploads it once.  A tensor on the device passes through.
+
+        A hit needs the same ndarray object (the entry holds a reference,
+        so its id cannot be recycled) and the same adler32 of a strided
+        sample of its bytes (about 64 KB, roughly every 50th byte of an
+        853x1280 frame), which catches most in-place reuse of a caller's
+        buffer; an edit confined to unsampled bytes is not caught.  A
+        checksum of the whole frame would tax every detection that never
+        embeds."""
+        if isinstance(arr, torch.Tensor):
+            return arr.to(self.device)
+        arr = np.ascontiguousarray(arr)
+
+        def sentinel(a: np.ndarray) -> int:
+            flat = a.reshape(-1).view(np.uint8)
+            step = max(1, flat.size // 65536)
+            return zlib.adler32(np.ascontiguousarray(flat[::step]))
+
+        with self._devput_lock:
+            cached = self._devput_cache
+            if (cached is not None and cached[0] is arr
+                    and cached[1] == sentinel(arr)):
+                return cached[2]
+        t = torch.from_numpy(arr)
+        dev = (t if t.dtype == torch.uint8 else t.float()).to(self.device)
+        with self._devput_lock:
+            self._devput_cache = (arr, sentinel(arr), dev)
+        return dev
+
+    def warmup(self, image_shape: tuple, batch_size: int = 1,
+               modes: Optional[Sequence[FaceDetectionMode]] = None,
+               devices: Optional[Sequence] = None) -> None:
+        """Builds the kernels, warms cuDNN and runs each mode once (all
+        three by default) on a zero batch of ``image_shape``, so the first
+        real request pays none of it; in the adaptive modes also the
+        overflow face-stage program at its smallest reachable slab, 2 (a
+        zero frame detects nothing, so a detection never reaches it)."""
+        if devices is not None:
+            raise _not_ported("per-device warm-up", "§1 item 7")
+        self._check_disposed()
+        h, w = image_shape[:2]
+        if self.bucket_images:
+            h, w = self._bucket(h), self._bucket(w)
+        if self.device.type == "cuda":
+            _build.load()
+        dummy = torch.zeros((batch_size, h, w, 3), dtype=torch.uint8,
+                            device=self.device)
+        b = self._batch_bucket(batch_size) if self.bucket_batches \
+            else batch_size
+        nf = min(2, self.max_faces)
+        for mode in modes or (FaceDetectionMode.FAST,
+                              FaceDetectionMode.STANDARD,
+                              FaceDetectionMode.FULL):
+            self.detect_faces_batch(dummy, mode)
+            if not self.adaptive or mode == FaceDetectionMode.FAST:
+                continue
+            dev = self.device
+            boxes = torch.tensor([0.3, 0.3, 0.7, 0.7], device=dev
+                                 ).expand(b, nf, 4)
+            kp = torch.tensor([[0.4, 0.45], [0.6, 0.45], [0.5, 0.55],
+                               [0.5, 0.62], [0.33, 0.46], [0.67, 0.46]],
+                              device=dev).expand(b, nf, 6, 2)
+            with torch.inference_mode():
+                out = self._face_stage_program(h, w, mode)(
+                    torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev),
+                    boxes, kp, torch.full((b, nf), 0.9, device=dev),
+                    torch.ones((b, nf), dtype=torch.bool, device=dev))
+                self._fetch(out, self._readback_scale(h, w))
+
+    # -- embeddings ------------------------------------------------------------
+
+    def get_face_embedding(self, face: Face, image) -> np.ndarray:
+        """192-dim L2-normalised embedding for a detected face
+        (`face_detector.dart:685`): aligned on its two eye points,
+        iris-refined in FULL mode."""
+        lm = face.landmarks
+        left, right = lm.left_eye, lm.right_eye
+        if left is None or right is None:
+            raise ValueError("Face must have left and right eye landmarks")
+        return self.embedding_model.embed(
+            self._device_put_cached(image), left[:2], right[:2])
+
+    def get_face_embedding_from_eyes(self, left_eye, right_eye,
+                                     image) -> np.ndarray:
+        """Embedding from the two eye centres in absolute pixels
+        (`getFaceEmbeddingFromEyesDirect`, face_detector_core.dart:419)."""
+        return self.embedding_model.embed(
+            self._device_put_cached(image), left_eye, right_eye)
+
+    def get_face_embeddings(self, faces: Sequence[Face], image
+                            ) -> list[Optional[np.ndarray]]:
+        """Embeddings for many faces of one image, in one K2 launch and
+        one network call.  As the reference's `getFaceEmbeddings`
+        (face_detector.dart:786-816), a face whose eye landmarks are
+        missing or degenerate (the aligned crop rounds to 0 px) comes back
+        as ``None`` instead of failing the batch."""
+        pairs, slots = [], []
+        for i, f in enumerate(faces):
+            lm = f.landmarks
+            if lm.left_eye is None or lm.right_eye is None:
+                continue
+            le, re = lm.left_eye[:2], lm.right_eye[:2]
+            if not roi_ok(compute_embedding_alignment(le, re)[2]):
+                continue
+            pairs.append((le, re))
+            slots.append(i)
+        result: list[Optional[np.ndarray]] = [None] * len(faces)
+        if pairs:
+            out = self.embedding_model.embed_batch(
+                self._device_put_cached(image), pairs)
+            for i, slot in enumerate(slots):
+                result[slot] = out[i]
+        return result
+
+    @staticmethod
+    def compare_faces(emb1, emb2) -> float:
+        return cosine_similarity(emb1, emb2)
+
+    @staticmethod
+    def face_distance(emb1, emb2) -> float:
+        return euclidean_distance(emb1, emb2)
+
+    def detect_faces_from_packed_bytes(
+            self, data, *, width: int, height: int, channels: int = 3,
+            channel_order: str = "bgr",
+            mode: FaceDetectionMode = FaceDetectionMode.FULL) -> list[Face]:
+        """Detects faces in raw packed pixel bytes, the zero-decode path
+        (`detectFacesFromMatBytes`, face_detector.dart:588): ``channels``
+        3 (BGR/RGB) or 4 (BGRA/RGBA), ``channel_order`` names the layout."""
+        return self.detect_faces(_image_from_packed_bytes(
+            data, width, height, channels, channel_order), mode)
+
+    def get_face_embedding_from_packed_bytes(
+            self, face: Face, data, *, width: int, height: int,
+            channels: int = 3, channel_order: str = "bgr") -> np.ndarray:
+        """Embedding from raw packed pixel bytes
+        (`getFaceEmbeddingFromMatBytes`, face_detector.dart:735), with the
+        buffer convention of :meth:`detect_faces_from_packed_bytes`."""
+        return self.get_face_embedding(face, _image_from_packed_bytes(
+            data, width, height, channels, channel_order))
+
     # -- lifetime ------------------------------------------------------------
 
     def dispose(self) -> None:
-        """Releases the programs and the models' device memory."""
+        """Releases the programs, the models' device memory, the embedding
+        model and the cached device frame."""
         self._disposed = True
         with self._programs_lock:
             self._programs.clear()
         with self._spec_lock:
             self._spec_state.clear()
+        with self._devput_lock:
+            self._devput_cache = None
+        if self._embedding is not None:
+            self._embedding.dispose()
+            self._embedding = None
         self.models = None
 
     def _check_disposed(self):

@@ -10,12 +10,15 @@ plain function over an image batch ``[B, H, W, 3]``:
     -> eye ROIs -> K2 at 64 px, right eyes mirrored -> iris net
     -> blendshape packing -> blendshape MLP-Mixer -> head pose
     -> iris-refined keypoints                                   (full)
+    -> eye alignment -> K2 at 112 px -> MobileFaceNet -> L2
+                                          (full, ``with_embeddings``)
 
 Dynamic face counts are fixed-size slabs with validity masks.  Batch
 dimensions are written out: the detector runs once on ``[B, 256, 256, 3]``,
 the mesh net once on ``[B * slab, 192, 192, 3]``, the iris net once on
-``[B * 2 * slab, 64, 64, 3]`` and the blendshape net once on
-``[B * slab, 146, 2]``.  The embedding stage is not ported yet.
+``[B * 2 * slab, 64, 64, 3]``, the blendshape net once on
+``[B * slab, 146, 2]`` and MobileFaceNet once on
+``[B * slab, 112, 112, 3]``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from ..convert.executor import ConvertedModel
+from ..convert.executor import ConvertedModel, resolve_device
+from ..models.embedding import alignment_from_eyes, embed_rois
 from ..ops.anchors import anchor_options_for, generate_anchors
 from ..ops.detections import _take, detection_postprocess
 from ..ops.letterbox import letterbox_image, letterbox_params
@@ -38,18 +42,6 @@ from .gates import apply_detection_gates_mask
 __all__ = ["PipelineModels", "build_pipeline_program", "resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given (``cuda`` resolved to ``cuda:N``), else
-    ``cuda``; raises when CUDA is absent and the caller did not ask for
-    the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        device = "cuda"
-    return torch.empty(0, device=device).device
-
-
 class PipelineModels:
     """The converted networks of one detector, placed on ``device``
     (``cuda`` unless the caller passes ``device="cpu"``)."""
@@ -58,13 +50,14 @@ class PipelineModels:
                  mesh: Optional[ConvertedModel] = None,
                  device: torch.device | str | None = None, *,
                  iris: Optional[ConvertedModel] = None,
-                 blendshapes: Optional[ConvertedModel] = None):
+                 blendshapes: Optional[ConvertedModel] = None,
+                 embedding: Optional[torch.nn.Module] = None):
         self.device = resolve_device(device)
         self.detector = detector.to(self.device).eval()
         self.variant = variant
-        self.mesh, self.iris, self.blendshapes = (
+        self.mesh, self.iris, self.blendshapes, self.embedding = (
             m.to(self.device).eval() if m is not None else None
-            for m in (mesh, iris, blendshapes))
+            for m in (mesh, iris, blendshapes, embedding))
         self.detector_input_size = detector.input_shapes[0][1]
         self.anchors = torch.from_numpy(
             generate_anchors(anchor_options_for(variant))).to(self.device)
@@ -128,7 +121,9 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
     keypoints ``[D, 6, 2]`` (iris-refined eyes), iris ``[D, 152, 3]``,
     blendshapes ``[D, 52]``, blendshapes_valid ``[D]`` and head_angles
     ``[D, 3]`` (pitch, yaw, roll in degrees; NaN for a degenerate head
-    frame).
+    frame); FULL ``with_embeddings`` adds embeddings ``[D, 192]``
+    (MobileFaceNet on the crops aligned on the iris-refined eyes, L2
+    normalised).
 
     ``face_slab`` < max_faces is the speculative form: NMS still emits the
     full max_faces slab (returned compacted as det_boxes,
@@ -136,11 +131,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
     det_count), but the mesh stage runs on the top ``face_slab`` prefix
     only.  ``from_detections`` returns ``fn(images, boxes, kp, scores,
     valid)`` that runs the face stages on given detections.
-    ``with_embeddings`` (the fused MobileFaceNet stage) is not ported.
     """
-    if with_embeddings:
-        raise NotImplementedError("the embedding stage is not ported yet "
-                                  "(ROADMAP §1 item 8)")
     size = models.detector_input_size
     lbp = letterbox_params(img_h, img_w, size, size)
     compute_mesh = mode in (FaceDetectionMode.STANDARD,
@@ -150,6 +141,12 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         raise ValueError(f"mode {mode} requires the face mesh model")
     if compute_iris and (models.iris is None or models.blendshapes is None):
         raise ValueError(f"mode {mode} requires iris and blendshape models")
+    if with_embeddings and not compute_iris:
+        raise ValueError("with_embeddings requires FULL mode (embeddings "
+                         "align from iris-refined eye centers, "
+                         "face_detector_core.dart:419-451)")
+    if with_embeddings and models.embedding is None:
+        raise ValueError("with_embeddings requires the embedding model")
 
     def detect_stage(images):
         x = letterbox_image(images, lbp)
@@ -229,6 +226,17 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         kp[..., 1, 1] = right[..., 1] / img_h
         return kp
 
+    def embedding_stage(images, refined_kp):
+        """[B, F, 192] embeddings, aligned (`face_embedding.dart:362-384`)
+        on the iris-refined eye centres, as the reference's
+        getFaceEmbedding does (face_detector.dart:703-711): K2 at 112 px
+        on all [B, F] ROIs in one launch, then MobileFaceNet once
+        (:func:`embed_rois`, shared with ``FaceEmbedding``)."""
+        cx, cy, esize, theta = alignment_from_eyes(
+            refined_kp[..., 0, 0] * img_w, refined_kp[..., 0, 1] * img_h,
+            refined_kp[..., 1, 0] * img_w, refined_kp[..., 1, 1] * img_h)
+        return embed_rois(models.embedding, images, cx, cy, esize, theta)
+
     def face_stages(images, boxes, kp, scores, valid):
         out = {"boxes": boxes, "raw_keypoints": kp, "scores": scores,
                "valid": valid}
@@ -249,6 +257,8 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
                    blendshapes_valid=bs_ok & valid,
                    head_angles=geometry.head_euler_angles_from_mesh(mesh_abs),
                    keypoints=refine_keypoints(kp, iris_abs))
+        if with_embeddings:
+            out["embeddings"] = embedding_stage(images, out["keypoints"])
         return out
 
     if from_detections:

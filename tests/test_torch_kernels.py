@@ -331,3 +331,49 @@ def test_full_path_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(np.isnan(got["head_angles"]),
                                   np.isnan(want["head_angles"]))
     assert np.nanmax(np.abs(got["head_angles"] - want["head_angles"])) <= 0.1
+
+
+@pytest.mark.cuda
+def test_mobilefacenet_card_matches_cpu(cuda_device):
+    """The seeded full-width MobileFaceNet on cuDNN (fp32, TF32 off)
+    against the CPU: unit vectors within 1e-5."""
+    from face_detection_tflite_torch.models.embedding import \
+        build_mobilefacenet
+    net = build_mobilefacenet(0)
+    x = torch.rand(16, 112, 112, 3,
+                   generator=torch.Generator().manual_seed(5)) * 2 - 1
+    with torch.inference_mode():
+        (want,) = net(x)
+        (got,) = net.to(cuda_device)(x.to(cuda_device))
+    unit = want / want.norm(dim=-1, keepdim=True)
+    got = got.cpu()
+    assert (got / got.norm(dim=-1, keepdim=True) - unit).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_full_embedding_batch_launches_k2_at_each_site(cuda_device):
+    """One FULL batch with the fused embedding stage launches K2 once at
+    each of its sites (192 px mesh, 64 px eyes, 112 px embedding crops)
+    and returns unit-norm embeddings for the valid faces."""
+    from face_detection_tflite_torch.pipeline.config import FaceDetectionMode
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+    frames = torch.randint(0, 256, (2, 853, 1280, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4)
+                           ).to(cuda_device)
+    models, *_ = random_init.random_pipeline_models(
+        frames, seed=3, detector_blocks=1, mesh_blocks=1, iris_blocks=1,
+        mixer_blocks=1)
+    prog = build_pipeline_program(models, 853, 1280, FaceDetectionMode.FULL,
+                                  with_embeddings=True)
+    before = dict(warp.warp_normalize.launches_by_size)
+    with torch.inference_mode():
+        out = prog(frames)
+    torch.cuda.synchronize()
+    after = warp.warp_normalize.launches_by_size
+    launched = {s: n - before.get(s, 0) for s, n in after.items()}
+    assert {s: n for s, n in launched.items() if n} == \
+        {192: 1, 64: 1, 112: 1}
+    emb = out["embeddings"][out["valid"]]
+    assert emb.shape[0] >= 1 and emb.shape[1] == 192
+    assert (emb.norm(dim=-1) - 1).abs().max().item() <= 1e-5

@@ -44,6 +44,20 @@ def test_letterbox_matches_jax(src):
     assert np.abs(got - ref).max() <= 1e-4
 
 
+def test_letterbox_uploads_its_tap_tables_once():
+    """A second letterbox of the same geometry on the same device builds
+    no new tap tables (each upload would wait for the stream) and gives
+    the same result."""
+    p = t_lb.letterbox_params(53, 80, 64, 64)
+    imgs = torch.from_numpy(_rng.integers(0, 256, (2, 53, 80, 3),
+                                          dtype=np.uint8))
+    first = t_lb.letterbox_image(imgs, p)
+    built = t_lb._device_taps.cache_info().misses
+    second = t_lb.letterbox_image(imgs, p)
+    assert t_lb._device_taps.cache_info().misses == built
+    assert torch.equal(first, second)
+
+
 def dataclass_tuple(p):
     return (p.new_h, p.new_w, p.pad_top, p.pad_bottom, p.pad_left,
             p.pad_right, p.padding)

@@ -18,8 +18,8 @@ from face_detection_tflite_torch.ops.detections import (_topk_candidates,
 from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
                                                        letterbox_params)
 from face_detection_tflite_torch.ops.nms import _iou_matrix
-from face_detection_tflite_torch.pipeline.programs import \
-    build_pipeline_program
+from face_detection_tflite_torch.pipeline.programs import (
+    PipelineModels, build_pipeline_program)
 from face_detection_tflite_tpu.pipeline import programs as j_programs
 from face_detection_tflite_tpu.pipeline.config import \
     FaceDetectionMode as JMode
@@ -162,12 +162,18 @@ def test_detector_options_match_jax_slab(setup, options):
 def test_detector_surface_raises_for_unported_features(setup):
     _, models, _ = setup
     for kw in ({"enable_tracking": True}, {"with_segmentation": True},
-               {"embed_in_full": True}, {"data_parallel": True},
-               {"precision": "high"}):
+               {"data_parallel": True}, {"precision": "high"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FaceDetector(models=models, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_pipeline_program(models, H, W, with_embeddings=True)
+    # Embeddings are ported: the fused stage needs FULL mode and a model.
+    with pytest.raises(ValueError, match="FULL"):
+        build_pipeline_program(models, H, W, FaceDetectionMode.STANDARD,
+                               with_embeddings=True)
+    bare = PipelineModels(models.detector, "back", mesh=models.mesh,
+                          device="cpu", iris=models.iris,
+                          blendshapes=models.blendshapes)
+    with pytest.raises(ValueError, match="embedding model"):
+        build_pipeline_program(bare, H, W, with_embeddings=True)
 
 
 def test_detector_full_mode_runs(setup):

@@ -10,6 +10,7 @@ from face_detection_tflite_torch.convert import executor as t_exec
 from face_detection_tflite_torch.models import random_init
 from face_detection_tflite_tpu.convert import executor as j_exec
 from face_detection_tflite_tpu.convert import tflite as j_tflite
+from face_detection_tflite_tpu.models import embedding as j_embedding
 from face_detection_tflite_tpu.pipeline import programs as j_programs
 
 #: The small pipeline setup: two 96x144 frames, a 4-face slab, one block
@@ -45,11 +46,11 @@ def rel_err(got, ref) -> float:
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-
 def small_pipeline():
     """(frames, port PipelineModels on the CPU, JAX PipelineModels) of the
     small setup: all four seeded networks (detector, mesh, iris,
-    blendshapes), the port's carrying the JAX params."""
+    blendshapes), the port's carrying the JAX params, and the full-width
+    MobileFaceNet of seed ``SEED + 4`` in both."""
     frames = np.random.default_rng(SEED).integers(0, 256, (B, H, W, 3),
                                                   dtype=np.uint8)
     models, *irs = random_init.random_pipeline_models(
@@ -62,6 +63,7 @@ def small_pipeline():
         tm.load_state_dict(t_exec.params_from_jax(
             ir, {k: np.asarray(v) for k, v in jm.params.items()}))
         jms.append(jm)
-    jmodels = j_programs.PipelineModels(jms[0], "back", mesh=jms[1],
-                                        iris=jms[2], blendshapes=jms[3])
+    jmodels = j_programs.PipelineModels(
+        jms[0], "back", mesh=jms[1], iris=jms[2], blendshapes=jms[3],
+        embedding=j_embedding.build_mobilefacenet(SEED + 4))
     return frames, models, jmodels
