@@ -65,13 +65,32 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    their fused embeddings (fp32 readback, within 1e-3) and checks that
    the frame was uploaded once; the card-vs-CPU check adds the
    embeddings;
-7. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+7. serving, on the same frames and networks: times one batch's upload,
+   pinned (``pipeline/upload.py``) against pageable; runs
+   ``detect_faces_batch_stream`` over the FULL batches at depth 2 against
+   the same batches' sequential ``detect_faces_batch`` calls (faces equal,
+   one K1 and one K2 a crop size a batch, ms per batch of both, and the
+   idle share and upload overlap of one profiled stream window); starts
+   ``FaceServer`` on 127.0.0.1 over a FULL-default detector and has 8
+   client threads POST 4 frames each as PNG bodies (3 of 4 in FULL, the
+   rest STANDARD): every response 200 with the faces of
+   ``detect_faces_batch``, a micro-batch of more than one image, one K1
+   launch a micro-batch, the card in ``/v1/info``, unit embeddings from
+   ``/v1/embed`` equal to ``get_face_embeddings``'s, and a second server
+   with ``max_queue=2`` shedding part of a burst with 503 + Retry-After
+   and then answering 200 (requests/s, p50/p99 latency, micro-batch
+   sizes); runs the FULL program and MobileFaceNet on two threads at
+   once, bit-identical to one thread;
+8. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
-   path's batches (``full_launches``: over the FULL path's); the iris
-   site's (``warp_normalize_iris64``) is its count over the FULL path's
-   batches and the embedding site's (``warp_normalize_embed112``) over
-   the embedding phase's; ``nms_core`` is off the main path (0) and its
-   launches in step 3 are ``check_launches``.
+   path's batches (``full_launches``: over the FULL path's; ``stream_`` and
+   ``server_launches``: over phase 7's stream and server requests, with
+   ``server_batches`` micro-batches); the iris site's
+   (``warp_normalize_iris64``) is its count over the FULL path's batches
+   and the embedding site's (``warp_normalize_embed112``) over the
+   embedding phase's (``server_embed_launches``: one ``/v1/embed``);
+   ``nms_core`` is off the main path (0) and its launches in step 3 are
+   ``check_launches``.
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -111,6 +130,10 @@ SLAB_VALUE_OPS = 2
 
 SEED = 3
 FRAMES, HEIGHT, WIDTH = 16, 853, 1280
+# Phase 7: the stream's depth, the server's clients, the two-thread runs.
+STREAM_DEPTH = 2
+CLIENTS, REQUESTS_PER_CLIENT = 8, 4
+THREAD_RUNS = 20
 MAX_FACES = 16
 MESH_SIZE, IRIS_SIZE, EMBED_SIZE = 192, 64, 112
 # The name of the empty kernel of torch.cuda._sleep(0), which marks the
@@ -525,6 +548,8 @@ def _profile_batch(det, frames_np, mode, card: str, net=None) -> None:
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:12]:
         print(f"  kernel {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
+    print(f"  host-to-device copies: "
+          f"{sorted(name for name in by_name if 'HtoD' in name)}")
 
 
 def _card_vs_cpu(got: dict, want: dict, label: str) -> None:
@@ -816,6 +841,478 @@ def _embedding_phase(models, cpu_models, frames, frames_np, runs: int,
     return emb, embed_site
 
 
+def _png_bytes(frame) -> bytes:
+    """An 8-bit RGB PNG of ``frame [H, W, 3]`` uint8, written with the
+    standard library (filter 0 on every row): lossless, so it decodes to
+    the exact frame."""
+    import struct
+    import zlib
+    import numpy as np
+    h, w, _ = frame.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           frame.reshape(h, w * 3)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+#: Phase 7's tolerances on faces held against ``detect_faces_batch``'s:
+#: normalized boxes, scores and blendshapes; pixel positions (mesh, iris,
+#: eye landmarks) one step of the int16 readback (2 * 1280 / 32000 px)
+#: plus float rounding; head angles in degrees.  The stream runs the same
+#: programs on the same batches as the calls it is held to.
+SERVE_TOL = {"unit": 1e-6, "px": 2.0 * WIDTH / 32000.0 + 1e-3,
+             "degrees": 1e-3}
+#: The server's micro-batches run the networks at other batch sizes than
+#: the reference's one batch of 16, and cuDNN picks its algorithms by
+#: shape, so unit values may differ in their last bits.
+SERVER_TOL = dict(SERVE_TOL, unit=1e-5)
+_PX_KEYS = ("mesh", "eyes", "landmarks")
+
+
+def _payload_errors(got, want, path: str = "", errs=None) -> dict:
+    """``{kind: (max abs difference, where)}`` of two ``Face.to_dict``
+    payloads (or lists of them) by kind of value (:data:`SERVE_TOL`);
+    raises where their structure differs (a face count, a key, a None)."""
+    errs = {} if errs is None else errs
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"faces differ in structure at {path}")
+        for k in want:
+            _payload_errors(got[k], want[k], f"{path}/{k}", errs)
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            raise AssertionError(f"faces differ in count at {path}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _payload_errors(g, w, f"{path}/{i}", errs)
+    elif isinstance(want, (int, float)) and not isinstance(want, bool):
+        kind = ("px" if any(f"/{k}" in path for k in _PX_KEYS) else
+                "degrees" if "head_euler_angles" in path else "unit")
+        err = abs(float(got) - float(want))
+        if err >= errs.get(kind, (0.0, ""))[0]:
+            errs[kind] = (err, path)
+    elif got != want:
+        raise AssertionError(f"faces differ at {path}: {got!r} != {want!r}")
+    return errs
+
+
+def _max_errors(pairs) -> dict:
+    """:func:`_payload_errors` over ``(got, want)`` pairs, merged."""
+    errs: dict = {}
+    for got, want in pairs:
+        for k, v in _payload_errors(got, want).items():
+            if v[0] >= errs.get(k, (0.0, ""))[0]:
+                errs[k] = v
+    return errs
+
+
+def _check_errors(errs: dict, tol: dict, label: str) -> None:
+    if any(errs.get(k, (0.0,))[0] > t for k, t in tol.items()):
+        raise AssertionError(f"{label}: faces differ beyond {tol}: {errs}")
+
+
+def _payload(faces) -> list:
+    """Per-image lists of ``Face.to_dict`` payloads with the mesh and the
+    iris, through a JSON round trip (as the server sends them)."""
+    return json.loads(json.dumps([[f.to_dict(include_mesh=True,
+                                              include_iris=True)
+                                   for f in per] for per in faces]))
+
+
+def _reset_launches() -> None:
+    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops import warp as warp_mod
+    detections.detection_postprocess.launches = 0
+    warp_mod.warp_normalize.launches = 0
+    warp_mod.warp_normalize.launches_by_size = {}
+
+
+def _launches() -> dict:
+    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops import warp as warp_mod
+    return {"detection_postprocess": detections.detection_postprocess.launches,
+            "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size)}
+
+
+def _busy_us(spans) -> float:
+    """Length of the union of ``(start, end)`` spans."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def _upload_times(frames_np, card: str) -> dict:
+    """Device and event ms of one frame batch's upload, pinned
+    (``pipeline/upload.py``) against pageable (``tensor.to``)."""
+    import torch
+    from face_detection_tflite_torch.pipeline.upload import upload
+    dev = torch.device("cuda")
+    out = {}
+    for name, fn in (
+            ("pinned", lambda: upload(frames_np, dev)),
+            ("pageable", lambda: torch.from_numpy(frames_np).to(dev))):
+        ms, dev_ms, _, _ = _stage_ms(fn, iters=5)
+        out[name] = {"ms": ms, "device_ms": dev_ms}
+    print(f"upload of one batch ({frames_np.nbytes / 1e6:.1f} MB): pinned "
+          f"{out['pinned']['ms']:.3f} ms event, "
+          f"{_num(out['pinned']['device_ms'], '.3f')} ms device; pageable "
+          f"{out['pageable']['ms']:.3f} ms event, "
+          f"{_num(out['pageable']['device_ms'], '.3f')} ms device  [{card}]")
+    return out
+
+
+def _stream_phase(models, frames_np, runs: int, card: str) -> dict:
+    """Phase 7a: ``detect_faces_batch_stream`` over ``runs`` FULL batches
+    at depth :data:`STREAM_DEPTH` against the same batches' sequential
+    ``detect_faces_batch`` calls, timed in turns (sequential, stream,
+    stream, sequential) after a warm-up of both (the speculation state and
+    the allocator's blocks for depth + 1 batches in flight); launches and
+    faces of the first stream, and the idle share and upload overlap of
+    one profiled stream window."""
+    import torch
+    from face_detection_tflite_torch import FaceDetector
+    det = FaceDetector(models=models, device=models.device,
+                       max_faces=MAX_FACES)
+
+    def sequential():
+        return [det.detect_faces_batch(frames_np) for _ in range(runs)]
+
+    def stream():
+        return list(det.detect_faces_batch_stream([frames_np] * runs,
+                                                  depth=STREAM_DEPTH))
+
+    det.detect_faces_batch(frames_np)
+    list(det.detect_faces_batch_stream([frames_np] * (STREAM_DEPTH + 1),
+                                       depth=STREAM_DEPTH))
+    ms: dict = {"sequential": [], "stream": []}
+    outs: dict = {}
+    for name in ("sequential", "stream", "stream", "sequential"):
+        reruns0 = sum(n for k, n in det.timings.calls.items()
+                      if k.startswith("face_stages["))
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (sequential if name == "sequential" else stream)()
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / runs)
+        if name not in outs:
+            outs[name] = out
+            if name == "stream":
+                launches = _launches()
+                reruns = sum(n for k, n in det.timings.calls.items()
+                             if k.startswith("face_stages[")) - reruns0
+    seq, streamed = outs["sequential"], outs["stream"]
+    seq_ms, stream_ms = ms["sequential"], ms["stream"]
+    if launches != {"detection_postprocess": runs,
+                    "warp_normalize": {MESH_SIZE: runs + reruns,
+                                       IRIS_SIZE: runs + reruns}}:
+        raise AssertionError(f"stream: not one K1 and one K2 a crop size a "
+                             f"batch (+{reruns} re-runs): {launches}")
+    errs = _max_errors((_payload(g), _payload(w))
+                       for g, w in zip(streamed, seq))
+    print(f"stream (depth {STREAM_DEPTH}) of {runs} FULL batches of {FRAMES}"
+          f" x {HEIGHT}x{WIDTH}, in turns sequential, stream, stream, "
+          f"sequential: stream {['%.2f' % t for t in stream_ms]} ms a batch "
+          f"against sequential {['%.2f' % t for t in seq_ms]}; faces equal "
+          f"them within {errs}; launches {launches} ({reruns} re-runs)  "
+          f"[{card}]")
+    _check_errors(errs, SERVE_TOL, "stream")
+
+    def window():
+        t0 = time.perf_counter()
+        list(det.detect_faces_batch_stream([frames_np] * 4,
+                                           depth=STREAM_DEPTH))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall_ms, device = _profiled(window, lambda name: True, "the stream")
+    result = {"stream_ms": stream_ms, "sequential_ms": seq_ms,
+              "launches": launches}
+    if not device:
+        print("profile: the stream window is not measured")
+        det.dispose()
+        return result
+    copies = [(s, e) for s, e, n in device if "HtoD" in n]
+    work = [(s, e) for s, e, n in device if "Memcpy" not in n
+            and "Memset" not in n]
+    window_us = max(e for _, e, _ in device) - min(s for s, _, _ in device)
+    busy = _busy_us([(s, e) for s, e, _ in device])
+    # Upload time that runs under kernels: each copy against the union of
+    # the kernels that overlap it.
+    overlap = sum(_busy_us([(max(s, ks), min(e, ke)) for ks, ke in work
+                            if ks < e and ke > s]) for s, e in copies)
+    copy_us = sum(e - s for s, e in copies)
+    kinds = sorted({n for _, _, n in device if "HtoD" in n})
+    print(f"profile (stream of 4 FULL batches, depth {STREAM_DEPTH}, host "
+          f"wall {wall_ms:.2f} ms) [{card}]: device busy "
+          f"{busy / 1e3:.3f} ms of {window_us / 1e3:.3f} ms (idle share "
+          f"{1 - busy / window_us:.3f}); uploads {copy_us / 1e3:.3f} ms, of "
+          f"it {overlap / 1e3:.3f} ms ({overlap / max(copy_us, 1e-9):.3f}) "
+          f"under kernels; copies {kinds}")
+    result.update(idle_share=1 - busy / window_us,
+                  upload_overlap=overlap / max(copy_us, 1e-9))
+    det.dispose()
+    return result
+
+
+def _version(module: str) -> str:
+    """A module's version, or "absent"."""
+    import importlib
+    try:
+        return getattr(importlib.import_module(module), "__version__", "?")
+    except ImportError:
+        return "absent"
+
+
+def _post(url: str, body: bytes, timeout: float = 120.0):
+    """(status, JSON payload, headers, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers), \
+                time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers), \
+            time.perf_counter() - t0
+
+
+def _client(job) -> list:
+    """One client process of phase 7b: POSTs its ``(frame index, mode,
+    PNG body)`` requests to ``base`` one after another; returns ``(frame
+    index, mode, status, payload, start, end)`` with wall-clock times."""
+    base, requests = job
+    out = []
+    for i, mode, body in requests:
+        t0 = time.time()
+        status, payload, _, _ = _post(
+            f"{base}/v1/detect?mode={mode}&mesh=1&iris=1", body)
+        out.append((i, mode, status, payload, t0, time.time()))
+    return out
+
+
+def _get(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        body = r.read()
+    return json.loads(body) if url.endswith("info") else body.decode()
+
+
+def _server_phase(models, frames_np, kind: str, card: str) -> dict:
+    """Phase 7b: ``FaceServer`` on 127.0.0.1 over a FULL-default detector;
+    :data:`CLIENTS` client processes (their JSON parsing stays out of the
+    server's interpreter) each POST :data:`REQUESTS_PER_CLIENT` of the
+    frames as PNG bodies (3 of 4 ``mode=full``, the rest standard), each
+    response held against ``detect_faces_batch``; the micro-batches, K1's
+    launches against them, ``/v1/info``, ``/v1/embed``, and a second
+    server with ``max_queue=2`` shedding a burst with 503 + Retry-After."""
+    import multiprocessing
+    import threading
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
+                                             FaceServer)
+    det = FaceDetector(models=models, device=models.device,
+                       max_faces=MAX_FACES, allow_untrained_embeddings=True)
+    modes = {"full": FaceDetectionMode.FULL,
+             "standard": FaceDetectionMode.STANDARD}
+    want = {m: _payload(det.detect_faces_batch(frames_np, mode))
+            for m, mode in modes.items()}
+    from face_detection_tflite_torch.utils import native
+    print(f"decoder: native {native.runtime_status()}; PIL "
+          f"{_version('PIL')}, cv2 {_version('cv2')}")
+    t0 = time.perf_counter()
+    bodies = [_png_bytes(f) for f in frames_np]
+    print(f"PNG bodies: {sum(map(len, bodies)) / 1e6:.1f} MB for {FRAMES} "
+          f"frames, encoded in {time.perf_counter() - t0:.2f} s")
+    # A 50 ms window (4 by default): each client sends its next request
+    # when its answer comes, so requests arrive about one micro-batch's
+    # time over the clients apart.
+    server = FaceServer(det, batch_window_ms=50.0).start()
+    sizes: list = []
+    hist = server._m_batch
+
+    class _Recorder:
+        def observe(self, v):
+            sizes.append(v)
+            hist.observe(v)
+
+    server._batcher._metrics["batch_size"] = _Recorder()
+    jobs = [(server.address, [
+        ((c * REQUESTS_PER_CLIENT + j) % FRAMES,
+         "standard" if j == REQUESTS_PER_CLIENT - 1 else "full",
+         bodies[(c * REQUESTS_PER_CLIENT + j) % FRAMES])
+        for j in range(REQUESTS_PER_CLIENT)]) for c in range(CLIENTS)]
+    with multiprocessing.get_context("spawn").Pool(CLIENTS) as pool:
+        pool.map(time.sleep, [0.5] * CLIENTS)    # every client is up
+        torch.cuda.synchronize()
+        _reset_launches()
+        results = [r for per in pool.map(_client, jobs, chunksize=1)
+                   for r in per]
+    wall = max(r[5] for r in results) - min(r[4] for r in results)
+    launches = _launches()
+    batch_sizes = list(sizes)
+    n_req = CLIENTS * REQUESTS_PER_CLIENT
+    statuses = [r[2] for r in results]
+    if len(results) != n_req or set(statuses) != {200}:
+        raise AssertionError(f"server: {statuses.count(200)} of {n_req} "
+                             f"requests answered 200: {statuses}")
+    errs = _max_errors((payload["faces"], want[mode][i])
+                       for i, mode, _, payload, _, _ in results)
+    lat = sorted((r[5] - r[4]) * 1e3 for r in results)
+    metrics = _get(f"{server.address}/metrics")
+    count = next(float(line.split()[-1]) for line in metrics.splitlines()
+                 if line.startswith("fdt_detect_batch_size_count"))
+    print(f"server: {n_req} requests from {CLIENTS} client processes in "
+          f"{wall:.3f} s "
+          f"= {n_req / wall:.1f} requests/s; latency p50 "
+          f"{np.percentile(lat, 50):.1f} ms, p99 {np.percentile(lat, 99):.1f}"
+          f" ms; micro-batch sizes {batch_sizes}; launches {launches}; faces "
+          f"equal detect_faces_batch's within {errs}  [{card}]")
+    _check_errors(errs, SERVER_TOL, "server")
+    if max(batch_sizes) < 2:
+        raise AssertionError("server: no micro-batch held more than one "
+                             "image")
+    if launches["detection_postprocess"] != len(batch_sizes) or \
+            count != len(batch_sizes):
+        raise AssertionError(f"server: {launches['detection_postprocess']} "
+                             f"K1 launches for {len(batch_sizes)} micro-batches "
+                             f"({count} in /metrics)")
+    info = _get(f"{server.address}/v1/info")
+    if kind not in info["accelerator_report"]["detector"]:
+        raise AssertionError(f"/v1/info does not name the card: {info}")
+    print(f"/v1/info accelerator_report {info['accelerator_report']}, "
+          f"memory_report {info['memory_report']}")
+
+    # /v1/embed on frame 0 against get_face_embeddings on its faces.
+    _reset_launches()
+    status, emb, _, _ = _post(f"{server.address}/v1/embed", bodies[0])
+    embed_launches = _launches()
+    faces0 = det.detect_faces(frames_np[0], FaceDetectionMode.STANDARD)
+    ref = det.get_face_embeddings(faces0, frames_np[0])
+    got = [f["embedding"] for f in emb["faces"]]
+    if status != 200 or emb["pretrained"] is not False or \
+            len(got) != len(ref) or any(e is None for e in got):
+        raise AssertionError(f"/v1/embed: status {status}, pretrained "
+                             f"{emb.get('pretrained')}, {len(got)} faces "
+                             f"against {len(ref)}")
+    norm_err = max(abs(float(np.linalg.norm(e)) - 1.0) for e in got)
+    emb_err = max(float(np.abs(np.asarray(g) - r).max())
+                  for g, r in zip(got, ref))
+    print(f"/v1/embed on frame 0: {len(got)} faces, unit within "
+          f"{norm_err:.3g}, get_face_embeddings within {emb_err:.3g}; "
+          f"launches {embed_launches}  [{card}]")
+    if norm_err > 1e-4 or emb_err > 1e-4:
+        raise AssertionError("/v1/embed disagrees with get_face_embeddings")
+    server.close()
+
+    # A second server with max_queue=2 and one image a micro-batch sheds
+    # part of a burst, then answers again.
+    shed_server = FaceServer(det, max_queue=2, max_batch=1).start()
+    burst: list = []
+    lock = threading.Lock()
+
+    def one(i):
+        r = _post(f"{shed_server.address}/v1/detect?mode=full",
+                  bodies[i % FRAMES])
+        with lock:
+            burst.append(r)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    shed = [r for r in burst if r[0] == 503]
+    later = _post(f"{shed_server.address}/v1/detect?mode=full", bodies[1])
+    print(f"shedding (max_queue=2, max_batch=1): burst of 16 gave statuses "
+          f"{sorted(r[0] for r in burst)}, Retry-After "
+          f"{[r[2].get('Retry-After') for r in shed][:3]}; a later request "
+          f"{later[0]}")
+    if not shed or any(r[2].get("Retry-After") is None for r in shed) or \
+            set(r[0] for r in burst) - {200, 503} or later[0] != 200:
+        raise AssertionError("server: the burst was not shed with 503 + "
+                             "Retry-After, or no later request succeeded")
+    shed_server.close()
+    det.dispose()
+    return {"requests_per_s": n_req / wall, "p50_ms": np.percentile(lat, 50),
+            "p99_ms": np.percentile(lat, 99), "batch_sizes": batch_sizes,
+            "launches": launches, "embed_launches": embed_launches}
+
+
+def _bit_equal(a, b) -> bool:
+    """Bit for bit equality (NaN, which the head angles of empty slab
+    slots hold, equals itself)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _threads_phase(models, frames, card: str) -> None:
+    """Phase 7c: the FULL program and MobileFaceNet on two threads at once,
+    :data:`THREAD_RUNS` times; both outputs must equal their
+    single-threaded outputs bit for bit (TF32 stays off in both)."""
+    import threading
+    import torch
+    from face_detection_tflite_torch import FaceDetectionMode
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+    prog = build_pipeline_program(models, HEIGHT, WIDTH,
+                                  FaceDetectionMode.FULL,
+                                  max_faces=MAX_FACES)
+    x = frames[:4]
+    crops = torch.rand((64, EMBED_SIZE, EMBED_SIZE, 3), device=x.device,
+                       generator=torch.Generator(x.device).manual_seed(SEED)
+                       ) * 2 - 1
+    with torch.inference_mode():
+        want_full = prog(x)
+        (want_emb,) = models.embedding(crops)
+    torch.cuda.synchronize()
+    bad: list = []
+
+    def run(fn, want, what):
+        with torch.inference_mode():
+            for i in range(THREAD_RUNS):
+                got = fn()
+                torch.cuda.synchronize()
+                if isinstance(want, dict):
+                    same = all(_bit_equal(got[k], want[k]) for k in want)
+                else:
+                    same = _bit_equal(got[0], want)
+                if not same:
+                    bad.append((what, i))
+
+    threads = [threading.Thread(target=run, args=(lambda: prog(x), want_full,
+                                                  "FULL program")),
+               threading.Thread(target=run, args=(
+                   lambda: models.embedding(crops), want_emb,
+                   "MobileFaceNet"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    print(f"two threads, {THREAD_RUNS} runs each of the FULL program (4 "
+          f"frames) and MobileFaceNet (64 crops): "
+          f"{'bit-identical to one thread' if not bad else bad}  [{card}]")
+    if bad:
+        raise AssertionError(f"two-thread outputs differ: {bad}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1055,7 +1552,13 @@ def main() -> int:
     emb, embed_site = _embedding_phase(models, cpu_models, frames, frames_np,
                                        runs, card)
 
-    # -- 7. result lines ------------------------------------------------------
+    # -- 7. serving: the stream, the server, two threads ------------------------
+    _upload_times(frames_np, card)
+    stream = _stream_phase(models, frames_np, runs, card)
+    serve = _server_phase(models, frames_np, kind, card)
+    _threads_phase(models, frames, card)
+
+    # -- 8. result lines ------------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -1070,6 +1573,9 @@ def main() -> int:
          "fuses": "face_detection_tflite_tpu/ops/detections.py:219",
          "launches": std["launches"]["detection_postprocess"],
          "full_launches": full["launches"]["detection_postprocess"],
+         "stream_launches": stream["launches"]["detection_postprocess"],
+         "server_launches": serve["launches"]["detection_postprocess"],
+         "server_batches": len(serve["batch_sizes"]),
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
@@ -1090,16 +1596,22 @@ def main() -> int:
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
          "launches": std_k2[MESH_SIZE], "full_launches": full_k2[MESH_SIZE],
+         "stream_launches": stream["launches"]["warp_normalize"][MESH_SIZE],
+         "server_launches": serve["launches"]["warp_normalize"][MESH_SIZE],
          **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
         {"name": "warp_normalize_iris64", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
-         "launches": full_k2[IRIS_SIZE], **iris_site},
+         "launches": full_k2[IRIS_SIZE],
+         "stream_launches": stream["launches"]["warp_normalize"][IRIS_SIZE],
+         "server_launches": serve["launches"]["warp_normalize"].get(
+             IRIS_SIZE, 0), **iris_site},
         {"name": "warp_normalize_embed112", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
          "launches": emb["launches"]["warp_normalize"][EMBED_SIZE],
-         **embed_site},
+         "server_embed_launches": serve["embed_launches"][
+             "warp_normalize"].get(EMBED_SIZE, 0), **embed_site},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,10 @@ GPU in FULL mode, the default (BlazeFace back detection, the 468-point
 mesh, iris landmarks, blendshapes, head pose and iris-refined keypoints,
 and on request face embeddings), and in STANDARD and FAST, with
 hand-written CUDA kernels for the detection postprocess and the ROI warp;
-:class:`FaceEmbedding` (MobileFaceNet) embeds faces on its own.  It
-imports ``torch`` and numpy, never ``jax`` or the JAX package.
+:class:`FaceEmbedding` (MobileFaceNet) embeds faces on its own;
+:class:`ServingPipeline` pipelines batches and :class:`FaceServer` serves
+HTTP requests in micro-batches.  It imports ``torch`` and numpy, never
+``jax`` or the JAX package.
 
 Quick start::
 
@@ -28,6 +30,8 @@ from .pipeline.config import (MODEL_FILES, FaceDetectionMode,
                               FaceDetectionModel)
 from .pipeline.detector import FaceDetector, resolve_model_dir
 from .pipeline.programs import PipelineModels, build_pipeline_program
+from .pipeline.server import FaceServer, ServerOverloaded
+from .pipeline.serving import ServingPipeline
 from .pipeline.timings import DetectTimings, FpsCounter
 from .pipeline.types import (BLENDSHAPE_NAMES, Detection, Face, FaceMesh,
                              RectF)
@@ -43,4 +47,5 @@ __all__ = [
     "MODEL_FILES", "BLENDSHAPE_NAMES", "FaceEmbedding",
     "UntrainedEmbeddingWarning", "cosine_similarity", "euclidean_distance",
     "compute_embedding_alignment", "load_params_npz", "save_params_npz",
+    "FaceServer", "ServerOverloaded", "ServingPipeline",
 ]

@@ -27,7 +27,6 @@ weights, and static shape arithmetic folds into constants.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any
 
 import numpy as np
@@ -38,7 +37,7 @@ from torch import nn
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
 __all__ = ["ConvertedModel", "SUPPORTED_OPS", "convert_model", "convert_file",
-           "params_from_jax", "resolve_device"]
+           "fp32_on_the_card", "params_from_jax", "resolve_device"]
 
 #: Ops this executor runs: the op mix of the BlazeFace, FaceMesh and iris
 #: graphs (convolutional) and of the blendshape MLP-Mixer (fully connected
@@ -224,21 +223,28 @@ def resolve_device(device=None) -> torch.device:
     return torch.empty(0, device=device).device
 
 
-@contextlib.contextmanager
-def _fp32_exact(device: torch.device):
-    """fp32 convolutions and matmuls on the card: cuDNN would otherwise
-    run fp32 convs in TF32 by default."""
+def fp32_on_the_card(device: torch.device) -> None:
+    """Turns cuDNN's TF32 off for the process where ``device`` is a GPU:
+    cuDNN runs fp32 convolutions in TF32 by default.  Called where a card
+    model is built (``PipelineModels``, ``FaceEmbedding``); a forward only
+    checks (:func:`_check_fp32`), since a flag set and restored around a
+    forward is process-wide and would switch TF32 back on under another
+    thread's convolutions."""
+    if device.type == "cuda":
+        torch.backends.cudnn.enabled = True
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _check_fp32(device: torch.device) -> None:
+    """Raises where a forward on ``device`` would run in TF32."""
     if device.type != "cuda":
-        yield
         return
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "precision='highest' needs torch.backends.cuda.matmul.allow_tf32 "
-            "= False")
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
-        yield
+    for name, on in (("cuda.matmul", torch.backends.cuda.matmul.allow_tf32),
+                     ("cudnn", torch.backends.cudnn.allow_tf32)):
+        if on:
+            raise RuntimeError(
+                f"precision='highest' needs torch.backends.{name}.allow_tf32 "
+                f"= False (convert.executor.fp32_on_the_card sets cuDNN's)")
 
 
 class ConvertedModel(nn.Module):
@@ -321,9 +327,9 @@ class ConvertedModel(nn.Module):
                     f"{tuple(x.shape)}")
             env[tix] = x
         device = inputs[0].device
-        with _fp32_exact(device):
-            for op in self._ops:
-                self._run_op(op, env, n)
+        _check_fp32(device)
+        for op in self._ops:
+            self._run_op(op, env, n)
         return tuple(
             env[t] if t in env else
             torch.as_tensor(self._const_outputs[t], device=device)

@@ -22,7 +22,8 @@ import types
 
 import torch
 
-__all__ = ["load", "build", "check", "build_log", "stream", "NVCC_FLAGS"]
+__all__ = ["load", "build", "check", "build_log", "stream", "count_launch",
+           "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -56,6 +57,7 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: types.SimpleNamespace | None = None
 _log = ""
 
@@ -151,3 +153,14 @@ def check(rc: int, what: str) -> None:
     """Raises when a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def count_launch(wrapper, size=None) -> None:
+    """Adds one to ``wrapper.launches`` (and, with ``size``, to
+    ``wrapper.launches_by_size[size]``) under a lock, since two threads
+    may launch one kernel at once (a server's batcher and a handler)."""
+    with _count_lock:
+        wrapper.launches += 1
+        if size is not None:
+            by_size = wrapper.launches_by_size
+            by_size[size] = by_size.get(size, 0) + 1

@@ -35,8 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..convert.checkpoint import load_params_npz, swap_params
-from ..convert.executor import (_fp32_exact, _same_pads, convert_file,
-                                resolve_device)
+from ..convert.executor import (_check_fp32, _same_pads, convert_file,
+                                fp32_on_the_card, resolve_device)
 from ..ops.warp import extract_rois_normalized
 from ..pipeline.config import EMBEDDING_DIM, EMBEDDING_INPUT_SIZE
 
@@ -247,17 +247,17 @@ class MobileFaceNet(nn.Module):
             raise ValueError(f"embedding input expects shape (N, {s}, {s}, 3)"
                              f" with N >= 1, got {tuple(x.shape)}")
         h = x.permute(0, 3, 1, 2)       # a channels_last view, no copy
-        with _fp32_exact(x.device):
-            h = self._conv("stem", h, stride=2)
-            h = self._conv("stem_dw", h, groups=64)
-            for bi, (t, c, n, stride) in enumerate(_MFN_BLOCKS):
-                for ri in range(n):
-                    h = self._bottleneck(f"b{bi}_{ri}", h, t, c,
-                                         stride if ri == 0 else 1)
-            h = self._conv("head", h)
-            # The global depthwise 7x7 VALID collapses the spatial dims.
-            h = self._conv("gdconv", h, groups=512, prelu=False, same=False)
-            h = self._conv("out", h, prelu=False)
+        _check_fp32(x.device)
+        h = self._conv("stem", h, stride=2)
+        h = self._conv("stem_dw", h, groups=64)
+        for bi, (t, c, n, stride) in enumerate(_MFN_BLOCKS):
+            for ri in range(n):
+                h = self._bottleneck(f"b{bi}_{ri}", h, t, c,
+                                     stride if ri == 0 else 1)
+        h = self._conv("head", h)
+        # The global depthwise 7x7 VALID collapses the spatial dims.
+        h = self._conv("gdconv", h, groups=512, prelu=False, same=False)
+        h = self._conv("out", h, prelu=False)
         return (h.reshape(h.shape[0], -1),)
 
 
@@ -293,6 +293,7 @@ class FaceEmbedding:
     def __init__(self, model: nn.Module, *, allow_untrained: bool = False,
                  device=None):
         self.device = resolve_device(device)
+        fp32_on_the_card(self.device)
         self.model = model.to(self.device).eval()
         self.is_pretrained = "random-init" not in model.name
         self.allow_untrained = allow_untrained

@@ -47,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert.executor import convert_model
+from ..convert.executor import convert_model, fp32_on_the_card
 from ..convert.tflite import (PADDING_SAME, PADDING_VALID, ModelIR, OpIR,
                               TensorIR)
 from ..ops.letterbox import letterbox_image, letterbox_params
@@ -443,6 +443,7 @@ def random_pipeline_models(frames: torch.Tensor, *, seed: int = 0,
     iris_ir = iris_landmark_ir(seed + 2, iris_blocks)
     bs_ir = face_blendshapes_ir(seed + 3, mixer_blocks)
     device = frames.device
+    fp32_on_the_card(device)
     det = convert_model(det_ir, name="blazeface-back-random").to(device)
     lbp = letterbox_params(frames.shape[1], frames.shape[2], 256, 256)
     with torch.inference_mode():

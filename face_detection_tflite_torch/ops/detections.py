@@ -227,7 +227,7 @@ def detection_postprocess(raw_boxes, raw_scores, anchors, input_size,
             1.0 - (pl + pr), 1.0 - (pt + pb), float(iou_threshold),
             dev.index, _build.stream(dev.index))
         _build.check(rc, "detection_postprocess")
-        detection_postprocess.launches += 1
+        _build.count_launch(detection_postprocess)
     return boxes, kp, scores, valid
 
 

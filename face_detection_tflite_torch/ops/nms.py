@@ -117,7 +117,7 @@ def nms_core(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
             blended.data_ptr(), b, k, float(iou_threshold),
             boxes.device.index, _build.stream(boxes.device.index))
         _build.check(rc, "nms_core")
-        nms_core.launches += 1
+        _build.count_launch(nms_core)
     return leader, blended
 
 

@@ -160,9 +160,7 @@ def warp_normalize(frames: torch.Tensor, cx, cy, sizes, cos_t, sin_t, *,
                    else torch.cuda.current_device(),
                    torch.cuda.current_stream(frames.device).cuda_stream)
         _build.check(rc, "warp_normalize")
-        warp_normalize.launches += 1
-        by_size = warp_normalize.launches_by_size
-        by_size[out_size] = by_size.get(out_size, 0) + 1
+        _build.count_launch(warp_normalize, out_size)
     return out
 
 

@@ -5,10 +5,14 @@ Port of the FAST, STANDARD and FULL modes of the JAX package's
 `lib/src/face_detector.dart:53`): the constructor surface, ``detect_faces``
 and ``detect_faces_batch`` (FULL by default, as there) with the adaptive
 speculative dispatch, batch bucketing, the int16 quantized readback,
-``_materialize``, ``warmup`` and ``dispose``; the face embeddings, fused
-into the FULL program (``embed_in_full``) or standalone
-(``get_face_embedding*``, ``compare_faces``, ``face_distance``), with the
-one-entry upload cache; and the packed-pixel entry points.
+``_materialize``, ``warmup`` and ``dispose``; the asynchronous pinned
+upload (``pipeline/upload.py``) and the software-pipelined
+``detect_faces_batch_stream``; the face embeddings, fused into the FULL
+program (``embed_in_full``) or standalone (``get_face_embedding*``,
+``compare_faces``, ``face_distance``), with the one-entry upload cache;
+the encoded-input entry points with the one-entry decode cache; the
+packed-pixel entry points; and the observability surface
+(``accelerator_report``, ``memory_report``, ``is_ready``).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
 and no explicit device the constructor raises.  Deliberate difference
@@ -20,6 +24,7 @@ data-parallel serving and detector variants other than BACK_CAMERA raise
 
 from __future__ import annotations
 
+import collections
 import os
 import threading
 import zlib
@@ -38,6 +43,9 @@ from .gates import validate_face_gates
 from .programs import PipelineModels, build_pipeline_program, resolve_device
 from .timings import DetectTimings
 from .types import Detection, Face, FaceMesh, RectF
+from .upload import upload
+from ..utils.image import decode_image, decode_images, load_image, \
+    validate_batch_shape
 
 __all__ = ["FaceDetector", "resolve_model_dir", "resolve_device"]
 
@@ -89,27 +97,14 @@ def _image_from_packed_bytes(data, width: int, height: int, channels: int,
 
 
 def _normalize_channels(images, device: torch.device) -> torch.Tensor:
-    """[B, H, W, {1, 3, 4}] or [B, H, W] (numpy or tensor) -> [B, H, W, 3]
-    on ``device`` (BGRA drops alpha, grayscale replicates;
-    `helpers.dart:377-398`)."""
-    t = images if isinstance(images, torch.Tensor) else \
-        torch.from_numpy(np.ascontiguousarray(images))
-    if t.dim() == 3:
-        if t.shape[-1] in (1, 3, 4):
-            raise ValueError(
-                f"ambiguous 3-D input {tuple(t.shape)}: looks like a single "
-                "[H, W, C] image — add a batch axis (img[None]); a "
-                "grayscale batch must be passed as [B, H, W, 1]")
-        t = t[..., None]
-    if t.dim() != 4:
-        raise ValueError(
-            f"expected [B, H, W, C] image batch, got shape {tuple(t.shape)}")
+    """A [B, H, W, {1, 3, 4}] or [B, H, W] batch (numpy or tensor, its
+    shape validated) -> [B, H, W, 3] on ``device`` (BGRA drops alpha,
+    grayscale replicates; `helpers.dart:377-398`), uploaded by
+    :func:`upload`."""
+    if images.ndim == 3:
+        images = images[..., None]
+    t = upload(images, device)
     c = t.shape[-1]
-    if c not in (1, 3, 4):
-        raise ValueError(f"unsupported channel count {c} (want 1, 3 or 4)")
-    if t.dtype != torch.uint8:
-        t = t.float()
-    t = t.to(device)
     if c == 4:
         t = t[..., :3]
     elif c == 1:
@@ -118,7 +113,11 @@ def _normalize_channels(images, device: torch.device) -> torch.Tensor:
 
 
 class FaceDetector:
-    """MediaPipe-style face pipeline on one GPU (or the CPU on request)."""
+    """MediaPipe-style face pipeline on one GPU (or the CPU on request).
+    Detection is thread-safe: the programs are pure and the host-side
+    caches are guarded by locks."""
+
+    MODEL_VERSION = 1  # cache-invalidation analog of `modelVersion`
 
     def __init__(self,
                  model: FaceDetectionModel = FaceDetectionModel.BACK_CAMERA,
@@ -219,6 +218,9 @@ class FaceDetector:
         #: One-entry host-to-device upload cache (see _device_put_cached).
         self._devput_cache = None
         self._devput_lock = threading.Lock()
+        #: One-entry decode cache (see _decode_cached).
+        self._decode_cache = None
+        self._decode_cache_lock = threading.Lock()
         self.timings = DetectTimings()
 
     @property
@@ -474,36 +476,33 @@ class FaceDetector:
         return self.detect_faces_batch(image[None], mode)[0]
 
     def detect_faces_batch(self, images,
-                           mode: FaceDetectionMode = FaceDetectionMode.FULL
-                           ) -> list[list[Face]]:
-        """Batched detection: [B, H, W, 3] -> per-image Face lists."""
-        self._check_disposed()
-        with torch.inference_mode():
-            prep = self._prepare_batch(images)
-            if prep is None:
-                return []
-            images, b, (w, h) = prep
-            bh, bw = images.shape[1], images.shape[2]
-            if self.adaptive:
-                out = self._finish_speculative(
-                    images, self._dispatch_speculative(images, mode,
-                                                       real_b=b), mode)
-            else:
-                with self.timings.stage("dispatch"):
-                    dev = self._program(bh, bw, mode)(images)
-                dev = {k: v[:b] for k, v in dev.items()}
-                out = self._fetch(dev, self._readback_scale(bh, bw))
-        return self._postprocess_slab(out, b, bh, bw, [(w, h)] * b, mode)
+                           mode: FaceDetectionMode = FaceDetectionMode.FULL,
+                           *, _orig_sizes=None, _predispatched=None,
+                           _prepared=None) -> list[list[Face]]:
+        """Batched detection: [B, H, W, 3] -> per-image Face lists.
+
+        ``_orig_sizes`` (internal) carries per-image (w, h) where the
+        caller padded mixed-size images into one bucket; ``_predispatched``
+        an already dispatched speculative handle of these exact images, so
+        that multi-bucket callers overlap dispatches before the first
+        readback; ``_prepared`` that caller's :meth:`_prepare_batch`
+        output, so the images are not uploaded twice."""
+        return self._stream_finish(self._stream_dispatch(
+            images, mode, _orig_sizes, prepared=_prepared,
+            predispatched=_predispatched), mode)
 
     def _prepare_batch(self, raw):
-        """Channel-normalizes, moves to the device and bucket-pads one
+        """Uploads (:func:`upload`), channel-normalizes and bucket-pads one
         batch.  Returns (images, b, (w, h)) with the pre-pad size, or None
         for an empty batch.  Pads go bottom/right, so pixel coordinates of
         the content are unchanged."""
+        if not isinstance(raw, torch.Tensor):
+            raw = np.asarray(raw)
+        validate_batch_shape(raw.shape)   # before the upload
+        if raw.shape[0] == 0:
+            return None
         images = _normalize_channels(raw, self.device)
         b, h, w, _ = images.shape
-        if b == 0:
-            return None
         pad_rows = (self._batch_bucket(b) if self.bucket_batches else b) - b
         hb, wb = ((self._bucket(h), self._bucket(w)) if self.bucket_images
                   else (h, w))
@@ -511,6 +510,69 @@ class FaceDetector:
             images = torch.nn.functional.pad(
                 images, (0, 0, 0, wb - w, 0, hb - h, 0, pad_rows))
         return images, b, (w, h)
+
+    def detect_faces_batch_stream(self, batches,
+                                  mode: FaceDetectionMode =
+                                  FaceDetectionMode.FULL,
+                                  *, depth: int = 1, devices=None):
+        """Software-pipelined detection over an iterable of image batches.
+
+        Yields one ``list[list[Face]]`` per input batch, in order, while
+        up to ``depth`` later batches are in flight: batch N+1 is uploaded
+        (pinned, on the upload stream) and its program queued before
+        batch N's readback blocks the host.  Batches may be numpy or
+        tensors of shape [B, H, W, C]; different batches may differ in
+        shape.  Tracking is not applied."""
+        self._check_disposed()
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        if devices is not None:
+            raise _not_ported("replica rotation over devices=", "§1 item 7")
+        pending: collections.deque = collections.deque()
+        for raw in batches:
+            pending.append(self._stream_dispatch(raw, mode))
+            if len(pending) > depth:
+                yield self._stream_finish(pending.popleft(), mode)
+        while pending:
+            yield self._stream_finish(pending.popleft(), mode)
+
+    def _stream_dispatch(self, raw, mode: FaceDetectionMode, orig_sizes=None,
+                         *, prepared=None, predispatched=None):
+        """Uploads and prepares a batch and queues its program and the
+        start of its readback; nothing here waits for the device.  Returns
+        the handle :meth:`_stream_finish` takes (None for an empty batch).
+        ``orig_sizes`` carries per-image (w, h) where the caller padded
+        mixed sizes into one bucket."""
+        self._check_disposed()
+        with torch.inference_mode():
+            prep = prepared if prepared is not None else \
+                self._prepare_batch(raw)
+            if prep is None:
+                return None
+            images, b, wh = prep
+            bh, bw = images.shape[1], images.shape[2]
+            if self.adaptive:
+                det = predispatched if predispatched is not None else \
+                    self._dispatch_speculative(images, mode, real_b=b)
+            else:
+                with self.timings.stage("dispatch"):
+                    dev = self._program(bh, bw, mode)(images)
+                det = self._fetch_async({k: v[:b] for k, v in dev.items()},
+                                        self._readback_scale(bh, bw))
+        sizes = list(orig_sizes) if orig_sizes is not None else [wh] * b
+        return images, det, b, sizes
+
+    def _stream_finish(self, item, mode: FaceDetectionMode
+                       ) -> list[list[Face]]:
+        """Waits for a :meth:`_stream_dispatch` handle and builds faces."""
+        if item is None:
+            return []
+        images, det, b, orig_sizes = item
+        with torch.inference_mode():
+            out = (self._finish_speculative(images, det, mode)
+                   if self.adaptive else self._fetch_finish(det))
+        return self._postprocess_slab(out, b, images.shape[1],
+                                      images.shape[2], orig_sizes, mode)
 
     def _postprocess_slab(self, out, b, bh, bw, orig_sizes, mode
                           ) -> list[list[Face]]:
@@ -591,7 +653,8 @@ class FaceDetector:
 
     def _device_put_cached(self, arr) -> torch.Tensor:
         """One-entry host-to-device upload cache: detect + embed on the
-        SAME frame uploads it once.  A tensor on the device passes through.
+        SAME frame uploads it once (through :func:`upload`).  A tensor
+        passes through :func:`upload` uncached.
 
         A hit needs the same ndarray object (the entry holds a reference,
         so its id cannot be recycled) and the same adler32 of a strided
@@ -601,7 +664,7 @@ class FaceDetector:
         checksum of the whole frame would tax every detection that never
         embeds."""
         if isinstance(arr, torch.Tensor):
-            return arr.to(self.device)
+            return upload(arr, self.device)
         arr = np.ascontiguousarray(arr)
 
         def sentinel(a: np.ndarray) -> int:
@@ -614,8 +677,7 @@ class FaceDetector:
             if (cached is not None and cached[0] is arr
                     and cached[1] == sentinel(arr)):
                 return cached[2]
-        t = torch.from_numpy(arr)
-        dev = (t if t.dtype == torch.uint8 else t.float()).to(self.device)
+        dev = upload(arr, self.device)
         with self._devput_lock:
             self._devput_cache = (arr, sentinel(arr), dev)
         return dev
@@ -732,11 +794,145 @@ class FaceDetector:
         return self.get_face_embedding(face, _image_from_packed_bytes(
             data, width, height, channels, channel_order))
 
+    # -- encoded and file inputs -----------------------------------------------
+
+    def _decode_cached(self, data: bytes) -> np.ndarray:
+        """One-entry decode cache: detect + embed on the SAME encoded bytes
+        decodes once (`decodeSourceCached`, face_detector.dart:1390-1430)."""
+        data = bytes(data)
+        with self._decode_cache_lock:
+            cached = self._decode_cache
+            if cached is not None and cached[0] == data:
+                return cached[1]
+        img = decode_image(data)
+        with self._decode_cache_lock:
+            self._decode_cache = (data, img)
+        return img
+
+    def detect_faces_from_bytes(self, data: bytes,
+                                mode: FaceDetectionMode =
+                                FaceDetectionMode.FULL) -> list[Face]:
+        return self.detect_faces(self._decode_cached(data), mode)
+
+    def detect_faces_from_filepath(self, path: str,
+                                   mode: FaceDetectionMode =
+                                   FaceDetectionMode.FULL) -> list[Face]:
+        return self.detect_faces(load_image(path), mode)
+
+    def detect_faces_from_bytes_batch(
+            self, datas: Sequence[bytes],
+            mode: FaceDetectionMode = FaceDetectionMode.FULL
+    ) -> list[list[Face]]:
+        """Decodes (the native pool where available) and detects a batch.
+        Same-size images run as one batch; mixed sizes as one batch per
+        size, or with ``bucket_images`` one padded batch per size bucket.
+        With several groups every group's speculative dispatch is queued
+        before the first readback blocks."""
+        imgs = decode_images(list(datas))
+        by_size: dict[tuple, list[int]] = {}
+        for i, im in enumerate(imgs):
+            key = ((self._bucket(im.shape[0]), self._bucket(im.shape[1]))
+                   if self.bucket_images else im.shape[:2])
+            by_size.setdefault(key, []).append(i)
+        groups = []
+        for (kh, kw), idxs in by_size.items():
+            sizes = None
+            if self.bucket_images:
+                batch = np.stack([np.pad(imgs[i], (
+                    (0, kh - imgs[i].shape[0]), (0, kw - imgs[i].shape[1]),
+                    (0, 0))) for i in idxs])
+                sizes = [(imgs[i].shape[1], imgs[i].shape[0]) for i in idxs]
+            else:
+                batch = np.stack([imgs[i] for i in idxs])
+            prep = pre = None
+            if self.adaptive and len(by_size) > 1:
+                with torch.inference_mode():
+                    prep = self._prepare_batch(batch)
+                    pre = self._dispatch_speculative(prep[0], mode,
+                                                     real_b=prep[1])
+            groups.append((idxs, batch, sizes, pre, prep))
+        results: list = [None] * len(imgs)
+        for idxs, batch, sizes, pre, prep in groups:
+            for i, faces in zip(idxs, self.detect_faces_batch(
+                    batch, mode, _orig_sizes=sizes, _predispatched=pre,
+                    _prepared=prep)):
+                results[i] = faces
+        return results
+
+    def get_face_embedding_from_bytes(self, face: Face,
+                                      data: bytes) -> np.ndarray:
+        """Embedding from encoded image bytes; shares the one-entry decode
+        cache with :meth:`detect_faces_from_bytes`."""
+        return self.get_face_embedding(face, self._decode_cached(data))
+
+    def get_face_embedding_from_filepath(self, face: Face,
+                                         path: str) -> np.ndarray:
+        with open(path, "rb") as f:
+            return self.get_face_embedding_from_bytes(face, f.read())
+
+    def get_segmentation_mask_from_bytes(self, data: bytes):
+        raise _not_ported("segmentation", "§1 item 8")
+
+    def detect_faces_with_segmentation_from_bytes(self, data: bytes,
+                                                  mode=None):
+        raise _not_ported("segmentation", "§1 item 8")
+
+    # -- observability ---------------------------------------------------------
+
+    @property
+    def accelerator_report(self) -> dict[str, str]:
+        """The device each network runs on (``cuda:<card name>`` or
+        ``cpu``), and the precision."""
+        d = self.device
+        backend = (f"cuda:{torch.cuda.get_device_name(d)}"
+                   if d.type == "cuda" else d.type)
+        report = {name: backend
+                  for name in ("detector", "mesh", "iris", "blendshapes")}
+        if self._embedding is not None:
+            report["embedding"] = backend
+        report["precision"] = "highest"
+        return report
+
+    def memory_report(self) -> dict:
+        """Weight bytes per network (from the modules' tensors), their
+        total and the count of built programs."""
+        self._check_disposed()
+
+        def nbytes(module) -> int:
+            return sum(t.numel() * t.element_size() for t in
+                       (*module.parameters(), *module.buffers()))
+
+        report: dict = {}
+        for name in ("detector", "mesh", "iris", "blendshapes", "embedding"):
+            m = getattr(self.models, name, None)
+            if m is not None:
+                report[name] = nbytes(m)
+        if "embedding" not in report and self._embedding is not None:
+            report["embedding"] = nbytes(self._embedding.model)
+        report["total_weights"] = sum(report.values())
+        report["compiled_programs"] = len(self._programs)
+        return report
+
+    @property
+    def is_ready(self) -> bool:
+        return not self._disposed
+
+    @property
+    def is_embedding_ready(self) -> bool:
+        """All models load together, so this mirrors :attr:`is_ready`
+        (`isEmbeddingReady`, face_detector.dart:215)."""
+        return self.is_ready
+
+    @property
+    def is_segmentation_ready(self) -> bool:
+        """Segmentation is not ported yet (ROADMAP §1 item 8)."""
+        return False
+
     # -- lifetime ------------------------------------------------------------
 
     def dispose(self) -> None:
         """Releases the programs, the models' device memory, the embedding
-        model and the cached device frame."""
+        model, the cached device frame and the decode cache."""
         self._disposed = True
         with self._programs_lock:
             self._programs.clear()
@@ -744,6 +940,8 @@ class FaceDetector:
             self._spec_state.clear()
         with self._devput_lock:
             self._devput_cache = None
+        with self._decode_cache_lock:
+            self._decode_cache = None
         if self._embedding is not None:
             self._embedding.dispose()
             self._embedding = None

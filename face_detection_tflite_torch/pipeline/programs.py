@@ -27,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from ..convert.executor import ConvertedModel, resolve_device
+from ..convert.executor import (ConvertedModel, fp32_on_the_card,
+                                resolve_device)
 from ..models.embedding import alignment_from_eyes, embed_rois
 from ..ops.anchors import anchor_options_for, generate_anchors
 from ..ops.detections import _take, detection_postprocess
@@ -53,6 +54,7 @@ class PipelineModels:
                  blendshapes: Optional[ConvertedModel] = None,
                  embedding: Optional[torch.nn.Module] = None):
         self.device = resolve_device(device)
+        fp32_on_the_card(self.device)
         self.detector = detector.to(self.device).eval()
         self.variant = variant
         self.mesh, self.iris, self.blendshapes, self.embedding = (

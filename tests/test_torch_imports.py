@@ -84,3 +84,17 @@ def test_detector_without_device_raises_on_a_cpu_host():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PipelineModels(object(), "back")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_serving_without_device_raises_on_a_cpu_host():
+    """``ServingPipeline`` and ``FaceServer`` over a detector built without
+    ``device=`` raise on a CPU-only host, where the detector does."""
+    import torch
+
+    from face_detection_tflite_torch import (FaceDetector, FaceServer,
+                                             ServingPipeline)
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    for serve in (ServingPipeline, FaceServer):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve(FaceDetector(models=object()))

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from face_detection_tflite_torch.convert.executor import convert_model
+from face_detection_tflite_torch.convert.executor import (convert_model,
+                                                          fp32_on_the_card)
 from face_detection_tflite_torch.kernels import build
 from face_detection_tflite_torch.models import random_init
 from face_detection_tflite_torch.ops import detections, nms, warp
@@ -25,9 +26,14 @@ from face_detection_tflite_torch.ops.letterbox import letterbox_params
 
 @pytest.fixture
 def cuda_device():
+    """The card, with cuDNN's TF32 off as a card model's construction
+    leaves it (a bare model moved to the card checks, and raises with
+    TF32 on)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
-    return torch.device("cuda")
+    device = torch.device("cuda")
+    fp32_on_the_card(device)
+    return device
 
 
 def _candidates(seed, b, k, valid_frac):
@@ -254,14 +260,18 @@ def test_warp_rejects_unsupported_out_size(s):
 
 
 @pytest.mark.cuda
-def test_executor_runs_fp32_on_the_card(cuda_device):
+def test_executor_runs_fp32_on_the_card(cuda_device, monkeypatch):
     """TF32 off: the card's convs agree with the CPU's to fp32 rounding
-    (TF32 would leave ~1e-3 relative)."""
+    (TF32 would leave ~1e-3 relative); a card forward with cuDNN's TF32
+    on raises."""
     model = convert_model(random_init.face_mesh_ir(0, blocks_per_stage=1))
     x = torch.rand(4, 192, 192, 3, generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         want = model(x * 2 - 1)
         got = model.to(cuda_device)((x * 2 - 1).to(cuda_device))
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            model((x * 2 - 1).to(cuda_device))
     for g, r in zip(got, want):
         err = (g.cpu() - r).abs().max() / r.abs().max()
         assert err.item() <= 1e-5
@@ -377,3 +387,115 @@ def test_full_embedding_batch_launches_k2_at_each_site(cuda_device):
     emb = out["embeddings"][out["valid"]]
     assert emb.shape[0] >= 1 and emb.shape[1] == 192
     assert (emb.norm(dim=-1) - 1).abs().max().item() <= 1e-5
+
+
+def _small_card_detector(device, frames):
+    from face_detection_tflite_torch import FaceDetector
+    models, *_ = random_init.random_pipeline_models(
+        frames, seed=3, detector_blocks=1, mesh_blocks=1, iris_blocks=1,
+        mixer_blocks=1)
+    return FaceDetector(models=models, device=device, max_faces=16), models
+
+
+def _assert_same_faces(got, want, step):
+    """Counts equal; boxes, scores and blendshapes within 1e-6; mesh and
+    iris within one int16 readback step ``step`` px (plus rounding)."""
+    assert [len(f) for f in got] == [len(f) for f in want]
+    for g, w in zip((f for per in got for f in per),
+                    (f for per in want for f in per)):
+        gb, wb = g.bounding_box, w.bounding_box
+        assert abs(g.score - w.score) <= 1e-6
+        assert max(abs(gb.xmin - wb.xmin), abs(gb.ymin - wb.ymin),
+                   abs(gb.xmax - wb.xmax), abs(gb.ymax - wb.ymax)) <= 1e-6
+        assert np.abs(g.mesh.points - w.mesh.points).max() <= step + 1e-3
+        assert np.abs(g.iris_points - w.iris_points).max() <= step + 1e-3
+        assert np.abs(g.blendshapes.scores - w.blendshapes.scores
+                      ).max() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_stream_matches_batch_calls_on_the_card(cuda_device):
+    """``detect_faces_batch_stream`` at depth 2 over FULL batches of two
+    shapes equals the same batches' ``detect_faces_batch`` calls, with one
+    K1 launch a batch."""
+    rng = np.random.default_rng(7)
+    frames = rng.integers(0, 256, (4, 427, 640, 3), dtype=np.uint8)
+    det, _ = _small_card_detector(cuda_device,
+                                  torch.from_numpy(frames).to(cuda_device))
+    batches = [frames, frames[:2, :320, :480].copy(), frames[::-1].copy()]
+    for b in batches:   # both shapes at their steady speculation state
+        det.detect_faces_batch(b)
+    want = [det.detect_faces_batch(b) for b in batches]
+    before = detections.detection_postprocess.launches
+    got = list(det.detect_faces_batch_stream(batches, depth=2))
+    assert detections.detection_postprocess.launches - before == 3
+    assert sum(len(f) for per in got for f in per) >= 4
+    for g, w, b in zip(got, want, batches):
+        _assert_same_faces(g, w, 2.0 * max(b.shape[1:3]) / 32000.0)
+
+
+@pytest.mark.cuda
+def test_two_threads_run_bit_identical(cuda_device):
+    """The FULL program and MobileFaceNet on two threads at once give
+    their single-threaded outputs bit for bit (TF32 stays off)."""
+    import threading
+    from face_detection_tflite_torch.pipeline.config import FaceDetectionMode
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+    frames = torch.randint(0, 256, (2, 427, 640, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4)
+                           ).to(cuda_device)
+    _, models = _small_card_detector(cuda_device, frames)
+    prog = build_pipeline_program(models, 427, 640, FaceDetectionMode.FULL)
+    crops = torch.rand((16, 112, 112, 3), device=cuda_device) * 2 - 1
+    with torch.inference_mode():
+        want_full, (want_emb,) = prog(frames), models.embedding(crops)
+    bad = []
+
+    def run(fn, check):
+        with torch.inference_mode():
+            for i in range(10):
+                out = fn()
+                torch.cuda.synchronize()
+                if not check(out):
+                    bad.append(i)
+
+    def bits(t):   # NaN (empty slots' head angles) equals itself
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    threads = [
+        threading.Thread(target=run, args=(lambda: prog(frames), lambda o: all(
+            torch.equal(bits(o[k]), bits(want_full[k])) for k in want_full))),
+        threading.Thread(target=run, args=(
+            lambda: models.embedding(crops),
+            lambda o: torch.equal(bits(o[0]), bits(want_emb))))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad
+
+
+@pytest.mark.cuda
+def test_pinned_upload_of_a_reused_buffer(cuda_device):
+    """A caller's numpy buffer mutated in place between two uploads: each
+    upload holds the frame as it was when uploaded, through the reused
+    pinned ring, on the caller's stream."""
+    from face_detection_tflite_torch.pipeline.upload import RING_SLOTS, upload
+    buf = np.random.default_rng(1).integers(0, 256, (2, 64, 96, 3),
+                                            dtype=np.uint8)
+    old = buf.copy()
+    first = upload(buf, cuda_device)
+    np.subtract(255, buf, out=buf)
+    second = upload(buf, cuda_device)
+    outs = []
+    for i in range(2 * RING_SLOTS + 1):
+        buf[:] = i
+        outs.append(upload(buf, cuda_device))
+    torch.cuda.synchronize()
+    assert np.array_equal(first.cpu().numpy(), old)
+    assert np.array_equal(second.cpu().numpy(), 255 - old)
+    for i, t in enumerate(outs):
+        assert t.is_cuda and t.dtype == torch.uint8 and bool((t == i).all())
+    f = upload(buf.astype(np.float64), cuda_device)
+    assert f.dtype == torch.float32 and upload(f, cuda_device) is f
