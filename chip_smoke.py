@@ -81,16 +81,47 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    and then answering 200 (requests/s, p50/p99 latency, micro-batch
    sizes); runs the FULL program and MobileFaceNet on two threads at
    once, bit-identical to one thread;
-8. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+8. video, camera frames and the standalone classes: (a) writes a seeded
+   32-frame 1280x720 clip with cv2 (a smooth texture panned 3 px a frame;
+   mp4v, else MJPG), calibrates fresh seeded full-depth networks on the
+   decoded frames and runs ``detect_faces_from_video`` (FULL, tracking
+   on, batches of 8): frames and timestamps in order, faces equal bit for
+   bit to ``detect_faces_batch``'s on the same decoded frames in the same
+   batches, IDs equal to a fresh ``TemporalFaceTracker``'s on the same
+   boxes, one K1 launch and one K2 at 192 and at 64 px a batch (plus
+   re-runs), and K1 and K2 held against their plain versions on every
+   batch's own frames (``_check_path_kernels``: K1 on the detector's raw
+   outputs, K2 on the program's face and eye ROIs, bit for bit); a run with ``frame_stride=2, max_frames=8, max_dim=640``;
+   IDs from 1 after ``reset_tracking``; frames/s against
+   ``detect_faces_batch`` alone, the share of IDs carried over, and the
+   host ms of both smoothers; (b) four decoded frames as I420, NV12,
+   NV21, RGBA and BGRA camera frames with rows padded by 64 bytes under
+   the four rotations (I420 also as a duck-typed planes object) through
+   the camera entry points: faces equal bit for bit to
+   ``detect_faces(decode_camera_frame(frame))``'s, one K1 and one K2 at
+   each site a frame, K1 and K2 against their plain versions on the first
+   landscape and the first portrait frame at B = 1, the decode's host ms
+   and the ms a frame; (c) standalone ``FaceDetection`` on the main
+   path's frame 0, card against CPU, one K1 launch a call, K1 against its
+   plain version on the call's own raw outputs, its ms a call and K1's
+   device ms at B = 1;
+   ``FaceLandmark``, ``IrisLandmark`` and ``FaceBlendshapesModel`` on the
+   main path's own crops, card against CPU;
+9. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
    ``server_launches``: over phase 7's stream and server requests, with
-   ``server_batches`` micro-batches); the iris site's
+   ``server_batches`` micro-batches; ``video_launches`` over phase 8a's
+   ``video_batches``, ``camera_launches`` over 8b's ``camera_frames``,
+   and K1's ``standalone_launches`` over 8c's ``standalone_calls``, with
+   ``standalone_ms`` a call and ``standalone_k1_ms``/``_device_ms`` at
+   B = 1); the iris site's
    (``warp_normalize_iris64``) is its count over the FULL path's batches
    and the embedding site's (``warp_normalize_embed112``) over the
    embedding phase's (``server_embed_launches``: one ``/v1/embed``);
    ``nms_core`` is off the main path (0) and its launches in step 3 are
-   ``check_launches``.
+   ``check_launches``.  K1's ``max_abs_err`` is its largest box error
+   over every check against the plain version (steps 3, 4 and 8).
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -620,8 +651,7 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
         "detection_postprocess": detections.detection_postprocess.launches,
         "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size),
         "nms_core": nms_mod.nms_core.launches}
-    reruns = sum(n for k, n in det.timings.calls.items()
-                 if k.startswith("face_stages["))
+    reruns = _reruns(det)
     per_image = [len(f) for f in faces]
     steady = statistics.median(batch_ms[2:])
     print(f"{name} main path: {runs} batches of {FRAMES} x {HEIGHT}x{WIDTH}:"
@@ -758,6 +788,73 @@ def _time_mobilefacenet(net, frames, roi, card: str) -> dict:
             "gflop": flops / 1e9, "bound_ms": bound}
 
 
+def _check_warp(frames, roi, s: int, flip, label: str):
+    """Holds K2 bit for bit against its plain version on ``roi`` (cx, cy,
+    size, cos, sin, each [B, F]) at ``s`` px.  Returns the kernel's
+    crops."""
+    import torch
+    from face_detection_tflite_torch.ops import warp as warp_mod
+    with torch.inference_mode():
+        out = warp_mod.warp_normalize(frames, *roi, out_size=s, flip=flip)
+        torch.cuda.synchronize()
+        err = (out - warp_mod.warp_normalize_plain(
+            frames, *roi, out_size=s, flip=flip)).abs().max().item()
+    if err != 0:
+        raise AssertionError(f"K2 {label}: kernel differs from plain by "
+                             f"{err}")
+    return out
+
+
+def _check_path_kernels(label: str, models, images, card: str) -> float:
+    """Holds K1 and K2 against their plain versions on a path's own
+    inputs.  ``images`` are the path's frames as it uploads them ([B, H,
+    W, 3] uint8 on the card); K1 gets the detector's raw outputs for
+    them (:func:`_check_postprocess`), K2 the mesh ROIs of the FULL
+    program's detections at 192 px and the eye ROIs of its meshes at
+    64 px, right eyes mirrored, as the program's stages make them, each
+    bit for bit (:func:`_check_warp`).  Returns K1's box error."""
+    import torch
+    from face_detection_tflite_torch import FaceDetectionMode
+    from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
+                                                           letterbox_params)
+    from face_detection_tflite_torch.pipeline import geometry
+    from face_detection_tflite_torch.pipeline.config import MIN_SCORE
+    from face_detection_tflite_torch.pipeline.programs import (
+        _identify_detector_outputs, build_pipeline_program)
+    b, h, w = images.shape[:3]
+    lbp = letterbox_params(h, w, 256, 256)
+    with torch.inference_mode():
+        raw_boxes, raw_scores = _identify_detector_outputs(
+            models.detector(letterbox_image(images, lbp)))
+        err = _check_postprocess(
+            f"{label} (B={b}, {w}x{h})",
+            (raw_boxes, raw_scores, models.anchors, 256.0, lbp.padding),
+            {"max_detections": MAX_FACES}, card)
+        slab = build_pipeline_program(
+            models, h, w, FaceDetectionMode.FULL, max_faces=MAX_FACES,
+            min_score=MIN_SCORE)(images)
+        faces = int(slab["valid"].sum())
+        theta, cx, cy, size = geometry.compute_face_alignment(
+            slab["raw_keypoints"], float(w), float(h))
+        mroi = [t.contiguous() for t in
+                (cx, cy, size, torch.cos(-theta), torch.sin(-theta))]
+        ecx, ecy, esize, etheta = (
+            t.reshape(b, -1) for t in geometry.eye_rois_from_mesh(slab["mesh"]))
+        iroi = [t.contiguous() for t in (ecx, ecy, esize, torch.cos(etheta),
+                                         torch.sin(etheta))]
+        flip = (torch.arange(2 * MAX_FACES, device=images.device) % 2 == 1
+                ).expand(b, -1).contiguous()
+    if faces == 0:
+        raise AssertionError(f"{label}: no face to hold K2 on")
+    _check_warp(images, mroi, MESH_SIZE, None, f"{label} mesh site")
+    _check_warp(images, iroi, IRIS_SIZE, flip, f"{label} iris site")
+    print(f"K2 warp_normalize {label} (B={b}, {w}x{h}): equal to plain bit "
+          f"for bit at {MESH_SIZE} px on {b}x{MAX_FACES} face ROIs and at "
+          f"{IRIS_SIZE} px on {b}x{2 * MAX_FACES} eye ROIs ({faces} faces "
+          f"valid)  [{card}]")
+    return err
+
+
 def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
                ) -> dict:
     """Holds K2 bit for bit against its plain version on ``roi`` (cx, cy,
@@ -775,13 +872,8 @@ def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
         return warp_mod.warp_normalize_plain(frames, *roi, out_size=s,
                                              flip=flip)
 
+    out, err = _check_warp(frames, roi, s, flip, label), 0.0
     with torch.inference_mode():
-        out = kernel()
-        torch.cuda.synchronize()
-        err = (out - plain()).abs().max().item()
-        if err != 0:
-            raise AssertionError(f"K2 {label}: kernel differs from plain by "
-                                 f"{err}")
         ms, dev_ms, dev_by = _kernel_ms(kernel, "K2 warp_normalize")
         plain_ms = _median_ms(plain, iters=5, warmup=1)
         sx, sy = _sample_grid(*roi, s, flip)
@@ -940,6 +1032,23 @@ def _launches() -> dict:
             "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size)}
 
 
+def _reruns(det) -> int:
+    """The detector's overflow re-runs so far (its face-stage calls)."""
+    return sum(n for k, n in det.timings.calls.items()
+               if k.startswith("face_stages["))
+
+
+def _check_launches(launches: dict, calls: int, reruns: int, label: str
+                    ) -> None:
+    """One K1 launch a call, one K2 launch at 192 and at 64 px a call
+    (plus one each on an overflow re-run)."""
+    want = {"detection_postprocess": calls,
+            "warp_normalize": {MESH_SIZE: calls + reruns,
+                               IRIS_SIZE: calls + reruns}}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+
+
 def _busy_us(spans) -> float:
     """Length of the union of ``(start, end)`` spans."""
     busy, cur_s, cur_e = 0.0, None, None
@@ -999,8 +1108,7 @@ def _stream_phase(models, frames_np, runs: int, card: str) -> dict:
     ms: dict = {"sequential": [], "stream": []}
     outs: dict = {}
     for name in ("sequential", "stream", "stream", "sequential"):
-        reruns0 = sum(n for k, n in det.timings.calls.items()
-                      if k.startswith("face_stages["))
+        reruns0 = _reruns(det)
         _reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1011,15 +1119,10 @@ def _stream_phase(models, frames_np, runs: int, card: str) -> dict:
             outs[name] = out
             if name == "stream":
                 launches = _launches()
-                reruns = sum(n for k, n in det.timings.calls.items()
-                             if k.startswith("face_stages[")) - reruns0
+                reruns = _reruns(det) - reruns0
     seq, streamed = outs["sequential"], outs["stream"]
     seq_ms, stream_ms = ms["sequential"], ms["stream"]
-    if launches != {"detection_postprocess": runs,
-                    "warp_normalize": {MESH_SIZE: runs + reruns,
-                                       IRIS_SIZE: runs + reruns}}:
-        raise AssertionError(f"stream: not one K1 and one K2 a crop size a "
-                             f"batch (+{reruns} re-runs): {launches}")
+    _check_launches(launches, runs, reruns, "stream")
     errs = _max_errors((_payload(g), _payload(w))
                        for g, w in zip(streamed, seq))
     print(f"stream (depth {STREAM_DEPTH}) of {runs} FULL batches of {FRAMES}"
@@ -1313,6 +1416,541 @@ def _threads_phase(models, frames, card: str) -> None:
         raise AssertionError(f"two-thread outputs differ: {bad}")
 
 
+# -- phase 8: video, camera, standalone ----------------------------------------
+
+#: Phase 8a: a 32-frame 720p clip (a 720p camera's frame), decoded batches
+#: of 8 through ``detect_faces_from_video``.
+VIDEO_FRAMES, VIDEO_H, VIDEO_W, VIDEO_BATCH = 32, 720, 1280, 8
+VIDEO_FPS, VIDEO_PAN = 25.0, 3
+#: Phase 8b: camera frames made from the first decoded frames, padded rows.
+CAMERA_FRAMES, CAMERA_ROW_PAD = 4, 64
+#: Phase 8c: standalone ``FaceDetection`` calls counted and timed.
+STANDALONE_CALLS = 20
+
+
+def _texture_frames(seed: int, n: int, h: int, w: int, pan: int):
+    """``n`` RGB uint8 frames of a smooth seeded texture (noise at 1/8
+    resolution, upscaled with cv2's cubic filter), panned ``pan`` px a
+    frame, so that detections move coherently from frame to frame."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    small = rng.integers(0, 256, (h // 8 + 2, (w + pan * n) // 8 + 2, 3),
+                         dtype=np.uint8)
+    big = cv2.resize(small, (small.shape[1] * 8, small.shape[0] * 8),
+                     interpolation=cv2.INTER_CUBIC)
+    return np.stack([big[:h, i * pan:i * pan + w] for i in range(n)])
+
+
+def _write_clip(frames, directory: str) -> tuple[str, str]:
+    """Writes ``frames`` (RGB) as a clip in ``directory`` with cv2: mp4v,
+    else MJPG.  Returns (path, codec)."""
+    import cv2
+    import numpy as np
+    h, w = frames.shape[1:3]
+    for codec, ext in (("mp4v", "mp4"), ("MJPG", "avi")):
+        path = os.path.join(directory, f"clip.{ext}")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*codec),
+                                 VIDEO_FPS, (w, h))
+        if writer.isOpened():
+            for f in frames:
+                writer.write(np.ascontiguousarray(f[..., ::-1]))
+            writer.release()
+            return path, codec
+    raise RuntimeError("cv2 can write neither mp4v nor MJPG here")
+
+
+def _read_clip(path: str):
+    """(every frame of the clip as cv2 decodes it, RGB, stacked; its frame
+    rate)."""
+    import cv2
+    import numpy as np
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            frames.append(f[..., ::-1])
+    finally:
+        cap.release()
+    return np.stack(frames), fps
+
+
+def _face_json(faces) -> list:
+    """Per-image JSON strings of the faces' payloads without their
+    tracking IDs: Python floats print exactly, so equal strings are equal
+    values bit for bit (NaN head angles included)."""
+    out = []
+    for per in faces:
+        payload = [f.to_dict(include_mesh=True, include_iris=True)
+                   for f in per]
+        for p in payload:
+            p.pop("tracking_id")
+        out.append(json.dumps(payload))
+    return out
+
+
+def _video_phase(frames_dev, card: str) -> dict:
+    """Phase 8a: a seeded 720p clip written and decoded with cv2, the
+    detector calibrated on the decoded frames, ``detect_faces_from_video``
+    (FULL, tracking on) against ``detect_faces_batch`` on the same decoded
+    frames in the same batches (faces bit for bit, from two fresh
+    detectors, so that both run the same speculative slabs), the IDs
+    against a fresh ``TemporalFaceTracker`` on the same boxes, the
+    launches, K1 and K2 against their plain versions on every batch's
+    frames (:func:`_check_path_kernels`), a strided and downscaled run,
+    ``reset_tracking``, and the smoothers' host time on the tracked
+    faces.  Returns the models and
+    decoded frames (for phase 8b) and the counts and times."""
+    import tempfile
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import (FaceDetector, FaceSmoother,
+                                             TemporalFaceTracker)
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.pipeline.video import _read_frames
+    dev = frames_dev.device
+    raw = _texture_frames(SEED, VIDEO_FRAMES, VIDEO_H, VIDEO_W, VIDEO_PAN)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path, codec = _write_clip(raw, tmp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded, fps = _read_clip(path)
+        read_s = time.perf_counter() - t0
+        if decoded.shape != raw.shape:
+            raise AssertionError(f"clip decodes to {decoded.shape}, wrote "
+                                 f"{raw.shape}")
+        print(f"video: {VIDEO_FRAMES} frames of {VIDEO_W}x{VIDEO_H} written "
+              f"as {codec} ({os.path.getsize(path) / 1e6:.2f} MB) in "
+              f"{write_s:.2f} s, decoded in {read_s:.2f} s; decoded vs "
+              f"written mean abs diff "
+              f"{np.abs(decoded.astype(np.int16) - raw).mean():.2f}")
+        t0 = time.perf_counter()
+        models, *_ = random_init.random_pipeline_models(
+            torch.from_numpy(decoded).to(dev), seed=SEED)
+        print(f"video models: seeded full-depth networks calibrated on the "
+              f"decoded frames in {time.perf_counter() - t0:.2f} s")
+
+        def detector(tracking: bool):
+            return FaceDetector(models=models, device=dev,
+                                max_faces=MAX_FACES,
+                                enable_tracking=tracking)
+
+        batches = [decoded[i:i + VIDEO_BATCH]
+                   for i in range(0, VIDEO_FRAMES, VIDEO_BATCH)]
+        warm = detector(True)
+        for b in batches:
+            warm.detect_faces_batch(b)
+        warm.dispose()
+
+        det = detector(True)
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = list(det.detect_faces_from_video(path,
+                                                   batch_size=VIDEO_BATCH))
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t0
+        launches = _launches()
+        reruns = _reruns(det)
+        ref_det = detector(False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = [faces for b in batches for faces in ref_det.detect_faces_batch(b)]
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        ref_det.dispose()
+
+        n_batches = len(batches)
+        _check_launches(launches, n_batches, reruns, "video")
+        if [r.frame_index for r in results] != list(range(VIDEO_FRAMES)) or \
+                any(r.timestamp_s != r.frame_index / fps for r in results):
+            raise AssertionError("video: frames or timestamps out of order")
+        got = [r.faces for r in results]
+        if _face_json(got) != _face_json(ref):
+            raise AssertionError("video: faces differ from detect_faces_batch"
+                                 "'s on the same decoded frames")
+        tracker = TemporalFaceTracker()
+        ids = [[f.tracking_id for f in per] for per in got]
+        want_ids = [tracker.update([[f.bounding_box.xmin, f.bounding_box.ymin,
+                                     f.bounding_box.xmax, f.bounding_box.ymax]
+                                    for f in per]) for per in got]
+        if ids != want_ids:
+            raise AssertionError("video: tracking IDs differ from a fresh "
+                                 "tracker's on the same boxes")
+        n_faces = sum(map(len, got))
+        if n_faces == 0:
+            raise AssertionError("video: no face in any frame")
+        post_err = max(_check_path_kernels(f"video batch {i}", models,
+                                           torch.from_numpy(b).to(dev), card)
+                       for i, b in enumerate(batches))
+        carried = sum(1 for prev, cur in zip(ids, ids[1:])
+                      for i in cur if i in prev)
+        share = carried / max(1, sum(map(len, ids[1:])))
+        print(f"video (FULL, tracking, batches of {VIDEO_BATCH}): "
+              f"detect_faces_from_video {VIDEO_FRAMES / video_s:.1f} frames/s "
+              f"({video_s * 1e3 / VIDEO_FRAMES:.2f} ms a frame) against "
+              f"detect_faces_batch alone on the decoded frames "
+              f"{VIDEO_FRAMES / batch_s:.1f} frames/s "
+              f"({batch_s * 1e3 / VIDEO_FRAMES:.2f} ms a frame); faces per "
+              f"frame {[len(p) for p in got]}, equal bit for bit; "
+              f"{len({i for per in ids for i in per})} IDs, {share:.3f} of "
+              f"the faces carried their ID over from the frame before; "
+              f"launches {launches} ({reruns} re-runs)  [{card}]")
+
+        # The host work of the video path alone: the reader (cv2's decode
+        # and BGR-to-RGB conversion) and the batch's np.stack of its
+        # frames; as a yardstick for the reader's contiguous conversion,
+        # np.stack of one batch of negative-stride BGR-to-RGB views (the
+        # JAX reader's frames).
+        t0 = time.perf_counter()
+        rgb = [f for _, _, f in _read_frames(path, 1, None)]
+        read_ms = (time.perf_counter() - t0) * 1e3 / len(rgb)
+        stack_ms = {}
+        t0 = time.perf_counter()
+        for i in range(0, len(rgb), VIDEO_BATCH):
+            np.stack(rgb[i:i + VIDEO_BATCH])
+        stack_ms["reader's frames"] = (time.perf_counter() - t0) * 1e3 / \
+            n_batches
+        views = [np.ascontiguousarray(f[..., ::-1])[..., ::-1]
+                 for f in rgb[:VIDEO_BATCH]]
+        t0 = time.perf_counter()
+        np.stack(views)
+        stack_ms["views"] = (time.perf_counter() - t0) * 1e3
+        print(f"video host work alone: reader {read_ms:.2f} ms a frame "
+              f"(cv2 decode, BGR-to-RGB conversion); np.stack a batch of "
+              f"{VIDEO_BATCH}: {stack_ms} ms  [{card}]")
+
+        smooth_ms = {}
+        for method in ("one_euro", "ema"):
+            sm = FaceSmoother(method=method)
+            t0 = time.perf_counter()
+            for r in results:
+                sm.smooth(r.faces, t_sec=r.timestamp_s)
+            smooth_ms[method] = (time.perf_counter() - t0) * 1e3 / \
+                VIDEO_FRAMES
+        print(f"smoothing on the host, ms a frame of "
+              f"{n_faces / VIDEO_FRAMES:.1f} faces: {smooth_ms}  [{card}]")
+
+        # Strided and downscaled to half size, then a reset: IDs restart
+        # at 1.
+        half = VIDEO_W // 2
+        strided = list(det.detect_faces_from_video(
+            path, batch_size=VIDEO_BATCH, frame_stride=2, max_frames=8,
+            max_dim=half))
+        sizes = {f.original_size for r in strided for f in r.faces}
+        if [r.frame_index for r in strided] != list(range(0, 16, 2)) or \
+                sizes != {(half, VIDEO_H // 2)}:
+            raise AssertionError(f"video: frame_stride=2, max_frames=8, "
+                                 f"max_dim={half} gave frames "
+                                 f"{[r.frame_index for r in strided]} of "
+                                 f"sizes {sizes}")
+        det.reset_tracking()
+        again = list(det.detect_faces_from_video(path, batch_size=VIDEO_BATCH,
+                                                 max_frames=VIDEO_BATCH))
+        first = next([f.tracking_id for f in r.faces] for r in again
+                     if r.faces)
+        if sorted(first) != list(range(1, len(first) + 1)):
+            raise AssertionError(f"video: IDs after reset_tracking {first}")
+        print(f"video: frame_stride=2, max_frames=8, max_dim={half} gave "
+              f"frames "
+              f"{[r.frame_index for r in strided]} of {sizes}; after "
+              f"reset_tracking the first frame's IDs are {first}")
+        det.dispose()
+    return {"models": models, "decoded": decoded, "launches": launches,
+            "batches": n_batches, "post_err": post_err, "video_fps": VIDEO_FRAMES / video_s,
+            "batch_fps": VIDEO_FRAMES / batch_s, "carried": share,
+            "read_ms": read_ms, "stack_ms": stack_ms,
+            "smooth_ms": smooth_ms}
+
+
+def _camera_frames(rgb):
+    """The camera frames of phase 8b from one RGB frame: I420, NV12 and
+    NV21 (cv2's BT.601 ``COLOR_RGB2YUV_I420``, chroma interleaved for the
+    NV layouts), RGBA and BGRA, every row padded by
+    :data:`CAMERA_ROW_PAD` bytes, as (format, bytes, Y or RGBA row
+    stride)."""
+    import cv2
+    import numpy as np
+    h, w = rgb.shape[:2]
+    yuv = cv2.cvtColor(np.ascontiguousarray(rgb), cv2.COLOR_RGB2YUV_I420)
+    y = yuv[:h]
+    u = yuv[h:h + h // 4].reshape(h // 2, w // 2)
+    v = yuv[h + h // 4:].reshape(h // 2, w // 2)
+
+    def pad(plane, stride):
+        out = np.zeros((plane.shape[0], stride), np.uint8)
+        out[:, :plane.shape[1]] = plane
+        return out.tobytes()
+
+    def inter(a, b):
+        out = np.empty((a.shape[0], 2 * a.shape[1]), np.uint8)
+        out[:, 0::2], out[:, 1::2] = a, b
+        return out
+
+    ys = w + CAMERA_ROW_PAD
+    alpha = np.full((h, w, 1), 255, np.uint8)
+    return [
+        ("i420", pad(y, ys) + pad(u, (ys + 1) // 2) + pad(v, (ys + 1) // 2),
+         ys),
+        ("nv12", pad(y, ys) + pad(inter(u, v), ys), ys),
+        ("nv21", pad(y, ys) + pad(inter(v, u), ys), ys),
+        ("rgba", pad(np.concatenate([rgb, alpha], -1).reshape(h, -1),
+                     4 * w + CAMERA_ROW_PAD), 4 * w + CAMERA_ROW_PAD),
+        ("bgra", pad(np.concatenate([rgb[..., ::-1], alpha], -1).reshape(
+            h, -1), 4 * w + CAMERA_ROW_PAD), 4 * w + CAMERA_ROW_PAD)]
+
+
+class _Plane:
+    """A duck-typed camera plane (Flutter's ``CameraImage`` shape)."""
+
+    def __init__(self, data: bytes, bytes_per_row: int,
+                 bytes_per_pixel: int = 1):
+        self.bytes = data
+        self.bytesPerRow = bytes_per_row
+        self.bytesPerPixel = bytes_per_pixel
+
+
+def _camera_phase(models, decoded, card: str) -> dict:
+    """Phase 8b: :data:`CAMERA_FRAMES` decoded frames as I420, NV12, NV21,
+    RGBA and BGRA camera frames with padded rows under the four
+    rotations, through ``detect_faces_from_camera_frame`` (FULL), and the
+    I420 ones also as a duck-typed planes object through
+    ``detect_faces_from_camera_image``: faces equal bit for bit to
+    ``detect_faces(decode_camera_frame(frame))`` on a second fresh
+    detector over the same sequence; one K1 launch and one K2 launch at
+    each site a frame (plus re-runs); K1 and K2 against their plain
+    versions on the first landscape and the first portrait frame
+    (:func:`_check_path_kernels`); the host ms of the decode and the ms a
+    frame."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import (CameraFormat, CameraFrame,
+                                             CameraRotation, FaceDetector,
+                                             decode_camera_frame)
+    dev = models.device
+    calls = []     # (camera-path call, the frame it decodes to)
+    formats = []   # each call's format and rotation
+    decode_ms: dict = {}
+    for i, rgb in enumerate(decoded[:CAMERA_FRAMES]):
+        h, w = rgb.shape[:2]
+        for j, (fmt, data, stride) in enumerate(_camera_frames(rgb)):
+            rot = CameraRotation((90 * (i + j)) % 360)
+            frame = CameraFrame(data, w, h, CameraFormat(fmt), rot,
+                                row_stride=stride)
+            t0 = time.perf_counter()
+            image = decode_camera_frame(frame)
+            decode_ms.setdefault(fmt, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            calls.append((lambda d, fr=frame: d.detect_faces_from_camera_frame(
+                fr), image))
+            formats.append(f"{fmt} {rot.value}")
+            if fmt == "i420":
+                ys, cs = stride, (stride + 1) // 2
+                y_n, c_n = ys * h, cs * (h // 2)
+                cam = {"width": w, "height": h, "planes": [
+                    _Plane(data[:y_n], ys), _Plane(data[y_n:y_n + c_n], cs),
+                    _Plane(data[y_n + c_n:], cs)]}
+                calls.append((lambda d, c=cam, r=rot:
+                              d.detect_faces_from_camera_image(
+                                  c, rotation=r), image))
+                formats.append(f"i420 planes {rot.value}")
+    det = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+    # Warm the programs of both orientations.
+    for image in {image.shape: image for _, image in calls}.values():
+        det.detect_faces(image)
+    det.dispose()
+    det = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+    _reset_launches()
+    got, frame_ms = [], []
+    for call, _ in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got.append(call(det))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launches()
+    reruns = _reruns(det)
+    det.dispose()
+    _check_launches(launches, len(calls), reruns, "camera")
+    ref_det = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+    want, detect_ms = [], []
+    for _, image in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want.append(ref_det.detect_faces(image))
+        torch.cuda.synchronize()
+        detect_ms.append((time.perf_counter() - t0) * 1e3)
+    ref_det.dispose()
+    if _face_json(got) != _face_json(want):
+        raise AssertionError("camera: faces differ from detect_faces("
+                             "decode_camera_frame(frame))'s")
+    if sum(map(len, got)) == 0:
+        raise AssertionError("camera: no face in any frame")
+    first = {}     # the first frame of each orientation
+    for (_, image), name in zip(calls, formats):
+        first.setdefault(image.shape, (name, image))
+    post_err = max(_check_path_kernels(
+        f"camera {name}", models,
+        torch.from_numpy(np.ascontiguousarray(image)[None]).to(dev), card)
+        for name, image in first.values())
+    decode = {k: statistics.median(v) for k, v in decode_ms.items()}
+    print(f"camera (FULL, {len(calls)} frames: {CAMERA_FRAMES} frames x 5 "
+          f"formats, rows padded by {CAMERA_ROW_PAD} B, rotations 0-270, "
+          f"I420 also as planes): faces per frame "
+          f"{[len(f) for f in got]}, equal bit for bit; decode ms "
+          f"{ {k: round(v, 3) for k, v in decode.items()} }; ms a frame "
+          f"median {statistics.median(frame_ms):.2f} (min "
+          f"{min(frame_ms):.2f}, max {max(frame_ms):.2f}), of it "
+          f"detect_faces on the decoded frame median "
+          f"{statistics.median(detect_ms):.2f}; launches {launches} "
+          f"({reruns} re-runs)  [{card}]")
+    return {"launches": launches, "frames": len(calls), "post_err": post_err,
+            "decode_ms": decode, "frame_ms": statistics.median(frame_ms),
+            "detect_ms": statistics.median(detect_ms)}
+
+
+def _standalone_phase(models, cpu_models, frames, frames_np, slab, iroi,
+                      card: str) -> dict:
+    """Phase 8c: standalone ``FaceDetection`` on frame 0 of the main path
+    (card against CPU: the same count, boxes and keypoints within
+    :data:`CPU_TOLERANCES`, scores within 1e-6; one K1 launch a call over
+    :data:`STANDALONE_CALLS` calls; K1 against its plain version on the
+    call's own raw outputs; ms a call and K1's device ms at B = 1), then ``FaceLandmark``, ``IrisLandmark`` and
+    ``FaceBlendshapesModel`` on the main path's own crops (K2's 192 and
+    64 px crops turned back to uint8, the 146 packed points of a FULL
+    face), card against CPU within 1e-5 of the largest magnitude (the
+    blendshapes within :data:`CPU_TOLERANCES`)."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import (FaceBlendshapesModel,
+                                             FaceDetection, FaceLandmark,
+                                             IrisLandmark)
+    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops import warp as warp_mod
+    from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
+                                                           letterbox_params)
+    from face_detection_tflite_torch.pipeline import geometry
+    from face_detection_tflite_torch.pipeline.blendshape_input import \
+        pack_blendshape_input
+    from face_detection_tflite_torch.pipeline.programs import \
+        _identify_detector_outputs
+    img = frames_np[0]
+    card_fd = FaceDetection(model=models.detector, device=models.device,
+                            max_detections=MAX_FACES)
+    cpu_fd = FaceDetection(model=cpu_models.detector, device="cpu",
+                           max_detections=MAX_FACES)
+    card_fd(img)
+    detections.detection_postprocess.launches = 0
+    for _ in range(STANDALONE_CALLS):
+        got = card_fd(img)
+    launches = detections.detection_postprocess.launches
+    if launches != STANDALONE_CALLS:
+        raise AssertionError(f"standalone FaceDetection: {launches} K1 "
+                             f"launches for {STANDALONE_CALLS} calls")
+    want = cpu_fd(img)
+    if len(got) != len(want) or not got:
+        raise AssertionError(f"standalone FaceDetection: {len(got)} "
+                             f"detections on the card, {len(want)} on the "
+                             f"CPU")
+    box_err = max(float(np.abs(np.subtract(
+        [g.bounding_box.xmin, g.bounding_box.ymin, g.bounding_box.xmax,
+         g.bounding_box.ymax],
+        [w.bounding_box.xmin, w.bounding_box.ymin, w.bounding_box.xmax,
+         w.bounding_box.ymax])).max()) for g, w in zip(got, want))
+    kp_err = max(float(np.abs(g.keypoints_xy - w.keypoints_xy).max())
+                 for g, w in zip(got, want))
+    score_err = max(abs(g.score - w.score) for g, w in zip(got, want))
+    ms = _median_ms(lambda: card_fd(img))
+    lbp = letterbox_params(HEIGHT, WIDTH, 256, 256)
+    with torch.inference_mode():
+        rb, rs = _identify_detector_outputs(
+            models.detector(letterbox_image(frames[:1], lbp)))
+        post_err = _check_postprocess(
+            "standalone FaceDetection (B=1)",
+            (rb, rs, models.anchors, 256.0, lbp.padding),
+            {"max_detections": MAX_FACES}, card)
+        k1_ms, k1_dev_ms, k1_by = _kernel_ms(
+            lambda: detections.detection_postprocess(
+                rb, rs, models.anchors, 256.0, lbp.padding,
+                max_detections=MAX_FACES), "K1 detection_postprocess")
+    print(f"standalone FaceDetection on frame 0 ({len(got)} detections): "
+          f"card vs CPU boxes within {box_err:.3g}, keypoints within "
+          f"{kp_err:.3g}, scores within {score_err:.3g}; {launches} K1 "
+          f"launches for {STANDALONE_CALLS} calls; {ms:.3f} ms a call; K1 at "
+          f"B = 1: {k1_ms:.4f} ms event, {k1_dev_ms:.4f} ms device ({k1_by})"
+          f"  [{card}]")
+    if box_err > CPU_TOLERANCES["boxes"] or \
+            kp_err > CPU_TOLERANCES["keypoints"] or score_err > 1e-6:
+        raise AssertionError("standalone FaceDetection: card and CPU "
+                             "disagree")
+
+    # The crop networks on the main path's own crops of frame 0's first face.
+    d = int(torch.nonzero(slab["valid"][0])[0, 0])
+    with torch.inference_mode():
+        theta, cx, cy, size = geometry.compute_face_alignment(
+            slab["raw_keypoints"][:1, d:d + 1], float(WIDTH), float(HEIGHT))
+        face = warp_mod.warp_normalize(
+            frames[:1], cx.contiguous(), cy.contiguous(), size.contiguous(),
+            torch.cos(-theta).contiguous(), torch.sin(-theta).contiguous(),
+            out_size=MESH_SIZE)[0, 0]
+        eye = warp_mod.warp_normalize(
+            frames[:1], *(t[:1, 2 * d:2 * d + 1].contiguous() for t in iroi),
+            out_size=IRIS_SIZE)[0, 0]
+        pts = pack_blendshape_input(slab["mesh"][:1, d:d + 1],
+                                    slab["iris"][:1, d:d + 1])[0, 0]
+
+    def to_u8(x):
+        return torch.clamp(torch.round((x + 1.0) * 127.5), 0, 255).to(
+            torch.uint8).cpu().numpy()
+
+    face_u8, eye_u8, pts_np = to_u8(face), to_u8(eye), pts.cpu().numpy()
+    errs = {}
+    for name, cls, m_card, m_cpu, arg in (
+            ("FaceLandmark", FaceLandmark, models.mesh, cpu_models.mesh,
+             face_u8),
+            ("IrisLandmark", IrisLandmark, models.iris, cpu_models.iris,
+             eye_u8),
+            ("FaceBlendshapesModel", FaceBlendshapesModel,
+             models.blendshapes, cpu_models.blendshapes, pts_np)):
+        a = cls(model=m_card, device=models.device)
+        b = cls(model=m_cpu, device="cpu")
+        if name == "FaceLandmark":
+            (ga, sa), (gb, sb) = a.call_with_score(arg), b.call_with_score(arg)
+            errs["presence"] = abs(sa - sb)
+        else:
+            ga, gb = a(arg), b(arg)
+        if ga is None or gb is None:
+            raise AssertionError(f"{name}: no output ({ga is None}, "
+                                 f"{gb is None})")
+        tol = (CPU_TOLERANCES["blendshapes"] if name == "FaceBlendshapesModel"
+               else 1e-5 * float(np.abs(gb).max()))
+        errs[name] = (float(np.abs(ga - gb).max()), tol)
+    print(f"standalone crop networks on the main path's crops, card vs CPU "
+          f"(max error, tolerance): {errs}  [{card}]")
+    if any(e > t for k, (e, t) in ((k, v) for k, v in errs.items()
+                                   if k != "presence")) or \
+            errs["presence"] > 1e-6:
+        raise AssertionError("standalone crop networks: card and CPU "
+                             "disagree")
+    return {"launches": launches, "calls": STANDALONE_CALLS, "ms": ms,
+            "post_err": post_err,
+            "k1_ms": k1_ms, "k1_device_ms": k1_dev_ms, "k1_device_by": k1_by}
+
+
+def _video_camera_launches(video: dict, camera: dict, size: int) -> dict:
+    """K2's launches at crop size ``size`` over phase 8a's video batches
+    and 8b's camera frames, for the ``kernels`` line."""
+    return {"video_launches": video["launches"]["warp_normalize"][size],
+            "video_batches": video["batches"],
+            "camera_launches": camera["launches"]["warp_normalize"][size],
+            "camera_frames": camera["frames"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1558,7 +2196,15 @@ def main() -> int:
     serve = _server_phase(models, frames_np, kind, card)
     _threads_phase(models, frames, card)
 
-    # -- 8. result lines ------------------------------------------------------
+    # -- 8. video, camera frames, standalone classes ----------------------------
+    video = _video_phase(frames, card)
+    camera = _camera_phase(video["models"], video["decoded"], card)
+    alone = _standalone_phase(models, cpu_models, frames, frames_np,
+                              full["slab"], iroi, card)
+    post_err = max(post_err, video["post_err"], camera["post_err"],
+                   alone["post_err"])
+
+    # -- 9. result lines ------------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -1576,6 +2222,14 @@ def main() -> int:
          "stream_launches": stream["launches"]["detection_postprocess"],
          "server_launches": serve["launches"]["detection_postprocess"],
          "server_batches": len(serve["batch_sizes"]),
+         "video_launches": video["launches"]["detection_postprocess"],
+         "video_batches": video["batches"],
+         "camera_launches": camera["launches"]["detection_postprocess"],
+         "camera_frames": camera["frames"],
+         "standalone_launches": alone["launches"],
+         "standalone_calls": alone["calls"], "standalone_ms": alone["ms"],
+         "standalone_k1_ms": alone["k1_ms"],
+         "standalone_k1_device_ms": alone["k1_device_ms"],
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
@@ -1598,6 +2252,7 @@ def main() -> int:
          "launches": std_k2[MESH_SIZE], "full_launches": full_k2[MESH_SIZE],
          "stream_launches": stream["launches"]["warp_normalize"][MESH_SIZE],
          "server_launches": serve["launches"]["warp_normalize"][MESH_SIZE],
+         **_video_camera_launches(video, camera, MESH_SIZE),
          **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
         {"name": "warp_normalize_iris64", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
@@ -1605,7 +2260,8 @@ def main() -> int:
          "launches": full_k2[IRIS_SIZE],
          "stream_launches": stream["launches"]["warp_normalize"][IRIS_SIZE],
          "server_launches": serve["launches"]["warp_normalize"].get(
-             IRIS_SIZE, 0), **iris_site},
+             IRIS_SIZE, 0), **_video_camera_launches(video, camera, IRIS_SIZE),
+         **iris_site},
         {"name": "warp_normalize_embed112", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",

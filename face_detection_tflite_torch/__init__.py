@@ -8,8 +8,12 @@ and on request face embeddings), and in STANDARD and FAST, with
 hand-written CUDA kernels for the detection postprocess and the ROI warp;
 :class:`FaceEmbedding` (MobileFaceNet) embeds faces on its own;
 :class:`ServingPipeline` pipelines batches and :class:`FaceServer` serves
-HTTP requests in micro-batches.  It imports ``torch`` and numpy, never
-``jax`` or the JAX package.
+HTTP requests in micro-batches; video files and camera frames run with
+stable tracking IDs (:class:`TemporalFaceTracker`) and smoothed landmarks
+(:class:`FaceSmoother`); and the standalone classes (:class:`FaceDetection`,
+:class:`FaceLandmark`, :class:`IrisLandmark`, :class:`FaceBlendshapesModel`)
+run one network each.  It imports ``torch`` and numpy, never ``jax`` or
+the JAX package.
 
 Quick start::
 
@@ -25,6 +29,8 @@ from .models.embedding import (FaceEmbedding, UntrainedEmbeddingWarning,
                                compute_embedding_alignment, cosine_similarity,
                                euclidean_distance)
 from .convert.tflite import parse_tflite
+from .models.standalone import (FaceBlendshapesModel, FaceDetection,
+                                FaceLandmark, IrisLandmark)
 from .ops.letterbox import LetterboxParams, letterbox_params
 from .pipeline.config import (MODEL_FILES, FaceDetectionMode,
                               FaceDetectionModel)
@@ -32,9 +38,15 @@ from .pipeline.detector import FaceDetector, resolve_model_dir
 from .pipeline.programs import PipelineModels, build_pipeline_program
 from .pipeline.server import FaceServer, ServerOverloaded
 from .pipeline.serving import ServingPipeline
+from .pipeline.smoothing import FaceSmoother, OneEuroFilter
 from .pipeline.timings import DetectTimings, FpsCounter
+from .pipeline.tracker import TemporalFaceTracker
 from .pipeline.types import (BLENDSHAPE_NAMES, Detection, Face, FaceMesh,
                              RectF)
+from .pipeline.video import FrameThrottle, VideoFrameResult, process_video
+from .utils.camera import (CameraFormat, CameraFrame, CameraRotation,
+                           camera_frame_from_image, camera_frame_from_planes,
+                           decode_camera_frame)
 
 __version__ = "0.1.0"
 
@@ -48,4 +60,9 @@ __all__ = [
     "UntrainedEmbeddingWarning", "cosine_similarity", "euclidean_distance",
     "compute_embedding_alignment", "load_params_npz", "save_params_npz",
     "FaceServer", "ServerOverloaded", "ServingPipeline",
+    "TemporalFaceTracker", "FaceSmoother", "OneEuroFilter", "FrameThrottle",
+    "VideoFrameResult", "process_video", "CameraFormat", "CameraFrame",
+    "CameraRotation", "camera_frame_from_image", "camera_frame_from_planes",
+    "decode_camera_frame", "FaceDetection", "FaceLandmark", "IrisLandmark",
+    "FaceBlendshapesModel",
 ]

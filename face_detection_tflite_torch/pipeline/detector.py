@@ -11,15 +11,17 @@ upload (``pipeline/upload.py``) and the software-pipelined
 program (``embed_in_full``) or standalone (``get_face_embedding*``,
 ``compare_faces``, ``face_distance``), with the one-entry upload cache;
 the encoded-input entry points with the one-entry decode cache; the
-packed-pixel entry points; and the observability surface
-(``accelerator_report``, ``memory_report``, ``is_ready``).
+packed-pixel entry points; temporal tracking (``enable_tracking``, the
+generation counter, ``reset_tracking``) and the video and camera entry
+points; and the observability surface (``accelerator_report``,
+``memory_report``, ``is_ready``).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
 and no explicit device the constructor raises.  Deliberate difference
 from the JAX detector: a keyword-only ``models=`` may replace loading the
-``.tflite`` files from ``model_dir``.  Tracking, segmentation,
-data-parallel serving and detector variants other than BACK_CAMERA raise
-``NotImplementedError`` naming their ROADMAP item.
+``.tflite`` files from ``model_dir``.  Segmentation, data-parallel serving
+and detector variants other than BACK_CAMERA raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,15 +39,20 @@ from ..convert.executor import convert_file
 from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
-from .config import (DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE, MIN_SCORE,
+from ..utils.camera import (CameraRotation, _plane_field,
+                            camera_frame_from_planes, decode_camera_frame)
+from .config import (DEFAULT_MAX_MISSED_FRAMES,
+                     DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE, MIN_SCORE,
                      MODEL_FILES, FaceDetectionMode, FaceDetectionModel)
 from .gates import validate_face_gates
 from .programs import PipelineModels, build_pipeline_program, resolve_device
 from .timings import DetectTimings
+from .tracker import TemporalFaceTracker, validate_tracking_config
 from .types import Detection, Face, FaceMesh, RectF
 from .upload import upload
+from .video import process_video
 from ..utils.image import decode_image, decode_images, load_image, \
-    validate_batch_shape
+    normalize_channels, validate_batch_shape
 
 __all__ = ["FaceDetector", "resolve_model_dir", "resolve_device"]
 
@@ -96,22 +103,6 @@ def _image_from_packed_bytes(data, width: int, height: int, channels: int,
     return img
 
 
-def _normalize_channels(images, device: torch.device) -> torch.Tensor:
-    """A [B, H, W, {1, 3, 4}] or [B, H, W] batch (numpy or tensor, its
-    shape validated) -> [B, H, W, 3] on ``device`` (BGRA drops alpha,
-    grayscale replicates; `helpers.dart:377-398`), uploaded by
-    :func:`upload`."""
-    if images.ndim == 3:
-        images = images[..., None]
-    t = upload(images, device)
-    c = t.shape[-1]
-    if c == 4:
-        t = t[..., :3]
-    elif c == 1:
-        t = t.expand(*t.shape[:-1], 3)
-    return t.contiguous()
-
-
 class FaceDetector:
     """MediaPipe-style face pipeline on one GPU (or the CPU on request).
     Detection is thread-safe: the programs are pure and the host-side
@@ -127,6 +118,7 @@ class FaceDetector:
                  min_face_presence_confidence: float =
                  DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE,
                  enable_tracking: bool = False,
+                 max_missed_frames: int = DEFAULT_MAX_MISSED_FRAMES,
                  max_faces: int = 16,
                  with_segmentation: bool = False,
                  model_dir: Optional[str] = None,
@@ -144,10 +136,9 @@ class FaceDetector:
                  models: Optional[PipelineModels] = None):
         validate_face_gates(min_score, min_face_size,
                             min_face_presence_confidence)
+        validate_tracking_config(max_missed_frames)
         if model != FaceDetectionModel.BACK_CAMERA:
             raise _not_ported(f"detector variant {model.name}", "§1 item 5")
-        if enable_tracking:
-            raise _not_ported("temporal tracking", "§1 item 7")
         if with_segmentation:
             raise _not_ported("segmentation", "§1 item 8")
         if data_parallel:
@@ -222,6 +213,25 @@ class FaceDetector:
         self._decode_cache = None
         self._decode_cache_lock = threading.Lock()
         self.timings = DetectTimings()
+        self._tracking_enabled = enable_tracking
+        self._tracker = TemporalFaceTracker(
+            max_missed_frames=max_missed_frames)
+        self._tracker_lock = threading.Lock()
+        #: Bumped by reset_tracking; a result whose detection started
+        #: under an older generation gets no IDs (see _attach_tracking).
+        self._tracking_generation = 0
+
+    @property
+    def is_tracking_enabled(self) -> bool:
+        """Whether temporal tracking IDs are attached to results
+        (`isTrackingEnabled`, face_detector.dart:170)."""
+        return self._tracking_enabled
+
+    @property
+    def max_missed_frames(self) -> int:
+        """Frames a track survives without a match before retirement
+        (`maxMissedFrames`, face_detector.dart:177)."""
+        return self._tracker.max_missed_frames
 
     @property
     def embed_in_full(self) -> bool:
@@ -468,12 +478,41 @@ class FaceDetector:
                      ) -> list[Face]:
         """Detects faces in one RGB image ([H, W, 3], uint8 or 0..255
         float, numpy or tensor).  A follow-up embedding of the same
-        ndarray reuses its upload (:meth:`_device_put_cached`)."""
+        ndarray reuses its upload (:meth:`_device_put_cached`).  With
+        tracking enabled, the faces carry tracking IDs."""
+        gen0 = self._tracking_generation  # read before the detection
         if not isinstance(image, torch.Tensor):
             image = np.asarray(image)
         if image.ndim == 3 and image.shape[-1] in (1, 3, 4):
             image = self._device_put_cached(image)
-        return self.detect_faces_batch(image[None], mode)[0]
+        return self._attach_tracking(
+            self.detect_faces_batch(image[None], mode)[0], gen0)
+
+    def _attach_tracking(self, faces: list[Face], gen_snapshot: int
+                         ) -> list[Face]:
+        """Feeds one frame's faces to the tracker and attaches their IDs.
+
+        ``gen_snapshot`` is the tracking generation read before the
+        detection started: a frame in flight when :meth:`reset_tracking`
+        is called belongs to the discarded stream, so it neither carries
+        IDs nor updates the fresh tracker (face_tracker.dart:211-214)."""
+        if not self._tracking_enabled:
+            return faces
+        with self._tracker_lock:
+            if gen_snapshot != self._tracking_generation:
+                return faces
+            ids = self._tracker.update(
+                [[f.bounding_box.xmin, f.bounding_box.ymin,
+                  f.bounding_box.xmax, f.bounding_box.ymax]
+                 for f in faces])
+            return [f.with_tracking_id(i) for f, i in zip(faces, ids)]
+
+    def reset_tracking(self) -> None:
+        """Drops the temporal state; results in flight lose their IDs
+        (generation counter, `face_tracker.dart:211-214`)."""
+        with self._tracker_lock:
+            self._tracker.reset()
+            self._tracking_generation += 1
 
     def detect_faces_batch(self, images,
                            mode: FaceDetectionMode = FaceDetectionMode.FULL,
@@ -501,7 +540,7 @@ class FaceDetector:
         validate_batch_shape(raw.shape)   # before the upload
         if raw.shape[0] == 0:
             return None
-        images = _normalize_channels(raw, self.device)
+        images = normalize_channels(raw, self.device)
         b, h, w, _ = images.shape
         pad_rows = (self._batch_bucket(b) if self.bucket_batches else b) - b
         hb, wb = ((self._bucket(h), self._bucket(w)) if self.bucket_images
@@ -522,7 +561,8 @@ class FaceDetector:
         (pinned, on the upload stream) and its program queued before
         batch N's readback blocks the host.  Batches may be numpy or
         tensors of shape [B, H, W, C]; different batches may differ in
-        shape.  Tracking is not applied."""
+        shape.  Tracking is not applied, as in
+        :meth:`detect_faces_batch`."""
         self._check_disposed()
         if depth < 1:
             raise ValueError("depth must be >= 1")
@@ -858,6 +898,64 @@ class FaceDetector:
                     _prepared=prep)):
                 results[i] = faces
         return results
+
+    # -- camera frames and video ---------------------------------------------
+
+    def detect_faces_from_camera_frame(
+            self, frame, mode: FaceDetectionMode = FaceDetectionMode.FULL,
+            *, max_dim: Optional[int] = None) -> list[Face]:
+        """Decodes a packed camera frame (NV12/NV21/I420/BGRA/RGBA with
+        rotation) on the host and detects, with tracking where enabled
+        (`detectFacesFromCameraFrame`, face_detector.dart:620-633).
+        ``max_dim`` downscales the longer side before the detection;
+        results are in the downscaled frame's coordinates, as in the
+        reference."""
+        return self.detect_faces(decode_camera_frame(frame, max_dim), mode)
+
+    def detect_faces_from_camera_image(
+            self, camera_image, mode: FaceDetectionMode =
+            FaceDetectionMode.FULL, *, rotation=None, is_bgra: bool = False,
+            max_dim: Optional[int] = None) -> list[Face]:
+        """The `detectFacesFromCameraImage` analog
+        (face_detector.dart:651-666): ``camera_image`` is any object or
+        mapping with ``width``, ``height`` and ``planes`` (each plane with
+        ``bytes`` and optional ``bytes_per_row``/``bytesPerRow`` and
+        ``bytes_per_pixel``/``bytesPerPixel``, Flutter's `CameraImage`
+        shape).  Returns an empty list when the plane layout cannot be
+        decoded, and raises TypeError when ``camera_image`` lacks that
+        shape (face_detector.dart:641-643).  ``is_bgra`` selects BGRA over
+        RGBA for one 4-byte plane."""
+        width = _plane_field(camera_image, "width")
+        height = _plane_field(camera_image, "height")
+        planes = _plane_field(camera_image, "planes")
+        if width is None or height is None or planes is None:
+            raise TypeError(
+                "camera_image must expose width, height and planes "
+                f"(got {type(camera_image).__name__})")
+        frame = camera_frame_from_planes(
+            width, height, planes,
+            rotation=rotation or CameraRotation.NONE, is_bgra=is_bgra)
+        if frame is None:
+            return []
+        return self.detect_faces_from_camera_frame(frame, mode,
+                                                   max_dim=max_dim)
+
+    def detect_faces_from_video(self, path: str,
+                                mode: FaceDetectionMode =
+                                FaceDetectionMode.FULL,
+                                *, frame_stride: int = 1,
+                                batch_size: int = 8,
+                                max_frames: Optional[int] = None,
+                                max_dim: Optional[int] = None,
+                                devices: Optional[Sequence] = None):
+        """Iterates ``VideoFrameResult`` over a video file: frames decoded
+        on a prefetch thread, ``batch_size`` of them a
+        ``detect_faces_batch`` call, tracking applied in frame order
+        (:func:`process_video`; the reference's `detectFacesFromVideo`).
+        ``devices`` raises ``NotImplementedError`` (ROADMAP §1 item 7)."""
+        return process_video(self, path, mode, frame_stride=frame_stride,
+                             batch_size=batch_size, max_frames=max_frames,
+                             max_dim=max_dim, devices=devices)
 
     def get_face_embedding_from_bytes(self, face: Face,
                                       data: bytes) -> np.ndarray:

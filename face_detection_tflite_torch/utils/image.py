@@ -1,9 +1,11 @@
-"""Host-side image IO: encoded bytes and files to RGB arrays.
+"""Host-side image IO: encoded bytes, files and camera planes to RGB.
 
-Port of the decode half of the JAX package's ``utils/image.py``: one
-decode on the host, RGB from the start, in the JAX order: the native
-JPEG/PNG/WebP pool (``utils/native.py``), then PIL, then cv2.  Everything
-after the decode runs on the device.
+Port of the JAX package's ``utils/image.py``: one decode on the host, RGB
+from the start, in the JAX order: the native JPEG/PNG/WebP pool
+(``utils/native.py``), then PIL, then cv2; the ``maxDim`` downscale and
+the YUV420 conversion of the camera paths on the host; and
+:func:`normalize_channels`, the channel tolerance every public entry point
+shares, on tensors.  Everything after it runs on the device.
 """
 
 from __future__ import annotations
@@ -12,9 +14,12 @@ import io
 import threading
 
 import numpy as np
+import torch
 
-__all__ = ["decode_image", "decode_images", "load_image",
-           "validate_batch_shape"]
+from ..pipeline.upload import upload
+
+__all__ = ["decode_image", "decode_images", "load_image", "rgb_from_yuv420",
+           "normalize_channels", "validate_batch_shape", "fit_max_dim"]
 
 
 def validate_batch_shape(shape) -> None:
@@ -34,6 +39,40 @@ def validate_batch_shape(shape) -> None:
     if shape[-1] not in (1, 3, 4):
         raise ValueError(
             f"unsupported channel count {shape[-1]} (want 1, 3 or 4)")
+
+
+def fit_max_dim(image: np.ndarray, max_dim: int) -> np.ndarray:
+    """Downscales so the longer side fits ``max_dim`` (cv2 INTER_LINEAR);
+    returns the input unchanged when it already fits.  The reference's
+    ``maxDim`` knob (`helpers.dart:488-493`), shared by the camera, video
+    and standalone detection paths."""
+    h, w = image.shape[:2]
+    if max(h, w) <= max_dim:
+        return image
+    import cv2
+    scale = max_dim / max(h, w)
+    return cv2.resize(np.ascontiguousarray(image),
+                      (int(w * scale), int(h * scale)),
+                      interpolation=cv2.INTER_LINEAR)
+
+
+def normalize_channels(images, device: torch.device) -> torch.Tensor:
+    """A [B, H, W, {1, 3, 4}] or [B, H, W] (grayscale) batch, numpy or
+    tensor -> [B, H, W, 3] on ``device`` (BGRA drops alpha, grayscale
+    replicates; `helpers.dart:377-398`).  The shape is validated
+    (:func:`validate_batch_shape`) before the upload
+    (``pipeline/upload.py``), which keeps uint8 and casts anything else to
+    float32."""
+    validate_batch_shape(images.shape)
+    if images.ndim == 3:
+        images = images[..., None]
+    t = upload(images, device)
+    c = t.shape[-1]
+    if c == 4:
+        t = t[..., :3]
+    elif c == 1:
+        t = t.expand(*t.shape[:-1], 3)
+    return t.contiguous()
 
 
 _pool = None
@@ -110,3 +149,30 @@ def decode_images(datas: list[bytes]) -> list[np.ndarray]:
 def load_image(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_image(f.read())
+
+
+def rgb_from_yuv420(y: np.ndarray, u: np.ndarray, v: np.ndarray
+                    ) -> np.ndarray:
+    """Planar YUV420 (BT.601 video range) -> RGB uint8, in numpy on the
+    host: the camera-stream analog of the reference's `cameraFrameToBgrMat`
+    YUV plans (`helpers.dart:479-560`, I420 path)."""
+    h, w = y.shape
+
+    def upsample2(c):
+        full = np.repeat(np.repeat(c, 2, axis=0), 2, axis=1)
+        # Odd sizes: the ceil-half chroma falls one row or column short of
+        # the frame after the 2x repeat; extend it with the edge sample.
+        pad_h, pad_w = max(0, h - full.shape[0]), max(0, w - full.shape[1])
+        if pad_h or pad_w:
+            full = np.pad(full, ((0, pad_h), (0, pad_w)), mode="edge")
+        return full[:h, :w]
+
+    u_full = upsample2(u)
+    v_full = upsample2(v)
+    yf = y.astype(np.float32) - 16.0
+    uf = u_full.astype(np.float32) - 128.0
+    vf = v_full.astype(np.float32) - 128.0
+    r = 1.164 * yf + 1.596 * vf
+    g = 1.164 * yf - 0.392 * uf - 0.813 * vf
+    b = 1.164 * yf + 2.017 * uf
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)

@@ -499,3 +499,31 @@ def test_pinned_upload_of_a_reused_buffer(cuda_device):
         assert t.is_cuda and t.dtype == torch.uint8 and bool((t == i).all())
     f = upload(buf.astype(np.float64), cuda_device)
     assert f.dtype == torch.float32 and upload(f, cuda_device) is f
+
+
+@pytest.mark.cuda
+def test_standalone_face_detection_card_matches_cpu(cuda_device):
+    """Standalone ``FaceDetection`` (one-block seeded BlazeFace) on an
+    853x1280 frame: one K1 launch a call on the card, and the card's
+    detections equal the CPU's in count, with boxes and keypoints within
+    1e-4 and scores within 1e-6."""
+    from face_detection_tflite_torch import FaceDetection
+    frame = torch.randint(0, 256, (1, 853, 1280, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(4))
+    _, det_ir, *_ = random_init.random_pipeline_models(
+        frame, seed=3, detector_blocks=1, mesh_blocks=1, iris_blocks=1,
+        mixer_blocks=1)
+    img = frame[0].numpy()
+    card = FaceDetection(model=convert_model(det_ir), device=cuda_device)
+    cpu = FaceDetection(model=convert_model(det_ir), device="cpu")
+    before = detections.detection_postprocess.launches
+    got = card(img)
+    assert detections.detection_postprocess.launches - before == 1
+    want = cpu(img)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        gb, wb = g.bounding_box, w.bounding_box
+        assert max(abs(gb.xmin - wb.xmin), abs(gb.ymin - wb.ymin),
+                   abs(gb.xmax - wb.xmax), abs(gb.ymax - wb.ymax)) <= 1e-4
+        assert np.abs(g.keypoints_xy - w.keypoints_xy).max() <= 1e-4
+        assert abs(g.score - w.score) <= 1e-6

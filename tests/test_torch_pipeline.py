@@ -161,8 +161,8 @@ def test_detector_options_match_jax_slab(setup, options):
 
 def test_detector_surface_raises_for_unported_features(setup):
     _, models, _ = setup
-    for kw in ({"enable_tracking": True}, {"with_segmentation": True},
-               {"data_parallel": True}, {"precision": "high"}):
+    for kw in ({"with_segmentation": True}, {"data_parallel": True},
+               {"precision": "high"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FaceDetector(models=models, device="cpu", **kw)
     # Embeddings are ported: the fused stage needs FULL mode and a model.
