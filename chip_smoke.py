@@ -107,7 +107,29 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    device ms at B = 1;
    ``FaceLandmark``, ``IrisLandmark`` and ``FaceBlendshapesModel`` on the
    main path's own crops, card against CPU;
-9. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+9. the other detector variants and selfie segmentation: (a) full-depth
+   seeded FRONT_CAMERA, SHORT_RANGE and FULL detectors calibrated on the
+   main path's frames to about 32 passing anchors a frame, and
+   FULL_SPARSE (FULL's calibrated graph with its pruned filters stored
+   sparse behind DENSIFY), each in ``FaceDetector(model=v)`` in FULL with
+   the main path's mesh, iris and blendshape nets over the same frames
+   for a few steady batches (launch counts set to 0 just before them:
+   one K1 launch a batch, one K2 at each of 192 and 64 px, plus re-runs),
+   ms a batch and faces/s, K1 and K2 against their plain versions on the
+   variant's own inputs (``_check_path_kernels``: K1 at A = 896 from the
+   128 px graphs and at A = 2304 from the full-range network), the card
+   against the CPU on two frames; FULL_SPARSE's raw outputs and faces
+   equal FULL's bit for bit; K1 timed on the full-range network's raw
+   outputs; (b) the full-width seeded general (256x256), landscape
+   (144x256) and multiclass (256x256, 6 classes) segmenters on the same
+   frames with the float32 and the uint8 readback: ms a batch and
+   masks/s, the device program, the readback and the host ``upsample``
+   timed apart, the card against the CPU on two frames, one profiled
+   general batch by layer (convolutions, transposed convolutions,
+   resizes, elementwise); ``detect_faces_with_segmentation_batch``
+   against the two calls run apart; ``/v1/segment`` and
+   ``/v1/detect_with_segmentation`` on a loopback server;
+10. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
    ``server_launches``: over phase 7's stream and server requests, with
@@ -115,13 +137,18 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ``video_batches``, ``camera_launches`` over 8b's ``camera_frames``,
    and K1's ``standalone_launches`` over 8c's ``standalone_calls``, with
    ``standalone_ms`` a call and ``standalone_k1_ms``/``_device_ms`` at
-   B = 1); the iris site's
+   B = 1; ``variant_launches`` per variant over phase 9a's
+   ``variant_batches`` batches each, ``full_range_network`` K1's times
+   and bound on the full-range network's raw outputs, and
+   ``segmentation_combined_launches`` and ``segmentation_server_launches``
+   over phase 9b's combined batch and its ``/v1/detect_with_segmentation``
+   requests); the iris site's
    (``warp_normalize_iris64``) is its count over the FULL path's batches
    and the embedding site's (``warp_normalize_embed112``) over the
    embedding phase's (``server_embed_launches``: one ``/v1/embed``);
    ``nms_core`` is off the main path (0) and its launches in step 3 are
    ``check_launches``.  K1's ``max_abs_err`` is its largest box error
-   over every check against the plain version (steps 3, 4 and 8).
+   over every check against the plain version (steps 3, 4, 8 and 9).
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -809,7 +836,8 @@ def _check_path_kernels(label: str, models, images, card: str) -> float:
     """Holds K1 and K2 against their plain versions on a path's own
     inputs.  ``images`` are the path's frames as it uploads them ([B, H,
     W, 3] uint8 on the card); K1 gets the detector's raw outputs for
-    them (:func:`_check_postprocess`), K2 the mesh ROIs of the FULL
+    them at the detector's own input size and anchors
+    (:func:`_check_postprocess`), K2 the mesh ROIs of the FULL
     program's detections at 192 px and the eye ROIs of its meshes at
     64 px, right eyes mirrored, as the program's stages make them, each
     bit for bit (:func:`_check_warp`).  Returns K1's box error."""
@@ -822,14 +850,15 @@ def _check_path_kernels(label: str, models, images, card: str) -> float:
     from face_detection_tflite_torch.pipeline.programs import (
         _identify_detector_outputs, build_pipeline_program)
     b, h, w = images.shape[:3]
-    lbp = letterbox_params(h, w, 256, 256)
+    size = models.detector_input_size
+    lbp = letterbox_params(h, w, size, size)
     with torch.inference_mode():
         raw_boxes, raw_scores = _identify_detector_outputs(
             models.detector(letterbox_image(images, lbp)))
         err = _check_postprocess(
-            f"{label} (B={b}, {w}x{h})",
-            (raw_boxes, raw_scores, models.anchors, 256.0, lbp.padding),
-            {"max_detections": MAX_FACES}, card)
+            f"{label} (B={b}, {w}x{h}, A={raw_scores.shape[1]})",
+            (raw_boxes, raw_scores, models.anchors, float(size),
+             lbp.padding), {"max_detections": MAX_FACES}, card)
         slab = build_pipeline_program(
             models, h, w, FaceDetectionMode.FULL, max_faces=MAX_FACES,
             min_score=MIN_SCORE)(images)
@@ -1942,6 +1971,16 @@ def _standalone_phase(models, cpu_models, frames, frames_np, slab, iroi,
             "k1_ms": k1_ms, "k1_device_ms": k1_dev_ms, "k1_device_by": k1_by}
 
 
+def _variant_launches(variants: dict, kernel: str, size=None) -> dict:
+    """A kernel's launches over phase 9a's batches of each variant (K2's
+    at crop size ``size``), for the ``kernels`` line."""
+    per = {}
+    for v, o in variants["variants"].items():
+        n = o["launches"][kernel]
+        per[v] = n[size] if size is not None else n
+    return {"variant_launches": per, "variant_batches": VARIANT_RUNS}
+
+
 def _video_camera_launches(video: dict, camera: dict, size: int) -> dict:
     """K2's launches at crop size ``size`` over phase 8a's video batches
     and 8b's camera frames, for the ``kernels`` line."""
@@ -1949,6 +1988,400 @@ def _video_camera_launches(video: dict, camera: dict, size: int) -> dict:
             "video_batches": video["batches"],
             "camera_launches": camera["launches"]["warp_normalize"][size],
             "camera_frames": camera["frames"]}
+
+
+# Phase 9: the other detector variants and selfie segmentation.
+VARIANTS = ("front", "short_range", "full", "full_sparse")
+VARIANT_RUNS = 3
+SEGMENTERS = ("general", "landscape", "multiclass")
+SEG_RUNS = 3
+SEG_REQUESTS = 2
+# Card-vs-CPU tolerance of the segmenters' mask planes.
+SEG_CPU_TOL = 1e-4
+
+
+def _variant_path(v: str, ir, models, cpu_models, frames, frames_np,
+                  card: str) -> dict:
+    """Phase 9a for one variant: ``FaceDetector(model=v)`` in FULL over the
+    main path's frames for :data:`VARIANT_RUNS` steady batches after one
+    warm-up (the launch counts set to 0 just before them and read just
+    after: one K1 launch a batch and one K2 at each crop size, plus one on
+    an overflow re-run), ms a batch and faces/s; the FULL faces' checks
+    on the slab of every frame; K1 and K2 against their plain versions on
+    the variant's own inputs (:func:`_check_path_kernels`); the card
+    against the CPU on two frames."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
+                                             FaceDetectionModel)
+    from face_detection_tflite_torch.convert.executor import convert_model
+    from face_detection_tflite_torch.pipeline.programs import (
+        PipelineModels, build_pipeline_program)
+    vm = PipelineModels(convert_model(ir, name=f"blazeface-{v}-random"), v,
+                        mesh=models.mesh, device=frames.device,
+                        iris=models.iris, blendshapes=models.blendshapes)
+    det = FaceDetector(FaceDetectionModel(v), models=vm, device=frames.device,
+                       max_faces=MAX_FACES)
+    det.detect_faces_batch(frames_np)
+    reruns0 = _reruns(det)
+    _reset_launches()
+    batch_ms, faces = [], None
+    for _ in range(VARIANT_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        faces = det.detect_faces_batch(frames_np)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launches()
+    reruns = _reruns(det) - reruns0
+    _check_launches(launches, VARIANT_RUNS, reruns, f"variant {v}")
+    per_image = [len(f) for f in faces]
+    steady = statistics.median(batch_ms)
+    print(f"variant {v} ({vm.detector_input_size} px, "
+          f"{vm.anchors.shape[0]} anchors, {vm.detector.num_params} "
+          f"detector weights) FULL: {VARIANT_RUNS} batches of {FRAMES} x "
+          f"{HEIGHT}x{WIDTH}: ms/batch {['%.2f' % t for t in batch_ms]}, "
+          f"median {steady:.2f} ms = "
+          f"{FRAMES * np.mean(per_image) * 1e3 / steady:.1f} faces/s; faces "
+          f"per image {per_image}; launches {launches} ({reruns} overflow "
+          f"re-runs)  [{card}]")
+    if min(per_image) < 1:
+        raise AssertionError(f"variant {v}: an image came back with no face")
+    with torch.inference_mode():
+        slab = build_pipeline_program(vm, HEIGHT, WIDTH,
+                                      FaceDetectionMode.FULL,
+                                      max_faces=MAX_FACES,
+                                      min_score=0.5)(frames)
+    _check_full_faces(faces, slab)
+    post_err = _check_path_kernels(f"variant {v}", vm, frames, card)
+    cpu_vm = PipelineModels(convert_model(ir), v, mesh=cpu_models.mesh,
+                            device="cpu", iris=cpu_models.iris,
+                            blendshapes=cpu_models.blendshapes)
+    two = torch.from_numpy(frames_np[:2])
+    with torch.inference_mode():
+        got = build_pipeline_program(vm, HEIGHT, WIDTH,
+                                     FaceDetectionMode.FULL,
+                                     max_faces=MAX_FACES)(two.to(frames.device))
+        want = build_pipeline_program(cpu_vm, HEIGHT, WIDTH,
+                                      FaceDetectionMode.FULL,
+                                      max_faces=MAX_FACES)(two)
+    _card_vs_cpu(got, want, f"variant {v} FULL")
+    det.dispose()
+    return {"models": vm, "faces": faces, "launches": launches,
+            "ms": batch_ms, "post_err": post_err}
+
+
+def _variants_phase(models, cpu_models, frames, frames_np, card: str
+                    ) -> dict:
+    """Phase 9a: FRONT_CAMERA, SHORT_RANGE, FULL and FULL_SPARSE, each a
+    full-depth seeded detector calibrated on the main path's frames to
+    about 32 passing anchors a frame (:func:`random_init.
+    calibrated_detector_ir`; FULL_SPARSE is the calibrated full-range IR
+    with its pruned filters stored sparse) beside the main path's mesh,
+    iris and blendshape nets (:func:`_variant_path`); FULL_SPARSE's raw
+    outputs and faces equal FULL's bit for bit; K1 timed on the
+    full-range network's own raw outputs (A = 2304)."""
+    import torch
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops.detections import (
+        _topk_candidates, decode_detections)
+    from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
+                                                           letterbox_params)
+    from face_detection_tflite_torch.pipeline.programs import \
+        _identify_detector_outputs
+    out, irs = {}, {}
+    for v in VARIANTS:
+        t0 = time.perf_counter()
+        irs[v] = (random_init.sparse_detector_ir(irs["full"])
+                  if v == "full_sparse" else
+                  random_init.calibrated_detector_ir(v, frames, SEED))
+        print(f"variant {v}: seeded full-depth detector, {len(irs[v].ops)} "
+              f"ops, built and calibrated in "
+              f"{time.perf_counter() - t0:.2f} s")
+        out[v] = _variant_path(v, irs[v], models, cpu_models, frames,
+                               frames_np, card)
+    full, sparse = out["full"]["models"], out["full_sparse"]["models"]
+    lbp = letterbox_params(HEIGHT, WIDTH, 192, 192)
+    with torch.inference_mode():
+        x = letterbox_image(frames, lbp)
+        raw = _identify_detector_outputs(full.detector(x))
+        if not all(torch.equal(a, b) for a, b in
+                   zip(raw, _identify_detector_outputs(sparse.detector(x)))):
+            raise AssertionError("FULL_SPARSE's raw outputs differ from "
+                                 "FULL's")
+    if _payload(out["full"]["faces"]) != _payload(out["full_sparse"]["faces"]):
+        raise AssertionError("FULL_SPARSE's faces differ from FULL's")
+    print("FULL_SPARSE equals FULL: raw outputs and faces bit for bit")
+    with torch.inference_mode():
+        args = (*raw, full.anchors, 192.0, lbp.padding)
+        kw = {"max_detections": MAX_FACES}
+
+        def fused():
+            return detections.detection_postprocess(*args, **kw)
+
+        ms, dev_ms, dev_by = _kernel_ms(fused, "K1 detection_postprocess")
+        plain_ms = _median_ms(lambda: detections.detection_postprocess_plain(
+            *args, **kw), iters=5, warmup=1)
+        boxes, kp, scores, valid = decode_detections(*args[:4])
+        counts = _topk_candidates(boxes, kp, scores, valid,
+                                  2304)[3].sum(1).tolist()
+        leaders = int(fused()[3].sum())
+    bound, by = _postprocess_bound(counts, leaders, FRAMES, 2304, MAX_FACES)
+    print(f"K1 detection_postprocess on the full-range network's raw outputs "
+          f"(A = 2304, valid per image {counts}, {leaders} slab leaders): "
+          f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, {dev_by}), plain "
+          f"{plain_ms:.4f} ms, bound {bound:.7f} ms ({by})  [{card}]")
+    return {"variants": out,
+            "full_range_k1": {"valid_per_image": counts,
+                              "slab_leaders": leaders, "ms": ms,
+                              "device_ms": dev_ms, "device_ms_by": dev_by,
+                              "plain_ms": plain_ms, "bound_ms": bound,
+                              "bound_by": by},
+            "post_err": max(o["post_err"] for o in out.values())}
+
+
+def _seg_layer(kernel_name: str) -> str:
+    """Layer of a device activity of a segmentation batch, from its name:
+    cuDNN runs a transposed convolution as a convolution's data gradient
+    (``dgrad``); PyTorch's ``avg_pool2d`` kernels are pooling, though
+    their names carry ``nhwc``; the letterbox and RESIZE_BILINEAR are
+    index gathers."""
+    n = kernel_name.lower()
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    if "dgrad" in n or "col2im" in n:
+        return "transposed convolutions"
+    if "pool" in n:
+        return "pooling (the squeeze-excite gates' AVERAGE_POOL_2D)"
+    if "index" in n or "gather" in n:
+        return "resizes (letterbox and RESIZE_BILINEAR gathers)"
+    if any(t in n for t in ("conv", "cudnn", "implicit", "winograd", "nhwc",
+                            "fprop", "gemm", "xmma", "sm90", "sm80")):
+        return "convolutions"
+    return "elementwise and other torch ops"
+
+
+def _profile_segmentation(seg, frames_np, card: str) -> None:
+    """One segmentation batch under ``torch.profiler``: device time by
+    layer (:func:`_seg_layer`), the top kernels, and the idle share of
+    the device window; "not measured" where the profiler kept no
+    record."""
+    import torch
+
+    def run():
+        seg(frames_np)
+        torch.cuda.synchronize()
+
+    _, device = _profiled(run, lambda name: True, "the segmentation batch")
+    if not device:
+        print("profile: the segmentation batch's breakdown is not measured")
+        return
+    by_layer: dict[str, float] = {}
+    by_name: dict[str, list] = {}
+    for s, e, name in device:
+        layer = _seg_layer(name)
+        by_layer[layer] = by_layer.get(layer, 0.0) + (e - s)
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += e - s
+        acc[1] += 1
+    busy = _busy_us([(s, e) for s, e, _ in device])
+    window = max(e for _, e, _ in device) - min(s for s, _, _ in device)
+    print(f"profile (one segmentation batch) [{card}]: device busy "
+          f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window (idle "
+          f"share {1 - busy / window:.3f})")
+    for layer, us in sorted(by_layer.items(), key=lambda kv: -kv[1]):
+        print(f"  layer {layer}: {us / 1e3:.3f} ms")
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"  kernel {us / 1e3:8.3f} ms x{n:<4d} {name[:90]}")
+
+
+def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
+    """Phase 9b for one segmenter at full width: for the float32 and the
+    uint8 readback, :data:`SEG_RUNS` batches of the main path's frames
+    through ``SelfieSegmentation`` (dispatch and materialize, the upload
+    included) after a warm-up, ms a batch and masks/s; split into the
+    device program (CUDA events around the letterbox, the net and the
+    planes on frames already on the card), the readback (host clock
+    around the non-blocking copy to pinned memory and its event) and the
+    host ``upsample`` of the batch's masks to the frames' size.  The
+    float32 masks against the CPU on two frames, within
+    :data:`SEG_CPU_TOL`."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch.convert.executor import convert_model
+    from face_detection_tflite_torch.models.segmentation import \
+        SelfieSegmentation
+    from face_detection_tflite_torch.ops.letterbox import letterbox_params
+    from face_detection_tflite_torch.pipeline.upload import download_async
+    multiclass = kind == "multiclass"
+    net = convert_model(ir, name=f"segmenter-{kind}-random")
+    result = {"weights": net.num_params}
+    for dtype in ("float32", "uint8"):
+        seg = SelfieSegmentation(net, multiclass, mask_dtype=dtype,
+                                 device=frames.device)
+        masks = seg(frames_np)
+        batch_ms = []
+        for _ in range(SEG_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks = seg(frames_np)
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        lbp = letterbox_params(HEIGHT, WIDTH, seg.in_h, seg.in_w)
+        with torch.inference_mode():
+            device_ms = _median_ms(lambda: seg._planes(seg.model, frames, lbp),
+                                   iters=5, warmup=1)
+            planes = seg._planes(seg.model, frames, lbp)
+            torch.cuda.synchronize()
+            reads = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                _, event = download_async(planes)
+                event.synchronize()
+                reads.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for m in masks:
+            m.upsample()
+        up_ms = (time.perf_counter() - t0) * 1e3
+        steady = statistics.median(batch_ms)
+        if not all(np.isfinite(m.data).all() and m.data.min() >= 0
+                   and m.data.max() <= 1 for m in masks):
+            raise AssertionError(f"segmenter {kind}: a mask is not in [0, 1]")
+        print(f"segmenter {kind} ({seg.in_h}x{seg.in_w}, {net.num_params} "
+              f"weights) {dtype} readback: {SEG_RUNS} batches of {FRAMES} x "
+              f"{HEIGHT}x{WIDTH}: ms/batch {['%.2f' % t for t in batch_ms]}, "
+              f"median {steady:.2f} ms = {FRAMES * 1e3 / steady:.1f} masks/s; "
+              f"device program {device_ms:.3f} ms, readback of "
+              f"{planes.numel() * planes.element_size()} B "
+              f"{statistics.median(reads):.3f} ms, host upsample of the "
+              f"batch to {WIDTH}x{HEIGHT} {up_ms:.2f} ms  [{card}]")
+        result[dtype] = {"ms": batch_ms, "device_ms": device_ms,
+                         "readback_ms": statistics.median(reads),
+                         "upsample_ms": up_ms}
+        if dtype == "float32":
+            want = SelfieSegmentation(convert_model(ir), multiclass,
+                                      device="cpu")(frames_np[:2])
+            err = max(float(np.abs(g.data - w.data).max()) for g, w in
+                      zip(masks[:2], want))
+            if multiclass:
+                err = max(err, max(float(np.abs(g.class_data - w.class_data
+                                                ).max())
+                                   for g, w in zip(masks[:2], want)))
+            print(f"segmenter {kind} card vs CPU (2 frames): max error "
+                  f"{err:.3g}, tolerance {SEG_CPU_TOL}  [{card}]")
+            if err > SEG_CPU_TOL or any(g.padding != w.padding
+                                        for g, w in zip(masks, want)):
+                raise AssertionError(f"segmenter {kind}: card and CPU "
+                                     f"disagree")
+            if kind == "general":
+                _profile_segmentation(seg, frames_np, card)
+    return result
+
+
+def _segmentation_phase(models, frames, frames_np, card: str) -> dict:
+    """Phase 9b: the general (256x256), landscape (144x256) and multiclass
+    (256x256, 6 classes) segmenters at full width
+    (:func:`_segmenter_timing`); then a FULL detector with the general
+    segmenter: ``detect_faces_with_segmentation_batch`` against
+    ``detect_faces_batch`` and the segmenter run apart (faces equal after
+    the JSON round trip, masks bit for bit; the launch counts set to 0
+    just before the combined call and read after it: one K1 launch and
+    one K2 at each crop size, plus re-runs); and ``FaceServer`` on
+    127.0.0.1 answering :data:`SEG_REQUESTS` PNG requests each to
+    ``/v1/segment`` (uint8 bytes equal ``get_segmentation_mask``'s) and
+    ``/v1/detect_with_segmentation`` (200, faces within the server
+    tolerances of ``detect_faces``, one K1 launch a request)."""
+    import base64
+    import numpy as np
+    from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
+                                             FaceServer)
+    from face_detection_tflite_torch.convert.executor import convert_model
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.models.segmentation import \
+        SelfieSegmentation
+    from face_detection_tflite_torch.pipeline.programs import PipelineModels
+    out = {}
+    irs = {}
+    for kind in SEGMENTERS:
+        irs[kind] = random_init.segmenter_ir(kind, SEED + 5)
+        out[kind] = _segmenter_timing(kind, irs[kind], frames, frames_np,
+                                      card)
+    seg_models = PipelineModels(
+        models.detector, "back", mesh=models.mesh, device=frames.device,
+        iris=models.iris, blendshapes=models.blendshapes,
+        segmentation=convert_model(irs["general"]))
+    det = FaceDetector(models=seg_models, device=frames.device,
+                       max_faces=MAX_FACES, with_segmentation=True)
+    det.detect_faces_with_segmentation_batch(frames_np)
+    reruns0 = _reruns(det)
+    _reset_launches()
+    t0 = time.perf_counter()
+    pairs = det.detect_faces_with_segmentation_batch(frames_np)
+    combined_ms = (time.perf_counter() - t0) * 1e3
+    combined = _launches()
+    _check_launches(combined, 1, _reruns(det) - reruns0,
+                    "detect_faces_with_segmentation_batch")
+    t0 = time.perf_counter()
+    faces = det.detect_faces_batch(frames_np)
+    masks = SelfieSegmentation(seg_models.segmentation,
+                               device=frames.device)(frames_np)
+    apart_ms = (time.perf_counter() - t0) * 1e3
+    if _payload([f for f, _ in pairs]) != _payload(faces) or not all(
+            np.array_equal(m.data, w.data) for (_, m), w in zip(pairs, masks)):
+        raise AssertionError("detect_faces_with_segmentation_batch differs "
+                             "from the two calls run apart")
+    print(f"detect_faces_with_segmentation_batch: {combined_ms:.2f} ms, the "
+          f"two calls apart {apart_ms:.2f} ms, faces and masks equal; "
+          f"launches {combined}  [{card}]")
+
+    want_faces = [_payload([det.detect_faces(
+        frames_np[i], FaceDetectionMode.STANDARD)])[0]
+        for i in range(SEG_REQUESTS)]
+    srv = FaceServer(det, batch_window_ms=5.0).start()
+    errs, statuses = [], []
+    try:
+        _reset_launches()
+        for i in range(SEG_REQUESTS):
+            body = _png_bytes(frames_np[i])
+            status, payload, _, _ = _post(f"{srv.address}/v1/segment", body)
+            statuses.append(status)
+            want = det.get_segmentation_mask(frames_np[i]).serialize("uint8")
+            if status != 200 or base64.b64decode(
+                    payload["mask"]["data_b64"]) != want["data"]:
+                raise AssertionError(f"/v1/segment: status {status}, or its "
+                                     f"mask differs")
+        seg_launches = _launches()
+        _reset_launches()
+        for i in range(SEG_REQUESTS):
+            body = _png_bytes(frames_np[i])
+            status, payload, _, _ = _post(
+                f"{srv.address}/v1/detect_with_segmentation?mesh=1&iris=1",
+                body)
+            statuses.append(status)
+            if status != 200:
+                raise AssertionError(f"/v1/detect_with_segmentation: status "
+                                     f"{status}: {payload}")
+            errs.append((payload["faces"], want_faces[i]))
+        served = _launches()
+        info = _get(f"{srv.address}/v1/info")
+    finally:
+        srv.close()
+    det.dispose()
+    err = _max_errors(errs)
+    _check_errors(err, SERVER_TOL, "/v1/detect_with_segmentation")
+    if seg_launches["detection_postprocess"] or \
+            served["detection_postprocess"] != SEG_REQUESTS or \
+            not info["segmentation_ready"]:
+        raise AssertionError(f"segmentation routes: K1 launches "
+                             f"{seg_launches} / {served}, info {info}")
+    print(f"segmentation server: {len(statuses)} requests, statuses "
+          f"{statuses}; /v1/segment masks equal get_segmentation_mask's; "
+          f"/v1/detect_with_segmentation faces within {err} of "
+          f"detect_faces; K1 launches {served['detection_postprocess']} "
+          f"for {SEG_REQUESTS} requests  [{card}]")
+    return {"segmenters": out, "combined_launches": combined,
+            "server_launches": served, "server_requests": SEG_REQUESTS}
 
 
 def main() -> int:
@@ -2201,10 +2634,13 @@ def main() -> int:
     camera = _camera_phase(video["models"], video["decoded"], card)
     alone = _standalone_phase(models, cpu_models, frames, frames_np,
                               full["slab"], iroi, card)
+    # -- 9. detector variants and selfie segmentation --------------------------
+    variants = _variants_phase(models, cpu_models, frames, frames_np, card)
+    seg = _segmentation_phase(models, frames, frames_np, card)
     post_err = max(post_err, video["post_err"], camera["post_err"],
-                   alone["post_err"])
+                   alone["post_err"], variants["post_err"])
 
-    # -- 9. result lines ------------------------------------------------------
+    # -- 10. result lines -----------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -2230,6 +2666,13 @@ def main() -> int:
          "standalone_calls": alone["calls"], "standalone_ms": alone["ms"],
          "standalone_k1_ms": alone["k1_ms"],
          "standalone_k1_device_ms": alone["k1_device_ms"],
+         **_variant_launches(variants, "detection_postprocess"),
+         "full_range_network": variants["full_range_k1"],
+         "segmentation_combined_launches":
+             seg["combined_launches"]["detection_postprocess"],
+         "segmentation_server_launches":
+             seg["server_launches"]["detection_postprocess"],
+         "segmentation_server_requests": seg["server_requests"],
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
@@ -2253,6 +2696,9 @@ def main() -> int:
          "stream_launches": stream["launches"]["warp_normalize"][MESH_SIZE],
          "server_launches": serve["launches"]["warp_normalize"][MESH_SIZE],
          **_video_camera_launches(video, camera, MESH_SIZE),
+         **_variant_launches(variants, "warp_normalize", MESH_SIZE),
+         "segmentation_combined_launches":
+             seg["combined_launches"]["warp_normalize"][MESH_SIZE],
          **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
         {"name": "warp_normalize_iris64", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
@@ -2261,6 +2707,9 @@ def main() -> int:
          "stream_launches": stream["launches"]["warp_normalize"][IRIS_SIZE],
          "server_launches": serve["launches"]["warp_normalize"].get(
              IRIS_SIZE, 0), **_video_camera_launches(video, camera, IRIS_SIZE),
+         **_variant_launches(variants, "warp_normalize", IRIS_SIZE),
+         "segmentation_combined_launches":
+             seg["combined_launches"]["warp_normalize"][IRIS_SIZE],
          **iris_site},
         {"name": "warp_normalize_embed112", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",

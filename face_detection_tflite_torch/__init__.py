@@ -2,10 +2,13 @@
 
 A second package beside ``face_detection_tflite_tpu`` (the JAX reference),
 built slice by slice.  It runs :class:`FaceDetector` on an NVIDIA Hopper
-GPU in FULL mode, the default (BlazeFace back detection, the 468-point
-mesh, iris landmarks, blendshapes, head pose and iris-refined keypoints,
-and on request face embeddings), and in STANDARD and FAST, with
-hand-written CUDA kernels for the detection postprocess and the ROI warp;
+GPU in FULL mode, the default (BlazeFace detection with any of the five
+detector variants, the 468-point mesh, iris landmarks, blendshapes, head
+pose and iris-refined keypoints, and on request face embeddings), and in
+STANDARD and FAST, with hand-written CUDA kernels for the detection
+postprocess and the ROI warp; :class:`SelfieSegmentation` (general,
+landscape and multiclass) makes person and class masks, alone or beside
+the detection;
 :class:`FaceEmbedding` (MobileFaceNet) embeds faces on its own;
 :class:`ServingPipeline` pipelines batches and :class:`FaceServer` serves
 HTTP requests in micro-batches; video files and camera frames run with
@@ -29,11 +32,15 @@ from .models.embedding import (FaceEmbedding, UntrainedEmbeddingWarning,
                                compute_embedding_alignment, cosine_similarity,
                                euclidean_distance)
 from .convert.tflite import parse_tflite
+from .models.segmentation import (MulticlassSegmentationMask,
+                                  SegmentationClass, SegmentationMask,
+                                  SelfieSegmentation)
 from .models.standalone import (FaceBlendshapesModel, FaceDetection,
                                 FaceLandmark, IrisLandmark)
 from .ops.letterbox import LetterboxParams, letterbox_params
 from .pipeline.config import (MODEL_FILES, FaceDetectionMode,
-                              FaceDetectionModel)
+                              FaceDetectionModel, SegmentationConfig,
+                              SegmentationModel)
 from .pipeline.detector import FaceDetector, resolve_model_dir
 from .pipeline.programs import PipelineModels, build_pipeline_program
 from .pipeline.server import FaceServer, ServerOverloaded
@@ -64,5 +71,7 @@ __all__ = [
     "VideoFrameResult", "process_video", "CameraFormat", "CameraFrame",
     "CameraRotation", "camera_frame_from_image", "camera_frame_from_planes",
     "decode_camera_frame", "FaceDetection", "FaceLandmark", "IrisLandmark",
-    "FaceBlendshapesModel",
+    "FaceBlendshapesModel", "SelfieSegmentation", "SegmentationMask",
+    "MulticlassSegmentationMask", "SegmentationClass", "SegmentationModel",
+    "SegmentationConfig",
 ]

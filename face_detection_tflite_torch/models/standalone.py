@@ -15,8 +15,10 @@ Deliberate differences from the JAX classes: a keyword-only ``model=``
 (a ``ConvertedModel``) may replace loading the ``.tflite`` file from
 ``model_dir``, and ``device=`` places the network (``cuda`` unless the
 caller passes ``device="cpu"``; without CUDA and without an explicit
-device the constructor raises).  Detector variants other than BACK_CAMERA
-raise ``NotImplementedError`` naming their ROADMAP item.
+device the constructor raises).  :class:`FaceDetection` runs every
+detector variant (its input size from the network, its anchors from the
+variant); precisions other than "highest" raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ import torch
 
 from ..convert.executor import (ConvertedModel, convert_file,
                                 fp32_on_the_card, resolve_device)
-from ..ops.anchors import anchor_options_for, generate_anchors
 from ..ops.detections import detection_postprocess
 from ..ops.letterbox import (letterbox_image, letterbox_params,
                              normalize_image)
@@ -37,7 +38,8 @@ from ..pipeline.config import (IRIS_INPUT_SIZE, MESH_INPUT_SIZE, MODEL_FILES,
                                FaceDetectionModel as Variant)
 from ..pipeline.programs import (_identify_detector_outputs,
                                  _identify_landmark_outputs,
-                                 _sigmoid_clipped, _unpack_landmarks)
+                                 _sigmoid_clipped, _unpack_landmarks,
+                                 detector_anchors)
 from ..pipeline.types import Detection, RectF
 from ..pipeline.upload import upload
 from ..utils.image import fit_max_dim, normalize_channels
@@ -112,17 +114,14 @@ class FaceDetection(_Disposable):
                  precision: str = "highest",
                  max_dim: Optional[int] = None, *,
                  model: Optional[ConvertedModel] = None, device=None):
-        if variant != Variant.BACK_CAMERA:
-            raise NotImplementedError(f"detector variant {variant.name} is "
-                                      f"not ported yet (ROADMAP §1 item 5)")
         _check_precision(precision)
         self.max_dim = max_dim
         self.variant = variant
         self.model, self.device = _load(variant.value, model_dir, model,
                                         device)
         self.input_size = self.model.input_shapes[0][1]
-        self.anchors = torch.from_numpy(generate_anchors(
-            anchor_options_for(variant.value))).to(self.device)
+        self.anchors = torch.from_numpy(detector_anchors(
+            self.model, variant.value)).to(self.device)
         self.max_detections = max_detections
 
     def __call__(self, image) -> list[Detection]:

@@ -2,12 +2,12 @@
 
 Mirrors `lib/src/shared/face_model_config.dart` (thresholds, model files,
 variant maps).  Thresholds are MediaPipe graph options; see the reference
-file for provenance notes.  A copy of the JAX package's module without
-the segmentation settings, which this package does not run yet.
+file for provenance notes.  A copy of the JAX package's module.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 # `face_model_config.dart:49` — MediaPipe score_clipping_thresh.
@@ -58,6 +58,64 @@ class FaceDetectionMode(enum.Enum):
     FAST = "fast"
     STANDARD = "standard"
     FULL = "full"
+
+
+class SegmentationModel(enum.Enum):
+    GENERAL = "general"
+    LANDSCAPE = "landscape"
+    MULTICLASS = "multiclass"
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentationConfig:
+    """Segmentation configuration with presets (`face_types.dart:236-279`).
+
+    - ``model``: which segmentation network.
+    - ``max_output_size``: cap on the longer side of upsampled masks, the
+      default ``max_size`` of ``SegmentationMask.upsample``.
+    - ``precision``: the segmenter's convolution precision, the JAX
+      package's tiers ("highest" = fp32, "high" = bf16x3, "default" =
+      bf16).  This package runs "highest" only: a detector given a config
+      with another tier raises ``NotImplementedError`` (ROADMAP §1 item 2).
+    - ``mask_dtype``: the device-to-host mask encoding, "float32" (exact)
+      or "uint8" (1/255 steps, a quarter of the bytes).
+    - ``validate_model``: check the loaded network's output channels
+      (`selfie_segmentation.dart:424-442`).
+
+    Presets mirror the reference's names: ``safe`` (exact numerics,
+    smaller outputs), ``performance`` (the defaults), ``fast`` (uint8 mask
+    readback).
+    """
+
+    model: "SegmentationModel" = SegmentationModel.GENERAL
+    max_output_size: int = 2048
+    precision: str = "high"
+    mask_dtype: str = "float32"
+    validate_model: bool = True
+
+    def __post_init__(self):
+        if self.mask_dtype not in ("float32", "uint8"):
+            raise ValueError(
+                f"mask_dtype must be 'float32' or 'uint8', "
+                f"got {self.mask_dtype!r}")
+        if self.max_output_size <= 0:
+            raise ValueError("max_output_size must be positive")
+
+    @classmethod
+    def safe(cls) -> "SegmentationConfig":
+        """Exact numerics, smaller upsample cap (`face_types.dart:262`)."""
+        return cls(precision="highest", max_output_size=1024)
+
+    @classmethod
+    def performance(cls) -> "SegmentationConfig":
+        """The defaults (`face_types.dart:268`)."""
+        return cls()
+
+    @classmethod
+    def fast(cls) -> "SegmentationConfig":
+        """uint8 mask readback: a quarter of the device-to-host bytes
+        (`face_types.dart:274`)."""
+        return cls(mask_dtype="uint8")
 
 
 # Model input resolutions (from the tflite graphs).

@@ -13,15 +13,21 @@ program (``embed_in_full``) or standalone (``get_face_embedding*``,
 the encoded-input entry points with the one-entry decode cache; the
 packed-pixel entry points; temporal tracking (``enable_tracking``, the
 generation counter, ``reset_tracking``) and the video and camera entry
-points; and the observability surface (``accelerator_report``,
-``memory_report``, ``is_ready``).
+points; selfie segmentation (``get_segmentation_mask*``) and the combined
+``detect_faces_with_segmentation*`` calls, which queue the mask program
+before the detection and wait for its readback last; and the
+observability surface (``accelerator_report``, ``memory_report``,
+``is_ready``).  Every detector variant runs: BACK_CAMERA (256 px),
+FRONT_CAMERA and SHORT_RANGE (128 px), FULL and FULL_SPARSE (192 px, 2304
+anchors).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
 and no explicit device the constructor raises.  Deliberate difference
 from the JAX detector: a keyword-only ``models=`` may replace loading the
-``.tflite`` files from ``model_dir``.  Segmentation, data-parallel serving
-and detector variants other than BACK_CAMERA raise ``NotImplementedError``
-naming their ROADMAP item.
+``.tflite`` files from ``model_dir``, the segmenter included
+(``PipelineModels(segmentation=...)``).  Data-parallel serving,
+``seg_device`` and precisions other than "highest" raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,17 +45,19 @@ from ..convert.executor import convert_file
 from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
+from ..models.segmentation import SegmentationMask, SelfieSegmentation
 from ..utils.camera import (CameraRotation, _plane_field,
                             camera_frame_from_planes, decode_camera_frame)
 from .config import (DEFAULT_MAX_MISSED_FRAMES,
                      DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE, MIN_SCORE,
-                     MODEL_FILES, FaceDetectionMode, FaceDetectionModel)
+                     MODEL_FILES, FaceDetectionMode, FaceDetectionModel,
+                     SegmentationConfig, SegmentationModel)
 from .gates import validate_face_gates
 from .programs import PipelineModels, build_pipeline_program, resolve_device
 from .timings import DetectTimings
 from .tracker import TemporalFaceTracker, validate_tracking_config
 from .types import Detection, Face, FaceMesh, RectF
-from .upload import upload
+from .upload import download_async, upload
 from .video import process_video
 from ..utils.image import decode_image, decode_images, load_image, \
     normalize_channels, validate_batch_shape
@@ -121,6 +129,9 @@ class FaceDetector:
                  max_missed_frames: int = DEFAULT_MAX_MISSED_FRAMES,
                  max_faces: int = 16,
                  with_segmentation: bool = False,
+                 segmentation_model: SegmentationModel =
+                 SegmentationModel.GENERAL,
+                 segmentation_config: Optional[SegmentationConfig] = None,
                  model_dir: Optional[str] = None,
                  precision: str = "highest",
                  adaptive: bool = True,
@@ -132,20 +143,21 @@ class FaceDetector:
                  detailed_timings: bool = False,
                  allow_untrained_embeddings: bool = False,
                  embed_in_full: bool = False,
+                 seg_device=None,
                  device=None,
                  models: Optional[PipelineModels] = None):
         validate_face_gates(min_score, min_face_size,
                             min_face_presence_confidence)
         validate_tracking_config(max_missed_frames)
-        if model != FaceDetectionModel.BACK_CAMERA:
-            raise _not_ported(f"detector variant {model.name}", "§1 item 5")
-        if with_segmentation:
-            raise _not_ported("segmentation", "§1 item 8")
         if data_parallel:
             raise _not_ported("data-parallel serving", "§1 item 7")
+        if seg_device is not None:
+            raise _not_ported("segmentation on its own device (seg_device)",
+                              "§1 item 7")
         if precision != "highest":
             raise _not_ported(f"precision {precision!r}", "§1 item 2")
         self.device = resolve_device(device)
+        self._precision = precision
         self.model_variant = model
         self.min_score = min_score
         self.min_face_size = min_face_size
@@ -184,6 +196,9 @@ class FaceDetector:
         elif models.device != self.device:
             raise ValueError(f"models live on {models.device}, the detector "
                              f"on {self.device}")
+        elif models.variant != model.value:
+            raise ValueError(f"models carry the {models.variant!r} detector, "
+                             f"the detector was asked for {model.name}")
         elif models.embedding is not None:
             # The fused stage and the standalone calls share one network.
             self._embedding = FaceEmbedding(
@@ -220,6 +235,53 @@ class FaceDetector:
         #: Bumped by reset_tracking; a result whose detection started
         #: under an older generation gets no IDs (see _attach_tracking).
         self._tracking_generation = 0
+        #: Segmentation preset; when given, its ``model`` wins over
+        #: ``segmentation_model``, which is remembered for a lazy load.
+        self._segmentation_config = segmentation_config
+        self._segmentation_model = (segmentation_config.model
+                                    if segmentation_config is not None
+                                    else segmentation_model)
+        self._segmentation: Optional[SelfieSegmentation] = None
+        if with_segmentation or segmentation_config is not None:
+            self._load_segmentation(self._segmentation_model)
+
+    def _load_segmentation(self, seg_model: SegmentationModel) -> None:
+        """Builds the segmenter: ``models.segmentation`` where the models
+        carry one, else the ``.tflite`` file of ``seg_model`` from the model
+        directory; checks its output channels (6 for MULTICLASS, else 1;
+        `selfie_segmentation.dart:424-442`) unless the config turns the
+        check off."""
+        cfg = self._segmentation_config
+        prec = cfg.precision if cfg is not None else self._precision
+        if prec != "highest":
+            raise _not_ported(f"segmentation precision {prec!r}",
+                              "§1 item 2")
+        if self.models.segmentation is not None:
+            cm, source = self.models.segmentation, "models.segmentation"
+        else:
+            if self._model_dir is None:
+                raise FileNotFoundError(
+                    "no segmentation model: pass models=PipelineModels(..., "
+                    "segmentation=...) or a model_dir")
+            source = os.path.join(self._model_dir, MODEL_FILES[
+                f"segmenter_{seg_model.value}"])
+            if not os.path.exists(source):
+                raise FileNotFoundError(
+                    f"segmentation model not found: {source}")
+            cm = convert_file(source)
+        multiclass = seg_model == SegmentationModel.MULTICLASS
+        if cfg is None or cfg.validate_model:
+            want = 6 if multiclass else 1
+            got = cm.output_shapes[0][-1]
+            if got != want:
+                raise ValueError(
+                    f"segmentation model {source} emits {got} channels; "
+                    f"{seg_model.value} expects {want}")
+        self._segmentation = SelfieSegmentation(
+            cm, multiclass=multiclass,
+            mask_dtype=cfg.mask_dtype if cfg else "float32",
+            max_output_size=cfg.max_output_size if cfg else 2048,
+            device=self.device)
 
     @property
     def is_tracking_enabled(self) -> bool:
@@ -347,14 +409,7 @@ class FaceDetector:
             else:
                 x = x.float()
             segs.append(x.contiguous().view(torch.uint8))
-        buf = torch.cat(segs, dim=1)
-        event = None
-        if buf.is_cuda:
-            host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            buf = host
+        buf, event = download_async(torch.cat(segs, dim=1))
         metas = [(k, tuple(v.shape), e) for e, k, v in entries]
         return buf, event, metas, quant_scale
 
@@ -968,12 +1023,117 @@ class FaceDetector:
         with open(path, "rb") as f:
             return self.get_face_embedding_from_bytes(face, f.read())
 
-    def get_segmentation_mask_from_bytes(self, data: bytes):
-        raise _not_ported("segmentation", "§1 item 8")
+    # -- segmentation ----------------------------------------------------------
 
-    def detect_faces_with_segmentation_from_bytes(self, data: bytes,
-                                                  mode=None):
-        raise _not_ported("segmentation", "§1 item 8")
+    def initialize_segmentation(
+            self, config: Optional[SegmentationConfig] = None) -> None:
+        """Loads the segmenter on a built detector
+        (`initializeSegmentation`, face_detector.dart:434-462); a no-op
+        once it is loaded (with a warning where ``config`` asks for
+        another).  A failed load keeps the earlier configuration."""
+        self._check_disposed()
+        if self._segmentation is not None:
+            if config is not None and config != self._segmentation_config:
+                import warnings
+                warnings.warn(
+                    "initialize_segmentation: segmentation is already "
+                    "loaded; the new config is ignored (create a new "
+                    "FaceDetector to switch model or mask format)",
+                    UserWarning, stacklevel=2)
+            return
+        if config is None:
+            self._load_segmentation(self._segmentation_model)
+            return
+        prev = (self._segmentation_config, self._segmentation_model)
+        self._segmentation_config = config
+        self._segmentation_model = config.model
+        try:
+            self._load_segmentation(config.model)
+        except Exception:
+            self._segmentation_config, self._segmentation_model = prev
+            raise
+
+    def _segmenter(self) -> SelfieSegmentation:
+        self._check_disposed()
+        if self._segmentation is None:
+            self._load_segmentation(self._segmentation_model)
+        return self._segmentation
+
+    def get_segmentation_mask(self, image) -> SegmentationMask:
+        """The segmentation mask of one RGB image ([H, W, C], numpy or
+        tensor); the frame's upload is shared with a detection or
+        embedding of the same ndarray (:meth:`_device_put_cached`)."""
+        seg = self._segmenter()
+        return seg(self._device_put_cached(image)[None])[0]
+
+    def get_segmentation_mask_from_bytes(self, data: bytes
+                                         ) -> SegmentationMask:
+        """Segments encoded image bytes; shares the one-entry decode cache
+        with :meth:`detect_faces_from_bytes`."""
+        return self.get_segmentation_mask(self._decode_cached(data))
+
+    def get_segmentation_mask_from_filepath(self, path: str
+                                            ) -> SegmentationMask:
+        with open(path, "rb") as f:
+            return self.get_segmentation_mask_from_bytes(f.read())
+
+    def get_segmentation_mask_from_camera_frame(
+            self, frame, *, max_dim: Optional[int] = None
+    ) -> SegmentationMask:
+        """Decodes a packed camera frame and segments it
+        (`getSegmentationMaskFromCameraFrame`, face_detector.dart:970)."""
+        return self.get_segmentation_mask(decode_camera_frame(frame,
+                                                              max_dim))
+
+    def detect_faces_with_segmentation(
+            self, image, mode: FaceDetectionMode = FaceDetectionMode.FULL
+    ) -> tuple[list[Face], SegmentationMask]:
+        """Combined detect + segment on one image: the mask program is
+        queued first and its readback starts without blocking, then the
+        detection runs, then the mask is read; on one card the device
+        work of the two is serial, the host work overlaps.  With tracking
+        enabled the faces carry tracking IDs (face_detector.dart:911)."""
+        seg = self._segmenter()
+        gen0 = self._tracking_generation
+        if not isinstance(image, torch.Tensor):
+            image = self._device_put_cached(np.asarray(image))
+        images = normalize_channels(image[None], self.device)
+        handle = seg.dispatch(images)
+        faces = self._attach_tracking(
+            self.detect_faces_batch(images, mode)[0], gen0)
+        return faces, seg.materialize(handle)[0]
+
+    def detect_faces_with_segmentation_from_bytes(
+            self, data: bytes,
+            mode: FaceDetectionMode = FaceDetectionMode.FULL
+    ) -> tuple[list[Face], SegmentationMask]:
+        """Combined detect + segment from encoded bytes
+        (`detectFacesWithSegmentation`, face_detector.dart:904)."""
+        return self.detect_faces_with_segmentation(
+            self._decode_cached(data), mode)
+
+    def detect_faces_with_segmentation_from_camera_frame(
+            self, frame, mode: FaceDetectionMode = FaceDetectionMode.FULL,
+            *, max_dim: Optional[int] = None
+    ) -> tuple[list[Face], SegmentationMask]:
+        """Combined detect + segment from a packed camera frame
+        (face_detector.dart:998)."""
+        return self.detect_faces_with_segmentation(
+            decode_camera_frame(frame, max_dim), mode)
+
+    def detect_faces_with_segmentation_batch(
+            self, images, mode: FaceDetectionMode = FaceDetectionMode.FULL
+    ) -> list[tuple[list[Face], SegmentationMask]]:
+        """Combined detect + segment over a batch: one upload, the mask
+        program queued before the detection, its readback waited on
+        last.  Tracking is not applied, as in :meth:`detect_faces_batch`."""
+        seg = self._segmenter()
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
+        images = normalize_channels(images, self.device)
+        handle = seg.dispatch(images)
+        faces = self.detect_faces_batch(images, mode)
+        return list(zip(faces, seg.materialize(handle)))
 
     # -- observability ---------------------------------------------------------
 
@@ -986,6 +1146,8 @@ class FaceDetector:
                    if d.type == "cuda" else d.type)
         report = {name: backend
                   for name in ("detector", "mesh", "iris", "blendshapes")}
+        if self._segmentation is not None:
+            report["segmentation"] = backend
         if self._embedding is not None:
             report["embedding"] = backend
         report["precision"] = "highest"
@@ -1007,6 +1169,8 @@ class FaceDetector:
                 report[name] = nbytes(m)
         if "embedding" not in report and self._embedding is not None:
             report["embedding"] = nbytes(self._embedding.model)
+        if self._segmentation is not None:
+            report["segmentation"] = nbytes(self._segmentation.model)
         report["total_weights"] = sum(report.values())
         report["compiled_programs"] = len(self._programs)
         return report
@@ -1023,14 +1187,16 @@ class FaceDetector:
 
     @property
     def is_segmentation_ready(self) -> bool:
-        """Segmentation is not ported yet (ROADMAP §1 item 8)."""
-        return False
+        """True once the segmenter is loaded (`isSegmentationReady`,
+        face_detector.dart:217)."""
+        return self._segmentation is not None and not self._disposed
 
     # -- lifetime ------------------------------------------------------------
 
     def dispose(self) -> None:
         """Releases the programs, the models' device memory, the embedding
-        model, the cached device frame and the decode cache."""
+        model, the segmenter, the cached device frame and the decode
+        cache."""
         self._disposed = True
         with self._programs_lock:
             self._programs.clear()
@@ -1043,6 +1209,9 @@ class FaceDetector:
         if self._embedding is not None:
             self._embedding.dispose()
             self._embedding = None
+        if self._segmentation is not None:
+            self._segmentation.dispose()
+            self._segmentation = None
         self.models = None
 
     def _check_disposed(self):

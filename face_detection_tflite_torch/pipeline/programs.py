@@ -14,7 +14,9 @@ plain function over an image batch ``[B, H, W, 3]``:
                                           (full, ``with_embeddings``)
 
 Dynamic face counts are fixed-size slabs with validity masks.  Batch
-dimensions are written out: the detector runs once on ``[B, 256, 256, 3]``,
+dimensions are written out: the detector runs once on ``[B, S, S, 3]``
+(S = 256 for BACK_CAMERA, 128 for FRONT_CAMERA and SHORT_RANGE, 192 for
+FULL and FULL_SPARSE),
 the mesh net once on ``[B * slab, 192, 192, 3]``, the iris net once on
 ``[B * 2 * slab, 64, 64, 3]``, the blendshape net once on
 ``[B * slab, 146, 2]`` and MobileFaceNet once on
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..convert.executor import (ConvertedModel, fp32_on_the_card,
@@ -45,24 +48,40 @@ __all__ = ["PipelineModels", "build_pipeline_program", "resolve_device"]
 
 class PipelineModels:
     """The converted networks of one detector, placed on ``device``
-    (``cuda`` unless the caller passes ``device="cpu"``)."""
+    (``cuda`` unless the caller passes ``device="cpu"``).  ``variant`` is
+    the detector's ``FaceDetectionModel`` value; ``segmentation`` an
+    optional selfie segmenter, which ``FaceDetector`` takes in place of
+    loading its ``.tflite`` file."""
 
     def __init__(self, detector: ConvertedModel, variant: str,
                  mesh: Optional[ConvertedModel] = None,
                  device: torch.device | str | None = None, *,
                  iris: Optional[ConvertedModel] = None,
                  blendshapes: Optional[ConvertedModel] = None,
-                 embedding: Optional[torch.nn.Module] = None):
+                 embedding: Optional[torch.nn.Module] = None,
+                 segmentation: Optional[ConvertedModel] = None):
         self.device = resolve_device(device)
         fp32_on_the_card(self.device)
         self.detector = detector.to(self.device).eval()
         self.variant = variant
-        self.mesh, self.iris, self.blendshapes, self.embedding = (
+        (self.mesh, self.iris, self.blendshapes, self.embedding,
+         self.segmentation) = (
             m.to(self.device).eval() if m is not None else None
-            for m in (mesh, iris, blendshapes, embedding))
+            for m in (mesh, iris, blendshapes, embedding, segmentation))
         self.detector_input_size = detector.input_shapes[0][1]
-        self.anchors = torch.from_numpy(
-            generate_anchors(anchor_options_for(variant))).to(self.device)
+        self.anchors = torch.from_numpy(detector_anchors(
+            detector, variant)).to(self.device)
+
+
+def detector_anchors(detector: ConvertedModel, variant: str):
+    """The anchors of ``variant`` ([A, 2]); raises ValueError where the
+    detector graph's box output has another anchor count."""
+    anchors = generate_anchors(anchor_options_for(variant))
+    boxes = max(int(np.prod(s)) for s in detector.output_shapes) // 16
+    if boxes != anchors.shape[0]:
+        raise ValueError(f"the detector emits {boxes} anchors; variant "
+                         f"{variant!r} has {anchors.shape[0]}")
+    return anchors
 
 
 def _identify_detector_outputs(outs):

@@ -18,9 +18,11 @@ Endpoints
     payload flags ``mesh=1 contours=1 iris=1 embedding=1``
 - ``POST /v1/embed``                     image bytes -> per-face
     embeddings (detects at standard mode first)
-- ``POST /v1/segment``, ``POST /v1/detect_with_segmentation``: routed;
-  they answer 500 with the detector's not-ported error (ROADMAP §1
-  item 8).
+- ``POST /v1/segment``                   image bytes -> mask JSON
+    query: ``format=uint8|float32|binary`` (default uint8),
+    ``upsample=1`` (to the image's size)
+- ``POST /v1/detect_with_segmentation``  image bytes -> faces and mask
+    (the mask program queued before the detection)
 
 Bodies are raw encoded image bytes (JPEG/PNG/WebP).  Responses are JSON;
 errors are ``{"error": ...}`` with a 4xx/5xx status.  Deliberate

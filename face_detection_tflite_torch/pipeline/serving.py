@@ -52,9 +52,6 @@ class ServingPipeline:
     def __init__(self, detector, mode: FaceDetectionMode =
                  FaceDetectionMode.STANDARD, depth: int = 2,
                  with_segmentation: bool = False, device=None):
-        if with_segmentation:
-            raise NotImplementedError(
-                "segmentation is not ported yet (ROADMAP §1 item 8)")
         if device is not None and not _same_device(torch.device(device),
                                                    detector.device):
             raise NotImplementedError(
@@ -67,6 +64,12 @@ class ServingPipeline:
         self._det = detector
         self._mode = mode
         self._depth = depth
+        #: Each Future resolves to list[(faces, mask)]: the mask program
+        #: is queued before the detection of the same batch, and both
+        #: readbacks are waited on in the worker's finish step.
+        self._with_segmentation = with_segmentation
+        if with_segmentation:
+            detector._segmenter()  # the detector's configured model
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._closed = False
         self._submit_lock = threading.Lock()
@@ -75,7 +78,8 @@ class ServingPipeline:
         self._worker.start()
 
     def submit(self, images, orig_sizes=None) -> Future:
-        """Enqueues a batch; returns a Future of list[list[Face]].
+        """Enqueues a batch; returns a Future of list[list[Face]], or of
+        list[(faces, SegmentationMask)] with ``with_segmentation``.
 
         ``images`` may be encoded image bytes (list[bytes]), a numpy
         [B, H, W, C] batch or a tensor.  The decode and the upload run on
@@ -131,10 +135,14 @@ class ServingPipeline:
         pending: collections.deque = collections.deque()
 
         def finish_one():
-            fut, handle, stream = pending.popleft()
+            fut, handle, stream, seg_handle = pending.popleft()
             try:
                 with _on_stream(stream):
                     result = self._det._stream_finish(handle, self._mode)
+                    if seg_handle is not None:
+                        result = list(zip(result,
+                                          self._det._segmentation.materialize(
+                                              seg_handle)))
             except Exception as e:
                 fut.set_exception(e)
                 return
@@ -155,8 +163,12 @@ class ServingPipeline:
                 continue
             try:
                 with _on_stream(stream):
+                    seg_handle = (
+                        self._det._segmentation.dispatch(images)
+                        if self._with_segmentation and images.shape[0]
+                        else None)
                     pending.append((fut, self._det._stream_dispatch(
-                        images, self._mode, orig_sizes), stream))
+                        images, self._mode, orig_sizes), stream, seg_handle))
             except Exception as e:
                 fut.set_exception(e)
             if len(pending) > self._depth:

@@ -16,6 +16,10 @@ work of earlier batches.
   by the caller's stream (``record_stream``), so the caching allocator does
   not hand its memory out again while a kernel of that stream reads it.
 * A tensor already on the device, and the CPU device, skip the staging.
+
+The way back, :func:`download_async`, copies a device tensor into pinned
+host memory without blocking and records an event that the reader waits
+on, the analog of the JAX package's ``copy_to_host_async``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["upload", "RING_SLOTS"]
+__all__ = ["upload", "download_async", "RING_SLOTS"]
 
 #: Pinned buffers per thread: a batch can be staged while the previous
 #: batch's copy is still in flight.
@@ -105,3 +109,19 @@ def upload(data, device: torch.device) -> torch.Tensor:
     compute.wait_event(slot[1])
     dev.record_stream(compute)
     return dev
+
+
+def download_async(t: torch.Tensor):
+    """Starts the copy of ``t`` to the host and returns ``(host tensor,
+    event)``: from a GPU, a non-blocking copy on the current stream into
+    pinned memory (PyTorch's caching host allocator reuses the block once
+    its copy's event has completed) and the event recorded after it, on
+    which the reader must wait before touching the host tensor; from the
+    CPU, ``t`` itself and None."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event

@@ -136,13 +136,16 @@ def test_fp16_dequantize_folds():
 
 
 def test_unsupported_op_and_precision_raise():
-    ir = _ir("SOFTMAX", (1, 4), (1, 4), {"beta": 1.0})
-    with pytest.raises(NotImplementedError, match="SOFTMAX"):
+    ir = _ir("QUANTIZE", (1, 4), (1, 4), {})
+    with pytest.raises(NotImplementedError, match="QUANTIZE.*ROADMAP"):
         convert_model(ir)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         convert_model(SINGLE_OPS["relu"](), precision="high")
     with pytest.raises(ValueError):
-        params_from_jax(SINGLE_OPS["relu"](), {"rs0_h": np.zeros(2)})
+        params_from_jax(SINGLE_OPS["relu"](), {"w0": np.zeros(2)})
+    # The JAX executor's interpolation matrices have no counterpart: the
+    # port computes its resize taps from the graph.
+    assert params_from_jax(SINGLE_OPS["relu"](), {"rs0_h": np.zeros(2)}) == {}
 
 
 def test_reshape_across_batch_raises():

@@ -527,3 +527,63 @@ def test_standalone_face_detection_card_matches_cpu(cuda_device):
                    abs(gb.xmax - wb.xmax), abs(gb.ymax - wb.ymax)) <= 1e-4
         assert np.abs(g.keypoints_xy - w.keypoints_xy).max() <= 1e-4
         assert abs(g.score - w.score) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "front"])
+def test_postprocess_kernel_on_variant_networks(cuda_device, variant):
+    """K1 on the raw outputs of the full-depth seeded full-range (A = 2304
+    on one 48x48 layer, 192 px) and front (A = 896, 128 px) detectors,
+    calibrated to ~32 passing anchors a frame, for four 853x1280 frames:
+    one launch, and valid, scores and keypoints equal to the plain
+    version's, boxes within 1e-6."""
+    from face_detection_tflite_torch.ops.letterbox import letterbox_image
+    from face_detection_tflite_torch.pipeline.programs import (
+        _identify_detector_outputs, detector_anchors)
+    frames = torch.randint(0, 256, (4, 853, 1280, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(5)
+                           ).to(cuda_device)
+    det_ir = random_init.calibrated_detector_ir(variant, frames, seed=3)
+    model = convert_model(det_ir).to(cuda_device)
+    size = model.input_shapes[0][1]
+    anchors = torch.from_numpy(detector_anchors(model, variant)).to(
+        cuda_device)
+    pad = letterbox_params(853, 1280, size, size)
+    with torch.inference_mode():
+        raw_boxes, raw_scores = _identify_detector_outputs(
+            model(letterbox_image(frames, pad)))
+        args = (raw_boxes, raw_scores, anchors, float(size), pad.padding)
+        before = detections.detection_postprocess.launches
+        got = detections.detection_postprocess(*args, max_detections=16)
+        torch.cuda.synchronize()
+        assert detections.detection_postprocess.launches - before == 1
+        want = detections.detection_postprocess_plain(*args,
+                                                      max_detections=16)
+    assert raw_scores.shape[1] == anchors.shape[0]
+    assert want[3].any()
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["general", "landscape", "multiclass"])
+def test_segmenters_card_match_cpu(cuda_device, kind):
+    """The full-width seeded segmenters on the card against the CPU on two
+    853x1280 frames: the person plane and the class planes within 1e-4,
+    the letterbox padding equal."""
+    from face_detection_tflite_torch.models.segmentation import \
+        SelfieSegmentation
+    frames = torch.randint(0, 256, (2, 853, 1280, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(6))
+    ir = random_init.segmenter_ir(kind, seed=8)
+    multiclass = kind == "multiclass"
+    got = SelfieSegmentation(convert_model(ir), multiclass,
+                             device=cuda_device)(frames.to(cuda_device))
+    want = SelfieSegmentation(convert_model(ir), multiclass,
+                              device="cpu")(frames)
+    for g, w in zip(got, want):
+        assert g.padding == w.padding
+        assert np.abs(g.data - w.data).max() <= 1e-4
+        if multiclass:
+            assert np.abs(g.class_data - w.class_data).max() <= 1e-4

@@ -161,7 +161,7 @@ def test_detector_options_match_jax_slab(setup, options):
 
 def test_detector_surface_raises_for_unported_features(setup):
     _, models, _ = setup
-    for kw in ({"with_segmentation": True}, {"data_parallel": True},
+    for kw in ({"seg_device": "cuda:1"}, {"data_parallel": True},
                {"precision": "high"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FaceDetector(models=models, device="cpu", **kw)

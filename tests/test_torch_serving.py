@@ -274,7 +274,9 @@ def test_pipeline_refuses_other_devices_and_segmentation(setup):
     for device in ("cuda", "cuda:1", "meta"):
         with pytest.raises(NotImplementedError, match="item 7"):
             ServingPipeline(det, device=device)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # Segmentation is ported; a detector without a segmenter (no
+    # models.segmentation, no model directory) has none to load.
+    with pytest.raises(FileNotFoundError, match="segmentation"):
         ServingPipeline(det, with_segmentation=True)
     with pytest.raises(ValueError, match="depth"):
         ServingPipeline(det, depth=0)
@@ -500,7 +502,9 @@ def test_server_errors(served, path, body, status):
     got, payload, _ = _post(f"{srv.address}{path}", data)
     assert got == status and "error" in payload
     if status == 500:
-        assert "not ported" in payload["error"]
+        # The served detector has no segmenter to load.
+        assert "FileNotFoundError" in payload["error"]
+        assert "segmentation" in payload["error"]
     if path == "/v1/nowhere":
         assert _get(f"{srv.address}{path}")[0] == 404
 
@@ -709,9 +713,12 @@ def test_detector_reports(setup):
                                   models.detector.buffers())
     assert mem["total_weights"] == sum(mem[k] for k in (
         "detector", "mesh", "iris", "blendshapes", "embedding"))
-    for call in (lambda: det.get_segmentation_mask_from_bytes(b""),
-                 lambda: det.detect_faces_with_segmentation_from_bytes(b"")):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    # Without a segmenter (no models.segmentation, no model directory)
+    # the segmentation entry points have nothing to load.
+    frame = np.zeros((32, 32, 3), np.uint8)
+    for call in (lambda: det.get_segmentation_mask(frame),
+                 lambda: det.detect_faces_with_segmentation(frame)):
+        with pytest.raises(FileNotFoundError, match="segmentation"):
             call()
 
 

@@ -144,7 +144,9 @@ def test_standalone_input_contracts(setup):
         m.dispose()
         with pytest.raises(RuntimeError, match="disposed"):
             m(arg)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    # Every variant is ported; a network whose anchors are not the
+    # variant's is refused.
+    with pytest.raises(ValueError, match="anchors"):
         FaceDetection(Variant.FULL, model=models.detector, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
         IrisLandmark(model=models.iris, device="cpu", precision="high")

@@ -46,24 +46,39 @@ def rel_err(got, ref) -> float:
     return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
 
 
-def small_pipeline():
+#: A narrow segmenter encoder (every op kind of the published one: the
+#: hard-swish, squeeze-excite and ReLU bottlenecks of both kernel sizes)
+#: for the CPU tests.
+SMALL_SEGMENTER = {"stem": 8, "stages": (
+    (8, 8, 3, 2, True, False, 1), (16, 8, 3, 2, False, False, 2),
+    (16, 12, 5, 2, True, True, 1), (24, 12, 5, 2, True, True, 1))}
+
+
+def small_pipeline(variant: str = "back", segmenter=None, seed: int = SEED):
     """(frames, port PipelineModels on the CPU, JAX PipelineModels) of the
-    small setup: all four seeded networks (detector, mesh, iris,
-    blendshapes), the port's carrying the JAX params, and the full-width
-    MobileFaceNet of seed ``SEED + 4`` in both."""
-    frames = np.random.default_rng(SEED).integers(0, 256, (B, H, W, 3),
+    small setup: the four seeded networks (the ``variant`` detector, mesh,
+    iris, blendshapes), the port's carrying the JAX params, and the
+    full-width MobileFaceNet of seed ``seed + 4`` in both.  With
+    ``segmenter`` ("general", "landscape", "multiclass") the port's models
+    also carry that segmenter at :data:`SMALL_SEGMENTER`'s widths, and its
+    JAX ConvertedModel is returned fourth."""
+    frames = np.random.default_rng(seed).integers(0, 256, (B, H, W, 3),
                                                   dtype=np.uint8)
     models, *irs = random_init.random_pipeline_models(
-        torch.from_numpy(frames), seed=SEED, detector_blocks=1,
-        mesh_blocks=1, per_image=12, iris_blocks=1, mixer_blocks=1)
+        torch.from_numpy(frames), seed=seed, variant=variant,
+        detector_blocks=1, mesh_blocks=1, per_image=12, iris_blocks=1,
+        mixer_blocks=1, segmenter=segmenter,
+        segmenter_spec=SMALL_SEGMENTER if segmenter else None)
     jms = []
     for ir, tm in zip(irs, (models.detector, models.mesh, models.iris,
-                            models.blendshapes)):
+                            models.blendshapes, models.segmentation)):
         jm = j_exec.convert_model(jax_ir(ir))
         tm.load_state_dict(t_exec.params_from_jax(
             ir, {k: np.asarray(v) for k, v in jm.params.items()}))
         jms.append(jm)
     jmodels = j_programs.PipelineModels(
-        jms[0], "back", mesh=jms[1], iris=jms[2], blendshapes=jms[3],
-        embedding=j_embedding.build_mobilefacenet(SEED + 4))
+        jms[0], variant, mesh=jms[1], iris=jms[2], blendshapes=jms[3],
+        embedding=j_embedding.build_mobilefacenet(seed + 4))
+    if segmenter:
+        return frames, models, jmodels, jms[4]
     return frames, models, jmodels
