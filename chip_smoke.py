@@ -129,7 +129,25 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    resizes, elementwise); ``detect_faces_with_segmentation_batch``
    against the two calls run apart; ``/v1/segment`` and
    ``/v1/detect_with_segmentation`` on a loopback server;
-10. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+10. precision tiers and the int8 detector (``_tiers_phase``): FULL through
+   ``FaceDetector(precision=...)`` on the main path's networks and frames
+   at "highest" and at "high", "mixed", "serving", "default" and
+   ``{"detector": "default", "mesh": "highest"}``, 3 steady batches each
+   (launch counts set to 0 just before them: one K1 and one K2 at each
+   of 192 and 64 px a batch), ms a batch, device busy and convolution ms
+   of one profiled batch, faces a frame, and on the faces paired by IoU
+   with the "highest" run the box, mesh and iris errors in px and the
+   blendshapes' largest error (unpaired faces counted, not failed on;
+   "high" must equal "highest"); K1 and K2 against their plain versions
+   on each tier's own inputs; the general segmenter at
+   ``SegmentationConfig()`` ("high", equal to "highest") and "default",
+   masks against "highest"; MobileFaceNet at "default" on the FULL
+   path's embedding crops, ms a batch and the least cosine to "highest";
+   the int8 BlazeFace back (``random_init.quantized_ir`` of the main
+   path's detector) through FULL, its raw outputs on the card against
+   the CPU within one step of each output's grid, K1 and K2 held and
+   counted;
+11. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
    ``server_launches``: over phase 7's stream and server requests, with
@@ -142,13 +160,14 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    and bound on the full-range network's raw outputs, and
    ``segmentation_combined_launches`` and ``segmentation_server_launches``
    over phase 9b's combined batch and its ``/v1/detect_with_segmentation``
-   requests); the iris site's
+   requests; ``tier_launches`` per tier and ``int8_launches`` over phase
+   10's ``tier_batches`` batches each); the iris site's
    (``warp_normalize_iris64``) is its count over the FULL path's batches
    and the embedding site's (``warp_normalize_embed112``) over the
    embedding phase's (``server_embed_launches``: one ``/v1/embed``);
    ``nms_core`` is off the main path (0) and its launches in step 3 are
    ``check_launches``.  K1's ``max_abs_err`` is its largest box error
-   over every check against the plain version (steps 3, 4, 8 and 9).
+   over every check against the plain version (steps 3, 4, 8, 9 and 10).
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -2384,6 +2403,279 @@ def _segmentation_phase(models, frames, frames_np, card: str) -> dict:
             "server_launches": served, "server_requests": SEG_REQUESTS}
 
 
+# -- phase 10: precision tiers, the int8 detector ------------------------------
+
+#: The tiers phase 10 runs FULL at, against "highest": each label and the
+#: ``precision`` that ``FaceDetector`` takes.
+TIERS = (("high", "high"), ("mixed", "mixed"), ("serving", "serving"),
+         ("default", "default"),
+         ("detector=default,mesh=highest",
+          {"detector": "default", "mesh": "highest"}))
+TIER_RUNS = 3
+#: IoU that pairs a face of a tier with one of the "highest" run.
+MATCH_IOU = 0.5
+
+
+def _matched_errors(got, want) -> dict:
+    """Faces of two runs over the same frames paired by bounding-box IoU
+    (greedy, at least :data:`MATCH_IOU`), and over the pairs the box
+    corners' largest error and its mean over the faces, the mesh's and
+    the iris's largest and mean error (px, x and y), the count of faces
+    whose mesh moved by at most 1 px, and the blendshapes' largest
+    error; the faces of either run left without a partner are counted,
+    not failed on."""
+    import numpy as np
+
+    def corners(f):
+        return np.asarray(f.bounding_box_pixels, np.float64)
+
+    def iou(a, b):
+        iw = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+        ih = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+        inter = iw * ih
+        union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+                 - inter)
+        return inter / union if union > 0 else 0.0
+
+    pairs, unmatched = [], 0
+    for g_img, w_img in zip(got, want):
+        free = list(range(len(g_img)))
+        for w in w_img:
+            best = max(free, key=lambda i: iou(corners(g_img[i]), corners(w)),
+                       default=None)
+            if best is None or iou(corners(g_img[best]),
+                                   corners(w)) < MATCH_IOU:
+                unmatched += 1
+                continue
+            free.remove(best)
+            pairs.append((g_img[best], w))
+        unmatched += len(free)
+    if not pairs:
+        return {"matched": 0, "unmatched": unmatched}
+    mesh = np.stack([np.abs(g.mesh.points[:, :2] - w.mesh.points[:, :2])
+                     for g, w in pairs])
+    iris = np.concatenate([np.abs(g.iris_points[:, :2] - w.iris_points[:, :2])
+                           .ravel() for g, w in pairs])
+    box = np.asarray([np.abs(corners(g) - corners(w)).max() for g, w in pairs])
+    return {"matched": len(pairs), "unmatched": unmatched,
+            "box_px_max": float(box.max()), "box_px_mean": float(box.mean()),
+            "mesh_px_max": float(mesh.max()), "mesh_px_mean": float(mesh.mean()),
+            "faces_mesh_within_1px": int((mesh.max(axis=(1, 2)) <= 1.0).sum()),
+            "iris_px_max": float(iris.max()), "iris_px_mean": float(iris.mean()),
+            "blendshapes_max": float(max(
+                np.abs(g.blendshapes.scores - w.blendshapes.scores).max()
+                for g, w in pairs))}
+
+
+def _tier_batches(label: str, det, frames_np, card: str) -> dict:
+    """:data:`TIER_RUNS` steady FULL batches of ``det`` after one warm-up,
+    the launch counts set to 0 just before them and read just after (one
+    K1 launch a batch, one K2 at each of 192 and 64 px, plus re-runs); ms a
+    batch, and one more batch under ``torch.profiler``: device busy ms
+    and the convolutions' and matmuls' ms (not measured where the
+    profiler kept no record)."""
+    import numpy as np
+    import torch
+    det.detect_faces_batch(frames_np)
+    reruns0 = _reruns(det)
+    _reset_launches()
+    batch_ms, faces = [], None
+    for _ in range(TIER_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        faces = det.detect_faces_batch(frames_np)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _launches()
+    reruns = _reruns(det) - reruns0
+    _check_launches(launches, TIER_RUNS, reruns, label)
+    per_image = [len(f) for f in faces]
+    if min(per_image) < 1:
+        raise AssertionError(f"{label}: an image came back with no face")
+
+    def run():
+        det.detect_faces_batch(frames_np)
+        torch.cuda.synchronize()
+    _, device = _profiled(run, lambda name: True, label)
+    layers: dict = {}
+    for s, e, name in device:
+        layers[_layer(name)] = layers.get(_layer(name), 0.0) + (e - s) / 1e3
+    busy = _busy_us([(s, e) for s, e, _ in device]) / 1e3 if device else None
+    steady = statistics.median(batch_ms)
+    print(f"{label} FULL: {TIER_RUNS} batches of {FRAMES} x {HEIGHT}x{WIDTH}:"
+          f" ms/batch {['%.2f' % t for t in batch_ms]}, median {steady:.2f} "
+          f"ms = {FRAMES * np.mean(per_image) * 1e3 / steady:.1f} faces/s; "
+          f"faces per image {per_image}; launches {launches} ({reruns} "
+          f"overflow re-runs); profiled batch: device busy {_num(busy, '.3f')}"
+          f" ms, convolutions {_num(layers.get('convolutions'), '.3f')} ms, "
+          f"matmuls {_num(layers.get('matmuls'), '.3f')} ms  [{card}]")
+    return {"faces": faces, "launches": launches, "ms": batch_ms,
+            "busy_ms": busy, "conv_ms": layers.get("convolutions"),
+            "matmul_ms": layers.get("matmuls")}
+
+
+def _tiers_phase(models, det_ir, frames, frames_np, card: str) -> dict:
+    """Phase 10: FULL through ``FaceDetector(precision=...)`` at "highest"
+    and at each of :data:`TIERS` on the main path's networks and frames
+    (:func:`_tier_batches`), each tier's faces against "highest"'s
+    (:func:`_matched_errors`), K1 and K2 against their plain versions on
+    each tier's own inputs (:func:`_check_path_kernels`); the general
+    segmenter at ``SegmentationConfig()`` ("high") and at "default"
+    against "highest"; MobileFaceNet at "default" against "highest" on the
+    FULL path's embedding crops; the int8 detector
+    (``random_init.quantized_ir`` of the main path's calibrated detector,
+    calibrated on a seeded half of the frames) through FULL, its raw
+    outputs on the card against the CPU within one step of each output's
+    grid, K1 and K2 held and counted."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
+                                             SegmentationConfig)
+    from face_detection_tflite_torch.convert.executor import convert_model
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.models.embedding import (
+        alignment_from_eyes, build_mobilefacenet)
+    from face_detection_tflite_torch.ops import warp as warp_mod
+    from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
+                                                           letterbox_params)
+    from face_detection_tflite_torch.pipeline.programs import (
+        PipelineModels, build_pipeline_program)
+    dev = frames.device
+    out = {"tiers": {}}
+    ref = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+    base = _tier_batches("tier highest", ref, frames_np, card)
+    ref_faces = base["faces"]
+    ref.dispose()
+    post_err = 0.0
+    for label, precision in TIERS:
+        det = FaceDetector(models=models, device=dev, max_faces=MAX_FACES,
+                           precision=precision)
+        res = _tier_batches(f"tier {label}", det, frames_np, card)
+        res["errors"] = _matched_errors(res["faces"], ref_faces)
+        print(f"tier {label} against highest: {res['errors']}  [{card}]")
+        if label == "high" and res["errors"].get("mesh_px_max", 1.0) != 0.0:
+            raise AssertionError("tier high: faces differ from highest's "
+                                 "(it runs the same fp32 ops)")
+        post_err = max(post_err, _check_path_kernels(f"tier {label}",
+                                                     det.models, frames, card))
+        det.dispose()
+        del res["faces"]
+        out["tiers"][label] = res
+
+    # The general segmenter at its config's default tier and at "default".
+    seg_ir = random_init.segmenter_ir("general", SEED + 5)
+    seg_models = PipelineModels(
+        models.detector, "back", mesh=models.mesh, device=dev,
+        iris=models.iris, blendshapes=models.blendshapes,
+        segmentation=convert_model(seg_ir, name="segmenter-general-random"))
+    masks = {}
+    for label, cfg in (("highest", SegmentationConfig.safe()),
+                       ("high", SegmentationConfig()),
+                       ("default", SegmentationConfig(precision="default"))):
+        det = FaceDetector(models=seg_models, device=dev, max_faces=MAX_FACES,
+                           segmentation_config=cfg)
+        seg = det._segmentation
+        seg(frames_np)
+        times = []
+        for _ in range(TIER_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masks[label] = np.stack([m.data for m in seg(frames_np)])
+            times.append((time.perf_counter() - t0) * 1e3)
+        err = float(np.abs(masks[label] - masks["highest"]).max())
+        print(f"segmenter general at SegmentationConfig("
+              f"{'' if label == 'high' else repr(cfg.precision)}) "
+              f"(tier {cfg.precision}): ms/batch "
+              f"{['%.2f' % t for t in times]}, masks' max abs error against "
+              f"highest {err:.3g}  [{card}]")
+        out[f"segmenter_{label}"] = {"ms": times, "max_abs_err": err}
+        det.dispose()
+    if out["segmenter_high"]["max_abs_err"] != 0.0:
+        raise AssertionError("segmenter at high differs from highest")
+
+    # MobileFaceNet at "default" on the FULL path's embedding crops.
+    with torch.inference_mode():
+        kp = build_pipeline_program(
+            models, HEIGHT, WIDTH, FaceDetectionMode.FULL,
+            max_faces=MAX_FACES, min_score=0.5)(frames)["keypoints"]
+        ecx, ecy, esize, etheta = alignment_from_eyes(
+            kp[..., 0, 0] * WIDTH, kp[..., 0, 1] * HEIGHT,
+            kp[..., 1, 0] * WIDTH, kp[..., 1, 1] * HEIGHT)
+        crops = warp_mod.warp_normalize(
+            frames, ecx.contiguous(), ecy.contiguous(), esize.contiguous(),
+            torch.cos(-etheta).contiguous(), torch.sin(-etheta).contiguous(),
+            out_size=EMBED_SIZE).reshape(-1, EMBED_SIZE, EMBED_SIZE, 3)
+        nets = {p: build_mobilefacenet(SEED + 4, precision=p).to(dev).eval()
+                for p in ("highest", "default")}
+        emb = {}
+        for p, net in nets.items():
+            (e,) = net(crops)
+            emb[p] = e / e.norm(dim=1, keepdim=True)
+            ms, dev_ms, launches, _ = _stage_ms(lambda: net(crops), iters=10)
+            out[f"mobilefacenet_{p}"] = {"ms": ms, "device_ms": dev_ms,
+                                         "launches": launches}
+        cos = (emb["highest"] * emb["default"]).sum(1).min().item()
+    out["mobilefacenet_default"]["least_cosine"] = cos
+    print(f"MobileFaceNet on {crops.shape[0]} crops: highest "
+          f"{out['mobilefacenet_highest']['ms']:.3f} ms event "
+          f"({_num(out['mobilefacenet_highest']['device_ms'], '.3f')} ms "
+          f"device), default {out['mobilefacenet_default']['ms']:.3f} ms "
+          f"event ({_num(out['mobilefacenet_default']['device_ms'], '.3f')} "
+          f"ms device); least cosine of default to highest {cos:.6f}  "
+          f"[{card}]")
+    if not cos > 0.99:
+        raise AssertionError("MobileFaceNet at default drifted from highest")
+
+    # The int8 detector through FULL.
+    t0 = time.perf_counter()
+    qir = random_init.quantized_ir(det_ir, frames, SEED)
+    qmodels = PipelineModels(convert_model(qir, name="blazeface-back-int8"),
+                             "back", mesh=models.mesh, device=dev,
+                             iris=models.iris, blendshapes=models.blendshapes)
+    print(f"int8 detector: {len(qir.ops)} ops, quantized and calibrated in "
+          f"{time.perf_counter() - t0:.2f} s")
+    det = FaceDetector(models=qmodels, device=dev, max_faces=MAX_FACES)
+    res = _tier_batches("int8 detector", det, frames_np, card)
+    res["errors"] = _matched_errors(res["faces"], ref_faces)
+    print(f"int8 detector against highest: {res['errors']}  [{card}]")
+    post_err = max(post_err, _check_path_kernels("int8 detector", qmodels,
+                                                 frames, card))
+    det.dispose()
+    # Each graph output's grid: the DEQUANTIZE ops at the end of the graph
+    # read the int8 outputs in the graph's output order (boxes, scores).
+    steps = [float(qir.tensors[op.inputs[0]].quant["scale"][0])
+             for op in qir.ops[-len(qir.outputs):]]
+    lbp = letterbox_params(HEIGHT, WIDTH, 256, 256)
+    two = torch.from_numpy(frames_np[:2])
+    with torch.inference_mode():
+        got = qmodels.detector(letterbox_image(two.to(dev), lbp))
+        want = convert_model(qir)(letterbox_image(two, lbp))
+    errs = [(g.cpu() - w).abs().max().item() for g, w in zip(got, want)]
+    print(f"int8 detector card vs CPU (2 frames): raw boxes' and scores' max "
+          f"errors {errs}, output grid steps {steps}  [{card}]")
+    if any(e > st * (1 + 1e-6) for e, st in zip(errs, steps)):
+        raise AssertionError("int8 detector: card and CPU differ by more "
+                             "than one output grid step")
+    del res["faces"]
+    out["int8"] = dict(res, card_vs_cpu=errs, grid_steps=steps)
+    out["highest"] = {k: v for k, v in base.items() if k != "faces"}
+    out["post_err"] = post_err
+    return out
+
+
+def _tier_launches(tiers: dict, kernel: str, size=None) -> dict:
+    """A kernel's launches over phase 10's batches at each tier and on the
+    int8 detector (K2's at crop size ``size``)."""
+    def count(res):
+        n = res["launches"][kernel]
+        return n.get(size, 0) if size is not None else n
+    return {"tier_launches": {label: count(res) for label, res in
+                              [("highest", tiers["highest"]),
+                               *tiers["tiers"].items()]},
+            "int8_launches": count(tiers["int8"]),
+            "tier_batches": TIER_RUNS}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2637,10 +2929,13 @@ def main() -> int:
     # -- 9. detector variants and selfie segmentation --------------------------
     variants = _variants_phase(models, cpu_models, frames, frames_np, card)
     seg = _segmentation_phase(models, frames, frames_np, card)
+    # -- 10. precision tiers and the int8 detector ----------------------------
+    tiers = _tiers_phase(models, det_ir, frames, frames_np, card)
     post_err = max(post_err, video["post_err"], camera["post_err"],
-                   alone["post_err"], variants["post_err"])
+                   alone["post_err"], variants["post_err"],
+                   tiers["post_err"])
 
-    # -- 10. result lines -----------------------------------------------------
+    # -- 11. result lines -----------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -2673,6 +2968,7 @@ def main() -> int:
          "segmentation_server_launches":
              seg["server_launches"]["detection_postprocess"],
          "segmentation_server_requests": seg["server_requests"],
+         **_tier_launches(tiers, "detection_postprocess"),
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
@@ -2699,6 +2995,7 @@ def main() -> int:
          **_variant_launches(variants, "warp_normalize", MESH_SIZE),
          "segmentation_combined_launches":
              seg["combined_launches"]["warp_normalize"][MESH_SIZE],
+         **_tier_launches(tiers, "warp_normalize", MESH_SIZE),
          **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
         {"name": "warp_normalize_iris64", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
@@ -2710,6 +3007,7 @@ def main() -> int:
          **_variant_launches(variants, "warp_normalize", IRIS_SIZE),
          "segmentation_combined_launches":
              seg["combined_launches"]["warp_normalize"][IRIS_SIZE],
+         **_tier_launches(tiers, "warp_normalize", IRIS_SIZE),
          **iris_site},
         {"name": "warp_normalize_embed112", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",

@@ -1,10 +1,31 @@
 """ModelIR -> ``torch.nn.Module``.
 
 Port of the JAX package's ``convert/executor.py::convert_model``: every op
-that executor lowers except QUANTIZE and the fake-quant emulation of
-quantized activations.  Each ``.tflite`` graph is converted once into a
-module whose weights are buffers; the module runs eagerly on the device
-its buffers live on.
+that executor lowers, its precision tiers and its fake-quant emulation of
+quantized graphs.  Each ``.tflite`` graph is converted once into a module
+whose weights are buffers; the module runs eagerly on the device its
+buffers live on.
+
+Precision tiers (the JAX executor's ``precision``): a tier names the
+operand precision of the convolutions, transposed convolutions,
+FULLY_CONNECTED and BATCH_MATMUL ops.  ``"highest"`` runs them in fp32
+with TF32 off; ``"default"`` (one bf16 pass on the TPU) feeds them bf16
+operands, a bf16 copy of each weight made once when the module is built,
+with fp32 accumulation, and casts the result back to fp32, so the bias
+and the ops after it run in fp32; ``"high"`` (three bf16 passes on the
+TPU) has no cuDNN counterpart and runs as ``"highest"``.  ``"mixed"``
+resolves through :func:`mixed_precision`, and a callable
+``(op_index, op_name) -> tier`` is called per op of the pruned op list.
+Each module holds its per-op tiers (:attr:`ConvertedModel.tiers`);
+:meth:`ConvertedModel.with_precision` re-resolves them over the same op
+list, sharing the fp32 weights.  No tier sets a process-wide flag around
+a forward.
+
+Quantized graphs run as the JAX executor runs them: constants dequantize
+to fp32 exactly, and every activation with a per-tensor int8, uint8 or
+int16 grid is snapped to it after the op that writes it (``_fake_quant``),
+as is a quantized graph input, which takes the integer dtype (dequantized)
+or a float (snapped).  QUANTIZE is a cast whose snap is that output hook.
 
 Differences from the JAX executor, all deliberate:
 
@@ -25,8 +46,14 @@ Differences from the JAX executor, all deliberate:
   weights of the JAX executor's interpolation matrices, not as two
   matrix products; the JAX ``rs{i}_h``/``rs{i}_w`` matrices are recomputed
   on export (:meth:`ConvertedModel.jax_params`) and ignored on import;
-* only ``precision="highest"`` is supported: convolutions and matrix
-  products run with TF32 off.
+* a bf16 tier's convolution or product rounds its output to bf16 before
+  the cast back to fp32 (cuDNN and cuBLAS write the operands' dtype),
+  one rounding (2^-9 relative) that the TPU's fp32 output does not have;
+* ``"high"`` runs fp32 operands, not three bf16 passes;
+* a quantized int64 constant (a 16x8 graph's bias) is dequantized like
+  the other quantized constants; the JAX executor keeps its raw integers;
+* RESIZE_BILINEAR gathers its taps in fp32 at every tier, where the JAX
+  executor's two matrix products take the op's tier.
 
 Conversion-time passes (numpy, no device work) are those of the JAX
 executor: constant fp16 ``DEQUANTIZE`` and ``DENSIFY`` fold into fp32
@@ -46,12 +73,13 @@ from torch import nn
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
 __all__ = ["ConvertedModel", "SUPPORTED_OPS", "convert_model", "convert_file",
-           "fp32_on_the_card", "params_from_jax", "resolve_device"]
+           "fp32_on_the_card", "mixed_precision", "params_from_jax",
+           "resolve_device"]
 
-#: Ops this executor runs: those the JAX executor lowers, except QUANTIZE
-#: (and the fake-quant emulation of quantized activations), which wait for
-#: ROADMAP §1 item 2.  DEQUANTIZE of a constant and DENSIFY fold away at
-#: conversion; a DEQUANTIZE of an activation runs as a cast.
+#: Ops this executor runs: those the JAX executor lowers.  DEQUANTIZE of a
+#: constant and DENSIFY fold away at conversion; a DEQUANTIZE or QUANTIZE
+#: of an activation runs as a cast (the QUANTIZE's snap to its grid is the
+#: output hook of every op, :func:`_fake_quant`).
 SUPPORTED_OPS = frozenset({
     "CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV",
     "CUSTOM:Convolution2DTransposeBias", "ADD", "MUL", "SUB", "DIV",
@@ -64,7 +92,27 @@ SUPPORTED_OPS = frozenset({
     "REDUCE_MAX", "REDUCE_MIN", "ARG_MAX", "L2_NORMALIZATION", "CAST",
     "SLICE", "STRIDED_SLICE", "SPLIT", "UNPACK", "PACK", "TILE", "GATHER",
     "DEPTH_TO_SPACE", "SPACE_TO_DEPTH", "RESIZE_BILINEAR",
-    "RESIZE_NEAREST_NEIGHBOR", "DEQUANTIZE"})
+    "RESIZE_NEAREST_NEIGHBOR", "DEQUANTIZE", "QUANTIZE"})
+
+#: Ops whose operand precision a tier sets (the JAX executor passes
+#: ``precision=`` to these; its RESIZE_BILINEAR products too, which this
+#: executor gathers in fp32).
+_TIERED = frozenset({"CONV_2D", "DEPTHWISE_CONV_2D", "TRANSPOSE_CONV",
+                     "CUSTOM:Convolution2DTransposeBias", "FULLY_CONNECTED",
+                     "BATCH_MATMUL"})
+
+#: The operand positions of a tiered op's inputs where they are not (0, 1).
+_OPERANDS = {"TRANSPOSE_CONV": (1, 2)}
+
+#: The names ``jax.lax.Precision`` takes -> the tier they name.
+_TIER_NAMES = {"highest": "highest", "float32": "highest",
+               "high": "high", "tensorfloat32": "high",
+               "default": "default", "bfloat16": "default",
+               "fastest": "default"}
+
+#: A tier -> the operand dtype of its ops on this executor.
+_TIER_DTYPE = {"highest": torch.float32, "high": torch.float32,
+               "default": torch.bfloat16}
 
 # Ops whose listed inputs at these positions are static (shape-like)
 # values: the JAX executor's table, so both executors hold the same params.
@@ -85,7 +133,7 @@ _UNARY = {
     "LOG": torch.log, "ABS": torch.abs, "FLOOR": torch.floor, "ELU": F.elu,
     "SQUARE": lambda x: x * x,
     "HARD_SWISH": lambda x: x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0,
-    "DEQUANTIZE": lambda x: x.float()}
+    "DEQUANTIZE": lambda x: x.float(), "QUANTIZE": lambda x: x.float()}
 _BINARY = {
     "ADD": torch.add, "SUB": torch.sub, "MUL": torch.mul, "DIV": torch.div,
     "MAXIMUM": torch.maximum, "MINIMUM": torch.minimum, "POW": torch.pow,
@@ -94,6 +142,11 @@ _REDUCE = {"MEAN": torch.mean, "SUM": torch.sum, "REDUCE_MAX": torch.amax,
            "REDUCE_MIN": torch.amin}
 
 _QUANTIZED = (np.int8, np.uint8, np.int16)
+
+#: The integer range of each quantized activation dtype.
+_QRANGE = {np.dtype(np.int8): (-128.0, 127.0),
+           np.dtype(np.uint8): (0.0, 255.0),
+           np.dtype(np.int16): (-32768.0, 32767.0)}
 
 
 def _act(x, name):
@@ -156,14 +209,12 @@ def _fold(ir: ModelIR) -> tuple[dict[int, np.ndarray], list[OpIR]]:
             raise NotImplementedError(
                 f"tensor {t.name!r} is {np.dtype(t.dtype).name} with no "
                 "quantization parameters; cannot convert")
-        if t.data is None and t.quant is not None and t.dtype in _QUANTIZED:
-            raise NotImplementedError(
-                f"tensor {t.name!r} is a quantized activation: fake-quant "
-                "emulation is not ported yet (ROADMAP §1 item 2)")
+    # Every quantized integer constant dequantizes, the int64 biases of
+    # 16x8 graphs too (the JAX executor leaves int64 constants as raw
+    # integers, which adds a 16x8 graph's biases unscaled).
     for t in ir.tensors:
         if t.index in const and t.quant is not None and \
-                np.issubdtype(np.dtype(t.dtype), np.integer) and \
-                t.dtype != np.int64:
+                np.issubdtype(np.dtype(t.dtype), np.integer):
             const[t.index] = _dequantize_const(t, const[t.index])
 
     def fold_static(op) -> bool:
@@ -219,10 +270,89 @@ def _fold(ir: ModelIR) -> tuple[dict[int, np.ndarray], list[OpIR]]:
             continue
         if op.name not in SUPPORTED_OPS:
             raise NotImplementedError(
-                f"op {op.name} not implemented in the PyTorch executor "
-                "(ROADMAP §1 item 2)")
+                f"op {op.name} not implemented in the PyTorch executor")
         ops.append(op)
     return const, ops
+
+
+def _act_quant(ir: ModelIR) -> dict[int, tuple[float, float, float, float]]:
+    """Tensor index -> (scale, zero point, qmin, qmax) of every activation
+    on a per-tensor quantization grid (the JAX executor's ``act_quant``)."""
+    out = {}
+    for t in ir.tensors:
+        rng = _QRANGE.get(np.dtype(t.dtype))
+        if t.data is None and t.quant is not None and rng is not None \
+                and t.quant["scale"].size == 1:
+            out[t.index] = (float(t.quant["scale"][0]),
+                            float(t.quant["zero_point"][0])) + rng
+    return out
+
+
+def _fake_quant(x: torch.Tensor, divisor: torch.Tensor, scale: float,
+                zero_point: float, qmin: float, qmax: float) -> torch.Tensor:
+    """Snaps a float activation onto its integer grid:
+    dequantize(quantize(x)), rounding half to even as ``jnp.round`` does.
+    ``divisor`` is ``scale`` as a 0-dim float32 tensor on ``x``'s device,
+    so that ``x / divisor`` is a true division there too (a Python float
+    divisor is multiplied by its reciprocal on CUDA, which moves the
+    ties)."""
+    q = torch.clamp(torch.round(x / divisor) + zero_point, qmin, qmax)
+    return (q - zero_point) * scale
+
+
+def _tier(p) -> str:
+    """The canonical name of tier ``p``; a falsy tier is the JAX
+    executor's ``precision=None``, the backend's default (one bf16 pass
+    on the TPU)."""
+    if not p:
+        return "default"
+    name = _TIER_NAMES.get(str(p).lower())
+    if name is None:
+        raise ValueError(f"unknown precision {p!r}: expected 'highest', "
+                         f"'high', 'default', 'mixed' or a per-op callable")
+    return name
+
+
+def _resolve_tiers(ops: list[OpIR], precision) -> tuple:
+    """Each op's tier (None for the ops no tier reaches): a string applies
+    to every op, ``"mixed"`` resolves through :func:`mixed_precision` over
+    ``ops``, and a callable ``(op_index, op_name) -> tier`` is called for
+    every op of ``ops`` in order, as the JAX executor calls it."""
+    if isinstance(precision, str) and precision == "mixed":
+        precision = mixed_precision(ops)
+    if callable(precision):
+        given = [precision(i, op.name) for i, op in enumerate(ops)]
+    else:
+        given = [_tier(precision)] * len(ops)
+    return tuple(_tier(p) if op.name in _TIERED else None
+                 for op, p in zip(ops, given))
+
+
+def mixed_precision(ops, frac: float = 0.5, low: str = "default",
+                    high: str = "high"):
+    """Per-op tier callable: the earliest ``frac`` of the conv ops run
+    ``low``, the rest, the regression heads included, ``high``; the other
+    products stay ``high``.  ``ops`` is the pruned executable op list, the
+    index space the converter calls a tier callable with (the ``"mixed"``
+    string resolves against it).  Where ``frac`` covers no conv it
+    returns ``high`` itself.  The JAX package's function."""
+    conv_ids = [i for i, op in enumerate(ops) if "CONV" in op.name]
+    n_low = int(len(conv_ids) * frac)
+    if n_low <= 0:
+        return high
+    cutoff = conv_ids[n_low - 1]
+
+    def spec(oi, nm):
+        if "CONV" in nm and oi <= cutoff:
+            return low
+        return high
+    return spec
+
+
+def _refresh_low(module, incompatible_keys=None) -> None:
+    """Load-state-dict post hook: re-derives the bf16 weight copies from
+    the fp32 weights just loaded."""
+    module._make_low()
 
 
 def _weight_kinds(ops: list[OpIR]) -> dict[int, str]:
@@ -384,27 +514,37 @@ def resolve_device(device=None) -> torch.device:
 
 
 def fp32_on_the_card(device: torch.device) -> None:
-    """Turns cuDNN's TF32 off for the process where ``device`` is a GPU:
-    cuDNN runs fp32 convolutions in TF32 by default.  Called where a card
-    model is built (``PipelineModels``, ``FaceEmbedding``); a forward only
-    checks (:func:`_check_fp32`), since a flag set and restored around a
-    forward is process-wide and would switch TF32 back on under another
-    thread's convolutions."""
+    """Turns cuDNN's TF32 off for the process where ``device`` is a GPU
+    (cuDNN runs fp32 convolutions in TF32 by default), and cuBLAS's
+    reduced-precision reductions of bf16 products (the bf16 tier
+    accumulates in fp32).  Called where a card model is built
+    (``PipelineModels``, ``FaceEmbedding``); a forward only checks
+    (:func:`_check_fp32`), since a flag set and restored around a forward
+    is process-wide and would switch TF32 back on under another thread's
+    convolutions."""
     if device.type == "cuda":
         torch.backends.cudnn.enabled = True
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
 
 
-def _check_fp32(device: torch.device) -> None:
-    """Raises where a forward on ``device`` would run in TF32."""
+def _check_fp32(device: torch.device, bf16: bool = False) -> None:
+    """Raises where a forward on ``device`` would run its fp32 ops in TF32
+    or, with ``bf16``, reduce its bf16 products in reduced precision."""
     if device.type != "cuda":
         return
-    for name, on in (("cuda.matmul", torch.backends.cuda.matmul.allow_tf32),
-                     ("cudnn", torch.backends.cudnn.allow_tf32)):
+    flags = [("cuda.matmul.allow_tf32", torch.backends.cuda.matmul.allow_tf32),
+             ("cudnn.allow_tf32", torch.backends.cudnn.allow_tf32)]
+    if bf16:
+        flags.append((
+            "cuda.matmul.allow_bf16_reduced_precision_reduction",
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction))
+    for name, on in flags:
         if on:
             raise RuntimeError(
-                f"precision='highest' needs torch.backends.{name}.allow_tf32 "
-                f"= False (convert.executor.fp32_on_the_card sets cuDNN's)")
+                f"the executor's tiers need torch.backends.{name} = False "
+                f"(convert.executor.fp32_on_the_card sets it)")
 
 
 class ConvertedModel(nn.Module):
@@ -414,8 +554,13 @@ class ConvertedModel(nn.Module):
     graph's ``input_shapes`` except for the leading batch dimension, and
     returns the graph outputs as a tuple.  Weights are buffers named
     ``t{tensor index}``, the keys of the JAX ``ConvertedModel.params``;
-    the tables of :func:`_static_tables` are non-persistent buffers, so
-    they follow the module to its device but stay out of its state dict.
+    the tables of :func:`_static_tables`, the bf16 copies of the weights
+    that bf16-tier ops read (``_bf_t{index}``) and the quantization grids'
+    scales (``_qscale``) are non-persistent buffers, so they follow the
+    module to its device but stay out of its state dict; loading a state
+    dict re-derives the bf16 copies.  ``precision`` is the JAX executor's
+    (a tier name, ``"mixed"`` or a per-op callable); :attr:`tiers` holds
+    its resolution per op.
     """
 
     def __init__(self, ops: list[OpIR], params: dict[str, torch.Tensor],
@@ -423,14 +568,23 @@ class ConvertedModel(nn.Module):
                  input_ixs: tuple, output_ixs: tuple, input_names: list[str],
                  const_outputs: dict[int, np.ndarray],
                  input_shapes: list[tuple], output_shapes: list[tuple],
-                 name: str = "", *, tables: dict[str, np.ndarray],
-                 shapes: dict[int, tuple], dtypes: dict[int, Any]):
+                 name: str = "", *, tables: dict[str, Any],
+                 shapes: dict[int, tuple], dtypes: dict[int, Any],
+                 act_quant: dict[int, tuple] | None = None,
+                 precision="highest", tiers: tuple | None = None):
         super().__init__()
         for key, t in params.items():
             self.register_buffer(key, t)
         for key, arr in tables.items():
-            self.register_buffer(f"_{key}", torch.from_numpy(arr),
+            self.register_buffer(f"_{key}", torch.as_tensor(arr),
                                  persistent=False)
+        self._tables = tuple(tables)
+        self._act_quant = dict(act_quant or {})
+        #: Graph tensor -> its position in ``_qscale``.
+        self._qslot = {t: j for j, t in enumerate(self._act_quant)}
+        self.register_buffer("_qscale", torch.tensor(
+            [q[0] for q in self._act_quant.values()], dtype=torch.float32),
+            persistent=False)
         self._ops = ops
         self._param_key = param_key
         self._statics = statics
@@ -453,6 +607,49 @@ class ConvertedModel(nn.Module):
             op.outputs[0] for op in ops if op.name == "FULLY_CONNECTED"
             and readers.get(op.outputs[0]) == {"RESHAPE"}
             and op.outputs[0] not in output_ixs)
+        self.precision = precision
+        #: Each op's tier ("highest", "high" or "default"; None for the
+        #: ops no tier reaches), indexed as the pruned op list.
+        self.tiers = (_resolve_tiers(ops, precision) if tiers is None
+                      else tiers)
+        # Weight tensor -> the key of its bf16 copy, for the weights that
+        # bf16-tier ops take as an operand (not as a bias).
+        self._low_key = {
+            op.inputs[j]: f"_bf_{param_key[op.inputs[j]]}"
+            for op, tier in zip(ops, self.tiers)
+            if tier is not None and _TIER_DTYPE[tier] is torch.bfloat16
+            for j in _OPERANDS.get(op.name, (0, 1))
+            if op.inputs[j] in param_key}
+        self._bf16 = any(t is not None and _TIER_DTYPE[t] is torch.bfloat16
+                         for t in self.tiers)
+        self._make_low()
+        self.register_load_state_dict_post_hook(_refresh_low)
+
+    def _make_low(self) -> None:
+        """(Re)makes the bf16 copies of the weights bf16-tier ops read."""
+        for tix, key in self._low_key.items():
+            w = getattr(self, self._param_key[tix])
+            self.register_buffer(
+                key, w.to(torch.bfloat16, memory_format=torch.preserve_format),
+                persistent=False)
+
+    def with_precision(self, precision) -> "ConvertedModel":
+        """This graph at ``precision``, its tiers re-resolved over the same
+        op list (``"mixed"`` and a callable index it as here); the fp32
+        weights and tables are shared with this module, not copied.
+        Returns this module where the tiers do not change."""
+        tiers = _resolve_tiers(self._ops, precision)
+        if tiers == self.tiers:
+            return self
+        return ConvertedModel(
+            self._ops, {k: getattr(self, k) for k in self._param_key.values()},
+            self._param_key, self._statics, self._input_ixs,
+            self._output_ixs, self._input_names, self._const_outputs,
+            self.input_shapes, self.output_shapes, self.name,
+            tables={k: getattr(self, f"_{k}") for k in self._tables},
+            shapes=self._shapes, dtypes=self._dtypes,
+            act_quant=self._act_quant, precision=precision, tiers=tiers
+        ).to(self._qscale.device).train(self.training)
 
     @property
     def num_params(self) -> int:
@@ -502,11 +699,24 @@ class ConvertedModel(nn.Module):
                     f"input tensor {in_name!r} expects shape "
                     f"(N, {', '.join(map(str, want[1:]))}) with N >= 1, got "
                     f"{tuple(x.shape)}")
+            if tix in self._act_quant:
+                # A quantized graph input: the model's integer dtype is
+                # dequantized, a float is snapped to the input's grid.
+                s, zp, lo, hi = self._act_quant[tix]
+                if x.dtype.is_floating_point:
+                    x = _fake_quant(x.float(), self._qscale[self._qslot[tix]],
+                                    s, zp, lo, hi)
+                else:
+                    x = (x.float() - zp) * s
             env[tix] = x
         device = inputs[0].device
-        _check_fp32(device)
+        _check_fp32(device, bf16=self._bf16)
         for i, op in enumerate(self._ops):
             self._run_op(i, op, env, n)
+            for t in op.outputs:
+                if t in self._act_quant and t in env:
+                    env[t] = _fake_quant(env[t], self._qscale[self._qslot[t]],
+                                         *self._act_quant[t])
         return tuple(
             env[t] if t in env else
             torch.as_tensor(self._const_outputs[t], device=device)
@@ -514,6 +724,13 @@ class ConvertedModel(nn.Module):
 
     def _static(self, tix: int) -> np.ndarray:
         return self._statics[tix]
+
+    def _operand(self, env: dict, tix: int, dtype: torch.dtype):
+        """Input ``tix`` of a tiered op in the tier's operand ``dtype``: a
+        weight's bf16 copy, else the activation cast."""
+        if dtype is torch.bfloat16 and tix in self._low_key:
+            return getattr(self, self._low_key[tix])
+        return env[tix].to(dtype)
 
     def _axis(self, op: OpIR, axis: int, rank: int, n: int) -> int:
         """``axis`` in [0, rank); raises where it is the batch axis at
@@ -544,8 +761,9 @@ class ConvertedModel(nn.Module):
         elif nm in _UNARY:
             env[out] = _UNARY[nm](get(op.inputs[0]))
         elif nm in ("CONV_2D", "DEPTHWISE_CONV_2D"):
-            x = get(op.inputs[0])
-            w = get(op.inputs[1])  # OIHW / [C*m, 1, kh, kw]
+            dtype = _TIER_DTYPE[self.tiers[i]]
+            x = self._operand(env, op.inputs[0], dtype)
+            w = self._operand(env, op.inputs[1], dtype)  # OIHW / [C*m, 1, kh, kw]
             (pt, pb), (pl, pr) = _conv_padding(o, x.shape[1], x.shape[2],
                                                w.shape[2], w.shape[3])
             xc = x.permute(0, 3, 1, 2)
@@ -556,17 +774,24 @@ class ConvertedModel(nn.Module):
                 pad = (0, 0)
             bias = get(op.inputs[2]) if len(op.inputs) > 2 and \
                 op.inputs[2] >= 0 else None
-            y = F.conv2d(xc, w, bias, stride=(o["stride_h"], o["stride_w"]),
-                         padding=pad,
+            low = dtype is not torch.float32
+            y = F.conv2d(xc, w, None if low else bias,
+                         stride=(o["stride_h"], o["stride_w"]), padding=pad,
                          dilation=(o["dilation_h"], o["dilation_w"]),
                          groups=x.shape[3] if nm == "DEPTHWISE_CONV_2D" else 1)
-            env[out] = _act(y.permute(0, 2, 3, 1), o["activation"])
+            y = y.permute(0, 2, 3, 1)
+            if low:
+                # The epilogue runs in fp32, as after the TPU's conv with
+                # preferred_element_type=float32.
+                y = y.float() if bias is None else y.float() + bias
+            env[out] = _act(y, o["activation"])
         elif nm in ("TRANSPOSE_CONV", "CUSTOM:Convolution2DTransposeBias"):
             # Builtin inputs: (output_shape, filter, x[, bias]); MediaPipe's
             # custom op: (x, filter, bias).
             xi, wi, bi = (2, 1, 3) if nm == "TRANSPOSE_CONV" else (0, 1, 2)
-            x = get(op.inputs[xi])
-            w = get(op.inputs[wi])  # [I, O, kh, kw]
+            dtype = _TIER_DTYPE[self.tiers[i]]
+            x = self._operand(env, op.inputs[xi], dtype)
+            w = self._operand(env, op.inputs[wi], dtype)  # [I, O, kh, kw]
             bias = get(op.inputs[bi]) if len(op.inputs) > bi and \
                 op.inputs[bi] >= 0 else None
             sh, sw = o["stride_h"], o["stride_w"]
@@ -581,7 +806,8 @@ class ConvertedModel(nn.Module):
                                  _same_pads(out_w, sw, kw))
                                 if o["padding"] == PADDING_SAME
                                 else ((0, 0), (0, 0)))
-            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=(sh, sw))
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w,
+                                   stride=(sh, sw)).float()
             y = y[:, :, pt:pt + out_h, pl:pl + out_w]
             if y.shape[2:] != (out_h, out_w):
                 y = F.pad(y, (0, out_w - y.shape[3], 0, out_h - y.shape[2]))
@@ -785,8 +1011,9 @@ class ConvertedModel(nn.Module):
         elif nm == "CAST":
             env[out] = get(op.inputs[0]).to(_torch_dtype(self._dtypes[out]))
         elif nm == "FULLY_CONNECTED":
-            x = get(op.inputs[0])
-            w = get(op.inputs[1])  # [out, in]
+            dtype = _TIER_DTYPE[self.tiers[i]]
+            x = self._operand(env, op.inputs[0], dtype)
+            w = self._operand(env, op.inputs[1], dtype)  # [out, in]
             if not o.get("keep_num_dims") and x.dim() > 2:
                 # TFLite flattens all but the feature dim into rows.
                 if n > 1 and out not in self._row_flat_ok:
@@ -796,9 +1023,16 @@ class ConvertedModel(nn.Module):
                 x = x.reshape(-1, w.shape[1])
             bias = get(op.inputs[2]) if len(op.inputs) > 2 and \
                 op.inputs[2] >= 0 else None
-            env[out] = _act(F.linear(x, w, bias), o["activation"])
+            if dtype is torch.float32:
+                y = F.linear(x, w, bias)
+            else:
+                y = F.linear(x, w).float()
+                y = y if bias is None else y + bias
+            env[out] = _act(y, o["activation"])
         elif nm == "BATCH_MATMUL":
-            a, b = get(op.inputs[0]), get(op.inputs[1])
+            dtype = _TIER_DTYPE[self.tiers[i]]
+            a = self._operand(env, op.inputs[0], dtype)
+            b = self._operand(env, op.inputs[1], dtype)
             for t, x, moved in ((op.inputs[0], a, o.get("adj_x")),
                                 (op.inputs[1], b, True)):
                 # A rank-2 activation holds the batch in its rows: it may
@@ -811,7 +1045,7 @@ class ConvertedModel(nn.Module):
                 a = a.transpose(-1, -2)
             if o.get("adj_y"):
                 b = b.transpose(-1, -2)
-            env[out] = torch.matmul(a, b)
+            env[out] = torch.matmul(a, b).float()
         elif nm == "DEPTH_TO_SPACE":
             x = get(op.inputs[0])
             bs = o["block_size"]
@@ -848,17 +1082,17 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 def convert_model(ir: ModelIR, name: str = "",
-                  precision: str = "highest") -> ConvertedModel:
+                  precision="highest") -> ConvertedModel:
     """Builds a :class:`ConvertedModel` (on the CPU) from a ModelIR.
 
-    Only ``precision="highest"`` (fp32, TF32 off) is supported; the other
-    tiers of the JAX executor ("high", "mixed", "serving", "default", or a
-    per-op callable) raise ``NotImplementedError``.
+    ``precision`` is the JAX executor's: ``"highest"`` (fp32, TF32 off),
+    ``"high"``, ``"default"`` (bf16 operands), ``"mixed"``
+    (:func:`mixed_precision`) or a callable ``(op_index, op_name) ->
+    tier`` over the pruned op list (constant DEQUANTIZE, DENSIFY and
+    static shape ops removed first, so an fp16 graph's indices are not
+    ``ir.ops``'s).  ``ir`` is not changed, so one parsed IR converts at
+    several tiers.
     """
-    if precision != "highest":
-        raise NotImplementedError(
-            f"precision {precision!r}: only 'highest' is ported; the lower "
-            "tiers wait for the precision callables (ROADMAP §1 item 2)")
     const, ops = _fold(ir)
     kinds = _weight_kinds(ops)
 
@@ -890,7 +1124,8 @@ def convert_model(ir: ModelIR, name: str = "",
         name=name, tables=_static_tables(ops, const, tensor_shape),
         shapes={t: tensor_shape[t] for op in ops
                 for t in (*op.inputs, *op.outputs) if t >= 0},
-        dtypes={t: ir.tensors[t].dtype for op in ops for t in op.outputs})
+        dtypes={t: ir.tensors[t].dtype for op in ops for t in op.outputs},
+        act_quant=_act_quant(ir), precision=precision)
 
 
 def params_from_jax(ir: ModelIR, jax_params: dict[str, np.ndarray]
@@ -920,7 +1155,7 @@ def _port_params(ops: list[OpIR], jax_params: dict[str, np.ndarray]
 
 
 def convert_file(path: str, name: str = "",
-                 precision: str = "highest") -> ConvertedModel:
+                 precision="highest") -> ConvertedModel:
     with open(path, "rb") as f:
         buf = f.read()
     return convert_model(parse_tflite(buf), name=name or path,

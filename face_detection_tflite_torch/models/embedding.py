@@ -10,7 +10,8 @@ and the cosine and euclidean comparisons (:283-334).
 
 The crop is K2 (``ops/warp.py``, the ROI warp fused with the [-1, 1]
 normalize) at 112 px with the alignment angle negated; the network runs on
-cuDNN in fp32 with TF32 off.  The trained ``mobilefacenet.tflite`` is not
+cuDNN in fp32 with TF32 off, or at another tier of the executor
+(``convert/executor.py``; "default" feeds the convolutions bf16 operands).  The trained ``mobilefacenet.tflite`` is not
 in the repository: given one, :meth:`FaceEmbedding.load` converts it like
 every other graph; otherwise it builds :class:`MobileFaceNet` at the
 published widths with seeded weights, drawn as the JAX package draws
@@ -35,7 +36,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..convert.checkpoint import load_params_npz, swap_params
-from ..convert.executor import (_check_fp32, _same_pads, convert_file,
+from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
+                                _same_pads, _tier, convert_file,
                                 fp32_on_the_card, resolve_device)
 from ..ops.warp import extract_rois_normalized
 from ..pipeline.config import EMBEDDING_DIM, EMBEDDING_INPUT_SIZE
@@ -178,13 +180,20 @@ class MobileFaceNet(nn.Module):
     (0 before, 1 after on an even input); the final 7x7 global depthwise
     convolution is VALID; PReLU is ``where(y >= 0, y, y * a)``; a
     bottleneck adds its input where its stride is 1 and its channels stay.
-    Weights are buffers keyed as the JAX params.
+    Weights are buffers keyed as the JAX params.  ``precision`` is a tier
+    of the executor for every convolution ("highest", "high" or
+    "default"; the JAX function's ``precision``): at "default" they take
+    bf16 operands (the filters' bf16 copies are non-persistent buffers,
+    re-derived when a state dict loads) and the bias and PReLU run in
+    fp32.
     """
 
     def __init__(self, embedding_dim: int = EMBEDDING_DIM,
-                 name: str = "mobilefacenet"):
+                 name: str = "mobilefacenet", precision: str = "highest"):
         super().__init__()
         self.name = name
+        self.precision = precision
+        self._dtype = _TIER_DTYPE[_tier(precision)]
         self.input_shapes = [(1, EMBEDDING_INPUT_SIZE, EMBEDDING_INPUT_SIZE,
                               3)]
         self.output_shapes = [(1, embedding_dim)]
@@ -197,10 +206,22 @@ class MobileFaceNet(nn.Module):
             self.register_buffer(f"{lname}_b", torch.zeros(c_out))
             if prelu:
                 self.register_buffer(f"{lname}_a", torch.zeros(c_out))
+        self._make_low()
+        self.register_load_state_dict_post_hook(_refresh_low)
+
+    def _make_low(self) -> None:
+        """(Re)makes the filters' copies in the tier's operand dtype."""
+        if self._dtype is torch.float32:
+            return
+        for key in [k for k in self._buffers
+                    if k.endswith("_w") and not k.startswith("_bf_")]:
+            self.register_buffer(f"_bf_{key}", self._buffers[key].to(
+                self._dtype, memory_format=torch.preserve_format),
+                persistent=False)
 
     @property
     def num_params(self) -> int:
-        return sum(b.numel() for b in self.buffers())
+        return sum(b.numel() for b in self.state_dict().values())
 
     def jax_params(self) -> dict[str, np.ndarray]:
         """The weights as the JAX ``build_mobilefacenet`` params (the same
@@ -216,7 +237,10 @@ class MobileFaceNet(nn.Module):
 
     def _conv(self, name: str, x, stride: int = 1, groups: int = 1,
               prelu: bool = True, same: bool = True):
-        w = getattr(self, f"{name}_w")
+        low = self._dtype is not torch.float32
+        w = getattr(self, f"_bf_{name}_w" if low else f"{name}_w")
+        if low:
+            x = x.to(self._dtype)
         pad = (0, 0)
         if same:
             (pt, pb), (pl, pr) = (_same_pads(x.shape[2], stride, w.shape[2]),
@@ -225,8 +249,14 @@ class MobileFaceNet(nn.Module):
                 pad = (pt, pl)
             else:
                 x = F.pad(x, (pl, pr, pt, pb))
-        y = F.conv2d(x, w, getattr(self, f"{name}_b"), stride=stride,
-                     padding=pad, groups=groups)
+        b = getattr(self, f"{name}_b")
+        if low:
+            # The bias and PReLU run in fp32, after the TPU's conv with
+            # preferred_element_type=float32.
+            y = F.conv2d(x, w, None, stride=stride, padding=pad,
+                         groups=groups).float() + b[:, None, None]
+        else:
+            y = F.conv2d(x, w, b, stride=stride, padding=pad, groups=groups)
         if prelu:
             a = getattr(self, f"{name}_a")[:, None, None]
             y = torch.where(y >= 0, y, y * a)
@@ -247,7 +277,7 @@ class MobileFaceNet(nn.Module):
             raise ValueError(f"embedding input expects shape (N, {s}, {s}, 3)"
                              f" with N >= 1, got {tuple(x.shape)}")
         h = x.permute(0, 3, 1, 2)       # a channels_last view, no copy
-        _check_fp32(x.device)
+        _check_fp32(x.device, bf16=self._dtype is not torch.float32)
         h = self._conv("stem", h, stride=2)
         h = self._conv("stem_dw", h, groups=64)
         for bi, (t, c, n, stride) in enumerate(_MFN_BLOCKS):
@@ -265,12 +295,8 @@ def build_mobilefacenet(seed: int = 0, embedding_dim: int = EMBEDDING_DIM,
                         precision: str = "highest") -> MobileFaceNet:
     """MobileFaceNet-112 with seeded He-init weights (batch norm folded
     away), on the CPU.  The weights are bit for bit those of the JAX
-    package's ``build_mobilefacenet(seed)``.  Only ``precision="highest"``
-    (fp32, TF32 off) is supported."""
-    if precision != "highest":
-        raise NotImplementedError(
-            f"precision {precision!r}: only 'highest' is ported; the lower "
-            "tiers wait for the precision callables (ROADMAP §1 item 2)")
+    package's ``build_mobilefacenet(seed)``; ``precision`` is the tier of
+    its convolutions (:class:`MobileFaceNet`)."""
     rng = np.random.default_rng(seed)
     params: dict[str, np.ndarray] = {}
     for name, kh, kw, c_in, c_out, groups, prelu in _mfn_layers(
@@ -282,8 +308,8 @@ def build_mobilefacenet(seed: int = 0, embedding_dim: int = EMBEDDING_DIM,
         params[f"{name}_b"] = np.zeros((c_out,), np.float32)
         if prelu:
             params[f"{name}_a"] = np.full((c_out,), 0.25, np.float32)
-    return MobileFaceNet(embedding_dim, name="mobilefacenet-random-init"
-                         ).load_jax_params(params)
+    return MobileFaceNet(embedding_dim, name="mobilefacenet-random-init",
+                         precision=precision).load_jax_params(params)
 
 
 class FaceEmbedding:

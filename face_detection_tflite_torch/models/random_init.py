@@ -49,7 +49,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..convert.executor import convert_model, fp32_on_the_card
+from ..convert.executor import (_STATIC_INPUTS, _fold, convert_model,
+                                fp32_on_the_card)
 from ..convert.tflite import (PADDING_SAME, PADDING_VALID, ModelIR, OpIR,
                               TensorIR)
 from ..ops.letterbox import letterbox_image, letterbox_params
@@ -60,7 +61,7 @@ __all__ = ["blazeface_back_ir", "blazeface_front_ir",
            "blazeface_full_range_ir", "sparse_detector_ir", "face_mesh_ir",
            "iris_landmark_ir", "face_blendshapes_ir", "selfie_segmenter_ir",
            "selfie_multiclass_ir", "segmenter_ir", "calibrate_score_bias",
-           "calibrated_detector_ir", "random_pipeline_models",
+           "calibrated_detector_ir", "quantized_ir", "random_pipeline_models",
            "random_raw_detections", "BLAZEFACE_BLOCKS", "FRONT_BLOCKS",
            "FULL_RANGE_BLOCKS", "MESH_BLOCKS", "IRIS_BLOCKS", "MIXER_BLOCKS",
            "DETECTORS"]
@@ -793,6 +794,126 @@ def calibrated_detector_ir(variant: str, frames: torch.Tensor, seed: int,
     calibrate_score_bias(ir, raw_scores.reshape(frames.shape[0], -1)
                          .double().cpu().numpy(), per_image)
     return sparse_detector_ir(ir) if variant == "full_sparse" else ir
+
+
+#: Ops whose int8 kernels keep the output on the input's grid.
+_SAME_GRID = ("PAD", "RESHAPE", "MAX_POOL_2D")
+
+#: The filter's output-channel axis of each op whose weights quantize per
+#: channel (OHWI, [1, kh, kw, C] and [out, in]).
+_CHANNEL_AXIS = {"CONV_2D": 0, "DEPTHWISE_CONV_2D": 3, "FULLY_CONNECTED": 0}
+
+
+def _quant(scale, zero_point, dim: int = 0) -> dict:
+    scale = np.atleast_1d(np.asarray(scale, np.float32))
+    return {"scale": scale, "zero_point": np.broadcast_to(np.asarray(
+        zero_point, np.int64), scale.shape).copy(), "dim": dim}
+
+
+def _int8_grid(lo: float, hi: float) -> dict:
+    """TFLite's asymmetric int8 grid of an activation seen in [lo, hi]:
+    the range widened to hold 0, 255 steps, 0 exactly on the grid."""
+    lo, hi = min(lo, 0.0), max(hi, 0.0)
+    scale = np.float32(max((hi - lo) / 255.0, 1e-8))
+    zp = int(np.clip(np.round(-128.0 - lo / scale), -128, 127))
+    return _quant(scale, zp)
+
+
+def _int8_weights(w: np.ndarray, dim: int | None):
+    """Symmetric int8 weights, per channel along ``dim`` (per tensor
+    where ``dim`` is None), and their quantization parameters."""
+    axes = tuple(a for a in range(w.ndim) if a != dim)
+    amax = np.abs(w).max(axis=axes) if dim is not None else np.abs(w).max()
+    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    shape = [1] * w.ndim
+    if dim is not None:
+        shape[dim] = -1
+    q = np.clip(np.round(w / scale.reshape(shape)), -127, 127).astype(np.int8)
+    return q, _quant(scale, 0, 0 if dim is None else dim)
+
+
+def quantized_ir(ir: ModelIR, frames: torch.Tensor, seed: int = 0
+                 ) -> ModelIR:
+    """A seeded post-training int8 quantization of a float32 graph ``ir``
+    (its weights plain float32 constants), in the structure TFLite's
+    full-int8 converter emits with a float interface: a QUANTIZE after
+    the float input, int8 activations on per-tensor grids, int8 weights
+    per output channel (symmetric) with int32 biases on the grid of input
+    scale times weight scale, and a DEQUANTIZE before each float output.
+
+    The activation grids are calibrated on one pass of the plain executor
+    (fp32) over a seeded half of ``frames`` ([B, H, W, 3] RGB on the device
+    to calibrate on), letterboxed to the graph's input size as the
+    detector's input is; ``seed`` draws that half.  The outputs of PAD,
+    RESHAPE and MAX_POOL_2D keep their input's grid, as TFLite's int8
+    kernels require; any other float constant an op reads is quantized
+    per tensor.  ``ir`` is not changed."""
+    const, ops = _fold(ir)
+    if any(op.name == "DEQUANTIZE" for op in ir.ops):
+        raise ValueError("quantized_ir takes a graph of float32 weights")
+    acts = [t for op in ops for t in op.outputs if t not in const]
+    b = frames.shape[0]
+    pick = np.sort(np.random.default_rng(seed).permutation(b)[:max(1, b // 2)])
+    _, size, _, _ = ir.tensors[ir.inputs[0]].shape
+    device = frames.device
+    fp32_on_the_card(device)
+    probe = convert_model(dataclasses.replace(ir, outputs=acts)).to(device)
+    lbp = letterbox_params(frames.shape[1], frames.shape[2], size, size)
+    with torch.inference_mode():
+        x = letterbox_image(frames[torch.from_numpy(pick).to(device)], lbp)
+        seen = probe(x)
+        ranges = {t: (float(v.min()), float(v.max()))
+                  for t, v in zip(acts, seen)}
+        ranges[ir.inputs[0]] = (float(x.min()), float(x.max()))
+
+    tensors = [dataclasses.replace(t) for t in ir.tensors]
+    new_ops = [OpIR(op.name, list(op.inputs), list(op.outputs),
+                    dict(op.options)) for op in ir.ops]
+
+    def add(name, shape, dtype, quant=None) -> int:
+        tensors.append(TensorIR(len(tensors), name, shape, dtype, None,
+                                quant=quant))
+        return len(tensors) - 1
+
+    # The float input, QUANTIZE, and its int8 copy in every op's inputs.
+    inp = ir.inputs[0]
+    q_in = add(f"{tensors[inp].name}_int8", tensors[inp].shape, np.int8,
+               _int8_grid(*ranges[inp]))
+    for op in new_ops:
+        op.inputs = [q_in if t == inp else t for t in op.inputs]
+    grid = {q_in: tensors[q_in].quant}
+    for op in new_ops:
+        out = op.outputs[0]
+        if out not in ranges:
+            continue
+        grid[out] = (grid[op.inputs[0]] if op.name in _SAME_GRID
+                     else _int8_grid(*ranges[out]))
+        tensors[out].dtype, tensors[out].quant = np.int8, grid[out]
+        statics = _STATIC_INPUTS.get(op.name, ())
+        for pos, t in enumerate(op.inputs):
+            tt = tensors[t] if t >= 0 else None
+            if tt is None or tt.data is None or pos in statics or \
+                    tt.quant is not None:
+                continue
+            if op.name in _CHANNEL_AXIS and pos == 2:
+                # The int32 bias on the grid of input scale x weight scale.
+                w_scale = tensors[op.inputs[1]].quant["scale"]
+                s_b = (grid[op.inputs[0]]["scale"][0] * w_scale).astype(
+                    np.float32)
+                tt.data = np.round(tt.data / s_b).astype(np.int32)
+                tt.dtype, tt.quant = np.int32, _quant(s_b, 0)
+            else:
+                tt.data, tt.quant = _int8_weights(
+                    tt.data, _CHANNEL_AXIS.get(op.name) if pos == 1 else None)
+                tt.dtype = np.int8
+    outputs = []
+    for t in ir.outputs:
+        f = add(f"{tensors[t].name}_float", tensors[t].shape, np.float32)
+        new_ops.append(OpIR("DEQUANTIZE", [t], [f], {}))
+        outputs.append(f)
+    new_ops.insert(0, OpIR("QUANTIZE", [inp], [q_in], {}))
+    return ModelIR(tensors, new_ops, list(ir.inputs), outputs,
+                   ir.description + ", int8")
 
 
 def random_pipeline_models(frames: torch.Tensor, *, seed: int = 0,

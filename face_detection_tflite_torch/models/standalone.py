@@ -17,8 +17,9 @@ Deliberate differences from the JAX classes: a keyword-only ``model=``
 caller passes ``device="cpu"``; without CUDA and without an explicit
 device the constructor raises).  :class:`FaceDetection` runs every
 detector variant (its input size from the network, its anchors from the
-variant); precisions other than "highest" raise ``NotImplementedError``
-naming their ROADMAP item.
+variant).  ``precision`` is a tier of the executor (``"highest"``,
+``"high"``, ``"default"``, ``"mixed"`` or a per-op callable), applied to a
+given ``model`` as to a converted file.
 """
 
 from __future__ import annotations
@@ -67,23 +68,18 @@ class _Disposable:
 
 
 def _load(key: str, model_dir: Optional[str], model: Optional[ConvertedModel],
-          device) -> tuple[ConvertedModel, torch.device]:
+          device, precision) -> tuple[ConvertedModel, torch.device]:
     """The network (``model``, else ``MODEL_FILES[key]`` from the model
-    directory) in eval mode on the resolved device, with cuDNN's TF32 off
-    where that is the card."""
+    directory) at ``precision``, in eval mode on the resolved device, with
+    cuDNN's TF32 off where that is the card."""
     device = resolve_device(device)
     if model is None:
         from ..pipeline.detector import resolve_model_dir
         model = convert_file(os.path.join(resolve_model_dir(model_dir),
-                                          MODEL_FILES[key]))
+                                          MODEL_FILES[key]),
+                             precision=precision)
     fp32_on_the_card(device)
-    return model.to(device).eval(), device
-
-
-def _check_precision(precision: str) -> None:
-    if precision != "highest":
-        raise NotImplementedError(f"precision {precision!r} is not ported "
-                                  f"yet (ROADMAP §1 item 2)")
+    return model.with_precision(precision).to(device).eval(), device
 
 
 def _crop(crop, size: int, device: torch.device) -> torch.Tensor:
@@ -114,11 +110,10 @@ class FaceDetection(_Disposable):
                  precision: str = "highest",
                  max_dim: Optional[int] = None, *,
                  model: Optional[ConvertedModel] = None, device=None):
-        _check_precision(precision)
         self.max_dim = max_dim
         self.variant = variant
         self.model, self.device = _load(variant.value, model_dir, model,
-                                        device)
+                                        device, precision)
         self.input_size = self.model.input_shapes[0][1]
         self.anchors = torch.from_numpy(detector_anchors(
             self.model, variant.value)).to(self.device)
@@ -170,9 +165,8 @@ class FaceLandmark(_Disposable):
     def __init__(self, model_dir: Optional[str] = None,
                  precision: str = "highest", *,
                  model: Optional[ConvertedModel] = None, device=None):
-        _check_precision(precision)
         self.model, self.device = _load("face_landmark", model_dir, model,
-                                        device)
+                                        device, precision)
         self.input_size = MESH_INPUT_SIZE
 
     def call_with_score(self, face_crop) -> tuple[np.ndarray,
@@ -204,9 +198,8 @@ class IrisLandmark(_Disposable):
     def __init__(self, model_dir: Optional[str] = None,
                  precision: str = "highest", *,
                  model: Optional[ConvertedModel] = None, device=None):
-        _check_precision(precision)
         self.model, self.device = _load("iris_landmark", model_dir, model,
-                                        device)
+                                        device, precision)
         self.input_size = IRIS_INPUT_SIZE
 
     def __call__(self, eye_crop) -> np.ndarray:
@@ -230,9 +223,8 @@ class FaceBlendshapesModel(_Disposable):
     def __init__(self, model_dir: Optional[str] = None,
                  precision: str = "highest", *,
                  model: Optional[ConvertedModel] = None, device=None):
-        _check_precision(precision)
         self.model, self.device = _load("face_blendshapes", model_dir, model,
-                                        device)
+                                        device, precision)
 
     def __call__(self, landmarks_146) -> Optional[np.ndarray]:
         """[146, 2] pixels -> [52] coefficients in [0, 1], or None when the

@@ -73,10 +73,9 @@ class SegmentationConfig:
     - ``model``: which segmentation network.
     - ``max_output_size``: cap on the longer side of upsampled masks, the
       default ``max_size`` of ``SegmentationMask.upsample``.
-    - ``precision``: the segmenter's convolution precision, the JAX
-      package's tiers ("highest" = fp32, "high" = bf16x3, "default" =
-      bf16).  This package runs "highest" only: a detector given a config
-      with another tier raises ``NotImplementedError`` (ROADMAP §1 item 2).
+    - ``precision``: the segmenter's convolution precision, a tier of the
+      executor ("highest" = fp32, "high" = bf16x3 on the TPU and fp32 on
+      the card, "default" = bf16 operands, "mixed" or a per-op callable).
     - ``mask_dtype``: the device-to-host mask encoding, "float32" (exact)
       or "uint8" (1/255 steps, a quarter of the bytes).
     - ``validate_model``: check the loaded network's output channels

@@ -25,9 +25,18 @@ Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
 and no explicit device the constructor raises.  Deliberate difference
 from the JAX detector: a keyword-only ``models=`` may replace loading the
 ``.tflite`` files from ``model_dir``, the segmenter included
-(``PipelineModels(segmentation=...)``).  Data-parallel serving,
-``seg_device`` and precisions other than "highest" raise
-``NotImplementedError`` naming their ROADMAP item.
+(``PipelineModels(segmentation=...)``); the detector's precision applies
+to those networks as it does to the files it converts.  Data-parallel
+serving and ``seg_device`` raise ``NotImplementedError`` naming their
+ROADMAP item.
+
+``precision`` is the JAX detector's: a tier of the executor
+(``"highest"``, ``"high"``, ``"default"``, ``"mixed"`` or a per-op
+callable) for every network, a dict per network ("detector", "mesh",
+"iris", "blendshapes", "segmentation"; a missing key is "high"), or the
+``"serving"`` preset: the detector at "mixed" and the landmark networks
+at "high".  The tiers' counterparts on the card are the executor's
+(``convert/executor.py``).
 """
 
 from __future__ import annotations
@@ -53,7 +62,8 @@ from .config import (DEFAULT_MAX_MISSED_FRAMES,
                      MODEL_FILES, FaceDetectionMode, FaceDetectionModel,
                      SegmentationConfig, SegmentationModel)
 from .gates import validate_face_gates
-from .programs import PipelineModels, build_pipeline_program, resolve_device
+from .programs import (PipelineModels, build_pipeline_program,
+                       network_precision, resolve_device)
 from .timings import DetectTimings
 from .tracker import TemporalFaceTracker, validate_tracking_config
 from .types import Detection, Face, FaceMesh, RectF
@@ -154,9 +164,12 @@ class FaceDetector:
         if seg_device is not None:
             raise _not_ported("segmentation on its own device (seg_device)",
                               "§1 item 7")
-        if precision != "highest":
-            raise _not_ported(f"precision {precision!r}", "§1 item 2")
         self.device = resolve_device(device)
+        if precision == "serving":
+            # The JAX package's throughput preset: the detector's early
+            # convs in bf16, the landmark-bearing networks at "high".
+            precision = {"detector": "mixed", "mesh": "high",
+                         "iris": "high", "blendshapes": "high"}
         self._precision = precision
         self.model_variant = model
         self.min_score = min_score
@@ -183,14 +196,17 @@ class FaceDetector:
         #: only (read-only property): the program cache is built from it.
         self._embed_in_full = embed_in_full
         if models is None:
-            def load(key):
+            def load(key, prec_key):
                 return convert_file(os.path.join(self._model_dir,
-                                                 MODEL_FILES[key]))
+                                                 MODEL_FILES[key]),
+                                    precision=network_precision(
+                                        precision, prec_key))
 
             models = PipelineModels(
-                load(model.value), model.value, mesh=load("face_landmark"),
-                device=self.device, iris=load("iris_landmark"),
-                blendshapes=load("face_blendshapes"),
+                load(model.value, "detector"), model.value,
+                mesh=load("face_landmark", "mesh"), device=self.device,
+                iris=load("iris_landmark", "iris"),
+                blendshapes=load("face_blendshapes", "blendshapes"),
                 embedding=(self.embedding_model.model if embed_in_full
                            else None))
         elif models.device != self.device:
@@ -207,7 +223,9 @@ class FaceDetector:
         elif embed_in_full:
             raise ValueError("embed_in_full needs an embedding model: pass "
                              "models=PipelineModels(..., embedding=...)")
-        self.models = models
+        # Networks passed in carry their own tiers ("highest" as built):
+        # the detector's precision applies to them as to converted files.
+        self.models = models.with_precision(precision)
         if embed_in_full:
             # The fused stage bypasses FaceEmbedding's per-call check, so
             # the untrained-weights state is warned once, here.
@@ -250,14 +268,15 @@ class FaceDetector:
         carry one, else the ``.tflite`` file of ``seg_model`` from the model
         directory; checks its output channels (6 for MULTICLASS, else 1;
         `selfie_segmentation.dart:424-442`) unless the config turns the
-        check off."""
+        check off.  The segmenter runs at the config's precision, else at
+        the detector's (a dict's "segmentation" entry, "high" where it has
+        none)."""
         cfg = self._segmentation_config
-        prec = cfg.precision if cfg is not None else self._precision
-        if prec != "highest":
-            raise _not_ported(f"segmentation precision {prec!r}",
-                              "§1 item 2")
+        prec = cfg.precision if cfg is not None else network_precision(
+            self._precision, "segmentation")
         if self.models.segmentation is not None:
-            cm, source = self.models.segmentation, "models.segmentation"
+            cm = self.models.segmentation.with_precision(prec)
+            source = "models.segmentation"
         else:
             if self._model_dir is None:
                 raise FileNotFoundError(
@@ -268,7 +287,7 @@ class FaceDetector:
             if not os.path.exists(source):
                 raise FileNotFoundError(
                     f"segmentation model not found: {source}")
-            cm = convert_file(source)
+            cm = convert_file(source, precision=prec)
         multiclass = seg_model == SegmentationModel.MULTICLASS
         if cfg is None or cfg.validate_model:
             want = 6 if multiclass else 1
@@ -1140,7 +1159,7 @@ class FaceDetector:
     @property
     def accelerator_report(self) -> dict[str, str]:
         """The device each network runs on (``cuda:<card name>`` or
-        ``cpu``), and the precision."""
+        ``cpu``), and the precision as the JAX detector reports it."""
         d = self.device
         backend = (f"cuda:{torch.cuda.get_device_name(d)}"
                    if d.type == "cuda" else d.type)
@@ -1150,7 +1169,7 @@ class FaceDetector:
             report["segmentation"] = backend
         if self._embedding is not None:
             report["embedding"] = backend
-        report["precision"] = "highest"
+        report["precision"] = str(self._precision)
         return report
 
     def memory_report(self) -> dict:

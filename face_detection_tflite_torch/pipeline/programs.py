@@ -43,7 +43,8 @@ from .config import (IRIS_INPUT_SIZE, MESH_INPUT_SIZE, RAW_SCORE_LIMIT,
                      FaceDetectionMode)
 from .gates import apply_detection_gates_mask
 
-__all__ = ["PipelineModels", "build_pipeline_program", "resolve_device"]
+__all__ = ["PipelineModels", "build_pipeline_program", "network_precision",
+           "resolve_device"]
 
 
 class PipelineModels:
@@ -71,6 +72,39 @@ class PipelineModels:
         self.detector_input_size = detector.input_shapes[0][1]
         self.anchors = torch.from_numpy(detector_anchors(
             detector, variant)).to(self.device)
+
+    def with_precision(self, precision) -> "PipelineModels":
+        """These models with the detector, mesh, iris and blendshape
+        networks at ``precision``: a tier, ``"mixed"`` or a per-op callable
+        applies to each of them, a dict per network (keys "detector",
+        "mesh", "iris", "blendshapes"; a missing key is "high", as in the
+        JAX detector).  Each network re-resolves its tiers over its own op
+        list and shares its fp32 weights
+        (:meth:`~..convert.executor.ConvertedModel.with_precision`); the
+        embedding network and the segmenter are carried as they are.
+        Returns these models where no network's tiers change."""
+        nets = {}
+        for key in ("detector", "mesh", "iris", "blendshapes"):
+            m = getattr(self, key)
+            nets[key] = (m.with_precision(network_precision(precision, key))
+                         if m is not None else None)
+        if all(nets[k] is getattr(self, k) for k in nets):
+            return self
+        return PipelineModels(
+            nets["detector"], self.variant, mesh=nets["mesh"],
+            device=self.device, iris=nets["iris"],
+            blendshapes=nets["blendshapes"], embedding=self.embedding,
+            segmentation=self.segmentation)
+
+
+def network_precision(precision, key: str):
+    """The precision of network ``key`` ("detector", "mesh", "iris",
+    "blendshapes", "segmentation") under a detector's ``precision``: a
+    dict's entry, "high" where it has none (as in the JAX detector), else
+    ``precision`` itself."""
+    if isinstance(precision, dict):
+        return precision.get(key, "high")
+    return precision
 
 
 def detector_anchors(detector: ConvertedModel, variant: str):

@@ -112,8 +112,11 @@ def test_network_matches_jax(nets, n):
 def test_network_refuses_other_shapes_and_precisions(nets):
     with pytest.raises(ValueError, match="112"):
         nets[0](torch.zeros(1, 96, 96, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        te.build_mobilefacenet(precision="high")
+    # The tiers are ported; a name that is not a tier is refused, as
+    # jax.lax.Precision refuses it ("mixed" is a converter's tier only).
+    for bad in ("mixed", "bf16x3"):
+        with pytest.raises(ValueError, match="precision"):
+            te.build_mobilefacenet(precision=bad)
 
 
 # -- alignment and comparisons ----------------------------------------------

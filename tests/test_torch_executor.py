@@ -136,11 +136,13 @@ def test_fp16_dequantize_folds():
 
 
 def test_unsupported_op_and_precision_raise():
-    ir = _ir("QUANTIZE", (1, 4), (1, 4), {})
-    with pytest.raises(NotImplementedError, match="QUANTIZE.*ROADMAP"):
+    ir = _ir("HASHTABLE_LOOKUP", (1, 4), (1, 4), {})
+    with pytest.raises(NotImplementedError, match="HASHTABLE_LOOKUP"):
         convert_model(ir)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert_model(SINGLE_OPS["relu"](), precision="high")
+    # Every tier of the JAX executor is ported; a name that is not one is
+    # refused (jax.lax.Precision refuses it too).
+    with pytest.raises(ValueError, match="precision"):
+        convert_model(SINGLE_OPS["relu"](), precision="bf16x3")
     with pytest.raises(ValueError):
         params_from_jax(SINGLE_OPS["relu"](), {"w0": np.zeros(2)})
     # The JAX executor's interpolation matrices have no counterpart: the

@@ -51,6 +51,18 @@ def _w(*shape, scale=0.5):
     return _rng.normal(0, scale, shape).astype(np.float32)
 
 
+def _quantize():
+    """QUANTIZE to an int8 grid (scale 0.03, zero point -5) that clips
+    part of the inputs' range at both ends; the snap is the executor's
+    output hook."""
+    ir = _graph("QUANTIZE", {}, [_x((1, 5, 6, 4)), _x((1, 5, 6, 4), np.int8)],
+                [0], [1])
+    ir.tensors[1].quant = {"scale": np.asarray([0.03], np.float32),
+                           "zero_point": np.asarray([-5], np.int64),
+                           "dim": 0}
+    return ir
+
+
 def _unary(name, shape=(1, 5, 6, 4), out=None, options=None, **kw):
     return lambda: _graph(name, options or {}, [_x(shape), _x(out or shape)],
                           [0], [1])
@@ -209,6 +221,7 @@ OPS = {
         lambda: _graph("DEQUANTIZE", {}, [_x((1, 5, 6, 4), np.float16),
                                           _x((1, 5, 6, 4))], [0], [1]),
         (-3, 3), True),
+    "quantize_int8": (_quantize, (-3, 3), True),
     "cast_to_int32": (
         lambda: _graph("CAST", {}, [_x((1, 5, 6, 4)),
                                     _x((1, 5, 6, 4), np.int32)], [0], [1]),
@@ -295,7 +308,7 @@ NEW_OPS = {
     "REDUCE_MIN", "ARG_MAX", "L2_NORMALIZATION", "SQUEEZE", "EXPAND_DIMS",
     "CAST", "SLICE", "STRIDED_SLICE", "SPLIT", "UNPACK", "PACK", "TILE",
     "GATHER", "MIRROR_PAD", "PADV2", "DEPTH_TO_SPACE", "SPACE_TO_DEPTH",
-    "BATCH_MATMUL", "DEQUANTIZE"}
+    "BATCH_MATMUL", "DEQUANTIZE", "QUANTIZE"}
 
 
 def _input(ir, lo, hi, n):
@@ -318,7 +331,6 @@ def test_every_new_op_has_a_case():
     names = {OPS[k][0]().ops[0].name for k in OPS}
     assert NEW_OPS <= names
     assert NEW_OPS <= SUPPORTED_OPS
-    assert "QUANTIZE" not in SUPPORTED_OPS
 
 
 @pytest.mark.parametrize("name", sorted(OPS))

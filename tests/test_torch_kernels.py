@@ -587,3 +587,89 @@ def test_segmenters_card_match_cpu(cuda_device, kind):
         assert np.abs(g.data - w.data).max() <= 1e-4
         if multiclass:
             assert np.abs(g.class_data - w.class_data).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_two_tiers_on_two_threads(cuda_device):
+    """The FULL program at "default" (bf16 operands) and at "highest" on
+    two threads at once, on one set of weights: the "highest" outputs are
+    those of a lone run bit for bit, the "default" ones within 2e-2 of
+    them (a few bf16 steps), and cuDNN's and cuBLAS's TF32 and cuBLAS's
+    reduced-precision bf16 reductions are still off afterwards: no tier
+    sets a process-wide flag."""
+    import threading
+    from face_detection_tflite_torch.pipeline.config import FaceDetectionMode
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+    frames = torch.randint(0, 256, (2, 427, 640, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4)
+                           ).to(cuda_device)
+    _, models = _small_card_detector(cuda_device, frames)
+    low = models.with_precision("default")
+    for k in models.detector.state_dict():
+        assert getattr(low.detector, k) is getattr(models.detector, k)
+    progs = {p: build_pipeline_program(m, 427, 640, FaceDetectionMode.FULL)
+             for p, m in (("highest", models), ("default", low))}
+    with torch.inference_mode():
+        want = progs["highest"](frames)
+    bad, low_runs = [], []
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def run(tier):
+        try:
+            with torch.inference_mode():
+                for i in range(10):
+                    out = progs[tier](frames)
+                    torch.cuda.synchronize()
+                    if tier == "highest" and not all(
+                            torch.equal(bits(out[k]), bits(want[k]))
+                            for k in want):
+                        bad.append(i)
+                    if tier == "default":
+                        low_runs.append(out)
+        except Exception as e:      # reported by the assertion below
+            bad.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,))
+               for t in ("default", "highest")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not bad
+    assert len(low_runs) == 10
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    with torch.inference_mode():
+        raw = [m.detector(torch.rand((2, 256, 256, 3), device=cuda_device,
+                                     generator=torch.Generator(
+                                         cuda_device).manual_seed(2)) * 2 - 1)
+               for m in (models, low)]
+    for a, b in zip(*raw):
+        err = ((a - b).abs().max() / a.abs().max()).item()
+        assert 0 < err <= 2e-2
+
+
+@pytest.mark.cuda
+def test_quantized_detector_card_matches_cpu(cuda_device):
+    """The seeded int8 BlazeFace (``random_init.quantized_ir`` of the
+    full-width back detector, calibrated on the CPU) on the card against
+    the CPU: the fake-quant hook and QUANTIZE give raw outputs within one
+    step of each output's grid."""
+    from face_detection_tflite_torch.ops.letterbox import letterbox_image
+    frames = torch.randint(0, 256, (4, 427, 640, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(9))
+    ir = random_init.calibrated_detector_ir("back", frames, seed=3)
+    qir = random_init.quantized_ir(ir, frames, seed=3)
+    steps = [float(qir.tensors[op.inputs[0]].quant["scale"][0])
+             for op in qir.ops[-2:]]
+    x = letterbox_image(frames, letterbox_params(427, 640, 256, 256))
+    with torch.inference_mode():
+        want = convert_model(qir)(x)
+        got = convert_model(qir).to(cuda_device)(x.to(cuda_device))
+    for g, w, step in zip(got, want, steps):
+        assert (g.cpu() - w).abs().max().item() <= step * (1 + 1e-6)

@@ -161,10 +161,12 @@ def test_detector_options_match_jax_slab(setup, options):
 
 def test_detector_surface_raises_for_unported_features(setup):
     _, models, _ = setup
-    for kw in ({"seg_device": "cuda:1"}, {"data_parallel": True},
-               {"precision": "high"}):
+    for kw in ({"seg_device": "cuda:1"}, {"data_parallel": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FaceDetector(models=models, device="cpu", **kw)
+    # The precision tiers are ported; a name that is not one is refused.
+    with pytest.raises(ValueError, match="precision"):
+        FaceDetector(models=models, device="cpu", precision="bf16x3")
     # Embeddings are ported: the fused stage needs FULL mode and a model.
     with pytest.raises(ValueError, match="FULL"):
         build_pipeline_program(models, H, W, FaceDetectionMode.STANDARD,

@@ -221,8 +221,9 @@ def test_min_size_and_dtype_errors():
 
 
 def test_channel_check_and_precision():
-    """6 channels for MULTICLASS and 1 otherwise (ValueError); a config's
-    precision other than "highest" raises (the port runs fp32 only)."""
+    """6 channels for MULTICLASS and 1 otherwise (ValueError); every
+    preset loads, and the segmenter runs at its config's precision (the
+    default "high", the safe preset's "highest")."""
     _, general, _, _ = _setup("general")
     _, multi, _, _ = _setup("multiclass")
     for models, seg_model in ((general, SegmentationModel.MULTICLASS),
@@ -235,9 +236,10 @@ def test_channel_check_and_precision():
                            precision="highest", validate_model=False)))
     for cfg in (SegmentationConfig(), SegmentationConfig.performance(),
                 SegmentationConfig.fast()):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            FaceDetector(models=general, device="cpu",
-                         segmentation_config=cfg)
+        det = FaceDetector(models=general, device="cpu",
+                           segmentation_config=cfg)
+        assert det.is_segmentation_ready
+        assert set(det._segmentation.model.tiers) <= {"high", None}
     det = FaceDetector(models=general, device="cpu",
                        segmentation_config=SegmentationConfig.safe())
     assert det.is_segmentation_ready

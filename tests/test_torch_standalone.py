@@ -148,8 +148,13 @@ def test_standalone_input_contracts(setup):
     # variant's is refused.
     with pytest.raises(ValueError, match="anchors"):
         FaceDetection(Variant.FULL, model=models.detector, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 2"):
-        IrisLandmark(model=models.iris, device="cpu", precision="high")
+    # The tiers are ported: a class runs its network at its precision; a
+    # name that is not a tier is refused.
+    assert set(IrisLandmark(model=models.iris, device="cpu",
+                            precision="default").model.tiers) <= {
+        "default", None}
+    with pytest.raises(ValueError, match="precision"):
+        IrisLandmark(model=models.iris, device="cpu", precision="bf16x3")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             FaceLandmark(model=models.mesh)
