@@ -147,7 +147,24 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    path's detector) through FULL, its raw outputs on the card against
    the CPU within one step of each output's grid, K1 and K2 held and
    counted;
-11. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+11. the command line (``_cli_phase``), in this process through
+   ``cli.main`` with the main path's networks through its
+   ``_make_detector``/``_make_segmenter`` seam, on two of the main frames
+   written as PNGs: ``detect --json`` (each line equal to
+   ``detect_faces``'s faces bit for bit; launch counts set to 0 just
+   before it: one K1 and one K2 at 192 and at 64 px an image, plus
+   re-runs; K1 and K2 against their plain versions on each image at
+   B = 1; its ms an image beside ``detect_faces``'s and the PNG
+   decode's), ``detect --annotate`` (the PNG equal to
+   ``render.annotate``), ``embed`` (equal
+   to the API's similarity and distance; one K2 at 112 px an image),
+   ``segment --format binary`` (the seeded general segmenter's mask),
+   ``video --json --max-frames 8`` on phase 8a's clip (equal to its
+   results after the One-Euro smoother), ``serve`` (one ``/v1/detect``
+   answers 200 with the detect command's faces), ``info`` (the card) and
+   ``doctor --json`` (only "model assets" FAILs: the ``.tflite`` files
+   are not in the checkout);
+12. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
    ``server_launches``: over phase 7's stream and server requests, with
@@ -161,12 +178,14 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ``segmentation_combined_launches`` and ``segmentation_server_launches``
    over phase 9b's combined batch and its ``/v1/detect_with_segmentation``
    requests; ``tier_launches`` per tier and ``int8_launches`` over phase
-   10's ``tier_batches`` batches each); the iris site's
+   10's ``tier_batches`` batches each; ``cli_launches`` over phase 11's
+   ``detect`` run of ``cli_images`` images, the embedding site's over its
+   ``embed`` run); the iris site's
    (``warp_normalize_iris64``) is its count over the FULL path's batches
    and the embedding site's (``warp_normalize_embed112``) over the
    embedding phase's (``server_embed_launches``: one ``/v1/embed``);
-   ``nms_core`` is off the main path (0) and its launches in step 3 are
-   ``check_launches``.  K1's ``max_abs_err`` is its largest box error
+   ``nms_core`` is off the main path (0, and 0 over phase 11's ``detect``
+   run, both counted) and its launches in step 3 are ``check_launches``.  K1's ``max_abs_err`` is its largest box error
    over every check against the plain version (steps 3, 4, 8, 9 and 10).
 
 Any failed check raises, and the script exits non-zero.  It exits 2
@@ -1709,7 +1728,8 @@ def _video_phase(frames_dev, card: str) -> dict:
               f"{[r.frame_index for r in strided]} of {sizes}; after "
               f"reset_tracking the first frame's IDs are {first}")
         det.dispose()
-    return {"models": models, "decoded": decoded, "launches": launches,
+    return {"models": models, "raw": raw, "decoded": decoded,
+            "results": results, "launches": launches,
             "batches": n_batches, "post_err": post_err, "video_fps": VIDEO_FRAMES / video_s,
             "batch_fps": VIDEO_FRAMES / batch_s, "carried": share,
             "read_ms": read_ms, "stack_ms": stack_ms,
@@ -2663,6 +2683,292 @@ def _tiers_phase(models, det_ir, frames, frames_np, card: str) -> dict:
     return out
 
 
+CLI_IMAGES = 2
+CLI_VIDEO_FRAMES = 8
+
+
+def _cli(argv, seeded: dict, out=None):
+    """(exit code, stdout, stderr) of ``cli.main(argv)`` in this process,
+    with the seeded networks through the command line's seam:
+    ``seeded["models"]`` for every detector (the detectors built are
+    appended to ``seeded["made"]``) and ``seeded["segmenter"]`` for the
+    segmenter.  Standard output goes to ``out`` (a new buffer by
+    default) while it runs."""
+    import contextlib
+    import io
+    from face_detection_tflite_torch import cli
+    make_det, make_seg = cli._make_detector, cli._make_segmenter
+
+    def detector(args, **extra):
+        seeded["made"].append(make_det(args, models=seeded["models"],
+                                       **extra))
+        return seeded["made"][-1]
+
+    cli._make_detector = detector
+    cli._make_segmenter = lambda args: make_seg(
+        args, model=seeded["segmenter"])
+    out = io.StringIO() if out is None else out
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        cli._make_detector, cli._make_segmenter = make_det, make_seg
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _cli_serve(png: str, seeded: dict) -> tuple[int, dict]:
+    """``serve --port 0`` on a thread through :func:`_cli`, its address
+    read from its announce line; one POST of ``png`` to
+    ``/v1/detect?mode=full``; stopped through ``_serve_stop``.  Returns
+    the status and the payload.  Nothing else prints meanwhile (standard
+    output is the command's while it runs)."""
+    import io
+    import re
+    import threading
+    from face_detection_tflite_torch import cli
+    box: dict = {}
+    announced = io.StringIO()
+    th = threading.Thread(target=lambda: box.update(zip(
+        ("rc", "out", "err"),
+        _cli(["serve", "--port", "0"], seeded, out=announced))),
+        daemon=True)
+    th.start()
+    deadline = time.time() + 300
+    addr = None
+    try:
+        while addr is None and th.is_alive() and time.time() < deadline:
+            m = re.search(r"http://([0-9.]+:\d+)", announced.getvalue())
+            addr = m and m.group(1)
+            time.sleep(0.05)
+        if addr is None:
+            raise AssertionError(f"cli serve did not announce: {box}")
+        with open(png, "rb") as f:
+            status, payload, _, _ = _post(
+                f"http://{addr}/v1/detect?mode=full", f.read())
+    finally:
+        while cli._serve_stop is None and th.is_alive():
+            time.sleep(0.01)
+        if cli._serve_stop is not None:
+            cli._serve_stop.set()
+        th.join(120)
+    if th.is_alive() or box.get("rc") != 0:
+        raise AssertionError(f"cli serve did not stop cleanly: {box}")
+    return status, payload
+
+
+def _cli_phase(models, frames_np, video: dict, card: str) -> dict:
+    """Phase 11: the command line, in this process (``cli.main``), on the
+    main path's full-depth seeded networks through its
+    ``_make_detector``/``_make_segmenter`` seam, on the main frames
+    written as PNGs (853x1280, under ``--max-dim``'s 1536): ``detect
+    --json`` on two images (each line ``Face.to_dict()`` of
+    ``detect_faces`` on the same decoded image bit for bit; launch counts
+    set to 0 just before it: one K1 and one K2 at 192 and at 64 px an
+    image, plus re-runs, and no ``nms_core``; K1 and K2 against their plain versions on each
+    image at B = 1), its ms an image; ``detect --annotate`` (the PNG is
+    ``render.annotate`` of the API's faces); ``embed --json --allow-untrained`` on the two (similarity and
+    distance equal ``compare_faces``/``face_distance`` of
+    ``get_face_embedding``; one K2 launch at 112 px an image); ``segment
+    --format binary`` (the general segmenter; the mask PNG equal
+    ``SelfieSegmentation``'s); ``video --json --max-frames 8`` on phase
+    8a's clip with its networks (lines equal phase 8a's first results
+    after the One-Euro smoother); ``serve`` (one ``/v1/detect`` answers
+    200 with the ``detect`` command's faces); ``info`` (the card);
+    ``doctor --json`` (exactly "model assets" FAILs: the ``.tflite``
+    files are absent)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
+                                             FaceSmoother)
+    from face_detection_tflite_torch.convert.executor import convert_model
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.models.segmentation import \
+        SelfieSegmentation
+    from face_detection_tflite_torch.ops import nms as nms_mod
+    from face_detection_tflite_torch.utils.render import annotate
+    dev = models.device
+    seeded = {"models": models, "made": [], "segmenter": convert_model(
+        random_init.segmenter_ir("general", SEED + 5),
+        name="segmenter-general-random")}
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pngs = []
+        for i in range(CLI_IMAGES):
+            pngs.append(os.path.join(tmp, f"frame{i}.png"))
+            Image.fromarray(frames_np[i]).save(pngs[-1])
+        images = [np.asarray(Image.open(p).convert("RGB")) for p in pngs]
+        annotated = os.path.join(tmp, "annotated.png")
+
+        # detect: a warm-up run, then the counted and timed one; the
+        # annotated copy in a run of its own, so that its drawing and PNG
+        # encode stay out of the time.
+        detect = ["detect", *pngs, "--json"]
+        _cli(detect, seeded)
+        seeded["made"].clear()
+        _reset_launches()
+        nms_mod.nms_core.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, text, err = _cli(detect, seeded)
+        torch.cuda.synchronize()
+        cli_ms = (time.perf_counter() - t0) * 1e3 / CLI_IMAGES
+        launches = _launches()
+        nms_launches = nms_mod.nms_core.launches
+        if rc != 0:
+            raise AssertionError(f"cli detect exited {rc}: {err}")
+        (det,) = seeded["made"]
+        reruns = _reruns(det)
+        _check_launches(launches, CLI_IMAGES, reruns, "cli detect")
+        if nms_launches:
+            raise AssertionError(f"cli detect launched nms_core "
+                                 f"{nms_launches} times; K1 runs fused")
+        from face_detection_tflite_torch.utils.image import load_image
+        t0 = time.perf_counter()
+        for p in pngs:
+            load_image(p)
+        decode_ms = (time.perf_counter() - t0) * 1e3 / CLI_IMAGES
+        api = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [api.detect_faces(img) for img in images]
+        torch.cuda.synchronize()
+        api_ms = (time.perf_counter() - t0) * 1e3 / CLI_IMAGES
+        api.dispose()
+        lines = [json.loads(line) for line in text.splitlines()]
+        for line, path, faces in zip(lines, pngs, want):
+            if (line["image"], line["width"], line["height"]) != \
+                    (path, WIDTH, HEIGHT):
+                raise AssertionError(f"cli detect line header {line}")
+            if json.dumps(line["faces"]) != \
+                    json.dumps([f.to_dict() for f in faces]):
+                raise AssertionError(f"cli detect: {path}'s faces differ "
+                                     "from detect_faces's")
+        if len(lines) != CLI_IMAGES or not all(want):
+            raise AssertionError(f"cli detect gave {len(lines)} lines, "
+                                 f"faces {[len(f) for f in want]}")
+        rc, _, err = _cli(["detect", pngs[0], "--annotate", annotated],
+                          seeded)
+        if rc != 0 or not np.array_equal(np.asarray(Image.open(annotated)),
+                                         annotate(images[0], want[0])):
+            raise AssertionError(f"cli detect --annotate (exit {rc}) differs "
+                                 "from render.annotate on the API's faces")
+        post_err = max(_check_path_kernels(
+            f"cli detect image {i}", models,
+            torch.from_numpy(img)[None].to(dev), card)
+            for i, img in enumerate(images))
+        print(f"cli detect --json (FULL, {CLI_IMAGES} PNGs of "
+              f"{WIDTH}x{HEIGHT}): {cli_ms:.2f} ms an image (PNG decode, "
+              f"detect, JSON) against detect_faces alone {api_ms:.2f} ms and "
+              f"the PNG decode alone {decode_ms:.2f} ms; faces "
+              f"{[len(f) for f in want]}, equal bit for bit, --annotate "
+              f"equal to render.annotate; launches {launches} ({reruns} "
+              f"re-runs)  [{card}]")
+        out.update(detect_launches=launches, nms_launches=nms_launches,
+                   detect_ms=cli_ms, api_ms=api_ms,
+                   decode_ms=decode_ms, post_err=post_err)
+
+        # embed
+        _reset_launches()
+        rc, text, err = _cli(["embed", *pngs, "--json", "--allow-untrained"],
+                             seeded)
+        embed_launches = _launches()
+        if rc != 0:
+            raise AssertionError(f"cli embed exited {rc}: {err}")
+        got = json.loads(text)
+        api = FaceDetector(models=models, device=dev,
+                           allow_untrained_embeddings=True)
+        embs = [api.get_face_embedding(
+            api.detect_faces(img, FaceDetectionMode.STANDARD)[0], img)
+            for img in images]
+        api.dispose()
+        if (got["cosine_similarity"], got["euclidean_distance"]) != (
+                float(FaceDetector.compare_faces(*embs)),
+                float(FaceDetector.face_distance(*embs))):
+            raise AssertionError(f"cli embed {got} differs from the API's")
+        if embed_launches["warp_normalize"].get(EMBED_SIZE) != CLI_IMAGES:
+            raise AssertionError(f"cli embed launches {embed_launches}")
+        print(f"cli embed --json: cosine {got['cosine_similarity']:.6f}, "
+              f"distance {got['euclidean_distance']:.6f}, equal to the "
+              f"API's; launches {embed_launches}  [{card}]")
+        out["embed_launches"] = embed_launches
+
+        # segment
+        mask_png = os.path.join(tmp, "mask.png")
+        rc, text, err = _cli(["segment", pngs[0], "--format", "binary",
+                              "--out", mask_png], seeded)
+        if rc != 0:
+            raise AssertionError(f"cli segment exited {rc}: {err}")
+        seg = SelfieSegmentation(seeded["segmenter"].with_precision("high"),
+                                 device=dev)
+        want_mask = seg(images[0][None])[0].upsample().to_binary(0.5)
+        if not np.array_equal(np.asarray(Image.open(mask_png)), want_mask):
+            raise AssertionError("cli segment's mask differs from "
+                                 "SelfieSegmentation's")
+        print(f"cli segment --format binary: {text.strip()}; equal to "
+              f"SelfieSegmentation's  [{card}]")
+
+        # video, on phase 8a's clip and networks
+        clip, _ = _write_clip(video["raw"], tmp)
+        decoded, _ = _read_clip(clip)
+        if not np.array_equal(decoded, video["decoded"]):
+            raise AssertionError("the clip rewritten for the CLI decodes "
+                                 "to other frames than phase 8a's")
+        video_seeded = dict(seeded, models=video["models"])
+        rc, text, err = _cli(["video", clip, "--json", "--max-frames",
+                              str(CLI_VIDEO_FRAMES)], video_seeded)
+        if rc != 0:
+            raise AssertionError(f"cli video exited {rc}: {err}")
+        smoother = FaceSmoother(alpha=0.5, method="one_euro")
+        want_video = [
+            {"frame": r.frame_index, "timestamp_s": round(r.timestamp_s, 4),
+             "faces": [f.to_dict() for f in smoother.smooth(
+                 r.faces, t_sec=r.timestamp_s)]}
+            for r in video["results"][:CLI_VIDEO_FRAMES]]
+        if text.splitlines() != [json.dumps(w) for w in want_video]:
+            raise AssertionError("cli video lines differ from phase 8a's "
+                                 "detect_faces_from_video results")
+        print(f"cli video --json --max-frames {CLI_VIDEO_FRAMES}: "
+              f"{len(want_video)} lines, "
+              f"{sum(len(w['faces']) for w in want_video)} faces, equal to "
+              f"phase 8a's results after the One-Euro smoother  [{card}]")
+
+        # serve
+        status, payload = _cli_serve(pngs[0], seeded)
+        if status != 200:
+            raise AssertionError(f"cli serve answered {status}: {payload}")
+        _check_errors(_payload_errors(payload["faces"], lines[0]["faces"]),
+                      SERVER_TOL, "cli serve /v1/detect")
+        print(f"cli serve: /v1/detect?mode=full answered 200 with the "
+              f"detect command's {len(lines[0]['faces'])} faces  [{card}]")
+
+    # info and doctor
+    rc, text, err = _cli(["info"], seeded)
+    info = json.loads(text)
+    kind = torch.cuda.get_device_name(0)
+    if rc != 0 or info["backend"] != "cuda" or \
+            not any(kind in d for d in info["devices"]) or \
+            not all(v == f"cuda:{kind}" for k, v in
+                    info["accelerator_report"].items() if k != "precision"):
+        raise AssertionError(f"cli info: {rc} {info}")
+    rc, text, err = _cli(["doctor", "--json"], seeded)
+    doctor = json.loads(text)
+    checks = {c["check"]: c for c in doctor["checks"]}
+    failed = {c["check"] for c in doctor["checks"]
+              if c["required"] and not c["ok"]}
+    if rc != 1 or failed != {"model assets"} or \
+            not checks["device backend"]["ok"] or \
+            not checks["kernel build"]["ok"]:
+        raise AssertionError(f"cli doctor: exit {rc}, {doctor}")
+    print(f"cli info: backend cuda, devices {info['devices']}; cli doctor: "
+          f"exit 1, FAILED {sorted(failed)} (the .tflite files are not in "
+          f"the checkout), device backend: {checks['device backend']['detail']}"
+          f"; kernel build: {checks['kernel build']['detail']}  [{card}]")
+    return out
+
+
 def _tier_launches(tiers: dict, kernel: str, size=None) -> dict:
     """A kernel's launches over phase 10's batches at each tier and on the
     int8 detector (K2's at crop size ``size``)."""
@@ -2931,11 +3237,13 @@ def main() -> int:
     seg = _segmentation_phase(models, frames, frames_np, card)
     # -- 10. precision tiers and the int8 detector ----------------------------
     tiers = _tiers_phase(models, det_ir, frames, frames_np, card)
+    # -- 11. the command line -------------------------------------------------
+    cli = _cli_phase(models, frames_np, video, card)
     post_err = max(post_err, video["post_err"], camera["post_err"],
                    alone["post_err"], variants["post_err"],
-                   tiers["post_err"])
+                   tiers["post_err"], cli["post_err"])
 
-    # -- 11. result lines -----------------------------------------------------
+    # -- 12. result lines -----------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -2969,6 +3277,8 @@ def main() -> int:
              seg["server_launches"]["detection_postprocess"],
          "segmentation_server_requests": seg["server_requests"],
          **_tier_launches(tiers, "detection_postprocess"),
+         "cli_launches": cli["detect_launches"]["detection_postprocess"],
+         "cli_images": CLI_IMAGES,
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
@@ -2980,7 +3290,9 @@ def main() -> int:
          "source": f"{PACKAGE}/csrc/nms.cu",
          "replaces": "face_detection_tflite_tpu/ops/nms_pallas.py:36",
          "launches": std["launches"]["nms_core"],
-         "check_launches": check_launches, "max_abs_err": k1_err,
+         "check_launches": check_launches,
+         "cli_launches": cli["nms_launches"],
+         "cli_images": CLI_IMAGES, "max_abs_err": k1_err,
          "ms": nms_ms, "device_ms": nms_dev_ms, "device_ms_by": nms_dev_by,
          "plain_ms": nms_plain_ms,
          "bound_ms": nms_bound,
@@ -2996,6 +3308,8 @@ def main() -> int:
          "segmentation_combined_launches":
              seg["combined_launches"]["warp_normalize"][MESH_SIZE],
          **_tier_launches(tiers, "warp_normalize", MESH_SIZE),
+         "cli_launches": cli["detect_launches"]["warp_normalize"][MESH_SIZE],
+         "cli_images": CLI_IMAGES,
          **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
         {"name": "warp_normalize_iris64", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
@@ -3008,13 +3322,16 @@ def main() -> int:
          "segmentation_combined_launches":
              seg["combined_launches"]["warp_normalize"][IRIS_SIZE],
          **_tier_launches(tiers, "warp_normalize", IRIS_SIZE),
-         **iris_site},
+         "cli_launches": cli["detect_launches"]["warp_normalize"][IRIS_SIZE],
+         "cli_images": CLI_IMAGES, **iris_site},
         {"name": "warp_normalize_embed112", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",
          "launches": emb["launches"]["warp_normalize"][EMBED_SIZE],
          "server_embed_launches": serve["embed_launches"][
-             "warp_normalize"].get(EMBED_SIZE, 0), **embed_site},
+             "warp_normalize"].get(EMBED_SIZE, 0),
+         "cli_launches": cli["embed_launches"]["warp_normalize"][EMBED_SIZE],
+         "cli_images": CLI_IMAGES, **embed_site},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -15,8 +15,9 @@ HTTP requests in micro-batches; video files and camera frames run with
 stable tracking IDs (:class:`TemporalFaceTracker`) and smoothed landmarks
 (:class:`FaceSmoother`); and the standalone classes (:class:`FaceDetection`,
 :class:`FaceLandmark`, :class:`IrisLandmark`, :class:`FaceBlendshapesModel`)
-run one network each.  It imports ``torch`` and numpy, never ``jax`` or
-the JAX package.
+run one network each.  ``utils/render.py`` draws the results, and
+``python -m face_detection_tflite_torch`` (``fdt-torch``) is the command
+line.  It imports ``torch`` and numpy, never ``jax`` or the JAX package.
 
 Quick start::
 
@@ -25,7 +26,8 @@ Quick start::
     faces = det.detect_faces_batch(frames)    # [B, H, W, 3] uint8
 """
 
-from .convert.checkpoint import load_params_npz, save_params_npz
+from .convert.checkpoint import (load_params_npz, save_params_npz,
+                                 swap_params)
 from .convert.executor import (ConvertedModel, convert_file, convert_model,
                                params_from_jax)
 from .models.embedding import (FaceEmbedding, UntrainedEmbeddingWarning,
@@ -42,15 +44,21 @@ from .pipeline.config import (MODEL_FILES, FaceDetectionMode,
                               FaceDetectionModel, SegmentationConfig,
                               SegmentationModel)
 from .pipeline.detector import FaceDetector, resolve_model_dir
+from .pipeline.geometry import eye_rois_from_mesh, face_detection_to_roi
 from .pipeline.programs import PipelineModels, build_pipeline_program
 from .pipeline.server import FaceServer, ServerOverloaded
 from .pipeline.serving import ServingPipeline
 from .pipeline.smoothing import FaceSmoother, OneEuroFilter
 from .pipeline.timings import DetectTimings, FpsCounter
 from .pipeline.tracker import TemporalFaceTracker
-from .pipeline.types import (BLENDSHAPE_NAMES, Detection, Face, FaceMesh,
-                             RectF)
+from .pipeline.types import (BLENDSHAPE_NAMES, FACE_CONTOUR_MESH_INDICES,
+                             AlignedRoi, Blendshape, Detection, Eye, EyePair,
+                             Face, FaceBlendshapes, FaceContourType,
+                             FaceLandmarks, FaceLandmarkType, FaceMesh,
+                             HeadEulerAngles, RectF,
+                             split_meshes_if_concatenated)
 from .pipeline.video import FrameThrottle, VideoFrameResult, process_video
+from .utils.metrics import MetricsRegistry
 from .utils.camera import (CameraFormat, CameraFrame, CameraRotation,
                            camera_frame_from_image, camera_frame_from_planes,
                            decode_camera_frame)
@@ -73,5 +81,9 @@ __all__ = [
     "decode_camera_frame", "FaceDetection", "FaceLandmark", "IrisLandmark",
     "FaceBlendshapesModel", "SelfieSegmentation", "SegmentationMask",
     "MulticlassSegmentationMask", "SegmentationClass", "SegmentationModel",
-    "SegmentationConfig",
+    "SegmentationConfig", "Eye", "EyePair", "FaceLandmarks",
+    "FaceLandmarkType", "FaceContourType", "Blendshape", "FaceBlendshapes",
+    "HeadEulerAngles", "AlignedRoi", "FACE_CONTOUR_MESH_INDICES",
+    "split_meshes_if_concatenated", "MetricsRegistry", "swap_params",
+    "eye_rois_from_mesh", "face_detection_to_roi",
 ]

@@ -22,8 +22,8 @@ import types
 
 import torch
 
-__all__ = ["load", "build", "check", "build_log", "stream", "count_launch",
-           "NVCC_FLAGS"]
+__all__ = ["load", "build", "library_paths", "check", "build_log", "stream",
+           "count_launch", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -79,11 +79,9 @@ def _nvcc() -> str:
                        "built")
 
 
-def build() -> list[str]:
-    """Compiles each source that is not built yet into its own shared
-    library, one ``nvcc`` per source, all started together; returns the
-    libraries' paths."""
-    global _log
+def library_paths() -> list[str]:
+    """The shared library each source builds into, named by the hash of
+    the source and the flags (built or not)."""
     srcs = _sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
@@ -94,6 +92,16 @@ def build() -> list[str]:
         stem = os.path.splitext(os.path.basename(src))[0]
         paths.append(os.path.join(BUILD_DIR,
                                   f"libfdt_{stem}_{h.hexdigest()[:16]}.so"))
+    return paths
+
+
+def build() -> list[str]:
+    """Compiles each source that is not built yet into its own shared
+    library, one ``nvcc`` per source, all started together; returns the
+    libraries' paths."""
+    global _log
+    srcs = _sources()
+    paths = library_paths()
     todo = [(s, p) for s, p in zip(srcs, paths) if not os.path.exists(p)]
     if todo:
         os.makedirs(BUILD_DIR, exist_ok=True)

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["LetterboxParams", "letterbox_params", "resize_taps",
+__all__ = ["LetterboxParams", "letterbox_params", "resize_matrix",
+           "resize_taps",
            "resize_bilinear_exact", "normalize_image", "letterbox_image"]
 
 
@@ -76,6 +77,18 @@ def letterbox_params(src_h: int, src_w: int, dst_h: int, dst_w: int
         pad_top=pad_top, pad_bottom=pad_h - pad_top,
         pad_left=pad_left, pad_right=pad_w - pad_left,
     )
+
+
+def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """``[out, in]`` float32 bilinear weights with cv2.INTER_LINEAR
+    semantics (the dense form of :func:`resize_taps`; the virtual
+    background of ``utils/render.py`` resizes with it)."""
+    m = np.zeros((out_size, in_size), np.float32)
+    lo, hi, frac = resize_taps(in_size, out_size)
+    for o in range(out_size):
+        m[o, lo[o]] += 1.0 - frac[o]
+        m[o, hi[o]] += frac[o]
+    return m
 
 
 def resize_taps(in_size: int, out_size: int

@@ -14,19 +14,24 @@ through ``extract_rois``, followed by ``ops/letterbox.py::normalize_image``
 
 Sine and cosine are computed once per ROI by :func:`extract_rois_normalized`
 and handed to both versions, so they sample at the same coordinates.
+
+:func:`extract_aligned_square` is the JAX package's public one-ROI
+building block: raw values of any channel count with any border fill, in
+plain PyTorch on every device (no main path calls it).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels import build as _build
 from .letterbox import normalize_image
 
 __all__ = ["extract_rois_normalized", "warp_normalize",
-           "warp_normalize_plain", "extract_rois"]
+           "warp_normalize_plain", "extract_rois", "extract_aligned_square"]
 
 _INV_127_5 = 1.0 / 127.5
 #: Largest crop the kernel takes: it keeps two floats per output column in
@@ -36,9 +41,11 @@ MAX_OUT_SIZE = 4096
 
 
 def _bilinear_sample(frames: torch.Tensor, sx: torch.Tensor,
-                     sy: torch.Tensor) -> torch.Tensor:
+                     sy: torch.Tensor, fill_value: float = 0.0
+                     ) -> torch.Tensor:
     """Samples ``frames [B, H, W, C]`` at ``sx, sy [B, F, S, S]`` ->
-    float32 ``[B, F, S, S, C]``; taps outside the image read 0."""
+    float32 ``[B, F, S, S, C]``; taps outside the image read
+    ``fill_value``."""
     b, h, w, c = frames.shape
     flat = frames.reshape(b, h * w, c)
     bidx = torch.arange(b, device=frames.device)[:, None, None, None]
@@ -54,7 +61,7 @@ def _bilinear_sample(frames: torch.Tensor, sx: torch.Tensor,
         xc = torch.clamp(xi, 0, w - 1)
         val = flat[bidx, yc * w + xc].float()
         inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        return torch.where(inside[..., None], val, 0.0)
+        return torch.where(inside[..., None], val, fill_value)
 
     v00 = tap(y0i, x0i)
     v01 = tap(y0i, x0i + 1)
@@ -68,12 +75,13 @@ def _bilinear_sample(frames: torch.Tensor, sx: torch.Tensor,
 
 
 def extract_rois(frames: torch.Tensor, cx, cy, sizes, cos_t, sin_t, *,
-                 out_size: int, flip_x: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 out_size: int, flip_x: Optional[torch.Tensor] = None,
+                 fill_value: float = 0.0) -> torch.Tensor:
     """``[B, H, W, C]`` frames and per-ROI ``[B, F]`` parameters ->
     ``[B, F, S, S, C]`` float32 crops (the JAX ``extract_rois`` on a batch,
     given cos/sin of the ROI angle).  ``flip_x [B, F]`` mirrors a crop's
-    columns under a per-ROI select."""
+    columns under a per-ROI select; taps outside the frame read
+    ``fill_value``."""
     size_int = torch.clamp_min(torch.floor(sizes + 0.5), 1.0)
     # A true division: ``out_size / size_int`` would multiply by the
     # reciprocal and round differently from the kernel and from XLA.
@@ -88,11 +96,36 @@ def extract_rois(frames: torch.Tensor, cx, cy, sizes, cos_t, sin_t, *,
     st = sin_t[..., None, None]
     sx = cx[..., None, None] + ct * dx + st * dy
     sy = cy[..., None, None] - st * dx + ct * dy
-    out = _bilinear_sample(frames, sx, sy)
+    out = _bilinear_sample(frames, sx, sy, fill_value)
     if flip_x is not None:
         out = torch.where(flip_x[..., None, None, None].bool(),
                           out.flip(3), out)
     return out
+
+
+def extract_aligned_square(img, cx, cy, size, theta, *, out_size: int,
+                           flip_x: bool = False, fill_value: float = 0.0
+                           ) -> torch.Tensor:
+    """One rotated square ROI of ``img [H, W, C]`` (a tensor or a numpy
+    array, any channel count) -> float32 ``[out_size, out_size, C]`` raw
+    values, as the JAX ``extract_aligned_square``: ``cx, cy, size`` in
+    source pixels (``size`` rounds like Dart), ``theta`` in radians,
+    ``flip_x`` mirrors the crop, and taps outside the image read
+    ``fill_value``.  :func:`extract_rois` on one ROI, on the image's
+    device."""
+    if not torch.is_tensor(img):
+        img = torch.from_numpy(np.ascontiguousarray(img))
+
+    def param(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=img.device).reshape(1, 1)
+
+    theta = param(theta)
+    flip = torch.full((1, 1), bool(flip_x), device=img.device)
+    return extract_rois(img[None], param(cx), param(cy), param(size),
+                        torch.cos(theta), torch.sin(theta),
+                        out_size=out_size, flip_x=flip,
+                        fill_value=fill_value)[0, 0]
 
 
 def warp_normalize_plain(frames, cx, cy, sizes, cos_t, sin_t, *,

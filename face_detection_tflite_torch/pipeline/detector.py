@@ -17,9 +17,9 @@ points; selfie segmentation (``get_segmentation_mask*``) and the combined
 ``detect_faces_with_segmentation*`` calls, which queue the mask program
 before the detection and wait for its readback last; and the
 observability surface (``accelerator_report``, ``memory_report``,
-``is_ready``).  Every detector variant runs: BACK_CAMERA (256 px),
-FRONT_CAMERA and SHORT_RANGE (128 px), FULL and FULL_SPARSE (192 px, 2304
-anchors).
+``cost_report``, ``is_ready``).  Every detector variant runs: BACK_CAMERA
+(256 px), FRONT_CAMERA and SHORT_RANGE (128 px), FULL and FULL_SPARSE
+(192 px, 2304 anchors).
 
 Runs on ``cuda`` unless the caller passes ``device="cpu"``; with no CUDA
 and no explicit device the constructor raises.  Deliberate difference
@@ -29,6 +29,12 @@ from the JAX detector: a keyword-only ``models=`` may replace loading the
 to those networks as it does to the files it converts.  Data-parallel
 serving and ``seg_device`` raise ``NotImplementedError`` naming their
 ROADMAP item.
+
+``cost_report`` keeps the JAX detector's keys, but PyTorch has no XLA
+cost analysis: ``flops`` is counted per operator over one call of the
+program (``torch.utils.flop_counter``, before any fusion),
+``bytes_accessed`` and ``transcendentals`` are None, and ``memory`` is
+the call's peak of allocated device bytes (None on the CPU).
 
 ``precision`` is the JAX detector's: a tier of the executor
 (``"highest"``, ``"high"``, ``"default"``, ``"mixed"`` or a per-op
@@ -67,12 +73,14 @@ from .programs import (PipelineModels, build_pipeline_program,
 from .timings import DetectTimings
 from .tracker import TemporalFaceTracker, validate_tracking_config
 from .types import Detection, Face, FaceMesh, RectF
+from .types import split_meshes_if_concatenated as _split_meshes
 from .upload import download_async, upload
 from .video import process_video
 from ..utils.image import decode_image, decode_images, load_image, \
     normalize_channels, validate_batch_shape
 
-__all__ = ["FaceDetector", "resolve_model_dir", "resolve_device"]
+__all__ = ["FaceDetector", "resolve_model_dir", "resolve_device",
+           "call_cost"]
 
 _JAX_ASSETS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -119,6 +127,27 @@ def _image_from_packed_bytes(data, width: int, height: int, channels: int,
         img = (np.concatenate([img[..., 2::-1], img[..., 3:]], axis=-1)
                if channels == 4 else img[..., ::-1])
     return img
+
+
+def call_cost(fn, *args) -> tuple[float, Optional[int]]:
+    """(FLOPs, peak allocated device bytes) of one call ``fn(*args)``:
+    the FLOPs ``torch.utils.flop_counter`` counts operator by operator
+    (a convolution or matmul counts 2 per multiply-add), the bytes the
+    peak of ``torch.cuda.max_memory_allocated`` over the call where the
+    first tensor argument lies on a card, else None."""
+    from torch.utils.flop_counter import FlopCounterMode
+    dev = next((a.device for a in args if torch.is_tensor(a)), None)
+    on_card = dev is not None and dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        fn(*args)
+    peak = None
+    if on_card:
+        torch.cuda.synchronize(dev)
+        peak = int(torch.cuda.max_memory_allocated(dev))
+    return float(counter.get_total_flops()), peak
 
 
 class FaceDetector:
@@ -1193,6 +1222,37 @@ class FaceDetector:
         report["total_weights"] = sum(report.values())
         report["compiled_programs"] = len(self._programs)
         return report
+
+    def cost_report(self, image_shape: tuple,
+                    mode: FaceDetectionMode = FaceDetectionMode.FULL,
+                    batch_size: int = 1) -> dict:
+        """Cost of the program for one image bucket, with the JAX
+        detector's keys: ``flops`` counted per operator over one call on a
+        zero batch (:func:`call_cost`, before any fusion, where XLA counts
+        after it), ``bytes_accessed`` and ``transcendentals`` None (no XLA
+        cost analysis), the per-image derivations, and ``memory``, the
+        call's peak of allocated device bytes (None on the CPU)."""
+        self._check_disposed()
+        h, w = int(image_shape[0]), int(image_shape[1])
+        if self.bucket_images:
+            h, w = self._bucket(h), self._bucket(w)
+        prog = self._program(h, w, mode)
+        if self.device.type == "cuda":
+            _build.load()  # the build is not the call's
+        flops, peak = call_cost(prog, torch.zeros(
+            (batch_size, h, w, 3), dtype=torch.uint8, device=self.device))
+        return {"image_bucket": (h, w), "mode": mode.value,
+                "batch_size": batch_size, "flops": flops,
+                "bytes_accessed": None, "transcendentals": None,
+                "flops_per_image": flops / batch_size,
+                "bytes_per_image": None, "memory": peak}
+
+    @staticmethod
+    def split_meshes_if_concatenated(mesh_pts) -> list[np.ndarray]:
+        """Splits a concatenated ``[N*468, ...]`` mesh point array into
+        per-face arrays (`splitMeshesIfConcatenated`,
+        face_detector.dart:1047-1056)."""
+        return _split_meshes(np.asarray(mesh_pts))
 
     @property
     def is_ready(self) -> bool:

@@ -2,8 +2,8 @@
 eye ROIs, head pose and iris centers.
 
 Port of the JAX package's ``pipeline/geometry.py`` (semantics of
-`lib/src/shared/face_geometry.dart`), but for its flat-layout mesh
-variant.  Functions broadcast over any leading batch shape.
+`lib/src/shared/face_geometry.dart`).  Functions broadcast over any
+leading batch shape.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import math
 import torch
 
 __all__ = ["compute_face_alignment", "transform_mesh_to_absolute",
+           "transform_mesh_flat_to_absolute",
            "transform_iris_norm_to_absolute", "eye_rois_from_mesh",
            "head_euler_angles_from_mesh", "roll_from_eyes",
            "face_detection_to_roi", "iris_center_from_points",
@@ -76,6 +77,16 @@ def transform_mesh_to_absolute(lm_norm: torch.Tensor, cx, cy, size, theta):
     y = cy[..., None] + s * (st * px + ct * py)
     z = lm_norm[..., 2] * s
     return torch.stack([x, y, z], dim=-1)
+
+
+def transform_mesh_flat_to_absolute(flat: torch.Tensor, cx, cy, size,
+                                    theta):
+    """Flat ``[..., N*3]`` crop-space landmarks -> flat absolute pixels
+    (`face_geometry.dart:80-105`): :func:`transform_mesh_to_absolute` on
+    the flat layout."""
+    pts = flat.reshape(*flat.shape[:-1], -1, 3)
+    return transform_mesh_to_absolute(pts, cx, cy, size, theta
+                                      ).reshape(flat.shape)
 
 
 def transform_iris_norm_to_absolute(lm_norm: torch.Tensor, cx, cy, size,

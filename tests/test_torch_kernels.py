@@ -673,3 +673,50 @@ def test_quantized_detector_card_matches_cpu(cuda_device):
         got = convert_model(qir).to(cuda_device)(x.to(cuda_device))
     for g, w, step in zip(got, want, steps):
         assert (g.cpu() - w).abs().max().item() <= step * (1 + 1e-6)
+
+
+@pytest.mark.cuda
+def test_cli_detect_launches_each_kernel_once_an_image(cuda_device, tmp_path,
+                                                       monkeypatch, capsys):
+    """``detect --json`` through the command line on the card (seeded
+    networks through its ``_make_detector`` seam): one K1 launch an image
+    and one K2 launch at 192 and at 64 px an image, plus one at each on
+    an overflow re-run."""
+    import json
+
+    from PIL import Image
+
+    from face_detection_tflite_torch import cli
+    frames = torch.randint(0, 256, (2, 427, 640, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4))
+    models, *_ = random_init.random_pipeline_models(
+        frames.to(cuda_device), seed=3, detector_blocks=1, mesh_blocks=1,
+        iris_blocks=1, mixer_blocks=1)
+    paths = []
+    for i, f in enumerate(frames.numpy()):
+        paths.append(str(tmp_path / f"{i}.png"))
+        Image.fromarray(f).save(paths[-1])
+    made = []
+    make = cli._make_detector
+
+    def seeded(args, **extra):
+        made.append(make(args, models=models, **extra))
+        return made[-1]
+
+    monkeypatch.delenv("FDT_FORCE_CPU", raising=False)
+    monkeypatch.setattr(cli, "_make_detector", seeded)
+    post = detections.detection_postprocess.launches
+    by_size = dict(warp.warp_normalize.launches_by_size)
+    assert cli.main(["detect", *paths, "--json"]) == 0
+    torch.cuda.synchronize()
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert len(lines) == 2 and all(line["faces"] for line in lines)
+    (det,) = made
+    assert det.device.type == "cuda"
+    reruns = sum(n for k, n in det.timings.calls.items()
+                 if k.startswith("face_stages["))
+    launched = {s: n - by_size.get(s, 0)
+                for s, n in warp.warp_normalize.launches_by_size.items()}
+    assert detections.detection_postprocess.launches - post == 2
+    assert {s: n for s, n in launched.items() if n} == \
+        {192: 2 + reruns, 64: 2 + reruns}

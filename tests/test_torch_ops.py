@@ -150,6 +150,75 @@ def test_warp_float_frames_match_uint8():
     assert torch.equal(a, b)
 
 
+def _cv2_square(img, cx, cy, size, theta, out_size, border_value=0.0):
+    """``extractAlignedSquare`` (helpers.dart:583-625) with cv2: rotation
+    about the ROI centre at ``out_size / round(size)``, the centre moved
+    to the crop's pixel-centre-aligned centre."""
+    import cv2
+    size_int = math.floor(size + 0.5)
+    scale = out_size / size_int
+    rot = cv2.getRotationMatrix2D((cx, cy), -np.rad2deg(theta), scale)
+    out_center = out_size / 2.0 + 0.5 * (scale - 1.0)
+    rot[0, 2] += out_center - cx
+    rot[1, 2] += out_center - cy
+    return cv2.warpAffine(img, rot, (out_size, out_size),
+                          borderMode=cv2.BORDER_CONSTANT,
+                          borderValue=(border_value,) * 3)
+
+
+@pytest.mark.parametrize("theta_deg,out_size,size", [
+    (0.0, 192, 192.0), (15.0, 192, 240.7), (-30.0, 64, 81.3),
+    (90.0, 112, 150.0)])
+def test_warp_matches_cv2_warpaffine(theta_deg, out_size, size):
+    """``extract_aligned_square`` (raw values) and ``extract_rois`` (a
+    batch of two ROIs) against cv2 ``warpAffine`` as the JAX package's
+    ``TestWarp`` holds its warp: float32 roundoff away from the border."""
+    pytest.importorskip("cv2")
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0, 255, (300, 400, 3)).astype(np.float32)
+    cx, cy, theta = 170.3, 140.8, np.deg2rad(theta_deg)
+    ref = _cv2_square(img, cx, cy, size, theta, out_size)
+    ours = t_warp.extract_aligned_square(img, cx, cy, size, theta,
+                                         out_size=out_size).numpy()
+    assert np.abs(ours - ref).max() < 2e-2
+    assert np.median(np.abs(ours - ref)) < 1e-3
+    rois = [torch.tensor([[v, v2]], dtype=torch.float32) for v, v2 in
+            ((cx, 210.0), (cy, 90.5), (size, size * 0.7))]
+    t = torch.tensor([[theta, -theta]], dtype=torch.float32)
+    batch = t_warp.extract_rois(torch.from_numpy(img)[None], *rois,
+                                torch.cos(t), torch.sin(t),
+                                out_size=out_size).numpy()[0]
+    refs = (ref, _cv2_square(img, 210.0, 90.5, size * 0.7, -theta, out_size))
+    for got, want in zip(batch, refs):
+        assert np.abs(got - want).max() < 2e-2
+        assert np.median(np.abs(got - want)) < 1e-3
+
+
+def test_warp_flip_and_fill_match_cv2():
+    """``flip_x`` mirrors the crop's columns; ``fill_value`` is cv2's
+    constant border."""
+    pytest.importorskip("cv2")
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0, 255, (100, 100, 3)).astype(np.float32)
+    a = t_warp.extract_aligned_square(img, 50.0, 50.0, 40.0, 0.2,
+                                      out_size=64).numpy()
+    b = t_warp.extract_aligned_square(img, 50.0, 50.0, 40.0, 0.2,
+                                      out_size=64, flip_x=True).numpy()
+    np.testing.assert_allclose(a[:, ::-1], b, atol=1e-5)
+    ref = _cv2_square(img, 5.0, 95.0, 80.0, 0.4, 80, border_value=-1.0)
+    ours = t_warp.extract_aligned_square(img, 5.0, 95.0, 80.0, 0.4,
+                                         out_size=80, fill_value=-1.0).numpy()
+    assert (ref == -1.0).mean() > 0.3 and (ours == -1.0).mean() > 0.3
+    inner = (ref != -1.0).all(-1)
+    inner[1:-1] &= inner[:-2] & inner[2:]  # away from the border's taps
+    inner[:, 1:-1] &= inner[:, :-2] & inner[:, 2:]
+    assert np.abs(ours - ref)[inner].max() < 2e-2
+    ones = torch.ones((50, 50, 3))
+    out = t_warp.extract_aligned_square(ones, 0.0, 0.0, 80.0, 0.0,
+                                        out_size=80)
+    assert out[0, 0, 0] == 0.0 and out[79, 79, 0] == 1.0
+
+
 def _kp(le, re, mouth):
     kp = np.zeros((1, 6, 2), np.float32)
     kp[0, 0], kp[0, 1], kp[0, 3] = le, re, mouth

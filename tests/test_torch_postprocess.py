@@ -34,6 +34,7 @@ from face_detection_tflite_torch.pipeline.programs import (
 from face_detection_tflite_tpu.ops import detections as j_det
 
 from .test_torch_kernels import postprocess_inputs
+from . import torch_parity  # noqa: F401 (one thread per xdist worker)
 
 #: Cases of ``test_torch_kernels.POSTPROCESS_CASES`` held against JAX (all
 #: but A = 2304 with every anchor valid, whose [2304, 2304] fixpoint is

@@ -118,23 +118,42 @@ def _jpeg(img) -> bytes:
 # -- the stream -----------------------------------------------------------------
 
 
+def _stream_batches(frames):
+    """The stream test's batches: an empty batch and two shapes among
+    them."""
+    return [frames, frames[:0], _crop(frames), frames[::-1].copy(),
+            frames[:1]]
+
+
+@pytest.fixture(scope="module")
+def stream_refs(setup):
+    """The references every depth of the stream test is held to, computed
+    once: ``detect_faces_batch`` on each batch in FULL and STANDARD (a
+    fresh detector per mode) and the JAX program's STANDARD slab."""
+    frames, models, jmodels = setup
+    batches = _stream_batches(frames)
+    want = {}
+    for mode in (FULL, STANDARD):
+        ref_det = _detector(models)
+        want[mode] = [ref_det.detect_faces_batch(b, mode) for b in batches]
+    return want, _jax_slab(jmodels, frames, min_score=0.5)
+
+
 @pytest.mark.parametrize("depth", [1, 2, 3])
-def test_stream_matches_batch_calls(setup, depth):
+def test_stream_matches_batch_calls(setup, stream_refs, depth):
     """Batch by batch, the stream equals ``detect_faces_batch`` on the same
     batches (an empty batch and two shapes among them); its STANDARD faces
     of the first batch are the JAX program's slab."""
-    frames, models, jmodels = setup
-    batches = [frames, frames[:0], _crop(frames), frames[::-1].copy(),
-               frames[:1]]
+    frames, models, _ = setup
+    batches = _stream_batches(frames)
+    wants, ref = stream_refs
     for mode in (FULL, STANDARD):
-        ref_det = _detector(models)
-        want = [ref_det.detect_faces_batch(b, mode) for b in batches]
+        want = wants[mode]
         det = _detector(models)
         got = list(det.detect_faces_batch_stream(batches, mode, depth=depth))
         assert len(got) == len(batches) and got[1] == []
         for g, w_, b in zip(got, want, batches):
             _assert_faces_match(g, w_, b.shape[1], b.shape[2])
-    ref = _jax_slab(jmodels, frames, min_score=0.5)
     for i, faces in enumerate(got[0]):
         keep = np.flatnonzero(ref["valid"][i] & (ref["mesh_scores"][i] >= 0.5))
         assert len(faces) == len(keep) >= 1

@@ -30,6 +30,8 @@ from face_detection_tflite_tpu.pipeline import video as j_video
 from face_detection_tflite_tpu.utils import camera as j_camera
 from face_detection_tflite_tpu.utils import image as j_image
 
+from . import torch_parity  # noqa: F401 (one thread per xdist worker)
+
 cv2 = pytest.importorskip("cv2")
 
 # -- tracker ----------------------------------------------------------------

@@ -3,6 +3,8 @@ package: the same IR and the same numpy inputs reach both."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -12,6 +14,14 @@ from face_detection_tflite_tpu.convert import executor as j_exec
 from face_detection_tflite_tpu.convert import tflite as j_tflite
 from face_detection_tflite_tpu.models import embedding as j_embedding
 from face_detection_tflite_tpu.pipeline import programs as j_programs
+
+# One PyTorch intra-op thread per pytest-xdist worker: six workers that
+# each start a thread per core oversubscribe the host, and OpenMP's
+# spinning waits then made a file's tests run about ten times longer than
+# with one thread each (a seeded stream test: 296 s against 28 s for five
+# copies run at once on 8 cores).  A run without xdist keeps every core.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 #: The small pipeline setup: two 96x144 frames, a 4-face slab, one block
 #: per stage of every seeded network, about 12 candidates per frame.
