@@ -164,7 +164,27 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    answers 200 with the detect command's faces), ``info`` (the card) and
    ``doctor --json`` (only "model assets" FAILs: the ``.tflite`` files
    are not in the checkout);
-12. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+12. scale-out (``_replica_phase``) on the FULL networks and frames:
+   ``ReplicaPool`` over ``[cuda:0]`` and ``[cuda:0, cuda:0]`` beside one
+   ``ServingPipeline`` (8 batches at depth 2 each, in turns: ms a batch,
+   frames/s, the idle share of a profiled window; every whole batch equal
+   to ``detect_faces_batch`` bit for bit; launch counts set to 0 just
+   before the first two-replica run: one K1 and one K2 at 192 and at
+   64 px a batch, plus re-runs; ``stats``), K1 and K2 against their plain
+   versions on the replicas' inputs; ``detect_faces_batch_stream(devices=
+   [cuda:0, cuda:0])`` against the sequential calls;
+   ``FaceDetector(data_parallel=True)``: no mesh on one card (faces equal
+   the plain detector's), and through the ``visible_devices`` seam a
+   two-shard mesh of the card on a batch of 15 (face counts equal, boxes
+   within 1e-5, scores within 1e-6; one K1 launch a shard; K1 and K2
+   against their plain versions on each shard's inputs);
+   ``seg_device="auto"`` (None on one card) and ``place_on`` (the
+   combined batch equal to the unpinned one); ``serve --replicas 1``
+   (``/v1/detect`` and ``/v1/info``'s replica fields), ``video --replicas
+   1 --max-frames 8`` (equal to phase 8a's results), ``--replicas`` above
+   the card count (exit 1); a pool and a mesh over ``cuda:0`` and
+   ``cuda:1`` where there are two cards, else a line saying so;
+13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
    ``server_launches``: over phase 7's stream and server requests, with
@@ -180,13 +200,17 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    requests; ``tier_launches`` per tier and ``int8_launches`` over phase
    10's ``tier_batches`` batches each; ``cli_launches`` over phase 11's
    ``detect`` run of ``cli_images`` images, the embedding site's over its
-   ``embed`` run); the iris site's
+   ``embed`` run; ``replica_launches`` over phase 12's first two-replica
+   run of ``replica_batches`` batches, ``dp_launches`` over its
+   ``dp_batches`` data-parallel batches of two shards each); the iris
+   site's
    (``warp_normalize_iris64``) is its count over the FULL path's batches
    and the embedding site's (``warp_normalize_embed112``) over the
    embedding phase's (``server_embed_launches``: one ``/v1/embed``);
    ``nms_core`` is off the main path (0, and 0 over phase 11's ``detect``
-   run, both counted) and its launches in step 3 are ``check_launches``.  K1's ``max_abs_err`` is its largest box error
-   over every check against the plain version (steps 3, 4, 8, 9 and 10).
+   run, both counted) and its launches in step 3 are ``check_launches``.
+   K1's ``max_abs_err`` is its largest box error over every check
+   against the plain version (steps 3, 4, 8, 9, 10, 11 and 12).
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -2717,12 +2741,13 @@ def _cli(argv, seeded: dict, out=None):
     return rc, out.getvalue(), err.getvalue()
 
 
-def _cli_serve(png: str, seeded: dict) -> tuple[int, dict]:
-    """``serve --port 0`` on a thread through :func:`_cli`, its address
-    read from its announce line; one POST of ``png`` to
-    ``/v1/detect?mode=full``; stopped through ``_serve_stop``.  Returns
-    the status and the payload.  Nothing else prints meanwhile (standard
-    output is the command's while it runs)."""
+def _cli_serve(png: str, seeded: dict, extra=(), info: bool = False):
+    """``serve --port 0`` (and ``extra`` arguments) on a thread through
+    :func:`_cli`, its address read from its announce line; one POST of
+    ``png`` to ``/v1/detect?mode=full`` (then, with ``info``, a GET of
+    ``/v1/info``); stopped through ``_serve_stop``.  Returns the status
+    and the payload (and the info).  Nothing else prints meanwhile
+    (standard output is the command's while it runs)."""
     import io
     import re
     import threading
@@ -2731,7 +2756,7 @@ def _cli_serve(png: str, seeded: dict) -> tuple[int, dict]:
     announced = io.StringIO()
     th = threading.Thread(target=lambda: box.update(zip(
         ("rc", "out", "err"),
-        _cli(["serve", "--port", "0"], seeded, out=announced))),
+        _cli(["serve", "--port", "0", *extra], seeded, out=announced))),
         daemon=True)
     th.start()
     deadline = time.time() + 300
@@ -2746,6 +2771,7 @@ def _cli_serve(png: str, seeded: dict) -> tuple[int, dict]:
         with open(png, "rb") as f:
             status, payload, _, _ = _post(
                 f"http://{addr}/v1/detect?mode=full", f.read())
+        about = _get(f"http://{addr}/v1/info") if info else None
     finally:
         while cli._serve_stop is None and th.is_alive():
             time.sleep(0.01)
@@ -2754,7 +2780,7 @@ def _cli_serve(png: str, seeded: dict) -> tuple[int, dict]:
         th.join(120)
     if th.is_alive() or box.get("rc") != 0:
         raise AssertionError(f"cli serve did not stop cleanly: {box}")
-    return status, payload
+    return (status, payload, about) if info else (status, payload)
 
 
 def _cli_phase(models, frames_np, video: dict, card: str) -> dict:
@@ -2966,6 +2992,342 @@ def _cli_phase(models, frames_np, video: dict, card: str) -> dict:
           f"exit 1, FAILED {sorted(failed)} (the .tflite files are not in "
           f"the checkout), device backend: {checks['device backend']['detail']}"
           f"; kernel build: {checks['kernel build']['detail']}  [{card}]")
+    return out
+
+
+REPLICA_BATCHES = 8
+REPLICA_DEPTH = 2
+DP_FRAMES = 15
+DP_RUNS = 3
+
+
+def _idle_share(device) -> tuple:
+    """(busy ms, window ms, idle share) of profiled device activities."""
+    window_us = max(e for _, e, _ in device) - min(s for s, _, _ in device)
+    busy = _busy_us([(s, e) for s, e, _ in device])
+    return busy / 1e3, window_us / 1e3, 1 - busy / window_us
+
+
+def _replica_phase(models, frames_np, video: dict, card: str) -> dict:
+    """Phase 12: scale-out on the FULL cell's networks and frames.
+
+    (a) ``ReplicaPool`` over ``[cuda:0]`` and ``[cuda:0, cuda:0]`` beside
+    one ``ServingPipeline``, :data:`REPLICA_BATCHES` FULL batches at depth
+    :data:`REPLICA_DEPTH` each, timed in turns (pipeline, one replica, two
+    replicas, two, one, pipeline) after a warm-up: ms a batch and
+    frames/s; every whole batch's faces equal ``detect_faces_batch``'s on
+    the same card bit for bit; the launch counts set to 0 just before the
+    first two-replica run and read after it (one K1 and one K2 at 192 and
+    at 64 px a batch, plus re-runs); ``stats``; the device's idle share
+    of one profiled window of each of the three; K1 and K2 against their
+    plain versions on the replicas' own inputs.  (b)
+    ``detect_faces_batch_stream(devices=[cuda:0, cuda:0])`` against the
+    sequential calls.  (c) ``FaceDetector(data_parallel=True)``: on the
+    real device list no mesh with one card, faces equal the plain
+    detector's; through the ``visible_devices`` seam a two-shard mesh of
+    the card and a batch of :data:`DP_FRAMES` (padded to 16): the same
+    face counts, boxes within 1e-5 and scores within 1e-6 (the JAX tests'
+    bounds), one K1 launch a shard (counts set to 0 just before the timed
+    batches), ms a batch beside the plain detector's, K1 and K2 against
+    their plain versions on each shard's own inputs.  (d)
+    ``seg_device="auto"`` is None on one card; ``place_on`` of the card
+    and the combined batch equal the unpinned one.  (e) ``serve
+    --replicas 1`` (one ``/v1/detect``, ``/v1/info``'s replica fields),
+    ``video --replicas 1 --max-frames 8`` against phase 8a's results,
+    ``--replicas`` above the card count exits 1.  (f) With two cards or
+    more, a pool and a mesh over ``cuda:0`` and ``cuda:1``; with one, a
+    line saying that the cross-card path was not run."""
+    import tempfile
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
+                                             FaceSmoother, PipelineModels,
+                                             ReplicaPool, ServingPipeline)
+    from face_detection_tflite_torch.convert.executor import convert_model
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.parallel import sharding
+    full = FaceDetectionMode.FULL
+    dev = models.device
+    n_cards = torch.cuda.device_count()
+    out: dict = {}
+    det = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+    det.detect_faces_batch(frames_np)                    # the steady slab
+    faces0 = det.detect_faces_batch(frames_np)
+    want = _payload(faces0)
+
+    # -- (a) the pool beside one pipeline ---------------------------------
+    executors = {
+        "pipeline": lambda: ServingPipeline(det, full, depth=REPLICA_DEPTH),
+        "1 replica": lambda: ReplicaPool(det, devices=[dev], mode=full,
+                                         depth=REPLICA_DEPTH),
+        "2 replicas": lambda: ReplicaPool(det, devices=[dev, dev],
+                                          mode=full, depth=REPLICA_DEPTH)}
+
+    def run(ex, n=REPLICA_BATCHES):
+        futs = [ex.submit(frames_np) for _ in range(n)]
+        return [f.result(timeout=600) for f in futs]
+
+    made = {name: make() for name, make in executors.items()}
+    try:
+        for ex in made.values():
+            run(ex, 2)                          # allocator blocks, threads
+        ms: dict = {name: [] for name in made}
+        host: dict = {}
+        for name in ("pipeline", "1 replica", "2 replicas", "2 replicas",
+                     "1 replica", "pipeline"):
+            first = name == "2 replicas" and not ms[name]
+            det.timings.reset()
+            if first:
+                reruns0 = _reruns(det)
+                _reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run(made[name])
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3
+                            / REPLICA_BATCHES)
+            # The workers' host ms a batch: queueing the program, and
+            # waiting for its readback.
+            host.setdefault(name, []).append({
+                k.split("[")[0]: round(v, 2)
+                for k, v in det.timings.report().items()})
+            if first:
+                launches = _launches()
+                reruns = _reruns(det) - reruns0
+            errs = _max_errors((_payload(g), want) for g in got)
+            if any(v[0] for v in errs.values()):
+                raise AssertionError(f"{name}: a whole batch differs from "
+                                     f"detect_faces_batch: {errs}")
+        _check_launches(launches, REPLICA_BATCHES, reruns, "2 replicas")
+        stats = made["2 replicas"].stats
+        # A first session pays the profiler's own start-up: discarded.
+        _profiled(lambda: run(made["1 replica"], 2), lambda n: True,
+                  "a warm-up window")
+        idle = {}
+        for name in made:
+            _, device = _profiled(lambda: run(made[name], 4),
+                                  lambda n: True, f"the {name} window")
+            idle[name] = _idle_share(device) if device else None
+    finally:
+        for ex in made.values():
+            ex.close()
+    med = {name: statistics.median(t) for name, t in ms.items()}
+    for name in made:
+        print(f"replica {name} ({REPLICA_BATCHES} FULL batches of {FRAMES}"
+              f" x {HEIGHT}x{WIDTH}, depth {REPLICA_DEPTH}): "
+              f"{['%.2f' % t for t in ms[name]]} ms a batch, "
+              f"{FRAMES * 1e3 / med[name]:.1f} frames/s; idle share of a "
+              + ("profiled 4-batch window not measured" if idle[name] is None
+                 else "profiled 4-batch window %.3f (busy %.3f of %.3f ms)"
+                 % (idle[name][2], idle[name][0], idle[name][1]))
+              + f"; worker host ms a batch {host[name]}  [{card}]")
+    print(f"replica 2 replicas: every batch equal to detect_faces_batch "
+          f"bit for bit; launches {launches} ({reruns} re-runs); stats "
+          f"{stats}  [{card}]")
+    frames = torch.from_numpy(frames_np).to(dev)
+    post_err = _check_path_kernels("replica cuda:0", models, frames, card)
+    out.update(replica_ms=med, replica_host_ms=host,
+               replica_launches=launches,
+               replica_batches=REPLICA_BATCHES, replica_idle=idle,
+               replica_stats=stats)
+
+    # -- (b) the stream over two replicas -----------------------------------
+    seq = [_payload(det.detect_faces_batch(frames_np)) for _ in range(4)]
+    streamed = [_payload(f) for f in det.detect_faces_batch_stream(
+        [frames_np] * 4, devices=[dev, dev])]
+    errs = _max_errors(zip(streamed, seq))
+    _check_errors(errs, SERVE_TOL, "stream over replicas")
+    print(f"detect_faces_batch_stream(devices=[{dev}, {dev}]) of 4 FULL "
+          f"batches: equal to the sequential calls within {errs}  [{card}]")
+
+    # -- (c) data-parallel ------------------------------------------------
+    batch = frames_np[:DP_FRAMES]
+    plain = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+    real = FaceDetector(models=models, device=dev, max_faces=MAX_FACES,
+                        data_parallel=True)
+    if n_cards == 1:
+        if real._mesh is not None:
+            raise AssertionError("data_parallel made a mesh on one card")
+        errs = _max_errors([(_payload(real.detect_faces_batch(batch)),
+                             _payload(plain.detect_faces_batch(batch)))])
+        if any(v[0] for v in errs.values()):
+            raise AssertionError(f"data_parallel on one card: {errs}")
+    visible = sharding.visible_devices
+    sharding.visible_devices = lambda kind="cuda": [dev, dev]
+    try:
+        dp = FaceDetector(models=models, device=dev, max_faces=MAX_FACES,
+                          data_parallel=True)
+    finally:
+        sharding.visible_devices = visible
+    pad = dp._batch_pad_target(len(batch))
+    if dp._mesh != (dev, dev) or pad % 2 or pad < len(batch):
+        raise AssertionError(f"the seam's mesh is {dp._mesh}, a batch of "
+                             f"{len(batch)} pads to {pad}")
+    dp.detect_faces_batch(batch)
+    plain.detect_faces_batch(batch)
+    dp_ms, plain_ms = [], []
+    for turn in ("dp", "plain", "plain", "dp"):
+        if turn == "dp" and not dp_ms:
+            reruns0 = _reruns(dp)
+            _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        faces = [(dp if turn == "dp" else plain).detect_faces_batch(batch)
+                 for _ in range(DP_RUNS)]
+        torch.cuda.synchronize()
+        (dp_ms if turn == "dp" else plain_ms).append(
+            (time.perf_counter() - t0) * 1e3 / DP_RUNS)
+        if turn == "dp" and len(dp_ms) == 1:
+            dp_launches = _launches()
+            dp_reruns = _reruns(dp) - reruns0
+            got = faces[-1]
+        elif turn == "plain" and len(plain_ms) == 1:
+            ref = faces[-1]
+    want_dp = {"detection_postprocess": 2 * DP_RUNS,
+               "warp_normalize": {MESH_SIZE: 2 * (DP_RUNS + dp_reruns),
+                                  IRIS_SIZE: 2 * (DP_RUNS + dp_reruns)}}
+    if dp_launches != want_dp:
+        raise AssertionError(f"data_parallel launches {dp_launches}, want "
+                             f"{want_dp}")
+    if [len(f) for f in got] != [len(f) for f in ref]:
+        raise AssertionError("data_parallel face counts differ")
+    box_err = max((np.abs(np.subtract(
+        [g.bounding_box.xmin, g.bounding_box.ymin, g.bounding_box.xmax,
+         g.bounding_box.ymax],
+        [r.bounding_box.xmin, r.bounding_box.ymin, r.bounding_box.xmax,
+         r.bounding_box.ymax])).max()
+        for gi, ri in zip(got, ref) for g, r in zip(gi, ri)), default=0.0)
+    score_err = max((abs(g.score - r.score) for gi, ri in zip(got, ref)
+                     for g, r in zip(gi, ri)), default=0.0)
+    if box_err > 1e-5 or score_err > 1e-6:
+        raise AssertionError(f"data_parallel: boxes {box_err}, scores "
+                             f"{score_err} from the plain detector's")
+    with torch.inference_mode():
+        images = dp._prepare_batch(batch)[0]
+        for i, shard in enumerate(sharding.shard_batch(images, dp._mesh)):
+            post_err = max(post_err, _check_path_kernels(
+                f"data-parallel shard {i}", models, shard, card))
+    print(f"data_parallel over ({dev}, {dev}) through the seam, a batch of "
+          f"{len(batch)} padded to {pad}: {['%.2f' % t for t in dp_ms]} ms a "
+          f"batch against the plain detector's "
+          f"{['%.2f' % t for t in plain_ms]}; faces {sum(map(len, got))}, "
+          f"counts equal, boxes within {box_err:.3g}, scores within "
+          f"{score_err:.3g}; launches {dp_launches} ({dp_reruns} re-runs) "
+          f"over {DP_RUNS} batches; on the real device list "
+          f"mesh={real._mesh}  [{card}]")
+    out.update(dp_launches=dp_launches, dp_batches=DP_RUNS,
+               dp_shards=2 * DP_RUNS, dp_ms=statistics.median(dp_ms),
+               dp_plain_ms=statistics.median(plain_ms))
+    for d in (dp, plain, real):
+        d.dispose()
+
+    # -- (d) the segmenter's device -----------------------------------------
+    seg_models = PipelineModels(
+        models.detector, models.variant, mesh=models.mesh, device=dev,
+        iris=models.iris, blendshapes=models.blendshapes,
+        segmentation=convert_model(random_init.segmenter_ir(
+            "general", SEED + 5), name="segmenter-general-random"))
+    auto = FaceDetector(models=seg_models, device=dev, max_faces=MAX_FACES,
+                        with_segmentation=True, seg_device="auto")
+    pinned = FaceDetector(models=seg_models, device=dev, max_faces=MAX_FACES,
+                          with_segmentation=True)
+    want_seg = (None if n_cards == 1 else torch.device("cuda", 1))
+    if auto._seg_device != want_seg:
+        raise AssertionError(f"seg_device='auto' is {auto._seg_device} on "
+                             f"{n_cards} card(s)")
+    pinned._segmentation.place_on(str(dev))
+    got = pinned.detect_faces_with_segmentation_batch(frames_np[:4])
+    base = FaceDetector(models=seg_models, device=dev, max_faces=MAX_FACES,
+                        with_segmentation=True)
+    ref = base.detect_faces_with_segmentation_batch(frames_np[:4])
+    errs = _max_errors(([_payload([g[0]])], [_payload([r[0]])])
+                       for g, r in zip(got, ref))
+    if any(v[0] for v in errs.values()) or not all(
+            np.array_equal(g[1].data, r[1].data) for g, r in zip(got, ref)):
+        raise AssertionError(f"place_on({dev}): the combined batch differs "
+                             f"from the unpinned one: {errs}")
+    print(f"seg_device='auto' on {n_cards} card(s): {auto._seg_device}; "
+          f"place_on({dev}) then detect_faces_with_segmentation_batch: "
+          f"faces and masks equal to the unpinned call  [{card}]")
+    for d in (auto, pinned, base):
+        d.dispose()
+
+    # -- (e) the command line -------------------------------------------
+    seeded = {"models": models, "made": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame0.png")
+        from PIL import Image
+        Image.fromarray(frames_np[0]).save(png)
+        status, payload, info = _cli_serve(png, seeded,
+                                           ("--replicas", "1"), info=True)
+        if status != 200 or not payload["faces"]:
+            raise AssertionError(f"serve --replicas 1 answered {status}")
+        _check_errors(_payload_errors(payload["faces"], json.loads(
+            json.dumps([f.to_dict() for f in faces0[0]]))),
+                      SERVER_TOL, "serve --replicas 1 /v1/detect")
+        stats = info["replica_stats"]
+        if info["replica_devices"] != [str(dev)] or \
+                sum(s["accepted"] for v in stats.values() for s in v) != 1:
+            raise AssertionError(f"serve --replicas 1 /v1/info: {info}")
+        clip, _ = _write_clip(video["raw"], tmp)
+        rc, text, err = _cli(["video", clip, "--json", "--max-frames",
+                              str(CLI_VIDEO_FRAMES), "--replicas", "1"],
+                             dict(seeded, models=video["models"]))
+        if rc != 0:
+            raise AssertionError(f"video --replicas 1 exited {rc}: {err}")
+        smoother = FaceSmoother(alpha=0.5, method="one_euro")
+        want_video = [
+            {"frame": r.frame_index, "timestamp_s": round(r.timestamp_s, 4),
+             "faces": [f.to_dict() for f in smoother.smooth(
+                 r.faces, t_sec=r.timestamp_s)]}
+            for r in video["results"][:CLI_VIDEO_FRAMES]]
+        if text.splitlines() != [json.dumps(w) for w in want_video]:
+            raise AssertionError("video --replicas 1 lines differ from "
+                                 "phase 8a's results")
+        too_many = str(n_cards + 1)
+        rc, _, err = _cli(["video", clip, "--json", "--replicas", too_many],
+                          seeded)
+        if rc != 1 or "out of range" not in err:
+            raise AssertionError(f"video --replicas {too_many}: exit {rc}, "
+                                 f"{err!r}")
+    print(f"cli serve --replicas 1: /v1/detect 200 with "
+          f"{len(payload['faces'])} faces, /v1/info replica_devices "
+          f"{info['replica_devices']}, replica_stats {stats}; cli video "
+          f"--replicas 1 --max-frames {CLI_VIDEO_FRAMES}: equal to phase "
+          f"8a's results after the One-Euro smoother; --replicas "
+          f"{too_many} exits 1 ({err.strip()})  [{card}]")
+
+    # -- (f) across cards ------------------------------------------------
+    if n_cards < 2:
+        print(f"cross-card path not run: {n_cards} card visible (a pool and "
+              "a mesh over cuda:0 and cuda:1 need two)")
+    else:
+        pair = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        with ReplicaPool(det, devices=pair, mode=full) as pool:
+            got = pool.map_batches([frames_np] * 4)
+        errs = _max_errors((_payload(g), want) for g in got)
+        _check_errors(errs, SERVE_TOL, "pool over cuda:0 and cuda:1")
+        post_err = max(post_err, _check_path_kernels(
+            "replica cuda:1", det._replica_params(pair[1]),
+            frames.to(pair[1]), card))
+        sharding.visible_devices = lambda kind="cuda": pair
+        try:
+            cross = FaceDetector(models=models, device=dev,
+                                 max_faces=MAX_FACES, data_parallel=True)
+        finally:
+            sharding.visible_devices = visible
+        got = cross.detect_faces_batch(batch)
+        plain = FaceDetector(models=models, device=dev, max_faces=MAX_FACES)
+        if [len(f) for f in got] != \
+                [len(f) for f in plain.detect_faces_batch(batch)]:
+            raise AssertionError("mesh over cuda:0 and cuda:1: counts differ")
+        print(f"cross-card: a pool over {pair} equal to detect_faces_batch "
+              f"within {errs}; a mesh over them, face counts equal  "
+              f"[{card}]")
+        cross.dispose()
+        plain.dispose()
+    det.dispose()
+    out["post_err"] = post_err
     return out
 
 
@@ -3239,11 +3601,13 @@ def main() -> int:
     tiers = _tiers_phase(models, det_ir, frames, frames_np, card)
     # -- 11. the command line -------------------------------------------------
     cli = _cli_phase(models, frames_np, video, card)
+    # -- 12. scale-out: replicas, data-parallel shards ------------------------
+    scale = _replica_phase(models, frames_np, video, card)
     post_err = max(post_err, video["post_err"], camera["post_err"],
                    alone["post_err"], variants["post_err"],
-                   tiers["post_err"], cli["post_err"])
+                   tiers["post_err"], cli["post_err"], scale["post_err"])
 
-    # -- 12. result lines -----------------------------------------------------
+    # -- 13. result lines -----------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -3279,6 +3643,11 @@ def main() -> int:
          **_tier_launches(tiers, "detection_postprocess"),
          "cli_launches": cli["detect_launches"]["detection_postprocess"],
          "cli_images": CLI_IMAGES,
+         "replica_launches":
+             scale["replica_launches"]["detection_postprocess"],
+         "replica_batches": scale["replica_batches"],
+         "dp_launches": scale["dp_launches"]["detection_postprocess"],
+         "dp_batches": scale["dp_batches"], "dp_shards": scale["dp_shards"],
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
@@ -3310,6 +3679,9 @@ def main() -> int:
          **_tier_launches(tiers, "warp_normalize", MESH_SIZE),
          "cli_launches": cli["detect_launches"]["warp_normalize"][MESH_SIZE],
          "cli_images": CLI_IMAGES,
+         "replica_launches":
+             scale["replica_launches"]["warp_normalize"][MESH_SIZE],
+         "dp_launches": scale["dp_launches"]["warp_normalize"][MESH_SIZE],
          **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
         {"name": "warp_normalize_iris64", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
@@ -3323,7 +3695,11 @@ def main() -> int:
              seg["combined_launches"]["warp_normalize"][IRIS_SIZE],
          **_tier_launches(tiers, "warp_normalize", IRIS_SIZE),
          "cli_launches": cli["detect_launches"]["warp_normalize"][IRIS_SIZE],
-         "cli_images": CLI_IMAGES, **iris_site},
+         "cli_images": CLI_IMAGES,
+         "replica_launches":
+             scale["replica_launches"]["warp_normalize"][IRIS_SIZE],
+         "dp_launches": scale["dp_launches"]["warp_normalize"][IRIS_SIZE],
+         **iris_site},
         {"name": "warp_normalize_embed112", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
          "replaces": "face_detection_tflite_tpu/ops/warp.py:34",

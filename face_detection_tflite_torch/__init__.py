@@ -10,7 +10,9 @@ postprocess and the ROI warp; :class:`SelfieSegmentation` (general,
 landscape and multiclass) makes person and class masks, alone or beside
 the detection;
 :class:`FaceEmbedding` (MobileFaceNet) embeds faces on its own;
-:class:`ServingPipeline` pipelines batches and :class:`FaceServer` serves
+:class:`ServingPipeline` pipelines batches, :class:`ReplicaPool` spreads
+them over one pinned pipeline a device (``FaceDetector(data_parallel=True)``
+splits each batch over the devices instead) and :class:`FaceServer` serves
 HTTP requests in micro-batches; video files and camera frames run with
 stable tracking IDs (:class:`TemporalFaceTracker`) and smoothed landmarks
 (:class:`FaceSmoother`); and the standalone classes (:class:`FaceDetection`,
@@ -40,6 +42,7 @@ from .models.segmentation import (MulticlassSegmentationMask,
 from .models.standalone import (FaceBlendshapesModel, FaceDetection,
                                 FaceLandmark, IrisLandmark)
 from .ops.letterbox import LetterboxParams, letterbox_params
+from .parallel.replica import ReplicaPool
 from .pipeline.config import (MODEL_FILES, FaceDetectionMode,
                               FaceDetectionModel, SegmentationConfig,
                               SegmentationModel)
@@ -74,7 +77,7 @@ __all__ = [
     "MODEL_FILES", "BLENDSHAPE_NAMES", "FaceEmbedding",
     "UntrainedEmbeddingWarning", "cosine_similarity", "euclidean_distance",
     "compute_embedding_alignment", "load_params_npz", "save_params_npz",
-    "FaceServer", "ServerOverloaded", "ServingPipeline",
+    "FaceServer", "ServerOverloaded", "ServingPipeline", "ReplicaPool",
     "TemporalFaceTracker", "FaceSmoother", "OneEuroFilter", "FrameThrottle",
     "VideoFrameResult", "process_video", "CameraFormat", "CameraFrame",
     "CameraRotation", "camera_frame_from_image", "camera_frame_from_planes",

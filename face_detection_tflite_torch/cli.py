@@ -20,8 +20,9 @@ CPU.  Where CUDA does not start the command exits 1 naming the error
 Every ``FaceDetector`` a command builds comes from :func:`_make_detector`
 and every segmenter from :func:`_make_segmenter`; a caller that holds
 networks of its own (seeded ones, for instance) replaces these two to pass
-them as ``models=`` / ``model=``.  ``--replicas`` other than 0 exits 1
-until serving over several cards is ported (ROADMAP §1 item 7).
+them as ``models=`` / ``model=``.  ``serve --replicas N`` and ``video
+--replicas N`` run on the first N visible devices
+(``parallel.sharding.visible_devices``), one weight copy each.
 
 Heavy imports (torch, the detector) happen inside each subcommand, so
 ``--help`` stays light.
@@ -123,8 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
     vid.add_argument("--max-frames", type=int, default=None)
     vid.add_argument("--batch-size", type=int, default=8)
     vid.add_argument("--replicas", type=int, default=0, metavar="N",
-                     help="spread frame batches over N cards (not ported "
-                          "yet, ROADMAP §1 item 7; 0 = one card)")
+                     help="spread frame batches over the first N cards "
+                          "(per-card weight replicas; results stay in "
+                          "frame order; 0 = the detector's card alone)")
     vid.add_argument("--smooth", default="one_euro",
                      choices=["one_euro", "ema", "none"],
                      help="temporal landmark smoothing (default: the "
@@ -142,8 +144,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of adapting the cap to the measured "
                         "throughput-optimal size")
     v.add_argument("--replicas", type=int, default=0, metavar="N",
-                   help="replicate detect serving over N cards (not "
-                        "ported yet, ROADMAP §1 item 7; 0 = one card)")
+                   help="replicate detect serving over the first N cards "
+                        "(per-card weight copies, round-robin batches; "
+                        "0 = the detector's card alone)")
     v.add_argument("--mode-warmup", default=None, metavar="WxH",
                    help="build the kernels and run fast/standard/full once "
                         "for a WxH image before the socket opens")
@@ -358,24 +361,36 @@ def _cmd_embed(args) -> int:
     return 0
 
 
-def _replicas_refused(args) -> bool:
-    """Prints the error for ``--replicas`` other than 0 (serving and video
-    over several cards are ROADMAP §1 item 7) and returns True."""
+#: Sentinel: --replicas was out of range (the error printed, the detector
+#: disposed); the command returns exit code 1.
+_REPLICAS_ERROR = object()
+
+
+def _resolve_replica_devices(args, det):
+    """Maps ``--replicas N`` to the first N visible devices of the
+    detector's kind (the serve and video commands).  Returns None for 0,
+    the device list otherwise, or :data:`_REPLICAS_ERROR` after printing
+    the range error and disposing ``det``."""
     if not args.replicas:
-        return False
-    print(f"error: --replicas {args.replicas}: spreading work over several "
-          "cards is not ported yet (ROADMAP §1 item 7); use --replicas 0",
-          file=sys.stderr)
-    return True
+        return None
+    from .parallel.sharding import visible_devices
+    avail = visible_devices(det.device.type)
+    if args.replicas < 0 or args.replicas > len(avail):
+        print(f"error: --replicas {args.replicas} out of range "
+              f"(0..{len(avail)} device(s) visible)", file=sys.stderr)
+        det.dispose()
+        return _REPLICAS_ERROR
+    return avail[:args.replicas]
 
 
 def _cmd_video(args) -> int:
-    if _replicas_refused(args):
-        return 1
     from .pipeline.config import FaceDetectionMode
     from .pipeline.smoothing import FaceSmoother
     det = _make_detector(args, enable_tracking=True)
     mode = FaceDetectionMode(args.mode)
+    devices = _resolve_replica_devices(args, det)
+    if devices is _REPLICAS_ERROR:
+        return 1
     smoother = (None if args.smooth == "none"
                 else FaceSmoother(alpha=0.5, method=args.smooth))
 
@@ -411,7 +426,7 @@ def _cmd_video(args) -> int:
         for res in det.detect_faces_from_video(
                 args.video, mode, frame_stride=args.stride,
                 batch_size=args.batch_size, max_frames=args.max_frames,
-                max_dim=args.max_dim or None):
+                max_dim=args.max_dim or None, devices=devices):
             faces = (smoother.smooth(res.faces, t_sec=res.timestamp_s)
                      if smoother else res.faces)
             frames += 1
@@ -459,23 +474,26 @@ def _cmd_serve(args) -> int:
 
     from .pipeline.server import FaceServer
     global _serve_stop
-    if _replicas_refused(args):
-        return 1
     det = _make_detector(args, with_segmentation=args.with_segmentation)
+    devices = _resolve_replica_devices(args, det)
+    if devices is _REPLICAS_ERROR:
+        return 1
     if args.mode_warmup:
         w, h = (int(v) for v in args.mode_warmup.lower().split("x"))
-        print(f"warming fast/standard/full programs for {w}x{h}...",
-              flush=True)
-        det.warmup((h, w, 3), batch_size=1)
+        print(f"warming fast/standard/full programs for {w}x{h}"
+              + (f" on {len(devices)} replica devices" if devices else "")
+              + "...", flush=True)
+        det.warmup((h, w, 3), batch_size=1, devices=devices)
     server = FaceServer(det, host=args.host, port=args.port,
                         batch_window_ms=args.batch_window_ms,
-                        max_batch=args.max_batch,
+                        max_batch=args.max_batch, devices=devices,
                         max_queue=args.max_queue,
                         recycle_after_batches=args.recycle_after_batches,
                         max_rss_mb=args.max_rss_mb,
                         adaptive_batch=not args.no_adaptive_batch).start()
     print(f"serving on {server.address}  "
-          f"(POST /v1/detect, /v1/segment, /v1/embed; GET /metrics)",
+          f"(POST /v1/detect, /v1/segment, /v1/embed; GET /metrics)"
+          + (f"  [{len(devices)} detect replicas]" if devices else ""),
           flush=True)
     _serve_stop = threading.Event()
     try:

@@ -246,8 +246,17 @@ int launch(const void* frames, int batch, int h, int w, const void* cx,
   if (out_size < 1 || out_size > kMaxOutSize || h < 1 || w < 1 ||
       ctas > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // `device` is made current for the launch only: the caller's current
+  // device is restored, so a launch on another card does not move the
+  // calling thread's later work there.  A failed call is taken off the
+  // thread's last error, which the next launch's check would report.
+  int previous = device;
+  cudaError_t err = cudaGetDevice(&previous);
+  if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
   const size_t smem = (2 * static_cast<size_t>(out_size) + 2 * kRows) *
                       sizeof(float);
   warp_normalize_kernel<T><<<static_cast<unsigned>(ctas), kThreads, smem,
@@ -257,7 +266,9 @@ int launch(const void* frames, int batch, int h, int w, const void* cx,
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
       static_cast<const uint8_t*>(flip), faces, out_size, inv,
       static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (previous != device) cudaSetDevice(previous);
+  return static_cast<int>(err);
 }
 
 }  // namespace

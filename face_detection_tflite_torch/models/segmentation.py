@@ -14,13 +14,14 @@ not held up by the readback.  The mask objects and the padding-aware
 (`face_types.dart:282-627`).
 
 Deliberate differences: :class:`SelfieSegmentation` runs on ``cuda``
-unless the caller passes ``device="cpu"``, compiles nothing (so it keeps
-no per-size program cache), and ``place_on`` (pinning to another card)
-raises until the scale-out slice (ROADMAP §1 item 7).
+unless the caller passes ``device="cpu"`` and compiles nothing (so it keeps
+no per-size program cache).  ``place_on`` moves it to another device, as
+in the JAX package.
 """
 
 from __future__ import annotations
 
+import copy
 import enum
 import math
 from typing import Optional
@@ -275,12 +276,22 @@ class SelfieSegmentation:
         _, self.in_h, self.in_w, _ = model.input_shapes[0]
 
     def place_on(self, device) -> None:
-        """Pinning the segmenter to another card (the JAX package's
-        multi-chip analog of the reference's segmentation isolate) waits
-        for the scale-out slice."""
-        raise NotImplementedError(
-            "SelfieSegmentation.place_on is not ported yet (ROADMAP §1 "
-            "item 7)")
+        """Pins the weights and the work to ``device``: a copy of the
+        network there (the network passed in stays where it was), and
+        inputs move there at dispatch.  The counterpart of the reference's
+        separate segmentation isolate (`face_detector.dart:1297-1324`):
+        on a device of its own, the detector's combined calls run the mask
+        program and the detection at once.  Raises RuntimeError after
+        :meth:`dispose`."""
+        model = self.model
+        if model is None:
+            raise RuntimeError("SelfieSegmentation has been disposed")
+        device = resolve_device(device)
+        if device == self.device:
+            return
+        fp32_on_the_card(device)
+        self.model = copy.deepcopy(model).to(device).eval()
+        self.device = device
 
     def _planes(self, model: ConvertedModel, images: torch.Tensor, lbp
                 ) -> torch.Tensor:

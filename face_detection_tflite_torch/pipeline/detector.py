@@ -26,9 +26,17 @@ and no explicit device the constructor raises.  Deliberate difference
 from the JAX detector: a keyword-only ``models=`` may replace loading the
 ``.tflite`` files from ``model_dir``, the segmenter included
 (``PipelineModels(segmentation=...)``); the detector's precision applies
-to those networks as it does to the files it converts.  Data-parallel
-serving and ``seg_device`` raise ``NotImplementedError`` naming their
-ROADMAP item.
+to those networks as it does to the files it converts.
+
+Scale-out, as in the JAX package: ``data_parallel=True`` splits each batch
+over a mesh of the visible devices with the weights on each
+(``parallel/sharding.py``; no mesh with one device); ``device=`` of
+``_stream_dispatch`` pins a batch to one device's weight copy
+(:meth:`FaceDetector._replica_params`), which ``ReplicaPool``,
+``detect_faces_batch_stream(devices=)``, ``warmup(devices=)`` and
+``process_video(devices=)`` build on; ``seg_device`` runs the segmenter on
+its own device.  The visible devices come from
+``parallel.sharding.visible_devices``.
 
 ``cost_report`` keeps the JAX detector's keys, but PyTorch has no XLA
 cost analysis: ``flops`` is counted per operator over one call of the
@@ -61,6 +69,7 @@ from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
 from ..models.segmentation import SegmentationMask, SelfieSegmentation
+from ..parallel import sharding as _sharding
 from ..utils.camera import (CameraRotation, _plane_field,
                             camera_frame_from_planes, decode_camera_frame)
 from .config import (DEFAULT_MAX_MISSED_FRAMES,
@@ -100,8 +109,10 @@ def resolve_model_dir(model_dir: Optional[str] = None) -> str:
         "FDT_TPU_MODEL_DIR, pass model_dir, or pass models=")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _each(out, fn):
+    """``fn`` of a slab dict, or the list of ``fn`` of each shard dict of a
+    sharded program's output."""
+    return [fn(o) for o in out] if isinstance(out, list) else fn(out)
 
 
 def _image_from_packed_bytes(data, width: int, height: int, channels: int,
@@ -188,11 +199,6 @@ class FaceDetector:
         validate_face_gates(min_score, min_face_size,
                             min_face_presence_confidence)
         validate_tracking_config(max_missed_frames)
-        if data_parallel:
-            raise _not_ported("data-parallel serving", "§1 item 7")
-        if seg_device is not None:
-            raise _not_ported("segmentation on its own device (seg_device)",
-                              "§1 item 7")
         self.device = resolve_device(device)
         if precision == "serving":
             # The JAX package's throughput preset: the detector's early
@@ -259,6 +265,21 @@ class FaceDetector:
             # The fused stage bypasses FaceEmbedding's per-call check, so
             # the untrained-weights state is warned once, here.
             self.embedding_model._check_trained()
+        #: Data-parallel serving: the weights on every device of a 1-D
+        #: mesh, each batch padded to a multiple of the mesh and split into
+        #: one shard a device (``parallel/sharding.py``).  With one visible
+        #: device there is no mesh, as in the JAX detector.
+        self._mesh = None
+        self._mesh_models = None
+        if data_parallel:
+            visible = _sharding.visible_devices(self.device.type)
+            if len(visible) > 1:
+                self._mesh = _sharding.make_mesh(visible)
+                self._mesh_models = _sharding.shard_params(self.models,
+                                                           self._mesh)
+        #: Per-device networks of replica (device-pinned) serving, made by
+        #: _replica_params and dropped by dispose.
+        self._replica_params_cache: dict = {}
         #: A score-less mesh graph's zero substitute must not gate on 0.5
         #: (face_detector_core.dart:101-103: a null meshScore passes).
         self._mesh_emits_score = any(
@@ -288,6 +309,15 @@ class FaceDetector:
         self._segmentation_model = (segmentation_config.model
                                     if segmentation_config is not None
                                     else segmentation_model)
+        #: The segmenter's device: None for the detector's, "auto" for the
+        #: second visible device where there is one, or a device.  On a
+        #: device of its own the combined calls run the two programs on
+        #: two devices at once.
+        if seg_device == "auto":
+            visible = _sharding.visible_devices(self.device.type)
+            seg_device = visible[1] if len(visible) > 1 else None
+        self._seg_device = (resolve_device(seg_device)
+                            if seg_device is not None else None)
         self._segmentation: Optional[SelfieSegmentation] = None
         if with_segmentation or segmentation_config is not None:
             self._load_segmentation(self._segmentation_model)
@@ -330,6 +360,8 @@ class FaceDetector:
             mask_dtype=cfg.mask_dtype if cfg else "float32",
             max_output_size=cfg.max_output_size if cfg else 2048,
             device=self.device)
+        if self._seg_device is not None:
+            self._segmentation.place_on(self._seg_device)
 
     @property
     def is_tracking_enabled(self) -> bool:
@@ -383,34 +415,79 @@ class FaceDetector:
     # -- programs ----------------------------------------------------------
 
     def _program(self, img_h: int, img_w: int, mode: FaceDetectionMode,
-                 face_slab: Optional[int] = None):
+                 face_slab: Optional[int] = None, device=None):
+        """The pipeline program of one image size and mode on ``device``
+        (the detector's own by default), sharded over the mesh under
+        ``data_parallel``."""
         self._check_disposed()
         if face_slab is not None and face_slab >= self.max_faces:
             face_slab = None
-        key = (img_h, img_w, mode, face_slab)
+        models, key = self._models_key(device,
+                                       (img_h, img_w, mode, face_slab))
+        # Bucketed frames defer the width gate to the host.
+        mfs = 0.0 if self.bucket_images else self.min_face_size
+
+        def build(m):
+            return build_pipeline_program(
+                m, img_h, img_w, mode, max_faces=self.max_faces,
+                min_score=self.min_score, min_face_size=mfs,
+                num_candidates=self.num_candidates, face_slab=face_slab,
+                with_embeddings=self._with_embeddings(mode))
         with self._programs_lock:
             if key not in self._programs:
-                # Bucketed frames defer the width gate to the host.
-                mfs = 0.0 if self.bucket_images else self.min_face_size
-                self._programs[key] = build_pipeline_program(
-                    self.models, img_h, img_w, mode,
-                    max_faces=self.max_faces, min_score=self.min_score,
-                    min_face_size=mfs, num_candidates=self.num_candidates,
-                    face_slab=face_slab,
-                    with_embeddings=self._with_embeddings(mode))
+                self._programs[key] = self._sharded(build, models, 1)
             return self._programs[key]
+
+    def _sharded(self, build, models, n_batch_args: int):
+        """``build(models)``, or under ``data_parallel`` the program built
+        on each mesh device's networks and run sharded
+        (:func:`~..parallel.sharding.data_parallel`)."""
+        if self._mesh is None:
+            return build(models)
+        mesh_models = self._mesh_models
+        return _sharding.data_parallel(lambda d: build(mesh_models[d]),
+                                       self._mesh, n_batch_args)
+
+    def _models_key(self, device, key: tuple):
+        """(the networks a dispatch on ``device`` runs, its programs' cache
+        key): the detector's own for None or its own device, else the
+        device's replica (:meth:`_replica_params`), keyed by device too."""
+        if device is None or device == self.device:
+            return self.models, key
+        return self._replica_params(device), key + (device,)
+
+    def _replica_params(self, device) -> PipelineModels:
+        """The detector's networks on ``device``, cached: its own on its
+        own device, else a copy of their weights there (a few MB), made
+        once for a ``ReplicaPool`` or a pinned stream."""
+        device = resolve_device(device)
+        with self._programs_lock:
+            # Checked under the lock: dispose() marks the detector first
+            # and clears this cache under the same lock, so a racing call
+            # either raises here or its entry is cleared.
+            self._check_disposed()
+            cache = self._replica_params_cache
+            if device not in cache:
+                cache[device] = self.models.replicate(device)
+            return cache[device]
 
     def _with_embeddings(self, mode: FaceDetectionMode) -> bool:
         return self._embed_in_full and mode == FaceDetectionMode.FULL
 
     def _face_stage_program(self, img_h: int, img_w: int,
-                            mode: FaceDetectionMode):
-        key = (img_h, img_w, mode, "stage")
+                            mode: FaceDetectionMode, device=None):
+        """The overflow re-run's face stages on given detections; under
+        ``data_parallel`` sharded like the main program (the images and
+        the four detection slabs all split on the batch axis)."""
+        models, key = self._models_key(device, (img_h, img_w, mode, "stage"))
+
+        def build(m):
+            return build_pipeline_program(
+                m, img_h, img_w, mode, from_detections=True,
+                with_embeddings=self._with_embeddings(mode))
         with self._programs_lock:
             if key not in self._programs:
-                self._programs[key] = build_pipeline_program(
-                    self.models, img_h, img_w, mode, from_detections=True,
-                    with_embeddings=self._with_embeddings(mode))
+                self._programs[key] = self._sharded(build, models, 5)
             return self._programs[key]
 
     # -- readback ------------------------------------------------------------
@@ -435,9 +512,13 @@ class FaceDetector:
             return "i16"
         return "f32"
 
-    def _fetch_async(self, out: dict, quant_scale: Optional[float] = None):
+    def _fetch_async(self, out, quant_scale: Optional[float] = None):
         """Packs every output into one byte buffer on the device and starts
-        its copy to (pinned) host memory; :meth:`_fetch_finish` waits."""
+        its copy to (pinned) host memory; :meth:`_fetch_finish` waits.  A
+        list of shard outputs (``data_parallel``) is fetched shard by
+        shard, each from its own device."""
+        if isinstance(out, list):
+            return [self._fetch_async(o, quant_scale) for o in out]
         rank = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
         entries = sorted(
             ((self._readback_encoding(k, v.dtype, quant_scale), k, v)
@@ -462,6 +543,10 @@ class FaceDetector:
         return buf, event, metas, quant_scale
 
     def _fetch_finish(self, handle) -> dict:
+        if isinstance(handle, list):
+            parts = [self._fetch_finish(h) for h in handle]
+            return parts[0] if len(parts) == 1 else {
+                k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
         buf, event, metas, quant_scale = handle
         if event is not None:
             event.synchronize()
@@ -488,8 +573,31 @@ class FaceDetector:
                 off += 4 * n
         return result
 
-    def _fetch(self, out: dict, quant_scale: Optional[float] = None) -> dict:
+    def _fetch(self, out, quant_scale: Optional[float] = None) -> dict:
         return self._fetch_finish(self._fetch_async(out, quant_scale))
+
+    @staticmethod
+    def _wait(handle) -> None:
+        """Waits for the device-to-host copies of a fetch handle."""
+        for h in handle if isinstance(handle, list) else (handle,):
+            if h[1] is not None:
+                h[1].synchronize()
+
+    @staticmethod
+    def _rows(out, rows: int):
+        """``out`` (a slab dict, or the list of shard dicts of a sharded
+        program) without its rows from ``rows`` on: the batch's pad rows,
+        trimmed on the device before the readback.  A shard left with no
+        row is dropped, so its readback never starts."""
+        if isinstance(out, list):
+            n = next(iter(out[0].values())).shape[0]
+            kept = [(o, min(max(rows - i * n, 0), n))
+                    for i, o in enumerate(out)]
+            return [o if r == n else {k: v[:r] for k, v in o.items()}
+                    for o, r in kept if r]
+        if rows < next(iter(out.values())).shape[0]:
+            return {k: v[:rows] for k, v in out.items()}
+        return out
 
     # -- speculative single-call dispatch ------------------------------------
 
@@ -521,30 +629,40 @@ class FaceDetector:
             else:
                 st["low"] = 0
 
+    def _shard(self, images):
+        """``images`` split over the mesh under ``data_parallel``, else
+        as they are."""
+        if self._mesh is None:
+            return images
+        return _sharding.shard_batch(images, self._mesh)
+
     def _dispatch_speculative(self, images, mode: FaceDetectionMode,
-                              real_b: Optional[int] = None):
-        """Runs the speculative program and starts the packed readback of
+                              real_b: Optional[int] = None, device=None):
+        """Runs the speculative program (on ``device``'s networks, or
+        sharded under ``data_parallel``) and starts the packed readback of
         everything but the device-resident det_* slab (det_count joins)."""
         b, h, w, _ = images.shape
+        inputs = self._shard(images)
         bucket = self._speculation_bucket(h, w, mode)
         with self.timings.stage(f"dispatch[slab{bucket}]"):
-            det = self._program(h, w, mode, face_slab=bucket)(images)
-        fetch = {k: v for k, v in det.items()
-                 if k == "det_count" or not k.startswith("det_")}
-        if real_b is not None and real_b < b:
-            fetch = {k: v[:real_b] for k, v in fetch.items()}
-        return bucket, det, self._fetch_async(
-            fetch, self._readback_scale(h, w)), real_b
+            det = self._program(h, w, mode, face_slab=bucket,
+                                device=device)(inputs)
+        fetch = _each(det, lambda o: {
+            k: v for k, v in o.items()
+            if k == "det_count" or not k.startswith("det_")})
+        fetch = self._rows(fetch, b if real_b is None else real_b)
+        return (bucket, det, self._fetch_async(
+            fetch, self._readback_scale(h, w)), real_b, inputs, (h, w),
+            device)
 
-    def _finish_speculative(self, images, handle, mode: FaceDetectionMode):
+    def _finish_speculative(self, handle, mode: FaceDetectionMode):
         """Waits for a speculative dispatch; re-runs the face stages on a
-        wider prefix iff an image overflowed the speculated bucket."""
-        bucket, det, fetch, real_b = handle
-        _, h, w, _ = images.shape
+        wider prefix iff an image overflowed the speculated bucket (on the
+        same device's networks, or sharded under ``data_parallel``)."""
+        bucket, det, fetch, real_b, inputs, (h, w), device = handle
         if self.detailed_timings:
             with self.timings.stage("compute_wait"):
-                if fetch[1] is not None:
-                    fetch[1].synchronize()
+                self._wait(fetch)
             with self.timings.stage("readback"):
                 out = self._fetch_finish(fetch)
         else:
@@ -565,12 +683,12 @@ class FaceDetector:
             nb *= 2
         nb = min(nb, self.max_faces)
         with self.timings.stage(f"face_stages[{nb}]"):
-            out2 = self._face_stage_program(h, w, mode)(
-                images, det["det_boxes"][:, :nb],
-                det["det_raw_keypoints"][:, :nb], det["det_scores"][:, :nb],
-                det["det_valid"][:, :nb])
-        if real_b is not None and real_b < images.shape[0]:
-            out2 = {k: v[:real_b] for k, v in out2.items()}
+            out2 = self._face_stage_program(h, w, mode, device)(
+                inputs, *(_each(det, lambda o, k=k: o[k][:, :nb]) for k in (
+                    "det_boxes", "det_raw_keypoints", "det_scores",
+                    "det_valid")))
+        if real_b is not None:
+            out2 = self._rows(out2, real_b)
         with self.timings.stage("face_readback"):
             return self._fetch(out2, self._readback_scale(h, w))
 
@@ -633,19 +751,20 @@ class FaceDetector:
             images, mode, _orig_sizes, prepared=_prepared,
             predispatched=_predispatched), mode)
 
-    def _prepare_batch(self, raw):
-        """Uploads (:func:`upload`), channel-normalizes and bucket-pads one
-        batch.  Returns (images, b, (w, h)) with the pre-pad size, or None
-        for an empty batch.  Pads go bottom/right, so pixel coordinates of
-        the content are unchanged."""
+    def _prepare_batch(self, raw, device=None):
+        """Uploads (:func:`upload`) to ``device`` (the detector's own by
+        default), channel-normalizes and bucket-pads one batch.  Returns
+        (images, b, (w, h)) with the pre-pad size, or None for an empty
+        batch.  Pads go bottom/right, so pixel coordinates of the content
+        are unchanged."""
         if not isinstance(raw, torch.Tensor):
             raw = np.asarray(raw)
         validate_batch_shape(raw.shape)   # before the upload
         if raw.shape[0] == 0:
             return None
-        images = normalize_channels(raw, self.device)
+        images = normalize_channels(raw, device or self.device)
         b, h, w, _ = images.shape
-        pad_rows = (self._batch_bucket(b) if self.bucket_batches else b) - b
+        pad_rows = self._batch_pad_target(b) - b
         hb, wb = ((self._bucket(h), self._bucket(w)) if self.bucket_images
                   else (h, w))
         if (pad_rows, hb, wb) != (0, h, w):
@@ -665,54 +784,80 @@ class FaceDetector:
         batch N's readback blocks the host.  Batches may be numpy or
         tensors of shape [B, H, W, C]; different batches may differ in
         shape.  Tracking is not applied, as in
-        :meth:`detect_faces_batch`."""
+        :meth:`detect_faces_batch`.
+
+        ``devices`` rotates consecutive batches over per-device weight
+        replicas (results stay in order; ``depth`` is raised to cover the
+        rotation, so every device holds a batch in flight): the
+        generator-shaped sibling of ``ReplicaPool``."""
         self._check_disposed()
         if depth < 1:
             raise ValueError("depth must be >= 1")
-        if devices is not None:
-            raise _not_ported("replica rotation over devices=", "§1 item 7")
+        if devices:
+            if self._mesh is not None:
+                raise ValueError(
+                    "devices= replica rotation cannot be combined with "
+                    "data_parallel=True (which shards each batch across "
+                    "the mesh instead — pick one shape)")
+            devices = [resolve_device(d) for d in devices]
+            depth = max(depth, len(devices))
+            for d in devices:
+                self._replica_params(d)  # every replica before dispatching
         pending: collections.deque = collections.deque()
-        for raw in batches:
-            pending.append(self._stream_dispatch(raw, mode))
+        for i, raw in enumerate(batches):
+            pending.append(self._stream_dispatch(
+                raw, mode, device=devices[i % len(devices)] if devices
+                else None))
             if len(pending) > depth:
                 yield self._stream_finish(pending.popleft(), mode)
         while pending:
             yield self._stream_finish(pending.popleft(), mode)
 
     def _stream_dispatch(self, raw, mode: FaceDetectionMode, orig_sizes=None,
-                         *, prepared=None, predispatched=None):
+                         *, prepared=None, predispatched=None, device=None):
         """Uploads and prepares a batch and queues its program and the
         start of its readback; nothing here waits for the device.  Returns
         the handle :meth:`_stream_finish` takes (None for an empty batch).
         ``orig_sizes`` carries per-image (w, h) where the caller padded
-        mixed sizes into one bucket."""
+        mixed sizes into one bucket.  ``device`` pins the batch to that
+        device's weight copy (:meth:`_replica_params`): the upload, the
+        programs and the readback run there."""
         self._check_disposed()
-        with torch.inference_mode():
+        if device is not None:
+            if self._mesh is not None:
+                raise ValueError(
+                    "device-pinned dispatch is incompatible with "
+                    "data_parallel=True (one shards batches across "
+                    "chips, the other replicates per chip)")
+            device = resolve_device(device)
+        with torch.inference_mode(), _sharding.on_device(device):
             prep = prepared if prepared is not None else \
-                self._prepare_batch(raw)
+                self._prepare_batch(raw, device)
             if prep is None:
                 return None
             images, b, wh = prep
             bh, bw = images.shape[1], images.shape[2]
             if self.adaptive:
                 det = predispatched if predispatched is not None else \
-                    self._dispatch_speculative(images, mode, real_b=b)
+                    self._dispatch_speculative(images, mode, real_b=b,
+                                               device=device)
             else:
                 with self.timings.stage("dispatch"):
-                    dev = self._program(bh, bw, mode)(images)
-                det = self._fetch_async({k: v[:b] for k, v in dev.items()},
+                    dev = self._program(bh, bw, mode, device=device)(
+                        self._shard(images))
+                det = self._fetch_async(self._rows(dev, b),
                                         self._readback_scale(bh, bw))
         sizes = list(orig_sizes) if orig_sizes is not None else [wh] * b
-        return images, det, b, sizes
+        return images, det, b, sizes, device
 
     def _stream_finish(self, item, mode: FaceDetectionMode
                        ) -> list[list[Face]]:
         """Waits for a :meth:`_stream_dispatch` handle and builds faces."""
         if item is None:
             return []
-        images, det, b, orig_sizes = item
-        with torch.inference_mode():
-            out = (self._finish_speculative(images, det, mode)
+        images, det, b, orig_sizes, device = item
+        with torch.inference_mode(), _sharding.on_device(device):
+            out = (self._finish_speculative(det, mode)
                    if self.adaptive else self._fetch_finish(det))
         return self._postprocess_slab(out, b, images.shape[1],
                                       images.shape[2], orig_sizes, mode)
@@ -732,6 +877,15 @@ class FaceDetector:
                 out[key] = out[key] * kp_scale
         return [self._materialize(out, i, orig_sizes[i], mode)
                 for i in range(b)]
+
+    def _batch_pad_target(self, b: int) -> int:
+        """The padded batch size: the ladder's (with ``bucket_batches``),
+        rounded up to a multiple of the mesh under ``data_parallel``, so
+        that every dispatch path gets a batch that splits evenly."""
+        t = self._batch_bucket(b) if self.bucket_batches else b
+        if self._mesh is not None:
+            t += (-t) % len(self._mesh)
+        return t
 
     @staticmethod
     def _batch_bucket(b: int) -> int:
@@ -832,9 +986,11 @@ class FaceDetector:
         three by default) on a zero batch of ``image_shape``, so the first
         real request pays none of it; in the adaptive modes also the
         overflow face-stage program at its smallest reachable slab, 2 (a
-        zero frame detects nothing, so a detection never reaches it)."""
-        if devices is not None:
-            raise _not_ported("per-device warm-up", "§1 item 7")
+        zero frame detects nothing, so a detection never reaches it).
+
+        ``devices`` also warms the replica (device-pinned) path on each of
+        them: the copy of the weights and each mode's dispatch and finish
+        (the overflow re-run warms on the detector's own device only)."""
         self._check_disposed()
         h, w = image_shape[:2]
         if self.bucket_images:
@@ -843,8 +999,7 @@ class FaceDetector:
             _build.load()
         dummy = torch.zeros((batch_size, h, w, 3), dtype=torch.uint8,
                             device=self.device)
-        b = self._batch_bucket(batch_size) if self.bucket_batches \
-            else batch_size
+        b = self._batch_pad_target(batch_size)
         nf = min(2, self.max_faces)
         for mode in modes or (FaceDetectionMode.FAST,
                               FaceDetectionMode.STANDARD,
@@ -864,6 +1019,14 @@ class FaceDetector:
                     boxes, kp, torch.full((b, nf), 0.9, device=dev),
                     torch.ones((b, nf), dtype=torch.bool, device=dev))
                 self._fetch(out, self._readback_scale(h, w))
+        for d in devices or ():
+            self._replica_params(d)
+            pinned = np.zeros((batch_size, h, w, 3), np.uint8)
+            for mode in modes or (FaceDetectionMode.FAST,
+                                  FaceDetectionMode.STANDARD,
+                                  FaceDetectionMode.FULL):
+                self._stream_finish(
+                    self._stream_dispatch(pinned, mode, device=d), mode)
 
     # -- embeddings ------------------------------------------------------------
 
@@ -1055,7 +1218,7 @@ class FaceDetector:
         on a prefetch thread, ``batch_size`` of them a
         ``detect_faces_batch`` call, tracking applied in frame order
         (:func:`process_video`; the reference's `detectFacesFromVideo`).
-        ``devices`` raises ``NotImplementedError`` (ROADMAP §1 item 7)."""
+        ``devices`` spreads the batches over a ``ReplicaPool`` of them."""
         return process_video(self, path, mode, frame_stride=frame_stride,
                              batch_size=batch_size, max_frames=max_frames,
                              max_dim=max_dim, devices=devices)
@@ -1188,14 +1351,20 @@ class FaceDetector:
     @property
     def accelerator_report(self) -> dict[str, str]:
         """The device each network runs on (``cuda:<card name>`` or
-        ``cpu``), and the precision as the JAX detector reports it."""
-        d = self.device
-        backend = (f"cuda:{torch.cuda.get_device_name(d)}"
-                   if d.type == "cuda" else d.type)
+        ``cpu``; a segmenter on a device of its own adds ``#<index>``),
+        and the precision as the JAX detector reports it."""
+        def backend_of(d) -> str:
+            return (f"cuda:{torch.cuda.get_device_name(d)}"
+                    if d.type == "cuda" else d.type)
+
+        backend = backend_of(self.device)
         report = {name: backend
                   for name in ("detector", "mesh", "iris", "blendshapes")}
         if self._segmentation is not None:
-            report["segmentation"] = backend
+            sd = self._seg_device
+            report["segmentation"] = (
+                backend if sd is None else
+                f"{backend_of(sd)}#{sd.index if sd.index is not None else 0}")
         if self._embedding is not None:
             report["embedding"] = backend
         report["precision"] = str(self._precision)
@@ -1203,7 +1372,9 @@ class FaceDetector:
 
     def memory_report(self) -> dict:
         """Weight bytes per network (from the modules' tensors), their
-        total and the count of built programs."""
+        total and the count of built programs; where replicas were made
+        (:meth:`_replica_params`), their count and the weight bytes of
+        each replica's networks together."""
         self._check_disposed()
 
         def nbytes(module) -> int:
@@ -1221,6 +1392,14 @@ class FaceDetector:
             report["segmentation"] = nbytes(self._segmentation.model)
         report["total_weights"] = sum(report.values())
         report["compiled_programs"] = len(self._programs)
+        with self._programs_lock:
+            replicas = list(self._replica_params_cache.values())
+        if replicas:
+            report["replica_copies"] = len(replicas)
+            report["replica_weights"] = sum(
+                nbytes(m) for r in replicas for m in (
+                    r.detector, r.mesh, r.iris, r.blendshapes, r.embedding)
+                if m is not None)
         return report
 
     def cost_report(self, image_shape: tuple,
@@ -1273,12 +1452,16 @@ class FaceDetector:
     # -- lifetime ------------------------------------------------------------
 
     def dispose(self) -> None:
-        """Releases the programs, the models' device memory, the embedding
-        model, the segmenter, the cached device frame and the decode
-        cache."""
+        """Releases the programs, the models' device memory (the replicas'
+        and the mesh's copies too), the embedding model, the segmenter,
+        the cached device frame and the decode cache."""
         self._disposed = True
         with self._programs_lock:
             self._programs.clear()
+            # After _disposed is set: a racing _replica_params either
+            # inserted before this clear or raises.
+            self._replica_params_cache.clear()
+        self._mesh_models = None
         with self._spec_lock:
             self._spec_state.clear()
         with self._devput_lock:

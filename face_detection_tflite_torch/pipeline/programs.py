@@ -25,6 +25,7 @@ the mesh net once on ``[B * slab, 192, 192, 3]``, the iris net once on
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -72,6 +73,22 @@ class PipelineModels:
         self.detector_input_size = detector.input_shapes[0][1]
         self.anchors = torch.from_numpy(detector_anchors(
             detector, variant)).to(self.device)
+
+    def replicate(self, device) -> "PipelineModels":
+        """These models on ``device``: this object where they already live
+        there, else a copy of every network's weights placed on it (the
+        replica of one card in a ``ReplicaPool`` or a data-parallel
+        mesh)."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        return PipelineModels(
+            copy.deepcopy(self.detector), self.variant,
+            mesh=copy.deepcopy(self.mesh), device=device,
+            iris=copy.deepcopy(self.iris),
+            blendshapes=copy.deepcopy(self.blendshapes),
+            embedding=copy.deepcopy(self.embedding),
+            segmentation=copy.deepcopy(self.segmentation))
 
     def with_precision(self, precision) -> "PipelineModels":
         """These models with the detector, mesh, iris and blendshape

@@ -5,7 +5,9 @@ HTTP server whose detect endpoint funnels concurrent requests through a
 micro-batching aggregator (requests decoded on their handler threads,
 grouped by image shape and mode within a small window, executed as one
 batch through a ``ServingPipeline``, whose worker overlaps the next
-micro-batch's upload and program with this one's readback).
+micro-batch's upload and program with this one's readback).  With
+``devices=[...]`` (the command line's ``--replicas N``) the micro-batches
+go round-robin over a ``ReplicaPool`` of pinned pipelines, one a device.
 
 Endpoints
 ---------
@@ -29,8 +31,7 @@ errors are ``{"error": ...}`` with a 4xx/5xx status.  Deliberate
 differences from the JAX server: ``_AdaptiveCap`` evicts the least
 recently updated executor stream and computes a completion's interval
 under its lock; ``/v1/embed``'s ``pretrained`` is the detector's
-``is_embedding_pretrained``; ``devices=`` (replica serving) raises until
-ROADMAP §1 item 7's scale-out.  Start one with::
+``is_embedding_pretrained``.  Start one with::
 
     server = FaceServer(detector)
     server.start()          # binds; server.port is the bound port
@@ -251,8 +252,8 @@ class _Batcher:
     as (image, mode, flags, Future); the thread drains whatever arrived
     within ``window_ms`` of the first item (capped at ``max_batch``),
     groups by (image shape, mode), and submits one batched execution per
-    group — through ``pool_for_mode``'s executor (a ServingPipeline;
-    groups dispatch asynchronously and overlap) when given,
+    group — through ``pool_for_mode``'s executor (a ServingPipeline or
+    a ReplicaPool; groups dispatch asynchronously and overlap) when given,
     else a synchronous ``detect_faces_batch`` on this thread.  A lone
     request therefore waits at most ``window_ms``; concurrent same-shape
     requests ride one program execution.
@@ -460,7 +461,8 @@ def _resolve_group(pool_future: Future, members, adaptive=None,
         # amortize executor queue wait over the batch and teach the cap
         # to convoy (see _AdaptiveCap docstring).  The future's own
         # fdt_stream (stamped by the ServingPipeline that ran it) names
-        # the executor stream.
+        # the executor stream: under a ReplicaPool each replica's
+        # pipeline keeps its own completion stream.
         adaptive.record_completion(len(members), t0,
                                    time.perf_counter(),
                                    getattr(pool_future, "fdt_stream",
@@ -506,10 +508,6 @@ class FaceServer:
         #: ``adaptive_batch`` (default True) it is an upper bound and the
         #: drain cap is steered to the throughput-optimal ladder bucket
         #: (_AdaptiveCap); pass False to always drain to ``max_batch``.
-        if devices is not None:
-            raise NotImplementedError(
-                "devices= replica serving is not ported yet (ROADMAP §1 "
-                "item 7)")
         self._det = detector
         self._host = host
         self._requested_port = port
@@ -531,6 +529,16 @@ class FaceServer:
         self._max_rss_mb = max_rss_mb
         self._rss_probe = rss_probe or _process_rss_mb
         self._batches_since_recycle = 0
+        #: Replica serving: with ``devices`` (a sequence of devices, one
+        #: may repeat), each micro-batched shape-group goes to a
+        #: per-device pinned pipeline of a ReplicaPool (round-robin,
+        #: ``parallel/replica.py``) instead of one pipeline on the
+        #: detector's device.  Pools are made per mode at first use.
+        self._devices = list(devices) if devices else None
+        if self._devices and getattr(detector, "_mesh", None) is not None:
+            raise ValueError(
+                "devices= replica serving cannot wrap a data_parallel "
+                "detector (it shards each batch across the mesh instead)")
         self._pools: dict = {}
         self._pools_lock = threading.Lock()
         self._pools_closed = False
@@ -578,11 +586,12 @@ class FaceServer:
         self._serve_thread: Optional[threading.Thread] = None
 
     def _executor_for_mode(self, mode: FaceDetectionMode):
-        """Lazy per-mode batch executor, a ServingPipeline: the batcher's
-        shape-groups dispatch asynchronously (futures resolve from the
-        executor's worker), so micro-batch N+1's upload and program
-        overlap micro-batch N's readback instead of serializing on the
-        batcher thread."""
+        """Lazy per-mode batch executor: a ReplicaPool over ``devices``
+        for replica serving, else a ServingPipeline on the detector's
+        device.  Either way the batcher's shape-groups dispatch
+        asynchronously (futures resolve from the executor's worker), so
+        micro-batch N+1's upload and program overlap micro-batch N's
+        readback instead of serializing on the batcher thread."""
         with self._pools_lock:
             if self._pools_closed:
                 # A batcher thread that outlived close()'s join timeout
@@ -591,8 +600,13 @@ class FaceServer:
                 raise RuntimeError("server is closed")
             ex = self._pools.get(mode)
             if ex is None:
-                ex = self._pools[mode] = ServingPipeline(self._det, mode,
-                                                         depth=2)
+                if self._devices:
+                    from ..parallel.replica import ReplicaPool
+                    ex = ReplicaPool(self._det, devices=self._devices,
+                                     mode=mode)
+                else:
+                    ex = ServingPipeline(self._det, mode, depth=2)
+                self._pools[mode] = ex
             return ex
 
     # -- worker recycle ---------------------------------------------------------
@@ -781,9 +795,12 @@ class FaceServer:
             # "pretrained" flag.
             "embedding_pretrained": det.is_embedding_pretrained,
             "segmentation_ready": det.is_segmentation_ready,
-            # Replica serving waits for ROADMAP §1 item 7.
-            "replica_devices": None,
-            "replica_stats": None,
+            "replica_devices": ([str(d) for d in self._devices]
+                                if self._devices else None),
+            "replica_stats": (
+                {str(mode): pool.stats
+                 for mode, pool in list(self._pools.items())}
+                if self._devices else None),
         }
 
     # -- plumbing --------------------------------------------------------------

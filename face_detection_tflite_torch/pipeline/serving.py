@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..convert.executor import resolve_device
 from .config import FaceDetectionMode
 from .upload import upload
 from ..utils.image import decode_images, validate_batch_shape
@@ -45,18 +46,23 @@ class ServingPipeline:
     skipped; once dispatched it can no longer be cancelled.
 
     The worker runs each batch on the stream that was current on the
-    submitting thread, the stream its upload is ordered on, and in
-    inference mode (both are per-thread state in PyTorch).
+    submitting thread for the pipeline's device, the stream its upload is
+    ordered on, and in inference mode (both are per-thread state in
+    PyTorch).
+
+    ``device`` pins the pipeline to one device with its own copy of the
+    detector's weights (``FaceDetector._replica_params``; a
+    ``ReplicaPool`` holds one pipeline a device): batches upload there and
+    run that device's programs.  None runs on the detector's device.
     """
 
     def __init__(self, detector, mode: FaceDetectionMode =
                  FaceDetectionMode.STANDARD, depth: int = 2,
                  with_segmentation: bool = False, device=None):
-        if device is not None and not _same_device(torch.device(device),
-                                                   detector.device):
-            raise NotImplementedError(
-                f"device pinning to {device} (the detector runs on "
-                f"{detector.device}) is not ported yet (ROADMAP §1 item 7)")
+        if device is not None and with_segmentation:
+            raise ValueError(
+                "device= pinning is detection-only; place segmentation "
+                "with SelfieSegmentation.place_on / seg_device instead")
         if depth < 1:
             # queue.Queue(maxsize=0) would be unbounded and void the
             # 2·depth + 1 bound.
@@ -64,6 +70,10 @@ class ServingPipeline:
         self._det = detector
         self._mode = mode
         self._depth = depth
+        #: The pinned device, None for the detector's own; a dispatch
+        #: passes it on only where it is set.
+        self._device = (resolve_device(device) if device is not None
+                        else None)
         #: Each Future resolves to list[(faces, mask)]: the mask program
         #: is queued before the detection of the same batch, and both
         #: readbacks are waited on in the worker's finish step.
@@ -103,7 +113,9 @@ class ServingPipeline:
         # Shape first, so a malformed batch raises here and not in the
         # worker's stream.
         validate_batch_shape(images.shape)
-        images = upload(images, self._det.device)
+        images = upload(images, self._device or self._det.device)
+        # The stream of the pipeline's device current on this thread, not
+        # of this thread's current device.
         stream = (torch.cuda.current_stream(images.device)
                   if images.device.type == "cuda" else None)
         fut: Future = Future()
@@ -167,8 +179,11 @@ class ServingPipeline:
                         self._det._segmentation.dispatch(images)
                         if self._with_segmentation and images.shape[0]
                         else None)
+                    pinned = ({"device": self._device}
+                              if self._device is not None else {})
                     pending.append((fut, self._det._stream_dispatch(
-                        images, self._mode, orig_sizes), stream, seg_handle))
+                        images, self._mode, orig_sizes, **pinned), stream,
+                        seg_handle))
             except Exception as e:
                 fut.set_exception(e)
             if len(pending) > self._depth:
@@ -190,11 +205,6 @@ class ServingPipeline:
 
     def __exit__(self, *exc):
         self.close()
-
-
-def _same_device(d: torch.device, own: torch.device) -> bool:
-    """Whether ``d`` names ``own`` (``cuda`` names the current card)."""
-    return d.type == own.type and d.index in (None, own.index)
 
 
 def _on_stream(stream):

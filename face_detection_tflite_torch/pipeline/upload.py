@@ -9,9 +9,10 @@ The host returns once the copy is queued, so the copy overlaps the device
 work of earlier batches.
 
 * A ring slot is overwritten only after the event of its previous copy
-  has completed, and each thread has its own ring, so a server's batcher
-  thread, pipeline callers and direct ``detect_faces_batch`` callers can
-  upload at once.
+  has completed, and each thread has its own ring for each card, so a
+  server's batcher thread, pipeline callers and direct
+  ``detect_faces_batch`` callers can upload at once, and one thread can
+  upload to several cards in turn.
 * The device tensor is allocated on the upload stream and marked as used
   by the caller's stream (``record_stream``), so the caching allocator does
   not hand its memory out again while a kernel of that stream reads it.
@@ -49,16 +50,22 @@ def _upload_stream(device: torch.device) -> "torch.cuda.Stream":
         return _streams[index]
 
 
-def _slot(nbytes: int) -> list:
-    """The calling thread's next ring slot ``[pinned uint8 buffer, event of
-    its last copy]``, holding at least ``nbytes``, once its last copy has
-    completed."""
-    ring = getattr(_local, "ring", None)
+def _slot(nbytes: int, index: int) -> list:
+    """The calling thread's next ring slot for CUDA device ``index``
+    ``[pinned uint8 buffer, event of its last copy]``, holding at least
+    ``nbytes``, once its last copy has completed.  The rings are per
+    (thread, device): a slot's event belongs to the device it was first
+    recorded on, so a thread that uploads to two cards (a ``ReplicaPool``
+    caller) keeps one ring for each."""
+    rings = getattr(_local, "rings", None)
+    if rings is None:
+        rings = _local.rings = {}
+    ring = rings.get(index)
     if ring is None:
-        ring = _local.ring = [[None, None] for _ in range(RING_SLOTS)]
-        _local.next = 0
-    slot = ring[_local.next]
-    _local.next = (_local.next + 1) % RING_SLOTS
+        ring = rings[index] = [[[None, None] for _ in range(RING_SLOTS)], 0]
+    slots, nxt = ring
+    slot = slots[nxt]
+    ring[1] = (nxt + 1) % RING_SLOTS
     if slot[1] is not None:
         slot[1].synchronize()
     if slot[0] is None or slot[0].numel() < nbytes:
@@ -95,10 +102,10 @@ def upload(data, device: torch.device) -> torch.Tensor:
     host = _host_array(data)
     dtype = torch.uint8 if host.dtype == np.uint8 else torch.float32
     nbytes = host.size * dtype.itemsize
-    slot = _slot(nbytes)
+    stream = _upload_stream(device)
+    slot = _slot(nbytes, stream.device_index)
     staged = slot[0][:nbytes].view(dtype).view(host.shape)
     np.copyto(staged.numpy(), host, casting="unsafe")
-    stream = _upload_stream(device)
     compute = torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
         dev = torch.empty(host.shape, dtype=staged.dtype, device=device)
@@ -113,15 +120,16 @@ def upload(data, device: torch.device) -> torch.Tensor:
 
 def download_async(t: torch.Tensor):
     """Starts the copy of ``t`` to the host and returns ``(host tensor,
-    event)``: from a GPU, a non-blocking copy on the current stream into
-    pinned memory (PyTorch's caching host allocator reuses the block once
-    its copy's event has completed) and the event recorded after it, on
-    which the reader must wait before touching the host tensor; from the
-    CPU, ``t`` itself and None."""
+    event)``: from a GPU, a non-blocking copy on the current stream of
+    ``t``'s card into pinned memory (PyTorch's caching host allocator
+    reuses the block once its copy's event has completed) and the event
+    recorded after it on that stream, whichever card is current, on which
+    the reader must wait before touching the host tensor; from the CPU,
+    ``t`` itself and None."""
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     event = torch.cuda.Event()
-    event.record()
+    event.record(torch.cuda.current_stream(t.device))
     return host, event

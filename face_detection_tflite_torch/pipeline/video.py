@@ -4,8 +4,8 @@ Port of the JAX package's ``pipeline/video.py``, the analog of the
 reference's `detectFacesFromVideo` (`face_detector.dart`) and
 flutter_litert's `FrameThrottle` (README.md:734-761): video frames go
 through the detector in batches, while tracking is applied per frame in
-stream order on the host.  The spread of batches over several devices
-(``devices=``) is not ported yet.
+stream order on the host; ``devices=`` spreads the batches over a
+``ReplicaPool``.
 """
 
 from __future__ import annotations
@@ -92,11 +92,13 @@ def process_video(detector, path: str,
     cv2's decode and the wait for the device both release the interpreter
     lock, so the next batch's decode overlaps this batch's device work.
     A consumer that stops iterating stops the reader, which releases the
-    capture; a reader error is raised on the consumer.  ``devices`` (the
-    JAX package's replica pool) raises ``NotImplementedError``."""
-    if devices:
-        raise NotImplementedError("process_video over devices= is not "
-                                  "ported yet (ROADMAP §1 item 7)")
+    capture; a reader error is raised on the consumer.
+
+    ``devices`` spreads consecutive batches round-robin over a
+    ``ReplicaPool`` of them: up to ``len(devices) + 1`` batches are in
+    flight while the results, and so the tracking, still come in frame
+    order (detection is stateless; tracking is attached on the host after
+    each batch, in order)."""
     stop = threading.Event()
     q: queue.Queue = queue.Queue(maxsize=max(2 * batch_size, 2))
     reader_error: list[BaseException] = []
@@ -121,10 +123,28 @@ def process_video(detector, path: str,
         finally:
             _put(None)
 
+    pool = None
+    inflight: collections.deque = collections.deque()
+    if devices:
+        # Before the reader starts: a pool that fails to build (a
+        # data_parallel detector) must not leave a reader thread behind.
+        from ..parallel.replica import ReplicaPool
+        pool = ReplicaPool(detector, devices=devices, mode=mode)
+    max_inflight = len(devices) + 1 if devices else 1
+
     thread = threading.Thread(target=_reader, daemon=True,
                               name="fdt-video-prefetch")
     thread.start()
     pending: list[tuple[int, float, np.ndarray]] = []
+
+    def emit(metas, gen0, per_frame):
+        for (fi, ts), faces in zip(metas, per_frame):
+            yield VideoFrameResult(fi, ts,
+                                   detector._attach_tracking(faces, gen0))
+
+    def drain_oldest():
+        metas, gen0, fut = inflight.popleft()
+        yield from emit(metas, gen0, fut.result())
 
     def flush():
         if not pending:
@@ -133,10 +153,12 @@ def process_video(detector, path: str,
         batch = np.stack([f for _, _, f in pending])
         metas = [(fi, ts) for fi, ts, _ in pending]
         pending.clear()
-        for (fi, ts), faces in zip(metas,
-                                   detector.detect_faces_batch(batch, mode)):
-            yield VideoFrameResult(fi, ts,
-                                   detector._attach_tracking(faces, gen0))
+        if pool is not None:
+            inflight.append((metas, gen0, pool.submit(batch)))
+            while len(inflight) > max_inflight:
+                yield from drain_oldest()
+            return
+        yield from emit(metas, gen0, detector.detect_faces_batch(batch, mode))
 
     try:
         while True:
@@ -149,8 +171,12 @@ def process_video(detector, path: str,
         if reader_error:
             raise reader_error[0]
         yield from flush()
+        while inflight:
+            yield from drain_oldest()
     finally:
         stop.set()
+        if pool is not None:
+            pool.close(wait=False)
 
 
 class FrameThrottle:

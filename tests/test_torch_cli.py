@@ -209,12 +209,18 @@ def test_bad_image_is_a_clean_error(seeded, capsys, tmp_path, bad):
 
 @pytest.mark.parametrize("cmd", ["serve", "video"])
 def test_replicas_other_than_zero_name_item_7(seeded, capsys, tmp_path, cmd):
+    """``--replicas`` takes the first N visible devices (the CPU's one
+    here): a count below 0 or above them prints the JAX command's error,
+    disposes the detector and exits 1; ``--replicas 1`` runs (the
+    ``*_replicas_*`` tests below)."""
     args = [cmd] + ([str(tmp_path / "clip.mp4"), "--json"]
                     if cmd == "video" else ["--port", "0"])
-    rc, _, err = _run(capsys, args + ["--replicas", "1"])
-    assert rc == 1
-    assert "ROADMAP §1 item 7" in err and err.startswith("error:")
-    assert seeded == []
+    for n in (2, -1):
+        rc, _, err = _run(capsys, args + ["--replicas", str(n)])
+        assert rc == 1
+        assert err.strip() == (f"error: --replicas {n} out of range "
+                               "(0..1 device(s) visible)")
+    assert len(seeded) == 2 and not any(d.is_ready for d in seeded)
 
 
 # -- the backend guard -----------------------------------------------------
@@ -547,6 +553,18 @@ def test_video_json_equals_the_api(setup, clip, seeded, capsys):
     assert all(f["tracking_id"] is not None for g in got for f in g["faces"])
 
 
+def test_video_replicas_equal_the_api(setup, clip, seeded, capsys):
+    """``video --replicas 1`` runs the batches through a one-replica
+    ``ReplicaPool`` and prints the lines of the run without it."""
+    argv = ["video", clip, "--json", "--batch-size", "3"]
+    rc, plain, _ = _run(capsys, argv)
+    assert rc == 0
+    rc, out, _ = _run(capsys, argv + ["--replicas", "1"])
+    assert rc == 0 and _json_lines(out) == _json_lines(plain)
+    assert len(_json_lines(out)) == 4
+    assert list(seeded[-1]._replica_params_cache) == [torch.device("cpu")]
+
+
 def test_video_writes_an_annotated_clip(clip, seeded, capsys, tmp_path):
     out_mp4 = str(tmp_path / "annotated.mp4")
     rc, out, _ = _run(capsys, ["video", clip, "--out", out_mp4,
@@ -590,6 +608,48 @@ def test_serve_answers_with_the_detect_faces(setup, pngs, seeded, capsys):
     # The server runs its micro-batches through the stream's full slab
     # where ``detect_faces`` re-runs an overflow: the serving tolerances.
     _assert_faces_match([payload["faces"]], [want])
+
+
+def test_serve_replicas_report_their_devices(setup, pngs, seeded, capsys):
+    """``serve --replicas 1 --mode-warmup``: the replica is warmed, a
+    ``/v1/detect`` answers 200 through its ``ReplicaPool`` and
+    ``/v1/info`` names the replica's device and its counters."""
+    box = {}
+    h, w = setup[0].shape[1:3]
+    th = threading.Thread(target=lambda: box.setdefault("rc", cli.main(
+        ["serve", "--port", "0", "--replicas", "1", "--mode-warmup",
+         f"{w}x{h}"])), daemon=True)
+    th.start()
+    seen, addr = "", None
+    deadline = time.time() + 120
+    while time.time() < deadline and addr is None:
+        seen += capsys.readouterr().out
+        m = re.search(r"http://([0-9.]+:\d+)", seen)
+        addr = m and m.group(1)
+        assert th.is_alive() or addr, f"serve exited early {box}"
+        time.sleep(0.05)
+    assert addr, "server never announced"
+    try:
+        with open(pngs[0], "rb") as f:
+            req = urllib.request.Request(
+                f"http://{addr}/v1/detect?mode=fast", data=f.read(),
+                method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status = r.status
+        with urllib.request.urlopen(f"http://{addr}/v1/info",
+                                    timeout=60) as r:
+            info = json.loads(r.read())
+    finally:
+        while cli._serve_stop is None and th.is_alive():
+            time.sleep(0.01)
+        cli._serve_stop.set()
+        th.join(60)
+    assert status == 200 and box["rc"] == 0 and not th.is_alive()
+    assert "1 replica devices" in seen and "[1 detect replicas]" in seen
+    assert info["replica_devices"] == ["cpu"]
+    assert info["replica_stats"] == {"FaceDetectionMode.FAST": [
+        {"device": "cpu", "accepted": 1, "skipped_full": 0}]}
+    assert info["memory_report"]["replica_copies"] == 1
 
 
 def test_serve_alias_maps_the_legacy_model_name(seeded, capsys, monkeypatch):
@@ -638,7 +698,8 @@ def _example(name):
 
 
 @pytest.mark.parametrize("name", ["demo", "stream_demo", "video_demo",
-                                  "lipstick_demo", "live_overlay"])
+                                  "lipstick_demo", "live_overlay",
+                                  "replica_demo"])
 def test_examples_run_on_seeded_networks(name, pngs, clip, seg_models,
                                          monkeypatch, capsys, tmp_path):
     """Each example under ``examples/torch`` runs on the seeded networks
@@ -660,12 +721,18 @@ def test_examples_run_on_seeded_networks(name, pngs, clip, seg_models,
             "video_demo": [clip, "--out", out, "--batch-size", "2"],
             "lipstick_demo": [pngs[0], "--out", out, "--color", "C02040"],
             "live_overlay": [pngs[0], "--out", out, "--frames", "2",
-                             "--virtual-bg"]}[name]
+                             "--virtual-bg"],
+            "replica_demo": [pngs[0], "--batches", "3"]}[name]
     assert _example(name).main(argv) == 0
     printed = capsys.readouterr().out
     assert len(made) == 1 and made[0].device.type == "cpu"
     if name == "stream_demo":
         assert "processed" in printed and "tracking ids" in printed
+        return
+    if name == "replica_demo":
+        # Two replicas on the one visible device, batches round-robin.
+        assert "'accepted': 2" in printed and "'accepted': 1" in printed
+        assert "batch  2:" in printed
         return
     assert os.path.getsize(out) > 0
     if name == "demo":

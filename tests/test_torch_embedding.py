@@ -455,8 +455,8 @@ def test_dispose_frees_embedding_and_upload_cache(setup):
 
 def test_warmup_runs_every_mode(setup):
     """warmup builds the programs of the three modes and the overflow
-    face-stage program of the adaptive ones; per-device warm-up is not
-    ported."""
+    face-stage program of the adaptive ones; ``devices`` adds each
+    device's replica and runs its pinned path."""
     _, models, _ = setup
     det = _detector(models, embed_in_full=True)
     det.warmup((H, W, 3), batch_size=3)
@@ -465,8 +465,9 @@ def test_warmup_runs_every_mode(setup):
         assert (H, W, mode, 1) in keys
     for mode in (FaceDetectionMode.STANDARD, FaceDetectionMode.FULL):
         assert (H, W, mode, "stage") in keys
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        det.warmup((H, W), devices=["cuda:0"])
+    det.warmup((H, W), modes=[FaceDetectionMode.FAST], devices=["cpu"])
+    assert list(det._replica_params_cache) == [torch.device("cpu")]
+    assert det._replica_params_cache[torch.device("cpu")] is det.models
 
 
 @pytest.mark.parametrize("order", ["bgr", "rgb", "bgra", "rgba"])

@@ -22,6 +22,9 @@ from face_detection_tflite_torch.ops.anchors import (SSD_BACK, SSD_FULL,
                                                      generate_anchors)
 from face_detection_tflite_torch.ops.detections import _topk_candidates
 from face_detection_tflite_torch.ops.letterbox import letterbox_params
+from face_detection_tflite_torch.pipeline.config import FaceDetectionMode
+
+FULL_MODE = FaceDetectionMode.FULL
 
 
 @pytest.fixture
@@ -720,3 +723,151 @@ def test_cli_detect_launches_each_kernel_once_an_image(cuda_device, tmp_path,
     assert detections.detection_postprocess.launches - post == 2
     assert {s: n for s, n in launched.items() if n} == \
         {192: 2 + reruns, 64: 2 + reruns}
+
+
+def _faces_bits(faces):
+    """Every number of per-image Face lists, for a bit-for-bit compare."""
+    return [[(f.score, (f.bounding_box.xmin, f.bounding_box.ymin,
+                        f.bounding_box.xmax, f.bounding_box.ymax),
+              f.mesh.points.tobytes(), f.iris_points.tobytes(),
+              np.asarray(f.blendshapes.scores).tobytes())
+             for f in per] for per in faces]
+
+
+@pytest.mark.cuda
+def test_two_replicas_on_one_card_bit_identical(cuda_device):
+    """Two pinned replicas on the same card, each fed from a thread of its
+    own, give the faces of one replica fed alone, bit for bit (the full
+    slab program, so that no speculation state differs between runs)."""
+    import threading
+    from face_detection_tflite_torch import FaceDetector, ReplicaPool
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (4, 427, 640, 3), dtype=np.uint8)
+    _, models = _small_card_detector(
+        cuda_device, torch.from_numpy(frames).to(cuda_device))
+    det = FaceDetector(models=models, device=cuda_device, max_faces=16,
+                       adaptive=False)
+    batches = [np.roll(frames, 5 * i, axis=2) for i in range(6)]
+    with ReplicaPool(det, devices=[cuda_device], mode=FULL_MODE) as one:
+        want = [_faces_bits(one.submit(b).result(timeout=300))
+                for b in batches]
+    got: dict = {}
+    with ReplicaPool(det, devices=[cuda_device] * 2,
+                     mode=FULL_MODE) as pool:
+        def feed(idx):
+            futs = [(i, pool.submit(batches[i])) for i in idx]
+            for i, f in futs:
+                got[i] = _faces_bits(f.result(timeout=300))
+        threads = [threading.Thread(target=feed, args=(range(k, 6, 2),))
+                   for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        stats = pool.stats
+    assert [got[i] for i in range(6)] == want
+    assert sum(len(per) for per in want[0]) >= 4
+    assert sum(s["accepted"] for s in stats) == 6
+
+
+@pytest.mark.cuda
+def test_warp_launch_keeps_the_current_device(cuda_device):
+    """K2 makes its frames' card current for the launch only: the calling
+    thread's current device is the same after a launch on every card, and
+    after a launch that fails on a card that does not exist, which leaves
+    no error for the next launch to report."""
+    lib = build.load()
+    n = torch.cuda.device_count()
+    frames = torch.randint(0, 256, (1, 20, 30, 3), dtype=torch.uint8)
+    cx, cy, size, theta = _rois(2, 1, 3, 20, 30)
+    for current in range(n):
+        torch.cuda.set_device(current)
+        for d in range(n):
+            dev = torch.device("cuda", d)
+            args = [t.to(dev) for t in (cx, cy, size, theta.cos(),
+                                        theta.sin())]
+            got = warp.warp_normalize(frames.to(dev), *args, out_size=8)
+            assert torch.cuda.current_device() == current
+            assert torch.equal(got.cpu(), warp.warp_normalize_plain(
+                frames, cx, cy, size, theta.cos(), theta.sin(), out_size=8))
+    torch.cuda.set_device(0)
+    out = torch.empty((1, 3, 8, 8, 3), device=cuda_device)
+    t = [a.to(cuda_device) for a in (cx, cy, size, theta.cos(), theta.sin())]
+    rc = lib.fdt_warp_normalize_u8(
+        frames.to(cuda_device).data_ptr(), 1, 20, 30,
+        *(a.data_ptr() for a in t), None, 3, 8, 1.0 / 127.5,
+        out.data_ptr(), n, torch.cuda.current_stream().cuda_stream)
+    assert rc != 0 and torch.cuda.current_device() == 0
+    # The refused launch leaves no error behind for the next one.
+    got = warp.warp_normalize(frames.to(cuda_device), *t, out_size=8)
+    assert torch.equal(got.cpu(), warp.warp_normalize_plain(
+        frames, cx, cy, size, theta.cos(), theta.sin(), out_size=8))
+
+
+@pytest.mark.cuda
+def test_one_thread_uploads_to_two_pinned_pipelines(cuda_device):
+    """One thread submits to two pinned pipelines in turn (on two cards
+    where there are two): each upload goes through that card's pinned
+    ring, and every batch gives the detector's own faces."""
+    from face_detection_tflite_torch import ServingPipeline
+    from face_detection_tflite_torch.pipeline.upload import RING_SLOTS
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (2, 427, 640, 3), dtype=np.uint8)
+    det, _ = _small_card_detector(cuda_device,
+                                  torch.from_numpy(frames).to(cuda_device))
+    n = torch.cuda.device_count()
+    pipes = [ServingPipeline(det, FULL_MODE, device=f"cuda:{i % n}")
+             for i in range(2)]
+    batches = [np.roll(frames, 7 * i, axis=1) for i in range(2 * RING_SLOTS
+                                                             + 2)]
+    want = [_faces_bits(det.detect_faces_batch(b, FULL_MODE))
+            for b in batches]
+    try:
+        futs = [pipes[i % 2].submit(b) for i, b in enumerate(batches)]
+        got = [_faces_bits(f.result(timeout=300)) for f in futs]
+    finally:
+        for p in pipes:
+            p.close()
+    step = 2.0 * 640 / 32000.0
+    for g, w in zip(got, want):
+        assert [len(x) for x in g] == [len(x) for x in w]
+        for gi, wi in zip(g, w):
+            for gf, wf in zip(gi, wi):
+                assert abs(gf[0] - wf[0]) <= 1e-6
+                assert max(abs(a - b) for a, b in zip(gf[1], wf[1])) <= 1e-6
+                assert np.abs(np.frombuffer(gf[2], np.float32) -
+                              np.frombuffer(wf[2], np.float32)).max() <= \
+                    step + 1e-3
+
+
+@pytest.mark.cuda
+def test_data_parallel_two_shards_on_one_card(cuda_device, monkeypatch):
+    """A two-entry mesh of the card (through the visible-devices seam) and
+    a batch of 3, padded to 4: the faces of the unsharded detector within
+    the JAX tests' bounds (boxes 1e-5, scores 1e-6), with one K1 launch a
+    shard."""
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.parallel import sharding
+    rng = np.random.default_rng(13)
+    frames = rng.integers(0, 256, (3, 427, 640, 3), dtype=np.uint8)
+    single, models = _small_card_detector(
+        cuda_device, torch.from_numpy(frames).to(cuda_device))
+    monkeypatch.setattr(sharding, "visible_devices",
+                        lambda kind="cuda": [cuda_device] * 2)
+    dp = FaceDetector(models=models, device=cuda_device, max_faces=16,
+                      data_parallel=True)
+    assert dp._mesh == (torch.device("cuda", 0),) * 2
+    dp.detect_faces_batch(frames)            # the steady slab
+    before = detections.detection_postprocess.launches
+    got = dp.detect_faces_batch(frames)
+    torch.cuda.synchronize()
+    assert detections.detection_postprocess.launches - before == 2
+    want = single.detect_faces_batch(frames)
+    assert [len(f) for f in got] == [len(f) for f in want]
+    assert sum(len(f) for f in got) >= 3
+    for g, w in zip((f for per in got for f in per),
+                    (f for per in want for f in per)):
+        gb, wb = g.bounding_box, w.bounding_box
+        assert max(abs(gb.xmin - wb.xmin), abs(gb.ymin - wb.ymin),
+                   abs(gb.xmax - wb.xmax), abs(gb.ymax - wb.ymax)) <= 1e-5
+        assert abs(g.score - w.score) <= 1e-6

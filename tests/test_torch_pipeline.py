@@ -160,10 +160,17 @@ def test_detector_options_match_jax_slab(setup, options):
 
 
 def test_detector_surface_raises_for_unported_features(setup):
+    """Every feature is ported: with one visible device (the CPU's),
+    ``data_parallel`` makes no mesh and ``seg_device="auto"`` no segmenter
+    device, as in the JAX detector; an explicit ``seg_device`` is taken.
+    What remains refused is input the JAX detector refuses too."""
     _, models, _ = setup
-    for kw in ({"seg_device": "cuda:1"}, {"data_parallel": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FaceDetector(models=models, device="cpu", **kw)
+    det = FaceDetector(models=models, device="cpu", data_parallel=True,
+                       seg_device="auto")
+    assert det._mesh is None and det._seg_device is None
+    assert det._batch_pad_target(3) == 4
+    det = FaceDetector(models=models, device="cpu", seg_device="cpu")
+    assert det._seg_device == torch.device("cpu")
     # The precision tiers are ported; a name that is not one is refused.
     with pytest.raises(ValueError, match="precision"):
         FaceDetector(models=models, device="cpu", precision="bf16x3")

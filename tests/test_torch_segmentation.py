@@ -213,9 +213,11 @@ def test_min_size_and_dtype_errors():
     with pytest.raises(ValueError, match="mask_dtype"):
         t_seg.SelfieSegmentation(models.segmentation, mask_dtype="int8",
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        seg.place_on("cuda:1")
+    seg.place_on("cpu")       # its own device: nothing moves
+    assert seg.device.type == "cpu" and seg.model is models.segmentation
     seg.dispose()
+    with pytest.raises(RuntimeError, match="disposed"):
+        seg.place_on("cpu")
     with pytest.raises(RuntimeError, match="disposed"):
         seg(np.zeros((1, 32, 32, 3), np.uint8))
 

@@ -25,6 +25,7 @@ from PIL import Image
 from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
                                          FaceServer, ServingPipeline)
 from face_detection_tflite_torch.convert import executor as t_exec
+from face_detection_tflite_torch.parallel import sharding
 from face_detection_tflite_torch.pipeline import server as t_server
 from face_detection_tflite_torch.pipeline.upload import upload
 from face_detection_tflite_torch.utils import image as t_image
@@ -165,13 +166,18 @@ def test_stream_matches_batch_calls(setup, stream_refs, depth):
             assert np.abs(face.mesh.points - ref["mesh"][i, d]).max() <= tol
 
 
-def test_stream_rejects_bad_arguments(setup):
+def test_stream_rejects_bad_arguments(setup, monkeypatch):
     _, models, _ = setup
     det = _detector(models)
     with pytest.raises(ValueError, match="depth"):
         next(det.detect_faces_batch_stream([], depth=0))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        next(det.detect_faces_batch_stream([], devices=["cpu"]))
+    # Replica rotation runs; on a data-parallel detector it is refused.
+    assert list(det.detect_faces_batch_stream([], devices=["cpu"])) == []
+    monkeypatch.setattr(sharding, "visible_devices",
+                        lambda kind="cuda": [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="data_parallel"):
+        next(_detector(models, data_parallel=True).detect_faces_batch_stream(
+            [], devices=["cpu"]))
     with pytest.raises(ValueError, match="channel"):
         next(det.detect_faces_batch_stream([np.zeros((1, 8, 8, 5),
                                                      np.uint8)]))
@@ -290,9 +296,15 @@ def test_pipeline_bounds_cancel_and_close():
 def test_pipeline_refuses_other_devices_and_segmentation(setup):
     _, models, _ = setup
     det = _detector(models)
-    for device in ("cuda", "cuda:1", "meta"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    # Pinning is ported: a device CUDA cannot reach is refused by the
+    # device lookup; a pinned pipeline is detection-only, as in JAX.
+    for device in ("cuda", "cuda:1"):
+        with pytest.raises((AssertionError, RuntimeError)):
             ServingPipeline(det, device=device)
+    with pytest.raises(ValueError, match="detection-only"):
+        ServingPipeline(det, device="cpu", with_segmentation=True)
+    with ServingPipeline(det, FAST, device="cpu") as pipe:
+        assert pipe.submit(_batch(7)).result(timeout=60) == [[]]
     # Segmentation is ported; a detector without a segmenter (no
     # models.segmentation, no model directory) has none to load.
     with pytest.raises(FileNotFoundError, match="segmentation"):
@@ -635,8 +647,11 @@ def test_server_recycle_and_cap_gauge(setup, adaptive):
         assert det._decode_cache is None and det._devput_cache is None
     finally:
         srv.close()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        FaceServer(det, devices=["cuda:0"])
+    # Replica serving is ported; it cannot wrap a data-parallel detector.
+    FaceServer(det, devices=["cpu"]).close()
+    det._mesh = (torch.device("cpu"),) * 2
+    with pytest.raises(ValueError, match="data_parallel"):
+        FaceServer(det, devices=["cpu"])
 
 
 # -- decode ----------------------------------------------------------------------------

@@ -569,7 +569,9 @@ def test_process_video_matches_jax(clip, kw):
 def test_process_video_early_abandon_and_errors(clip):
     """A consumer that stops early stops the prefetch thread (and so
     releases the capture); an unopenable file and a bad stride raise on
-    the consumer, as in the JAX package; ``devices=`` is not ported."""
+    the consumer, as in the JAX package; ``devices=`` builds its
+    ``ReplicaPool`` before the reader starts, so a detector the pool
+    refuses (a data-parallel one) leaves no reader behind."""
     path, _ = clip
     it = t_video.process_video(_StubDetector(), path, batch_size=2)
     assert next(it).frame_index == 0
@@ -583,8 +585,12 @@ def test_process_video_early_abandon_and_errors(clip):
             list(process(_StubDetector(), "/nonexistent/clip.mp4"))
         with pytest.raises(ValueError, match="frame_stride"):
             list(process(_StubDetector(), path, frame_stride=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        list(t_video.process_video(_StubDetector(), path, devices=["cuda:1"]))
+    sharded = _StubDetector()
+    sharded._mesh = ("cpu", "cpu")
+    with pytest.raises(ValueError, match="data_parallel"):
+        list(t_video.process_video(sharded, path, devices=["cpu"]))
+    assert not any(th.name == "fdt-video-prefetch" and th.is_alive()
+                   for th in threading.enumerate())
 
 
 # -- the detector's tracking surface ----------------------------------------
@@ -635,7 +641,8 @@ def test_detector_tracking_matches_jax_tracker(clip, tracking_setup):
 def test_detector_reset_and_stale_generation(clip, tracking_setup):
     """A result whose detection started before ``reset_tracking`` gets no
     IDs and leaves the fresh tracker empty; the next frame starts at ID 1.
-    A negative ``max_missed_frames`` raises; ``devices=`` is not ported."""
+    A negative ``max_missed_frames`` raises.  ``devices=`` (two replicas
+    on the CPU) gives the results and IDs of the run without it."""
     path, frames = clip
     with pytest.raises(ValueError, match="max_missed_frames"):
         FaceDetector(models=tracking_setup, device="cpu",
@@ -654,8 +661,17 @@ def test_detector_reset_and_stale_generation(clip, tracking_setup):
     fresh = det.detect_faces(frames[3])
     assert sorted(f.tracking_id for f in fresh) == \
         list(range(1, len(fresh) + 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        list(det.detect_faces_from_video(path, devices=["cuda:0"]))
+    det.reset_tracking()
+    want = list(det.detect_faces_from_video(path, batch_size=2))
+    det.reset_tracking()
+    got = list(det.detect_faces_from_video(path, batch_size=2,
+                                           devices=["cpu", "cpu"]))
+    assert [(r.frame_index, r.timestamp_s) for r in got] == \
+        [(r.frame_index, r.timestamp_s) for r in want]
+    for g, w in zip(got, want):
+        _same_faces(g.faces, w.faces)
+        assert [f.tracking_id for f in g.faces] == \
+            [f.tracking_id for f in w.faces]
     untracked = FaceDetector(models=tracking_setup, device="cpu")
     assert not untracked.is_tracking_enabled
     assert all(f.tracking_id is None for f in untracked.detect_faces(frames[0]))

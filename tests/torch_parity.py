@@ -64,16 +64,20 @@ SMALL_SEGMENTER = {"stem": 8, "stages": (
     (16, 12, 5, 2, True, True, 1), (24, 12, 5, 2, True, True, 1))}
 
 
-def small_pipeline(variant: str = "back", segmenter=None, seed: int = SEED):
+def small_pipeline(variant: str = "back", segmenter=None, seed: int = SEED,
+                   frames=None):
     """(frames, port PipelineModels on the CPU, JAX PipelineModels) of the
     small setup: the four seeded networks (the ``variant`` detector, mesh,
     iris, blendshapes), the port's carrying the JAX params, and the
     full-width MobileFaceNet of seed ``seed + 4`` in both.  With
     ``segmenter`` ("general", "landscape", "multiclass") the port's models
     also carry that segmenter at :data:`SMALL_SEGMENTER`'s widths, and its
-    JAX ConvertedModel is returned fourth."""
-    frames = np.random.default_rng(seed).integers(0, 256, (B, H, W, 3),
-                                                  dtype=np.uint8)
+    JAX ConvertedModel is returned fourth.  ``frames`` (uint8 [N, h, w,
+    3]) replaces the seeded two 96x144 frames the detector is calibrated
+    on."""
+    if frames is None:
+        frames = np.random.default_rng(seed).integers(0, 256, (B, H, W, 3),
+                                                      dtype=np.uint8)
     models, *irs = random_init.random_pipeline_models(
         torch.from_numpy(frames), seed=seed, variant=variant,
         detector_blocks=1, mesh_blocks=1, per_image=12, iris_blocks=1,
