@@ -184,7 +184,26 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    1 --max-frames 8`` (equal to phase 8a's results), ``--replicas`` above
    the card count (exit 1); a pool and a mesh over ``cuda:0`` and
    ``cuda:1`` where there are two cards, else a line saying so;
-13. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+13. the profiler trace with stage ranges (``_trace_phase``), in a child
+   process of its own (``python3 chip_smoke.py --trace-phase``: the
+   profiler can lose a session's device records after the many sessions
+   of the phases before it), on fresh seeded networks of the same seed:
+   FULL and FULL with embeddings on the main frames through
+   ``tools/trace_capture_torch.py``'s ``capture`` (2 warm batches, launch
+   counts set to 0, 3 batches under ``pipeline.timings.trace``) and
+   ``stage_breakdown``; a ``trace`` JSON line a cell (device ms, kernels,
+   copies and K1/K2 launches of each ``fdt.*`` stage a batch, busy and
+   window ms, the attributed share); it fails unless the ranges hold at
+   least 98% of the device time, K1's launches lie in ``fdt.postprocess``
+   only and K2's in ``fdt.mesh``, ``fdt.iris`` and ``fdt.embedding``
+   only, each equal to the wrappers' counts over the traced batches, and
+   the traced batches' faces equal the same batches' untraced bit for
+   bit; then 2 batches through ``ServingPipeline`` under the trace (the
+   worker thread's ranges must reach it, K1 in its ``fdt.postprocess``,
+   faces equal the direct calls'), ``tools/warm_torch.py``'s ``warm`` on
+   the FULL detector (seconds a step), and the host cost of a FULL batch's
+   ranges with no profiler running (µs a batch, over 10,000 rounds);
+14. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
    ``server_launches``: over phase 7's stream and server requests, with
@@ -3344,6 +3363,228 @@ def _tier_launches(tiers: dict, kernel: str, size=None) -> dict:
             "tier_batches": TIER_RUNS}
 
 
+# Phase 13: the traced batches a cell, the rounds of the ranges' host cost,
+# the share of device time the ranges must hold, and the kernels' names.
+TRACE_ITERS = 3
+TRACE_WARM = 2
+SERVE_TRACE_BATCHES = 2
+RANGE_ROUNDS = 10_000
+TRACE_SHARE = 0.98
+K1_KERNEL = "detection_postprocess_kernel"
+K2_KERNEL = "warp_normalize_kernel"
+
+
+def _tool(name: str):
+    """``tools/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernel_counts(bd: dict, kernel: str) -> dict:
+    """{stage: launches of ``kernel`` in it} of a stage breakdown."""
+    return {stage: sum(n for name, (_, n) in row["by_name"].items()
+                       if kernel in name)
+            for stage, row in bd["stages"].items()}
+
+
+def _only_in(counts: dict, want: dict, label: str) -> None:
+    """``counts`` holds exactly ``want``'s stages with their counts, and
+    every other stage (``unattributed`` included) none."""
+    got = {k: v for k, v in counts.items() if v}
+    if got != {k: v for k, v in want.items() if v} or not all(want.values()):
+        raise AssertionError(f"{label}: launches by stage {got}, want "
+                             f"{want}")
+
+
+def _ranges_a_batch(path: str, tool, iters: int) -> dict:
+    """{range: entries a batch} of the ``fdt.*`` ranges in a trace."""
+    counts: dict = {}
+    for ev in tool._events(path):
+        if ev.get("cat") == "user_annotation" and \
+                ev.get("name", "").startswith("fdt."):
+            counts[ev["name"]] = counts.get(ev["name"], 0) + 1
+    return {k: v / iters for k, v in sorted(counts.items())}
+
+
+def _trace_cell(label: str, det, frames_np, out_dir: str, tool,
+                card: str) -> dict:
+    """One cell of phase 13: warm batches, then ``capture`` of
+    :data:`TRACE_ITERS` FULL batches with the launch counts set to 0 just
+    before; the stage breakdown and its checks (module docstring, step
+    13); the same batches untraced, faces bit for bit."""
+    from face_detection_tflite_torch import FaceDetectionMode
+    embed = det.embed_in_full
+    for _ in range(TRACE_WARM):
+        det.detect_faces_batch(frames_np)
+    _reset_launches()
+    path, faces = tool.capture(det, frames_np, out_dir, TRACE_ITERS,
+                               FaceDetectionMode.FULL, warm=0)
+    launches = _launches()
+    untraced = [det.detect_faces_batch(frames_np)
+                for _ in range(TRACE_ITERS)]
+    if [_face_json(f) for f in faces] != [_face_json(f) for f in untraced]:
+        raise AssertionError(f"trace {label}: the traced batches' faces "
+                             f"differ from the same batches untraced")
+    bd = tool.stage_breakdown(path)
+    k1 = _kernel_counts(bd, K1_KERNEL)
+    k2 = _kernel_counts(bd, K2_KERNEL)
+    by_size = launches["warp_normalize"]
+    _only_in(k1, {"fdt.postprocess": launches["detection_postprocess"]},
+             f"trace {label} K1")
+    _only_in(k2, {"fdt.mesh": by_size.get(MESH_SIZE, 0),
+                  "fdt.iris": by_size.get(IRIS_SIZE, 0),
+                  **({"fdt.embedding": by_size.get(EMBED_SIZE, 0)}
+                     if embed else {})}, f"trace {label} K2")
+    if launches["detection_postprocess"] != TRACE_ITERS:
+        raise AssertionError(f"trace {label}: {launches} over "
+                             f"{TRACE_ITERS} traced batches")
+    n = TRACE_ITERS
+    line = {"cell": label, "batches": n, "frames": FRAMES,
+            "card": card, "stages": {
+                stage: {"device_ms": row["device_ms"] / n,
+                        "kernels": row["kernels"] / n,
+                        "copies": row["copies"] / n,
+                        "K1_launches": k1[stage], "K2_launches": k2[stage],
+                        "top": [[name[:60], ms / n, c / n]
+                                for name, (ms, c) in row["top"][:3]]}
+                for stage, row in sorted(
+                    bd["stages"].items(),
+                    key=lambda kv: -kv[1]["device_ms"])},
+            "busy_ms": bd["busy_ms"] / n, "window_ms": bd["window_ms"],
+            "device_ms": bd["device_ms"] / n,
+            "attributed_share": bd["attributed_share"],
+            "links": bd["links"], "wrapper_launches": launches}
+    print(f"trace {label}: " + json.dumps(line))
+    tool.print_breakdown(bd, n, f" ({label}, {card})")
+    if bd["attributed_share"] < TRACE_SHARE:
+        raise AssertionError(
+            f"trace {label}: the fdt.* ranges hold "
+            f"{bd['attributed_share']:.4f} of the device time, below "
+            f"{TRACE_SHARE}")
+    return {"path": path, "faces": untraced[-1]}
+
+
+def _range_host_us(ranges: dict) -> float:
+    """Host µs of entering and leaving a batch's ranges (``ranges``:
+    {name: entries a batch}, rounded to whole entries) with no profiler
+    running: a host clock over :data:`RANGE_ROUNDS` rounds."""
+    from torch.profiler import record_function
+    names = [name for name, k in ranges.items() for _ in range(round(k))]
+    for name in names:
+        with record_function(name):
+            pass
+    t0 = time.perf_counter()
+    for _ in range(RANGE_ROUNDS):
+        for name in names:
+            with record_function(name):
+                pass
+    return (time.perf_counter() - t0) * 1e6 / RANGE_ROUNDS
+
+
+def _serving_trace(det, frames_np, out_dir: str, tool, card: str,
+                   want_faces) -> None:
+    """:data:`SERVE_TRACE_BATCHES` FULL batches through
+    ``ServingPipeline`` under ``trace`` entered on this thread: the
+    worker thread's ranges must reach the trace, every K1 launch lie in
+    ``fdt.postprocess``, and the faces equal ``want_faces``."""
+    import threading
+
+    from face_detection_tflite_torch import (FaceDetectionMode,
+                                             ServingPipeline)
+    from face_detection_tflite_torch.pipeline import timings
+    full = FaceDetectionMode.FULL
+    with ServingPipeline(det, full, depth=2) as pipe:
+        pipe.submit(frames_np).result()   # the worker's first batch
+        _reset_launches()
+        with timings.trace(out_dir):
+            futs = [pipe.submit(frames_np)
+                    for _ in range(SERVE_TRACE_BATCHES)]
+            results = [f.result() for f in futs]
+        launches = _launches()
+    (path,) = [os.path.join(out_dir, f) for f in os.listdir(out_dir)
+               if f.endswith(".pt.trace.json")]
+    main_tid = threading.get_native_id()
+    threads: dict = {}
+    for ev in tool._events(path):
+        if ev.get("cat") == "user_annotation" and \
+                ev.get("name", "").startswith("fdt."):
+            who = "main" if ev.get("tid") == main_tid else "worker"
+            threads.setdefault(who, set()).add(ev["name"])
+    bd = tool.stage_breakdown(path)
+    k1 = _kernel_counts(bd, K1_KERNEL)
+    print(f"trace ServingPipeline ({SERVE_TRACE_BATCHES} FULL batches, "
+          f"depth 2) [{card}]: ranges by thread "
+          f"{ {k: sorted(v) for k, v in threads.items()} }, attributed "
+          f"share {bd['attributed_share']:.4f}, links {bd['links']}, K1 "
+          f"by stage { {k: v for k, v in k1.items() if v} }, wrappers "
+          f"{launches}")
+    if "fdt.postprocess" not in threads.get("worker", ()):
+        raise AssertionError("trace ServingPipeline: the worker thread's "
+                             "ranges did not reach the trace")
+    _only_in(k1, {"fdt.postprocess": launches["detection_postprocess"]},
+             "trace ServingPipeline K1")
+    if any(_face_json(r) != _face_json(want_faces) for r in results):
+        raise AssertionError("trace ServingPipeline: faces differ from "
+                             "the direct calls'")
+
+
+def _trace_phase(device: str = "cuda") -> int:
+    """Step 13, run as ``python3 chip_smoke.py --trace-phase`` in a process
+    of its own (module docstring), on ``device`` (a rehearsal passes
+    "cpu")."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.models import random_init
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    tool = _tool("trace_capture_torch")
+    warm_tool = _tool("warm_torch")
+    frames_np = np.random.default_rng(SEED).integers(
+        0, 256, (FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8)
+    dev = torch.device(device)
+    models = random_init.random_pipeline_models(
+        torch.from_numpy(frames_np).to(dev), seed=SEED)[0]
+    cells = {}
+    with tempfile.TemporaryDirectory(dir=REPO, prefix=".trace_") as tmp:
+        for label, embed in (("FULL", False), ("FULL + embeddings", True)):
+            det = FaceDetector(models=models, device=dev,
+                               max_faces=MAX_FACES, embed_in_full=embed,
+                               allow_untrained_embeddings=True)
+            out = os.path.join(tmp, label.replace(" + ", "_"))
+            cells[label] = _trace_cell(label, det, frames_np, out, tool,
+                                       card)
+            if embed:
+                full_embed = det
+            else:
+                full_det = det
+        ranges = _ranges_a_batch(cells["FULL + embeddings"]["path"], tool,
+                                 TRACE_ITERS)
+        _serving_trace(full_det, frames_np, os.path.join(tmp, "serving"),
+                       tool, card, cells["FULL"]["faces"])
+    full_embed.dispose()
+    steps = warm_tool.warm(full_det, FRAMES)
+    print(f"warm_torch.warm on the FULL detector [{card}]: "
+          + json.dumps([[label.strip(), s] for label, s in steps]))
+    full_det.dispose()
+    us = _range_host_us(ranges)
+    print(f"ranges of a FULL + embeddings batch: {ranges} "
+          f"({sum(round(k) for k in ranges.values())} entries); host cost "
+          f"with no profiler running {us:.2f} us a batch over "
+          f"{RANGE_ROUNDS} rounds  [{card}]")
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3357,6 +3598,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["--trace-phase"]:
+        return _trace_phase()
     from face_detection_tflite_torch import FaceDetectionMode
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
@@ -3607,7 +3850,12 @@ def main() -> int:
                    alone["post_err"], variants["post_err"],
                    tiers["post_err"], cli["post_err"], scale["post_err"])
 
-    # -- 13. result lines -----------------------------------------------------
+    # -- 13. the profiler trace with stage ranges, in a fresh process ----------
+    sys.stdout.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--trace-phase"], check=True, timeout=900)
+
+    # -- 14. result lines -----------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from ..convert.checkpoint import load_params_npz, swap_params
 from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
@@ -325,28 +326,30 @@ class FaceEmbedding:
         self.allow_untrained = allow_untrained
 
     @classmethod
-    def load(cls, path: Optional[str] = None, *,
+    def load(cls, tflite_path: Optional[str] = None, *,
              allow_untrained: bool = False, device=None) -> "FaceEmbedding":
         """Loads a ``mobilefacenet.tflite``, a ``.npz`` checkpoint of the
         JAX ``build_mobilefacenet`` params (``convert/checkpoint.py``,
-        validated), or, for ``path=None``, builds the seeded random-weight
-        network (every embed call then warns with
+        validated), or, for ``tflite_path=None``, builds the seeded
+        random-weight network (every embed call then warns with
         :class:`UntrainedEmbeddingWarning` unless ``allow_untrained``).
+        The parameter keeps the JAX package's name, so a caller passing it
+        by keyword runs on both.
 
         An explicit path that does not exist raises FileNotFoundError:
         falling back there would let a mistyped path produce meaningless
         similarities without a signal."""
-        if path:
-            if not os.path.exists(path):
+        if tflite_path:
+            if not os.path.exists(tflite_path):
                 raise FileNotFoundError(
-                    f"embedding model not found: {path} (pass path=None to "
-                    "use the random-init fallback)")
-            if path.endswith(".npz"):
+                    f"embedding model not found: {tflite_path} (pass "
+                    "tflite_path=None to use the random-init fallback)")
+            if tflite_path.endswith(".npz"):
                 return cls(swap_params(build_mobilefacenet(),
-                                       load_params_npz(path),
+                                       load_params_npz(tflite_path),
                                        name="mobilefacenet-imported"),
                            device=device)
-            return cls(convert_file(path), device=device)
+            return cls(convert_file(tflite_path), device=device)
         return cls(build_mobilefacenet(), allow_untrained=allow_untrained,
                    device=device)
 
@@ -391,7 +394,8 @@ class FaceEmbedding:
     def embed_batch(self, image, eye_pairs) -> np.ndarray:
         """Embeds N faces of ONE image: ``eye_pairs`` is a sequence of
         (left_eye, right_eye) pixel points; returns ``[N, 192]``.  One K2
-        launch cuts the N crops and the network runs once on them."""
+        launch cuts the N crops and the network runs once on them, in the
+        ``fdt.embed`` range."""
         if self.model is None:
             raise RuntimeError("FaceEmbedding has been disposed")
         self._check_trained()
@@ -400,13 +404,15 @@ class FaceEmbedding:
             self._check_roi(a[2])
         if not aligns:
             return np.zeros((0, EMBEDDING_DIM), np.float32)
-        frame = self._frame(image)
-        # Float64 on the host, float32 on the device, as the JAX package.
-        roi = torch.from_numpy(np.asarray(aligns, np.float32).T[:, None]
-                               .copy()).to(self.device)
-        with torch.inference_mode():
-            out = embed_rois(self.model, frame, *roi)
-        return out[0].cpu().numpy()
+        with record_function("fdt.embed"):
+            frame = self._frame(image)
+            # Float64 on the host, float32 on the device, as the JAX
+            # package.
+            roi = torch.from_numpy(np.asarray(aligns, np.float32).T[:, None]
+                                   .copy()).to(self.device)
+            with torch.inference_mode():
+                out = embed_rois(self.model, frame, *roi)
+            return out[0].cpu().numpy()
 
     def dispose(self) -> None:
         """Frees the weights; later embeds raise

@@ -28,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..convert.executor import (ConvertedModel, fp32_on_the_card,
                                 resolve_device)
@@ -319,15 +320,19 @@ class SelfieSegmentation:
         # other 3-D array is a [B, H, W] grayscale batch.
         if images.ndim == 3 and images.shape[-1] in (1, 3, 4):
             images = images[None]
-        images = normalize_channels(images, self.device)
-        b, h, w, _ = images.shape
-        if h < MIN_SEGMENTATION_INPUT_SIZE or w < MIN_SEGMENTATION_INPUT_SIZE:
-            raise ValueError(
-                f"image {w}x{h} is smaller than minimum "
-                f"{MIN_SEGMENTATION_INPUT_SIZE}x{MIN_SEGMENTATION_INPUT_SIZE}")
-        lbp = letterbox_params(h, w, self.in_h, self.in_w)
-        with torch.inference_mode():
-            host, event = download_async(self._planes(model, images, lbp))
+        with record_function("fdt.segmentation"):
+            images = normalize_channels(images, self.device)
+            b, h, w, _ = images.shape
+            if (h < MIN_SEGMENTATION_INPUT_SIZE
+                    or w < MIN_SEGMENTATION_INPUT_SIZE):
+                raise ValueError(
+                    f"image {w}x{h} is smaller than minimum "
+                    f"{MIN_SEGMENTATION_INPUT_SIZE}x"
+                    f"{MIN_SEGMENTATION_INPUT_SIZE}")
+            lbp = letterbox_params(h, w, self.in_h, self.in_w)
+            with torch.inference_mode():
+                host, event = download_async(
+                    self._planes(model, images, lbp))
         return host, event, lbp, b, w, h
 
     def materialize(self, handle) -> list[SegmentationMask]:

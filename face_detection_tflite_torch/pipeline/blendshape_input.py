@@ -25,8 +25,28 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["BLENDSHAPE_LANDMARK_SUBSET", "EYE_REFINE_OFFSETS",
+__all__ = ["BLENDSHAPE_LANDMARK_SUBSET", "BLENDSHAPE_NAMES",
+           "EYE_REFINE_OFFSETS",
            "pack_indices", "pack_blendshape_input"]
+
+# Blendshape V2 output order (`blendshape_input.dart:296-354`, MediaPipe
+# face_blendshapes_graph.cc): the 52 coefficient names, tensor order.
+BLENDSHAPE_NAMES = [
+    "_neutral", "browDownLeft", "browDownRight", "browInnerUp",
+    "browOuterUpLeft", "browOuterUpRight", "cheekPuff", "cheekSquintLeft",
+    "cheekSquintRight", "eyeBlinkLeft", "eyeBlinkRight", "eyeLookDownLeft",
+    "eyeLookDownRight", "eyeLookInLeft", "eyeLookInRight", "eyeLookOutLeft",
+    "eyeLookOutRight", "eyeLookUpLeft", "eyeLookUpRight", "eyeSquintLeft",
+    "eyeSquintRight", "eyeWideLeft", "eyeWideRight", "jawForward", "jawLeft",
+    "jawOpen", "jawRight", "mouthClose", "mouthDimpleLeft",
+    "mouthDimpleRight", "mouthFrownLeft", "mouthFrownRight", "mouthFunnel",
+    "mouthLeft", "mouthLowerDownLeft", "mouthLowerDownRight",
+    "mouthPressLeft", "mouthPressRight", "mouthPucker", "mouthRight",
+    "mouthRollLower", "mouthRollUpper", "mouthShrugLower", "mouthShrugUpper",
+    "mouthSmileLeft", "mouthSmileRight", "mouthStretchLeft",
+    "mouthStretchRight", "mouthUpperUpLeft", "mouthUpperUpRight",
+    "noseSneerLeft", "noseSneerRight",
+]
 
 # kBlendshapeLandmarkSubset (blendshape_input.dart:39-177), verbatim from
 # MediaPipe face_blendshapes_graph.cc kLandmarksSubsetIdxs.

@@ -63,6 +63,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..convert.executor import convert_file
 from ..kernels import build as _build
@@ -99,14 +100,17 @@ _DEFAULT_MODEL_DIR = os.path.join(_JAX_ASSETS, "models")
 
 def resolve_model_dir(model_dir: Optional[str] = None) -> str:
     """The directory holding the ``.tflite`` assets: ``model_dir``,
-    ``$FDT_TPU_MODEL_DIR``, or the JAX package's ``assets/models``."""
-    for c in (model_dir, os.environ.get("FDT_TPU_MODEL_DIR"),
-              _DEFAULT_MODEL_DIR):
-        if c and os.path.isdir(c):
+    ``$FDT_TPU_MODEL_DIR``, or the JAX package's ``assets/models``; the
+    error names the directories it looked in."""
+    looked = [c for c in (model_dir, os.environ.get("FDT_TPU_MODEL_DIR"),
+                          _DEFAULT_MODEL_DIR) if c]
+    for c in looked:
+        if os.path.isdir(c):
             return c
     raise FileNotFoundError(
-        "No model directory found; run `python tools/fetch_models.py`, set "
-        "FDT_TPU_MODEL_DIR, pass model_dir, or pass models=")
+        f"No model directory found (looked in {', '.join(looked)}); run "
+        "`python tools/fetch_models.py`, set FDT_TPU_MODEL_DIR, pass "
+        "model_dir, or pass models=")
 
 
 def _each(out, fn):
@@ -519,28 +523,29 @@ class FaceDetector:
         shard, each from its own device."""
         if isinstance(out, list):
             return [self._fetch_async(o, quant_scale) for o in out]
-        rank = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
-        entries = sorted(
-            ((self._readback_encoding(k, v.dtype, quant_scale), k, v)
-             for k, v in out.items()),
-            key=lambda e: (rank[e[0]], e[1]))
-        segs = []
-        for enc, _, x in entries:
-            x = x.reshape(x.shape[0], -1)
-            if enc == "u8":
-                segs.append(x.to(torch.uint8))
-                continue
-            if enc == "i16":
-                x = torch.clamp(torch.round(x * quant_scale), -32767.0,
-                                32767.0).to(torch.int16)
-            elif enc == "i32":
-                x = x.to(torch.int32)
-            else:
-                x = x.float()
-            segs.append(x.contiguous().view(torch.uint8))
-        buf, event = download_async(torch.cat(segs, dim=1))
-        metas = [(k, tuple(v.shape), e) for e, k, v in entries]
-        return buf, event, metas, quant_scale
+        with record_function("fdt.pack"):
+            rank = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
+            entries = sorted(
+                ((self._readback_encoding(k, v.dtype, quant_scale), k, v)
+                 for k, v in out.items()),
+                key=lambda e: (rank[e[0]], e[1]))
+            segs = []
+            for enc, _, x in entries:
+                x = x.reshape(x.shape[0], -1)
+                if enc == "u8":
+                    segs.append(x.to(torch.uint8))
+                    continue
+                if enc == "i16":
+                    x = torch.clamp(torch.round(x * quant_scale), -32767.0,
+                                    32767.0).to(torch.int16)
+                elif enc == "i32":
+                    x = x.to(torch.int32)
+                else:
+                    x = x.float()
+                segs.append(x.contiguous().view(torch.uint8))
+            buf, event = download_async(torch.cat(segs, dim=1))
+            metas = [(k, tuple(v.shape), e) for e, k, v in entries]
+            return buf, event, metas, quant_scale
 
     def _fetch_finish(self, handle) -> dict:
         if isinstance(handle, list):
@@ -550,27 +555,28 @@ class FaceDetector:
         buf, event, metas, quant_scale = handle
         if event is not None:
             event.synchronize()
-        host = buf.numpy()
-        result = {}
-        off = 0
-        for k, shape, enc in metas:
-            n = int(np.prod(shape[1:]))
-            if enc == "u8":
-                result[k] = (host[:, off:off + n] > 0).reshape(shape)
-                off += n
-            elif enc == "i16":
-                result[k] = (host[:, off:off + 2 * n].view(np.int16)
-                             .astype(np.float32) / quant_scale
-                             ).reshape(shape)
-                off += 2 * n
-            elif enc == "i32":
-                result[k] = host[:, off:off + 4 * n].view(
-                    np.int32).reshape(shape)
-                off += 4 * n
-            else:
-                result[k] = host[:, off:off + 4 * n].view(
-                    np.float32).reshape(shape)
-                off += 4 * n
+        with record_function("fdt.pack"):  # the host half of the readback
+            host = buf.numpy()
+            result = {}
+            off = 0
+            for k, shape, enc in metas:
+                n = int(np.prod(shape[1:]))
+                if enc == "u8":
+                    result[k] = (host[:, off:off + n] > 0).reshape(shape)
+                    off += n
+                elif enc == "i16":
+                    result[k] = (host[:, off:off + 2 * n].view(np.int16)
+                                 .astype(np.float32) / quant_scale
+                                 ).reshape(shape)
+                    off += 2 * n
+                elif enc == "i32":
+                    result[k] = host[:, off:off + 4 * n].view(
+                        np.int32).reshape(shape)
+                    off += 4 * n
+                else:
+                    result[k] = host[:, off:off + 4 * n].view(
+                        np.float32).reshape(shape)
+                    off += 4 * n
         return result
 
     def _fetch(self, out, quant_scale: Optional[float] = None) -> dict:
@@ -587,17 +593,19 @@ class FaceDetector:
     def _rows(out, rows: int):
         """``out`` (a slab dict, or the list of shard dicts of a sharded
         program) without its rows from ``rows`` on: the batch's pad rows,
-        trimmed on the device before the readback.  A shard left with no
-        row is dropped, so its readback never starts."""
-        if isinstance(out, list):
-            n = next(iter(out[0].values())).shape[0]
-            kept = [(o, min(max(rows - i * n, 0), n))
-                    for i, o in enumerate(out)]
-            return [o if r == n else {k: v[:r] for k, v in o.items()}
-                    for o, r in kept if r]
-        if rows < next(iter(out.values())).shape[0]:
-            return {k: v[:rows] for k, v in out.items()}
-        return out
+        trimmed on the device before the readback (in the ``fdt.pack``
+        range).  A shard left with no row is dropped, so its readback
+        never starts."""
+        with record_function("fdt.pack"):
+            if isinstance(out, list):
+                n = next(iter(out[0].values())).shape[0]
+                kept = [(o, min(max(rows - i * n, 0), n))
+                        for i, o in enumerate(out)]
+                return [o if r == n else {k: v[:r] for k, v in o.items()}
+                        for o, r in kept if r]
+            if rows < next(iter(out.values())).shape[0]:
+                return {k: v[:rows] for k, v in out.items()}
+            return out
 
     # -- speculative single-call dispatch ------------------------------------
 
@@ -683,10 +691,12 @@ class FaceDetector:
             nb *= 2
         nb = min(nb, self.max_faces)
         with self.timings.stage(f"face_stages[{nb}]"):
-            out2 = self._face_stage_program(h, w, mode, device)(
-                inputs, *(_each(det, lambda o, k=k: o[k][:, :nb]) for k in (
+            with record_function("fdt.postprocess"):
+                prefix = [_each(det, lambda o, k=k: o[k][:, :nb]) for k in (
                     "det_boxes", "det_raw_keypoints", "det_scores",
-                    "det_valid")))
+                    "det_valid")]
+            out2 = self._face_stage_program(h, w, mode, device)(
+                inputs, *prefix)
         if real_b is not None:
             out2 = self._rows(out2, real_b)
         with self.timings.stage("face_readback"):
@@ -706,8 +716,10 @@ class FaceDetector:
             image = np.asarray(image)
         if image.ndim == 3 and image.shape[-1] in (1, 3, 4):
             image = self._device_put_cached(image)
+        with record_function("fdt.upload"):
+            batch = image[None]
         return self._attach_tracking(
-            self.detect_faces_batch(image[None], mode)[0], gen0)
+            self.detect_faces_batch(batch, mode)[0], gen0)
 
     def _attach_tracking(self, faces: list[Face], gen_snapshot: int
                          ) -> list[Face]:
@@ -762,14 +774,15 @@ class FaceDetector:
         validate_batch_shape(raw.shape)   # before the upload
         if raw.shape[0] == 0:
             return None
-        images = normalize_channels(raw, device or self.device)
-        b, h, w, _ = images.shape
-        pad_rows = self._batch_pad_target(b) - b
-        hb, wb = ((self._bucket(h), self._bucket(w)) if self.bucket_images
-                  else (h, w))
-        if (pad_rows, hb, wb) != (0, h, w):
-            images = torch.nn.functional.pad(
-                images, (0, 0, 0, wb - w, 0, hb - h, 0, pad_rows))
+        with record_function("fdt.upload"):
+            images = normalize_channels(raw, device or self.device)
+            b, h, w, _ = images.shape
+            pad_rows = self._batch_pad_target(b) - b
+            hb, wb = ((self._bucket(h), self._bucket(w))
+                      if self.bucket_images else (h, w))
+            if (pad_rows, hb, wb) != (0, h, w):
+                images = torch.nn.functional.pad(
+                    images, (0, 0, 0, wb - w, 0, hb - h, 0, pad_rows))
         return images, b, (w, h)
 
     def detect_faces_batch_stream(self, batches,
@@ -959,25 +972,26 @@ class FaceDetector:
         853x1280 frame), which catches most in-place reuse of a caller's
         buffer; an edit confined to unsampled bytes is not caught.  A
         checksum of the whole frame would tax every detection that never
-        embeds."""
-        if isinstance(arr, torch.Tensor):
-            return upload(arr, self.device)
-        arr = np.ascontiguousarray(arr)
+        embeds.  The upload runs in the ``fdt.upload`` range."""
+        with record_function("fdt.upload"):
+            if isinstance(arr, torch.Tensor):
+                return upload(arr, self.device)
+            arr = np.ascontiguousarray(arr)
 
-        def sentinel(a: np.ndarray) -> int:
-            flat = a.reshape(-1).view(np.uint8)
-            step = max(1, flat.size // 65536)
-            return zlib.adler32(np.ascontiguousarray(flat[::step]))
+            def sentinel(a: np.ndarray) -> int:
+                flat = a.reshape(-1).view(np.uint8)
+                step = max(1, flat.size // 65536)
+                return zlib.adler32(np.ascontiguousarray(flat[::step]))
 
-        with self._devput_lock:
-            cached = self._devput_cache
-            if (cached is not None and cached[0] is arr
-                    and cached[1] == sentinel(arr)):
-                return cached[2]
-        dev = upload(arr, self.device)
-        with self._devput_lock:
-            self._devput_cache = (arr, sentinel(arr), dev)
-        return dev
+            with self._devput_lock:
+                cached = self._devput_cache
+                if (cached is not None and cached[0] is arr
+                        and cached[1] == sentinel(arr)):
+                    return cached[2]
+            dev = upload(arr, self.device)
+            with self._devput_lock:
+                self._devput_cache = (arr, sentinel(arr), dev)
+            return dev
 
     def warmup(self, image_shape: tuple, batch_size: int = 1,
                modes: Optional[Sequence[FaceDetectionMode]] = None,

@@ -13,6 +13,13 @@ plain function over an image batch ``[B, H, W, 3]``:
     -> eye alignment -> K2 at 112 px -> MobileFaceNet -> L2
                                           (full, ``with_embeddings``)
 
+Each stage runs in a ``torch.profiler.record_function`` range of a fixed
+name (``fdt.letterbox``, ``fdt.detector``, ``fdt.postprocess``,
+``fdt.mesh``, ``fdt.iris``, ``fdt.blendshapes``, ``fdt.refine``,
+``fdt.embedding``; ``pipeline/timings.py``), so that a trace attributes
+every op of a program to exactly one stage.  The ranges reorder and split
+no op.
+
 Dynamic face counts are fixed-size slabs with validity masks.  Batch
 dimensions are written out: the detector runs once on ``[B, S, S, 3]``
 (S = 256 for BACK_CAMERA, 128 for FRONT_CAMERA and SHORT_RANGE, 192 for
@@ -30,6 +37,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..convert.executor import (ConvertedModel, fp32_on_the_card,
                                 resolve_device)
@@ -221,61 +229,72 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         raise ValueError("with_embeddings requires the embedding model")
 
     def detect_stage(images):
-        x = letterbox_image(images, lbp)
-        raw_boxes, raw_scores = _identify_detector_outputs(models.detector(x))
-        # decode -> weighted NMS -> letterbox removal: one kernel launch.
-        boxes, kp, scores, valid = detection_postprocess(
-            raw_boxes, raw_scores, models.anchors, float(size), lbp.padding,
-            max_detections=max_faces, num_candidates=num_candidates)
-        valid = apply_detection_gates_mask(
-            valid, scores, boxes, min_score=min_score,
-            min_face_size=min_face_size, image_width=float(img_w))
+        with record_function("fdt.letterbox"):
+            x = letterbox_image(images, lbp)
+        with record_function("fdt.detector"):
+            raw_boxes, raw_scores = _identify_detector_outputs(
+                models.detector(x))
+        with record_function("fdt.postprocess"):
+            # decode -> weighted NMS -> letterbox removal: one launch.
+            boxes, kp, scores, valid = detection_postprocess(
+                raw_boxes, raw_scores, models.anchors, float(size),
+                lbp.padding, max_detections=max_faces,
+                num_candidates=num_candidates)
+            valid = apply_detection_gates_mask(
+                valid, scores, boxes, min_score=min_score,
+                min_face_size=min_face_size, image_width=float(img_w))
         return boxes, kp, scores, valid
 
     def mesh_stage(images, kp, valid):
-        theta, cx, cy, fsize = geometry.compute_face_alignment(
-            kp, float(img_w), float(img_h))
-        # Degenerate-size drop (face_detector_core.dart:258-263).
-        valid = valid & (torch.floor(fsize + 0.5) > 0)
-        # The reference warps with the NEGATED alignment angle
-        # (face_detector_core.dart:489) and maps back with +theta.
-        crops = extract_rois_normalized(images, cx, cy, fsize, -theta,
-                                        out_size=MESH_INPUT_SIZE)
-        b, f = crops.shape[:2]
-        lm_flat, score_raw = _identify_landmark_outputs(
-            models.mesh(crops.reshape(b * f, MESH_INPUT_SIZE,
-                                      MESH_INPUT_SIZE, 3)))
-        if score_raw is None:
-            score_raw = torch.zeros(b * f, device=crops.device)
-        lm_norm = _unpack_landmarks(lm_flat.reshape(b, f, -1),
-                                    MESH_INPUT_SIZE, clamp=True,
-                                    normalize_z=True)
-        mesh_abs = geometry.transform_mesh_to_absolute(lm_norm, cx, cy, fsize,
-                                                       theta)
-        return mesh_abs, _sigmoid_clipped(score_raw.reshape(b, f)), valid
+        with record_function("fdt.mesh"):
+            theta, cx, cy, fsize = geometry.compute_face_alignment(
+                kp, float(img_w), float(img_h))
+            # Degenerate-size drop (face_detector_core.dart:258-263).
+            valid = valid & (torch.floor(fsize + 0.5) > 0)
+            # The reference warps with the NEGATED alignment angle
+            # (face_detector_core.dart:489) and maps back with +theta.
+            crops = extract_rois_normalized(images, cx, cy, fsize, -theta,
+                                            out_size=MESH_INPUT_SIZE)
+            b, f = crops.shape[:2]
+            lm_flat, score_raw = _identify_landmark_outputs(
+                models.mesh(crops.reshape(b * f, MESH_INPUT_SIZE,
+                                          MESH_INPUT_SIZE, 3)))
+            if score_raw is None:
+                score_raw = torch.zeros(b * f, device=crops.device)
+            lm_norm = _unpack_landmarks(lm_flat.reshape(b, f, -1),
+                                        MESH_INPUT_SIZE, clamp=True,
+                                        normalize_z=True)
+            mesh_abs = geometry.transform_mesh_to_absolute(
+                lm_norm, cx, cy, fsize, theta)
+            return (mesh_abs, _sigmoid_clipped(score_raw.reshape(b, f)),
+                    valid)
 
     def iris_stage(images, mesh_abs):
         """[B, F, 152, 3] absolute iris stream: two eye crops per face,
         the right eye mirrored, warped with the un-negated eye angle
         (face_detector_core.dart:544-556)."""
-        b, f = mesh_abs.shape[:2]
-        ecx, ecy, esize, etheta = (t.reshape(b, 2 * f) for t in
-                                   geometry.eye_rois_from_mesh(mesh_abs))
-        # Odd slots are right eyes; made on the device (no host copy).
-        flip = (torch.arange(2 * f, device=mesh_abs.device) % 2 == 1
-                ).expand(b, 2 * f)
-        crops = extract_rois_normalized(images, ecx, ecy, esize, etheta,
-                                        out_size=IRIS_INPUT_SIZE, flip=flip)
-        outs = models.iris(crops.reshape(b * 2 * f, IRIS_INPUT_SIZE,
-                                         IRIS_INPUT_SIZE, 3))
-        # All outputs in graph order: 71 * 3 contour, then 5 * 3 iris.
-        pts_flat = torch.cat([o.reshape(b * 2 * f, -1) for o in outs], 1)
-        pts = _unpack_landmarks(pts_flat.reshape(b, 2 * f, -1),
-                                IRIS_INPUT_SIZE, clamp=False,
-                                normalize_z=False)     # [B, 2F, 76, 3]
-        abs_pts = geometry.transform_iris_norm_to_absolute(
-            pts, ecx, ecy, esize, etheta, flip[..., None])
-        return abs_pts.reshape(b, f, 152, 3)
+        with record_function("fdt.iris"):
+            b, f = mesh_abs.shape[:2]
+            ecx, ecy, esize, etheta = (
+                t.reshape(b, 2 * f)
+                for t in geometry.eye_rois_from_mesh(mesh_abs))
+            # Odd slots are right eyes; made on the device (no host copy).
+            flip = (torch.arange(2 * f, device=mesh_abs.device) % 2 == 1
+                    ).expand(b, 2 * f)
+            crops = extract_rois_normalized(
+                images, ecx, ecy, esize, etheta, out_size=IRIS_INPUT_SIZE,
+                flip=flip)
+            outs = models.iris(crops.reshape(b * 2 * f, IRIS_INPUT_SIZE,
+                                             IRIS_INPUT_SIZE, 3))
+            # All outputs in graph order: 71 * 3 contour, then 5 * 3 iris.
+            pts_flat = torch.cat([o.reshape(b * 2 * f, -1) for o in outs],
+                                 1)
+            pts = _unpack_landmarks(pts_flat.reshape(b, 2 * f, -1),
+                                    IRIS_INPUT_SIZE, clamp=False,
+                                    normalize_z=False)     # [B, 2F, 76, 3]
+            abs_pts = geometry.transform_iris_norm_to_absolute(
+                pts, ecx, ecy, esize, etheta, flip[..., None])
+            return abs_pts.reshape(b, f, 152, 3)
 
     def blendshape_stage(mesh_abs, iris_abs):
         """([B, F, 52] coefficients, [B, F] no-NaN flags): NaN-sanitized
@@ -289,14 +308,16 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
 
     def refine_keypoints(kp, iris_abs):
         """Iris-refined eye keypoints (face_detector_core.dart:356-373)."""
-        left = geometry.iris_center_from_points(iris_abs[..., 71:76, :])
-        right = geometry.iris_center_from_points(iris_abs[..., 147:152, :])
-        kp = kp.clone()
-        kp[..., 0, 0] = left[..., 0] / img_w
-        kp[..., 0, 1] = left[..., 1] / img_h
-        kp[..., 1, 0] = right[..., 0] / img_w
-        kp[..., 1, 1] = right[..., 1] / img_h
-        return kp
+        with record_function("fdt.refine"):
+            left = geometry.iris_center_from_points(iris_abs[..., 71:76, :])
+            right = geometry.iris_center_from_points(
+                iris_abs[..., 147:152, :])
+            kp = kp.clone()
+            kp[..., 0, 0] = left[..., 0] / img_w
+            kp[..., 0, 1] = left[..., 1] / img_h
+            kp[..., 1, 0] = right[..., 0] / img_w
+            kp[..., 1, 1] = right[..., 1] / img_h
+            return kp
 
     def embedding_stage(images, refined_kp):
         """[B, F, 192] embeddings, aligned (`face_embedding.dart:362-384`)
@@ -304,30 +325,37 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         getFaceEmbedding does (face_detector.dart:703-711): K2 at 112 px
         on all [B, F] ROIs in one launch, then MobileFaceNet once
         (:func:`embed_rois`, shared with ``FaceEmbedding``)."""
-        cx, cy, esize, theta = alignment_from_eyes(
-            refined_kp[..., 0, 0] * img_w, refined_kp[..., 0, 1] * img_h,
-            refined_kp[..., 1, 0] * img_w, refined_kp[..., 1, 1] * img_h)
-        return embed_rois(models.embedding, images, cx, cy, esize, theta)
+        with record_function("fdt.embedding"):
+            cx, cy, esize, theta = alignment_from_eyes(
+                refined_kp[..., 0, 0] * img_w,
+                refined_kp[..., 0, 1] * img_h,
+                refined_kp[..., 1, 0] * img_w,
+                refined_kp[..., 1, 1] * img_h)
+            return embed_rois(models.embedding, images, cx, cy, esize,
+                              theta)
 
     def face_stages(images, boxes, kp, scores, valid):
         out = {"boxes": boxes, "raw_keypoints": kp, "scores": scores,
                "valid": valid}
         if not compute_mesh:
             # FAST still drops degenerate alignments
-            # (face_detector_core.dart:258-266).
-            _, _, _, fsize = geometry.compute_face_alignment(
-                kp, float(img_w), float(img_h))
-            out["valid"] = valid & (torch.floor(fsize + 0.5) > 0)
+            # (face_detector_core.dart:258-266), a gate of the detections.
+            with record_function("fdt.postprocess"):
+                _, _, _, fsize = geometry.compute_face_alignment(
+                    kp, float(img_w), float(img_h))
+                out["valid"] = valid & (torch.floor(fsize + 0.5) > 0)
             return out
         mesh_abs, mesh_scores, valid = mesh_stage(images, kp, valid)
         out.update(mesh=mesh_abs, mesh_scores=mesh_scores, valid=valid)
         if not compute_iris:
             return out
         iris_abs = iris_stage(images, mesh_abs)
-        coeffs, bs_ok = blendshape_stage(mesh_abs, iris_abs)
+        with record_function("fdt.blendshapes"):
+            coeffs, bs_ok = blendshape_stage(mesh_abs, iris_abs)
+            bs_valid = bs_ok & valid
+            angles = geometry.head_euler_angles_from_mesh(mesh_abs)
         out.update(iris=iris_abs, blendshapes=coeffs,
-                   blendshapes_valid=bs_ok & valid,
-                   head_angles=geometry.head_euler_angles_from_mesh(mesh_abs),
+                   blendshapes_valid=bs_valid, head_angles=angles,
                    keypoints=refine_keypoints(kp, iris_abs))
         if with_embeddings:
             out["embeddings"] = embedding_stage(images, out["keypoints"])
@@ -342,20 +370,25 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
 
     def program(images):
         boxes, kp, scores, valid = detect_stage(images)
+        with record_function("fdt.postprocess"):
+            if slab < max_faces:
+                # Compact valid detections to the front, stably, before
+                # taking the speculative prefix (gates can invalidate a
+                # higher-scored entry while a lower-scored one stays
+                # valid).
+                order = torch.argsort((~valid).to(torch.uint8), dim=1,
+                                      stable=True)
+                boxes, kp, scores, valid = (
+                    _take(t, order) for t in (boxes, kp, scores, valid))
+            prefix = (boxes[:, :slab], kp[:, :slab], scores[:, :slab],
+                      valid[:, :slab])
+        out = face_stages(images, *prefix)
         if slab < max_faces:
-            # Compact valid detections to the front, stably, before taking
-            # the speculative prefix (gates can invalidate a higher-scored
-            # entry while a lower-scored one stays valid).
-            order = torch.argsort((~valid).to(torch.uint8), dim=1,
-                                  stable=True)
-            boxes, kp, scores, valid = (_take(t, order)
-                                        for t in (boxes, kp, scores, valid))
-        out = face_stages(images, boxes[:, :slab], kp[:, :slab],
-                          scores[:, :slab], valid[:, :slab])
-        if slab < max_faces:
+            with record_function("fdt.postprocess"):
+                det_count = valid.sum(dim=1, dtype=torch.int32)
             out.update(det_boxes=boxes, det_raw_keypoints=kp,
                        det_scores=scores, det_valid=valid,
-                       det_count=valid.sum(dim=1, dtype=torch.int32))
+                       det_count=det_count)
         return out
 
     return program

@@ -25,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..convert.executor import resolve_device
 from .config import FaceDetectionMode
@@ -113,7 +114,8 @@ class ServingPipeline:
         # Shape first, so a malformed batch raises here and not in the
         # worker's stream.
         validate_batch_shape(images.shape)
-        images = upload(images, self._device or self._det.device)
+        with record_function("fdt.upload"):
+            images = upload(images, self._device or self._det.device)
         # The stream of the pipeline's device current on this thread, not
         # of this thread's current device.
         stream = (torch.cuda.current_stream(images.device)

@@ -4,19 +4,32 @@ Analog of the reference's stopwatch instrumentation: `WebDetectTimings`
 (`face_detector_web.dart:33-57`, per-stage µs gated on `debugTimings`) and
 the detect/segment stage stopwatches (`face_detector.dart:1303-1316`).
 Stage boundaries here are the host-visible ones of the speculative
-dispatch (program, overflow face stages, readback); kernel-level
-attribution is the job of ``torch.profiler`` or CUDA events.
+dispatch (program, overflow face stages, readback).  Inside a program,
+each stage runs in a ``torch.profiler.record_function`` range of a fixed
+name (``fdt.letterbox``, ``fdt.detector``, ``fdt.postprocess``,
+``fdt.mesh``, ``fdt.iris``, ``fdt.blendshapes``, ``fdt.refine``,
+``fdt.embedding``; ``fdt.upload`` and ``fdt.pack`` around the batch's
+upload and readback, ``fdt.segmentation`` and ``fdt.embed`` around the
+segmenter's and ``FaceEmbedding``'s own calls), the counterpart of the
+op metadata that ties XLA's fusions to the JAX package's stage
+functions; use
+:func:`trace` to capture a ``torch.profiler`` trace and
+``tools/trace_capture_torch.py`` to read its device time by stage.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
 from typing import Iterator
 
-__all__ = ["DetectTimings", "FpsCounter"]
+__all__ = ["DetectTimings", "FpsCounter", "trace"]
+
+#: Chrome-trace categories of device activities.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 class DetectTimings:
@@ -81,3 +94,62 @@ class FpsCounter:
             return 0.0
         dt = self._times[-1] - self._times[0]
         return (len(self._times) - 1) / dt if dt > 0 else 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Captures a ``torch.profiler`` trace of the calls inside the window
+    and writes it as a Chrome trace under ``log_dir`` on exit, named as
+    ``tensorboard_trace_handler`` names it
+    (``<host>_<pid>.<ns>.pt.trace.json``; ``tools/trace_capture*.py`` glob
+    for it).
+
+    It records CPU activities, and CUDA activities (kernels, copies, the
+    runtime calls that launched them) whenever CUDA is available; ops are
+    grouped by input shape, and no Python stacks are taken (they cost a
+    lookup an op).  Every thread that runs while the window is open is
+    recorded (``profile_all_threads``), so a ``ServingPipeline`` or
+    ``ReplicaPool`` worker started before the window reaches the trace.
+    With CUDA, the card is synchronised at both ends of the window, so
+    every kernel queued inside it is in the trace, and one empty marker
+    kernel is launched at its start; a trace that then holds no device
+    activity raises RuntimeError on exit (the profiler lost its device
+    records): no CPU-only trace is passed off as a whole one."""
+    import socket
+
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=activities, record_shapes=True,
+                 with_stack=False, experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
+        if cuda:
+            torch.cuda._sleep(0)  # the marker: one device activity at least
+        try:
+            yield
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+    path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}."
+                                 f"{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if cuda and not _device_activities(path):
+        raise RuntimeError(
+            f"trace: the profiler recorded no device activity although "
+            f"CUDA work ran in the window ({path} holds the CPU side only)")
+
+
+def _device_activities(path: str) -> int:
+    """The count of device activities (kernels, copies, memsets) in the
+    Chrome trace at ``path``."""
+    import json
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") in DEVICE_CATEGORIES)

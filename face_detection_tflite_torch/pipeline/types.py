@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
+from .blendshape_input import BLENDSHAPE_NAMES
 from .geometry import (MESH_CHIN_BOTTOM, MESH_FOREHEAD_TOP, MESH_LEFT_CHEEK,
                        MESH_RIGHT_CHEEK)
 
@@ -30,25 +31,6 @@ __all__ = [
 
 MESH_POINTS = 468
 
-# Blendshape V2 output order (`blendshape_input.dart`, MediaPipe
-# face_blendshapes_graph.cc), copied from the JAX package's
-# ``pipeline/blendshape_input.py``.
-BLENDSHAPE_NAMES = [
-    "_neutral", "browDownLeft", "browDownRight", "browInnerUp",
-    "browOuterUpLeft", "browOuterUpRight", "cheekPuff", "cheekSquintLeft",
-    "cheekSquintRight", "eyeBlinkLeft", "eyeBlinkRight", "eyeLookDownLeft",
-    "eyeLookDownRight", "eyeLookInLeft", "eyeLookInRight", "eyeLookOutLeft",
-    "eyeLookOutRight", "eyeLookUpLeft", "eyeLookUpRight", "eyeSquintLeft",
-    "eyeSquintRight", "eyeWideLeft", "eyeWideRight", "jawForward", "jawLeft",
-    "jawOpen", "jawRight", "mouthClose", "mouthDimpleLeft",
-    "mouthDimpleRight", "mouthFrownLeft", "mouthFrownRight", "mouthFunnel",
-    "mouthLeft", "mouthLowerDownLeft", "mouthLowerDownRight",
-    "mouthPressLeft", "mouthPressRight", "mouthPucker", "mouthRight",
-    "mouthRollLower", "mouthRollUpper", "mouthShrugLower", "mouthShrugUpper",
-    "mouthSmileLeft", "mouthSmileRight", "mouthStretchLeft",
-    "mouthStretchRight", "mouthUpperUpLeft", "mouthUpperUpRight",
-    "noseSneerLeft", "noseSneerRight",
-]
 MAX_EYE_LANDMARK = 15
 
 

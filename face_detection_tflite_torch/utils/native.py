@@ -24,7 +24,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 __all__ = ["load_runtime", "runtime_status", "native_available",
-           "ImageDecoderPool"]
+           "ImageDecoderPool", "JpegDecoderPool"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RUNTIME_DIR = os.path.join(os.path.dirname(_PKG), "runtime")
@@ -180,3 +180,7 @@ class ImageDecoderPool:
             self.close()
         except Exception:
             pass
+
+
+#: The JAX package's name of the pool, from when it decoded only JPEG.
+JpegDecoderPool = ImageDecoderPool

@@ -1,8 +1,9 @@
-"""The PyTorch port stands alone: no module of it, nor ``chip_smoke.py``,
-imports ``jax`` or the JAX package; and its entry points refuse to run on
-the CPU unless asked to."""
+"""The PyTorch port stands alone: no module of it, nor ``chip_smoke.py``
+nor the port's tools (``tools/*_torch.py``), imports ``jax`` or the JAX
+package; and its entry points refuse to run on the CPU unless asked to."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "face_detection_tflite_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
+TOOLS = sorted(glob.glob(os.path.join(REPO, "tools", "*_torch.py")))
 
 
 def _port_modules() -> list[str]:
@@ -27,7 +29,7 @@ def _port_modules() -> list[str]:
 
 
 def _port_files() -> list[str]:
-    files = [SMOKE]
+    files = [SMOKE, *TOOLS]
     for root, _dirs, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in sorted(names)
                   if n.endswith(".py")]
@@ -43,7 +45,8 @@ def test_every_module_imports_without_jax():
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "import runpy\n"
-        f"runpy.run_path({SMOKE!r}, run_name='chip_smoke')\n"
+        f"for path in {[SMOKE, *TOOLS]!r}:\n"
+        "    runpy.run_path(path, run_name='imported')\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)

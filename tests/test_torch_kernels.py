@@ -871,3 +871,53 @@ def test_data_parallel_two_shards_on_one_card(cuda_device, monkeypatch):
         assert max(abs(gb.xmin - wb.xmin), abs(gb.ymin - wb.ymin),
                    abs(gb.xmax - wb.xmax), abs(gb.ymax - wb.ymax)) <= 1e-5
         assert abs(g.score - w.score) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_trace_puts_each_kernel_launch_in_its_stage(cuda_device, tmp_path):
+    """``pipeline.timings.trace`` on the card with the stage ranges: the
+    trace holds device records, ``stage_breakdown`` puts every K1 launch
+    in ``fdt.postprocess`` and every K2 launch in ``fdt.mesh`` (192 px),
+    ``fdt.iris`` (64 px) or ``fdt.embedding`` (112 px), equal to the
+    wrappers' counts, the pinned upload in ``fdt.upload``, and at least
+    98% of the device time in the ranges."""
+    import importlib.util
+    import os
+
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.pipeline import timings
+    spec = importlib.util.spec_from_file_location(
+        "trace_capture_torch", os.path.join(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))), "tools",
+            "trace_capture_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    frames = np.random.default_rng(5).integers(0, 256, (4, 427, 640, 3),
+                                               dtype=np.uint8)
+    models, *_ = random_init.random_pipeline_models(
+        torch.from_numpy(frames).to(cuda_device), seed=3, detector_blocks=1,
+        mesh_blocks=1, iris_blocks=1, mixer_blocks=1)
+    det = FaceDetector(models=models, device=cuda_device, embed_in_full=True,
+                       allow_untrained_embeddings=True)
+    for _ in range(2):
+        det.detect_faces_batch(frames)
+    post = detections.detection_postprocess.launches
+    by_size = dict(warp.warp_normalize.launches_by_size)
+    path, faces = tool.capture(det, frames, str(tmp_path), 2, warm=0)
+    assert sum(len(f) for f in faces[-1]) >= 4
+    k2 = {s: n - by_size.get(s, 0)
+          for s, n in warp.warp_normalize.launches_by_size.items()}
+    bd = tool.stage_breakdown(path)
+
+    def count(kernel):
+        return {stage: sum(n for name, (_, n) in row["by_name"].items()
+                           if kernel in name)
+                for stage, row in bd["stages"].items()
+                if any(kernel in name for name in row["by_name"])}
+    assert count("detection_postprocess_kernel") == {
+        "fdt.postprocess": detections.detection_postprocess.launches - post}
+    assert count("warp_normalize_kernel") == {
+        "fdt.mesh": k2[192], "fdt.iris": k2[64], "fdt.embedding": k2[112]}
+    assert count("Memcpy HtoD") == {"fdt.upload": 2}
+    assert bd["attributed_share"] >= 0.98
+    det.dispose()
