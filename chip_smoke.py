@@ -200,9 +200,13 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    the traced batches' faces equal the same batches' untraced bit for
    bit; then 2 batches through ``ServingPipeline`` under the trace (the
    worker thread's ranges must reach it, K1 in its ``fdt.postprocess``,
-   faces equal the direct calls'), ``tools/warm_torch.py``'s ``warm`` on
-   the FULL detector (seconds a step), and the host cost of a FULL batch's
-   ranges with no profiler running (µs a batch, over 10,000 rounds);
+   faces equal the direct calls'), one traced ``detect_faces`` and one
+   traced ``detect_faces_from_camera_frame`` at B = 1 (their ranges
+   counted), ``tools/warm_torch.py``'s ``warm`` on the FULL detector
+   (seconds a step), and the host cost of the ranges of a FULL +
+   embeddings batch and of each B = 1 call with no profiler running (µs a
+   call through ``stage_range``, as the port enters them, and through
+   ``record_function`` alone, over 10,000 rounds, beside the call's ms);
 14. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
@@ -3468,21 +3472,66 @@ def _trace_cell(label: str, det, frames_np, out_dir: str, tool,
     return {"path": path, "faces": untraced[-1]}
 
 
-def _range_host_us(ranges: dict) -> float:
-    """Host µs of entering and leaving a batch's ranges (``ranges``:
-    {name: entries a batch}, rounded to whole entries) with no profiler
-    running: a host clock over :data:`RANGE_ROUNDS` rounds."""
+def _range_host_us(ranges: dict, gated: bool) -> float:
+    """Host µs of entering and leaving a call's ranges (``ranges``:
+    {name: entries a call}, rounded to whole entries) with no profiler
+    running, through ``timings.stage_range`` as the port enters them
+    (``gated``) or through ``record_function`` itself: a host clock over
+    :data:`RANGE_ROUNDS` rounds."""
     from torch.profiler import record_function
+
+    from face_detection_tflite_torch.pipeline import timings
+    enter = timings.stage_range if gated else record_function
     names = [name for name, k in ranges.items() for _ in range(round(k))]
     for name in names:
-        with record_function(name):
+        with enter(name):
             pass
     t0 = time.perf_counter()
     for _ in range(RANGE_ROUNDS):
         for name in names:
-            with record_function(name):
+            with enter(name):
                 pass
     return (time.perf_counter() - t0) * 1e6 / RANGE_ROUNDS
+
+
+def _single_frame_ranges(det, frame, out_dir: str, tool) -> dict:
+    """{path: ({range: entries a call}, median ms a call untraced)} of the
+    B = 1 paths on ``frame``: ``detect_faces`` and
+    ``detect_faces_from_camera_frame`` (an RGBA frame, decoded on the
+    host), each traced for one warm call."""
+    from face_detection_tflite_torch.pipeline import timings
+    from face_detection_tflite_torch.utils.camera import \
+        camera_frame_from_image
+    cam = camera_frame_from_image(frame)
+    out = {}
+    for label, call in (
+            ("detect_faces", lambda: det.detect_faces(frame)),
+            ("detect_faces_from_camera_frame",
+             lambda: det.detect_faces_from_camera_frame(cam))):
+        call()
+        call()
+        d = os.path.join(out_dir, label)
+        with timings.trace(d):
+            call()
+        (path,) = [os.path.join(d, f) for f in os.listdir(d)
+                   if f.endswith(".pt.trace.json")]
+        out[label] = (_ranges_a_batch(path, tool, 1),
+                      _median_ms(call, iters=10, warmup=1))
+    return out
+
+
+def _print_range_cost(label: str, ranges: dict, call_ms: float,
+                      card: str) -> None:
+    """The ranges' host cost of one call of ``label`` as the port enters
+    them (no profiler running) and as ``record_function`` alone would."""
+    n = sum(round(k) for k in ranges.values())
+    gated, plain = _range_host_us(ranges, True), _range_host_us(ranges,
+                                                                False)
+    print(f"ranges of {label}: {ranges} ({n} entries); host cost with no "
+          f"profiler running {gated:.3f} us a call through stage_range "
+          f"({gated / n:.3f} us an entry; {plain:.2f} us through "
+          f"record_function alone), over {RANGE_ROUNDS} rounds; the call "
+          f"{call_ms:.3f} ms untraced  [{card}]")
 
 
 def _serving_trace(det, frames_np, out_dir: str, tool, card: str,
@@ -3568,20 +3617,22 @@ def _trace_phase(device: str = "cuda") -> int:
                 full_embed = det
             else:
                 full_det = det
-        ranges = _ranges_a_batch(cells["FULL + embeddings"]["path"], tool,
-                                 TRACE_ITERS)
+        ranges = {"a FULL + embeddings batch": (
+            _ranges_a_batch(cells["FULL + embeddings"]["path"], tool,
+                            TRACE_ITERS),
+            _median_ms(lambda: full_embed.detect_faces_batch(frames_np),
+                       iters=5, warmup=1))}
         _serving_trace(full_det, frames_np, os.path.join(tmp, "serving"),
                        tool, card, cells["FULL"]["faces"])
+        ranges.update(_single_frame_ranges(
+            full_det, frames_np[0], os.path.join(tmp, "single"), tool))
     full_embed.dispose()
     steps = warm_tool.warm(full_det, FRAMES)
     print(f"warm_torch.warm on the FULL detector [{card}]: "
           + json.dumps([[label.strip(), s] for label, s in steps]))
     full_det.dispose()
-    us = _range_host_us(ranges)
-    print(f"ranges of a FULL + embeddings batch: {ranges} "
-          f"({sum(round(k) for k in ranges.values())} entries); host cost "
-          f"with no profiler running {us:.2f} us a batch over "
-          f"{RANGE_ROUNDS} rounds  [{card}]")
+    for label, (r, call_ms) in ranges.items():
+        _print_range_cost(label, r, call_ms, card)
     return 0
 
 

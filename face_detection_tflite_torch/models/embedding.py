@@ -34,7 +34,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ..convert.checkpoint import load_params_npz, swap_params
 from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
@@ -42,6 +41,7 @@ from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
                                 fp32_on_the_card, resolve_device)
 from ..ops.warp import extract_rois_normalized
 from ..pipeline.config import EMBEDDING_DIM, EMBEDDING_INPUT_SIZE
+from ..pipeline.timings import stage_range
 
 __all__ = ["compute_embedding_alignment", "alignment_from_eyes",
            "embed_rois", "FaceEmbedding", "MobileFaceNet", "cosine_similarity",
@@ -404,7 +404,7 @@ class FaceEmbedding:
             self._check_roi(a[2])
         if not aligns:
             return np.zeros((0, EMBEDDING_DIM), np.float32)
-        with record_function("fdt.embed"):
+        with stage_range("fdt.embed"):
             frame = self._frame(image)
             # Float64 on the host, float32 on the device, as the JAX
             # package.

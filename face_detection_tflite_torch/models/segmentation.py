@@ -28,11 +28,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert.executor import (ConvertedModel, fp32_on_the_card,
                                 resolve_device)
 from ..ops.letterbox import letterbox_image, letterbox_params
+from ..pipeline.timings import stage_range
 from ..pipeline.upload import download_async
 from ..utils.image import decode_image, normalize_channels
 
@@ -320,7 +320,7 @@ class SelfieSegmentation:
         # other 3-D array is a [B, H, W] grayscale batch.
         if images.ndim == 3 and images.shape[-1] in (1, 3, 4):
             images = images[None]
-        with record_function("fdt.segmentation"):
+        with stage_range("fdt.segmentation"):
             images = normalize_channels(images, self.device)
             b, h, w, _ = images.shape
             if (h < MIN_SEGMENTATION_INPUT_SIZE

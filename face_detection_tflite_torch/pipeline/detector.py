@@ -63,7 +63,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert.executor import convert_file
 from ..kernels import build as _build
@@ -80,7 +79,7 @@ from .config import (DEFAULT_MAX_MISSED_FRAMES,
 from .gates import validate_face_gates
 from .programs import (PipelineModels, build_pipeline_program,
                        network_precision, resolve_device)
-from .timings import DetectTimings
+from .timings import DetectTimings, stage_range
 from .tracker import TemporalFaceTracker, validate_tracking_config
 from .types import Detection, Face, FaceMesh, RectF
 from .types import split_meshes_if_concatenated as _split_meshes
@@ -523,7 +522,7 @@ class FaceDetector:
         shard, each from its own device."""
         if isinstance(out, list):
             return [self._fetch_async(o, quant_scale) for o in out]
-        with record_function("fdt.pack"):
+        with stage_range("fdt.pack"):
             rank = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
             entries = sorted(
                 ((self._readback_encoding(k, v.dtype, quant_scale), k, v)
@@ -555,7 +554,7 @@ class FaceDetector:
         buf, event, metas, quant_scale = handle
         if event is not None:
             event.synchronize()
-        with record_function("fdt.pack"):  # the host half of the readback
+        with stage_range("fdt.pack"):  # the host half of the readback
             host = buf.numpy()
             result = {}
             off = 0
@@ -596,7 +595,7 @@ class FaceDetector:
         trimmed on the device before the readback (in the ``fdt.pack``
         range).  A shard left with no row is dropped, so its readback
         never starts."""
-        with record_function("fdt.pack"):
+        with stage_range("fdt.pack"):
             if isinstance(out, list):
                 n = next(iter(out[0].values())).shape[0]
                 kept = [(o, min(max(rows - i * n, 0), n))
@@ -691,7 +690,7 @@ class FaceDetector:
             nb *= 2
         nb = min(nb, self.max_faces)
         with self.timings.stage(f"face_stages[{nb}]"):
-            with record_function("fdt.postprocess"):
+            with stage_range("fdt.postprocess"):
                 prefix = [_each(det, lambda o, k=k: o[k][:, :nb]) for k in (
                     "det_boxes", "det_raw_keypoints", "det_scores",
                     "det_valid")]
@@ -716,7 +715,7 @@ class FaceDetector:
             image = np.asarray(image)
         if image.ndim == 3 and image.shape[-1] in (1, 3, 4):
             image = self._device_put_cached(image)
-        with record_function("fdt.upload"):
+        with stage_range("fdt.upload"):
             batch = image[None]
         return self._attach_tracking(
             self.detect_faces_batch(batch, mode)[0], gen0)
@@ -774,7 +773,7 @@ class FaceDetector:
         validate_batch_shape(raw.shape)   # before the upload
         if raw.shape[0] == 0:
             return None
-        with record_function("fdt.upload"):
+        with stage_range("fdt.upload"):
             images = normalize_channels(raw, device or self.device)
             b, h, w, _ = images.shape
             pad_rows = self._batch_pad_target(b) - b
@@ -973,7 +972,7 @@ class FaceDetector:
         buffer; an edit confined to unsampled bytes is not caught.  A
         checksum of the whole frame would tax every detection that never
         embeds.  The upload runs in the ``fdt.upload`` range."""
-        with record_function("fdt.upload"):
+        with stage_range("fdt.upload"):
             if isinstance(arr, torch.Tensor):
                 return upload(arr, self.device)
             arr = np.ascontiguousarray(arr)

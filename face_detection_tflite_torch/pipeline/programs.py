@@ -18,7 +18,7 @@ name (``fdt.letterbox``, ``fdt.detector``, ``fdt.postprocess``,
 ``fdt.mesh``, ``fdt.iris``, ``fdt.blendshapes``, ``fdt.refine``,
 ``fdt.embedding``; ``pipeline/timings.py``), so that a trace attributes
 every op of a program to exactly one stage.  The ranges reorder and split
-no op.
+no op, and are entered only while a profiler runs (``stage_range``).
 
 Dynamic face counts are fixed-size slabs with validity masks.  Batch
 dimensions are written out: the detector runs once on ``[B, S, S, 3]``
@@ -37,7 +37,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert.executor import (ConvertedModel, fp32_on_the_card,
                                 resolve_device)
@@ -51,6 +50,7 @@ from .blendshape_input import pack_blendshape_input
 from .config import (IRIS_INPUT_SIZE, MESH_INPUT_SIZE, RAW_SCORE_LIMIT,
                      FaceDetectionMode)
 from .gates import apply_detection_gates_mask
+from .timings import stage_range
 
 __all__ = ["PipelineModels", "build_pipeline_program", "network_precision",
            "resolve_device"]
@@ -229,12 +229,12 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         raise ValueError("with_embeddings requires the embedding model")
 
     def detect_stage(images):
-        with record_function("fdt.letterbox"):
+        with stage_range("fdt.letterbox"):
             x = letterbox_image(images, lbp)
-        with record_function("fdt.detector"):
+        with stage_range("fdt.detector"):
             raw_boxes, raw_scores = _identify_detector_outputs(
                 models.detector(x))
-        with record_function("fdt.postprocess"):
+        with stage_range("fdt.postprocess"):
             # decode -> weighted NMS -> letterbox removal: one launch.
             boxes, kp, scores, valid = detection_postprocess(
                 raw_boxes, raw_scores, models.anchors, float(size),
@@ -246,7 +246,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         return boxes, kp, scores, valid
 
     def mesh_stage(images, kp, valid):
-        with record_function("fdt.mesh"):
+        with stage_range("fdt.mesh"):
             theta, cx, cy, fsize = geometry.compute_face_alignment(
                 kp, float(img_w), float(img_h))
             # Degenerate-size drop (face_detector_core.dart:258-263).
@@ -273,7 +273,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         """[B, F, 152, 3] absolute iris stream: two eye crops per face,
         the right eye mirrored, warped with the un-negated eye angle
         (face_detector_core.dart:544-556)."""
-        with record_function("fdt.iris"):
+        with stage_range("fdt.iris"):
             b, f = mesh_abs.shape[:2]
             ecx, ecy, esize, etheta = (
                 t.reshape(b, 2 * f)
@@ -308,7 +308,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
 
     def refine_keypoints(kp, iris_abs):
         """Iris-refined eye keypoints (face_detector_core.dart:356-373)."""
-        with record_function("fdt.refine"):
+        with stage_range("fdt.refine"):
             left = geometry.iris_center_from_points(iris_abs[..., 71:76, :])
             right = geometry.iris_center_from_points(
                 iris_abs[..., 147:152, :])
@@ -325,7 +325,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         getFaceEmbedding does (face_detector.dart:703-711): K2 at 112 px
         on all [B, F] ROIs in one launch, then MobileFaceNet once
         (:func:`embed_rois`, shared with ``FaceEmbedding``)."""
-        with record_function("fdt.embedding"):
+        with stage_range("fdt.embedding"):
             cx, cy, esize, theta = alignment_from_eyes(
                 refined_kp[..., 0, 0] * img_w,
                 refined_kp[..., 0, 1] * img_h,
@@ -340,7 +340,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         if not compute_mesh:
             # FAST still drops degenerate alignments
             # (face_detector_core.dart:258-266), a gate of the detections.
-            with record_function("fdt.postprocess"):
+            with stage_range("fdt.postprocess"):
                 _, _, _, fsize = geometry.compute_face_alignment(
                     kp, float(img_w), float(img_h))
                 out["valid"] = valid & (torch.floor(fsize + 0.5) > 0)
@@ -350,7 +350,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
         if not compute_iris:
             return out
         iris_abs = iris_stage(images, mesh_abs)
-        with record_function("fdt.blendshapes"):
+        with stage_range("fdt.blendshapes"):
             coeffs, bs_ok = blendshape_stage(mesh_abs, iris_abs)
             bs_valid = bs_ok & valid
             angles = geometry.head_euler_angles_from_mesh(mesh_abs)
@@ -370,7 +370,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
 
     def program(images):
         boxes, kp, scores, valid = detect_stage(images)
-        with record_function("fdt.postprocess"):
+        with stage_range("fdt.postprocess"):
             if slab < max_faces:
                 # Compact valid detections to the front, stably, before
                 # taking the speculative prefix (gates can invalidate a
@@ -384,7 +384,7 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
                       valid[:, :slab])
         out = face_stages(images, *prefix)
         if slab < max_faces:
-            with record_function("fdt.postprocess"):
+            with stage_range("fdt.postprocess"):
                 det_count = valid.sum(dim=1, dtype=torch.int32)
             out.update(det_boxes=boxes, det_raw_keypoints=kp,
                        det_scores=scores, det_valid=valid,

@@ -25,10 +25,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..convert.executor import resolve_device
 from .config import FaceDetectionMode
+from .timings import stage_range
 from .upload import upload
 from ..utils.image import decode_images, validate_batch_shape
 
@@ -114,7 +114,7 @@ class ServingPipeline:
         # Shape first, so a malformed batch raises here and not in the
         # worker's stream.
         validate_batch_shape(images.shape)
-        with record_function("fdt.upload"):
+        with stage_range("fdt.upload"):
             images = upload(images, self._device or self._det.device)
         # The stream of the pipeline's device current on this thread, not
         # of this thread's current device.

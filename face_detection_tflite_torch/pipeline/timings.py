@@ -14,7 +14,10 @@ segmenter's and ``FaceEmbedding``'s own calls), the counterpart of the
 op metadata that ties XLA's fusions to the JAX package's stage
 functions; use
 :func:`trace` to capture a ``torch.profiler`` trace and
-``tools/trace_capture_torch.py`` to read its device time by stage.
+``tools/trace_capture_torch.py`` to read its device time by stage.  The
+ranges are entered through :func:`stage_range`, which enters one only
+while a profiler is running, so that a call outside a trace pays a flag
+read a stage and not ``record_function``'s dispatcher call.
 """
 
 from __future__ import annotations
@@ -24,12 +27,31 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Iterator
+from typing import ContextManager, Iterator
+
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
 __all__ = ["DetectTimings", "FpsCounter", "trace"]
 
 #: Chrome-trace categories of device activities.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def stage_range(name: str) -> ContextManager:
+    """``record_function(name)`` while a profiler is running, else a
+    context that does nothing.
+
+    The test reads ``torch.autograd.profiler._is_profiler_enabled``, the
+    process-wide flag that every ``torch.profiler.profile`` (and so
+    :func:`trace`) sets while it records; a worker thread sees it too, so
+    its ranges reach a trace entered on another thread.  A range entered
+    before the profiler starts is not recorded."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_RANGE
 
 
 class DetectTimings:
@@ -110,9 +132,10 @@ def trace(log_dir: str) -> Iterator[None]:
     lookup an op).  Every thread that runs while the window is open is
     recorded (``profile_all_threads``), so a ``ServingPipeline`` or
     ``ReplicaPool`` worker started before the window reaches the trace.
-    With CUDA, the card is synchronised at both ends of the window, so
-    every kernel queued inside it is in the trace, and one empty marker
-    kernel is launched at its start; a trace that then holds no device
+    With CUDA, every visible card is synchronised at both ends of the
+    window, so every kernel queued inside it, on any card, is in the
+    trace, and one empty marker kernel is launched at its start (on the
+    current card); a trace that then holds no device
     activity raises RuntimeError on exit (the profiler lost its device
     records): no CPU-only trace is passed off as a whole one."""
     import socket
@@ -125,8 +148,13 @@ def trace(log_dir: str) -> Iterator[None]:
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
+
+    def synchronize_all():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
     if cuda:
-        torch.cuda.synchronize()
+        synchronize_all()
     with profile(activities=activities, record_shapes=True,
                  with_stack=False, experimental_config=_ExperimentalConfig(
                      profile_all_threads=True)) as prof:
@@ -136,7 +164,7 @@ def trace(log_dir: str) -> Iterator[None]:
             yield
         finally:
             if cuda:
-                torch.cuda.synchronize()
+                synchronize_all()
     path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}."
                                  f"{time.time_ns()}.pt.trace.json")
     prof.export_chrome_trace(path)

@@ -191,3 +191,41 @@ def test_warm_without_a_card_exits_1(monkeypatch, capsys):
     monkeypatch.delenv("FDT_FORCE_CPU")
     assert tool.main([]) == 1
     assert "CUDA start-up failed" in capsys.readouterr().err
+
+
+class _WarmupRecorder:
+    def __init__(self):
+        self.calls = []
+
+    def warmup(self, image_shape, batch_size=1, modes=None):
+        self.calls.append((tuple(image_shape), batch_size,
+                           None if modes is None else list(modes)))
+
+
+def test_warm_builds_then_warms_each_program_key(monkeypatch):
+    """``warm`` builds the kernels, then runs ``FaceDetector.warmup`` for
+    every mode at the batch size and for STANDARD at each smaller size of
+    the ladder; on a real detector (on the CPU, with the build replaced)
+    it runs through."""
+    from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
+    from face_detection_tflite_torch.kernels import build
+
+    from .torch_parity import H, MAX_FACES, W, small_pipeline
+
+    tool = _tool("warm_torch")
+    built = []
+    monkeypatch.setattr(build, "build", lambda: built.append(1))
+    rec = _WarmupRecorder()
+    steps = tool.warm(rec, 4)
+    standard = [FaceDetectionMode.STANDARD]
+    assert built == [1]
+    assert rec.calls == [(tool.BENCH_SHAPE, 4, None),
+                         (tool.BENCH_SHAPE, 1, standard),
+                         (tool.BENCH_SHAPE, 2, standard)]
+    assert [label for label, _ in steps] == [
+        "kernels build", "bench fast, standard, full b=4",
+        "bucket standard b=1", "bucket standard b=2"]
+    _, models, _ = small_pipeline()
+    det = FaceDetector(models=models, device="cpu", max_faces=MAX_FACES)
+    assert len(tool.warm(det, 2, (H, W, 3))) == 3
+    assert built == [1, 1]

@@ -7,7 +7,8 @@ On the small seeded pipeline on the CPU (``torch_parity.small_pipeline``):
 embeddings; every aten op of the traced calls lies in exactly one range;
 the outputs with and without the trace are equal bit for bit, and equal
 to the JAX package's within ``test_torch_full``'s tolerances.
-``stage_breakdown`` is held on hand-built traces of the form the profiler
+The ranges are entered only while a profiler runs, a worker thread's
+too.  ``stage_breakdown`` is held on hand-built traces of the form the profiler
 writes with CUDA: a kernel launched through ``ctypes`` with no aten op
 above it, a kernel that runs after its range has closed, a copy on a
 second stream, a worker thread's launch, a kernel that only a
@@ -221,6 +222,40 @@ def test_trace_writes_the_handler_form_and_cpu_only_here(tmp_path):
     assert not any(e.get("cat") in timings.DEVICE_CATEGORIES
                    for e in events)
     assert any(e.get("name") == "aten::add" for e in events)
+
+
+def test_ranges_are_entered_only_while_a_profiler_runs(tmp_path):
+    """Outside a profiler ``stage_range`` enters nothing; under ``trace``
+    it is a ``record_function`` range, also on a thread started before the
+    window opened."""
+    import threading
+
+    assert not isinstance(timings.stage_range("fdt.detector"),
+                          torch.profiler.record_function)
+    opened, done = threading.Event(), threading.Event()
+
+    def worker():
+        opened.wait()
+        with timings.stage_range("fdt.iris"):
+            torch.ones(3).mul(2)
+        done.set()
+
+    thread = threading.Thread(target=worker)
+    thread.start()
+
+    def window():
+        assert isinstance(timings.stage_range("fdt.mesh"),
+                          torch.profiler.record_function)
+        opened.set()
+        done.wait()
+
+    _, events = _traced(tmp_path, window)
+    thread.join()
+    (r,) = _ranges(events)
+    assert r["name"] == "fdt.iris"
+    assert r["tid"] == thread.native_id
+    assert not isinstance(timings.stage_range("fdt.detector"),
+                          torch.profiler.record_function)
 
 
 # -- stage_breakdown on hand-built CUDA-shaped traces -------------------------

@@ -9,8 +9,9 @@ the port runs in a ``torch.profiler.record_function`` range of a fixed
 name (``fdt.upload``, ``fdt.letterbox``, ``fdt.detector``,
 ``fdt.postprocess``, ``fdt.mesh``, ``fdt.iris``, ``fdt.blendshapes``,
 ``fdt.refine``, ``fdt.embedding``, ``fdt.pack``; ``fdt.segmentation`` and
-``fdt.embed`` for the segmenter's and ``FaceEmbedding``'s own calls), and
-:func:`stage_breakdown` reads a trace's device time by range.
+``fdt.embed`` for the segmenter's and ``FaceEmbedding``'s own calls;
+entered only while a profiler runs, ``pipeline.timings.stage_range``),
+and :func:`stage_breakdown` reads a trace's device time by range.
 
     python tools/trace_capture_torch.py [--out DIR] [--batch 16] [--iters 3]
     # full timeline: chrome://tracing or https://ui.perfetto.dev on the file

@@ -8,15 +8,20 @@ compile cache (PyTorch runs eagerly), so "warm" means two things here:
 1. build K1 (``csrc/nms.cu``) and K2 (``csrc/warp.cu``) into the
    package's ``kernels/_build/`` (``kernels/build.py::build``), so that a
    later process loads them at once instead of running ``nvcc``;
-2. make one first call per program key of the benchmark bucket (853x1280,
-   the BACK_CAMERA detector): FAST, STANDARD and FULL at the batch size,
-   then the STANDARD batch ladder 1, 2, 4 and 8 that the HTTP
-   micro-batcher drains into, so that cuDNN's and the allocator's first
-   calls happen here and not under traffic.
+2. run ``FaceDetector.warmup`` for each program key of the benchmark
+   bucket (853x1280, the BACK_CAMERA detector): FAST, STANDARD and FULL at
+   the batch size (with the adaptive modes' overflow face-stage program),
+   then STANDARD at each size of the batch ladder 1, 2, 4 and 8 that the
+   HTTP micro-batcher drains into.
 
     python tools/warm_torch.py [--batch 16]
 
-It prints each call's seconds.  There is no CPU fallback: without a
+Run as a script, only step 1 outlasts the process: the first calls of
+step 2 (cuDNN's algorithm choice, the allocator's pool) belong to the
+process that makes them.  They spare a server its first calls only where
+:func:`warm` runs inside the serving process, on its own detector.
+
+It prints each step's seconds.  There is no CPU fallback: without a
 usable CUDA card (or with ``FDT_FORCE_CPU`` set) it exits 1.  The JAX
 tool's ``--demo`` bucket and its entry program have no counterpart.
 """
@@ -27,8 +32,6 @@ import argparse
 import os
 import sys
 import time
-
-import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -45,9 +48,9 @@ def log(*a):
 
 def warm(detector, batch: int = 16, shape: tuple = BENCH_SHAPE
          ) -> list[tuple[str, float]]:
-    """Builds and loads the kernels, then runs the first call of each
-    program key of ``shape`` on ``detector`` (module docstring).  Returns
-    (label, seconds) of each step, in order."""
+    """Builds the kernels, then runs ``detector.warmup`` for each program
+    key of ``shape`` (module docstring).  Returns (label, seconds) of each
+    step, in order."""
     from face_detection_tflite_torch import FaceDetectionMode
     from face_detection_tflite_torch.kernels import build
 
@@ -59,17 +62,14 @@ def warm(detector, batch: int = 16, shape: tuple = BENCH_SHAPE
         steps.append((label, time.perf_counter() - t0))
         log(f"{label}: {steps[-1][1]:.2f}s")
 
-    step("kernels build", lambda: (build.build(), build.load()))
-    frames = np.zeros((batch,) + shape, np.uint8)
-    for mode in (FaceDetectionMode.FAST, FaceDetectionMode.STANDARD,
-                 FaceDetectionMode.FULL):
-        step(f"bench {mode.name:8s} b={batch}",
-             lambda m=mode: detector.detect_faces_batch(frames, m))
+    step("kernels build", build.build)
+    step(f"bench fast, standard, full b={batch}",
+         lambda: detector.warmup(shape, batch))
     for b in LADDER:
         if b < batch:
             step(f"bucket standard b={b}",
-                 lambda b=b: detector.detect_faces_batch(
-                     frames[:b], FaceDetectionMode.STANDARD))
+                 lambda b=b: detector.warmup(
+                     shape, b, [FaceDetectionMode.STANDARD]))
     return steps
 
 
