@@ -207,7 +207,32 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    embeddings batch and of each B = 1 call with no profiler running (µs a
    call through ``stage_range``, as the port enters them, and through
    ``record_function`` alone, over 10,000 rounds, beside the call's ms);
-14. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
+14. the programs as captured CUDA graphs (``_graphs_phase``, before
+   phase 13; ``python3 chip_smoke.py --graphs-phase`` runs it alone on the
+   same seeded networks and frames): the copy-in of a frame batch into a
+   graph's static input, timed alone; STANDARD, FULL and FULL with
+   embeddings at B = 16 on a fresh detector each (``_graph_cell``): the
+   first batches' eager runs and each key's capture ms, launches over 5
+   replayed batches (one K1 and one K2 at each site a batch, plus
+   re-runs), the replayed faces against the same detector's eager calls
+   (``graphs.eager``) bit for bit, the replayed outputs of the steady
+   key, the 2-face speculative key and a forced overflow re-run at 16
+   faces against ``build_pipeline_program``'s eager program (largest
+   difference printed, 0 required), ms a batch replayed and eager in
+   turns, the host's ms to queue a batch already on the card with no
+   synchronise, the graphs and the pool's bytes, and 3 batches of each
+   in a plain ``torch.profiler`` window (busy ms a batch and idle share;
+   CUDA events where the profiler kept no record); K1 and K2 against
+   their plain versions on the cells' frames; ``detect_faces`` and
+   ``detect_faces_from_camera_frame`` at B = 1 (faces against the eager
+   calls', launches, ms a call both ways, K1 and K2 on the frame); the
+   standalone ``FaceDetection`` (one program per size: detections against
+   the eager program's, one K1 launch a call, ms a call both ways,
+   capture ms, pool bytes); two threads on one key and a depth-2 stream
+   whose every batch re-runs its face stages on its replay's ``det_*``
+   slab, each equal to the sequential calls bit for bit; a ``graphs``
+   JSON line of the numbers;
+15. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
    ``server_launches``: over phase 7's stream and server requests, with
@@ -230,10 +255,13 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    (``warp_normalize_iris64``) is its count over the FULL path's batches
    and the embedding site's (``warp_normalize_embed112``) over the
    embedding phase's (``server_embed_launches``: one ``/v1/embed``);
+   ``graph_launches`` over phase 14's ``graph_batches`` replayed batches
+   of each B = 16 cell and its ``graph_calls`` replayed B = 1 calls (K1
+   also over the standalone calls);
    ``nms_core`` is off the main path (0, and 0 over phase 11's ``detect``
    run, both counted) and its launches in step 3 are ``check_launches``.
    K1's ``max_abs_err`` is its largest box error over every check
-   against the plain version (steps 3, 4, 8, 9, 10, 11 and 12).
+   against the plain version (steps 3, 4, 8, 9, 10, 11, 12 and 14).
 
 Any failed check raises, and the script exits non-zero.  It exits 2
 without a result where CUDA is unavailable or the package is missing.
@@ -241,6 +269,7 @@ without a result where CUDA is unavailable or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -313,7 +342,10 @@ def _profiled(run, keep, what: str, sessions: int = 2):
     profiler can lose every device record of a session once a process has
     opened many sessions, so a session that kept none is repeated, up to
     ``sessions`` in all; after that the activities are empty and the
-    caller falls back to CUDA events."""
+    caller falls back to CUDA events.  The ``fdt.*`` stage ranges, which
+    the profiler also reports on the device's timeline (each a
+    ``gpu_user_annotation`` span over its stage's kernels), are not
+    device work and are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(sessions):
@@ -324,7 +356,7 @@ def _profiled(run, keep, what: str, sessions: int = 2):
         device = [(e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and keep(e.name)]
+                  and not e.name.startswith("fdt.") and keep(e.name)]
         if device:
             return result, device
         print(f"profile: torch.profiler session {attempt + 1} of "
@@ -616,8 +648,11 @@ def _profile_batch(det, frames_np, mode, card: str, net=None) -> None:
     :func:`_layer`, and the markers themselves are left out.  Where the
     profiler kept no record of the batch (:func:`_profiled`), or not a
     pair of markers a network call, the breakdown is printed as not
-    measured."""
+    measured.  With ``net`` the batch runs its eager program
+    (``graphs.eager``): a captured graph's replay does not call the
+    network's ``forward``, so it would launch no marker."""
     import torch
+    from face_detection_tflite_torch.pipeline import graphs
     if net is not None:
         call = net.forward
 
@@ -629,7 +664,8 @@ def _profile_batch(det, frames_np, mode, card: str, net=None) -> None:
         net.forward = marked
     def run():
         t0 = time.perf_counter()
-        det.detect_faces_batch(frames_np, mode)
+        with graphs.eager() if net is not None else contextlib.nullcontext():
+            det.detect_faces_batch(frames_np, mode)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -3367,6 +3403,491 @@ def _tier_launches(tiers: dict, kernel: str, size=None) -> dict:
             "tier_batches": TIER_RUNS}
 
 
+# -- phase 14: the captured programs ------------------------------------------
+
+#: Phase 14: batches timed a turn (replayed, eager, eager, replayed), the
+#: B = 1 calls timed a turn, and the calls of each concurrency check.
+GRAPH_RUNS = 5
+GRAPH_CALLS = 10
+GRAPH_THREAD_CALLS = 4
+
+
+def _program_diff(got, want) -> float:
+    """Largest absolute difference of two programs' outputs (a dict of
+    tensors each); raises where a key, a shape, a dtype, a NaN position or
+    a boolean or integer output differs."""
+    import torch
+    if set(got) != set(want):
+        raise AssertionError(f"outputs differ in keys: {sorted(got)} "
+                             f"against {sorted(want)}")
+    worst = 0.0
+    for k in want:
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{k}: {tuple(g.shape)} {g.dtype} against "
+                                 f"{tuple(w.shape)} {w.dtype}")
+        if not w.dtype.is_floating_point:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{k} differs")
+            continue
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{k}: NaNs in other places")
+        ok = ~torch.isnan(w)
+        if ok.any():
+            worst = max(worst, (g[ok] - w[ok]).abs().max().item())
+    return worst
+
+
+def _graph_keys(det) -> list:
+    """(program, input shapes, capture ms) of every captured graph of
+    ``det``: the program as its mode and face slab, or "stage" for the
+    overflow re-run's."""
+    out = []
+    for key, prog in det._programs.items():
+        what = f"{key[2].name} " + ("stage" if key[3] == "stage" else
+                                    f"slab {key[3] or MAX_FACES}")
+        for sig, s in getattr(prog, "capture_s", {}).items():
+            out.append((what, tuple(shape for shape, _ in sig), s * 1e3))
+    return out
+
+
+def _graph_profile(det, images, mode, runs: int, card: str, label: str):
+    """Busy ms a batch, window ms and idle share of ``runs`` batches in a
+    plain ``torch.profiler`` window, replayed and (inside
+    ``graphs.eager``) eager, and the device activities a batch; where the
+    profiler kept no device record, the busy time is CUDA events around
+    the calls queued back to back (:func:`_queued_ms`) and the idle share
+    is not measured."""
+    import torch
+    from face_detection_tflite_torch.pipeline import graphs
+    out = {}
+    for how in ("replayed", "eager"):
+        def run():
+            for _ in range(runs):
+                det.detect_faces_batch(images, mode)
+            torch.cuda.synchronize()
+        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
+        with ctx:
+            run()
+            _, device = _profiled(run, lambda name: True,
+                                  f"phase 14 {label} {how}")
+            if not device:
+                ms = _queued_ms(lambda: det.detect_faces_batch(images, mode),
+                                iters=runs)
+                print(f"graphs {label} {how}: the profiler kept no device "
+                      f"record; CUDA events around {runs} queued batches: "
+                      f"{_num(ms, '.3f')} ms a batch; idle share not "
+                      f"measured  [{card}]")
+                out[how] = {"by": "queued events", "ms": ms}
+                continue
+        busy, window, idle = _idle_share(device)
+        kernels = sum(1 for _, _, n in device if "Memcpy" not in n
+                      and "Memset" not in n)
+        out[how] = {"by": "profiler", "busy_ms": busy / runs,
+                    "window_ms": window, "idle_share": idle,
+                    "activities": len(device) / runs,
+                    "kernels": kernels / runs}
+        print(f"graphs {label} {how}: {runs} batches in a plain "
+              f"torch.profiler window: device busy {busy / runs:.3f} ms a "
+              f"batch, window {window:.3f} ms, idle share {idle:.3f}, "
+              f"{kernels / runs:.1f} kernels and {len(device) / runs:.1f} "
+              f"device activities a batch  [{card}]")
+    return out
+
+
+def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
+                card: str) -> dict:
+    """Phase 14 on one B = 16 cell: the captured detector's first calls
+    (capture ms a key), its replays against the eager program of
+    ``build_pipeline_program`` (the steady key, the speculative 2-face key
+    and a forced overflow re-run of the face stages at 16 faces) and its
+    faces against the same detector's eager calls, launches over replayed
+    batches, ms a batch replayed and eager in turns, the host's ms to
+    queue a batch, pool bytes and a profiled window of each."""
+    import torch
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+    det = FaceDetector(models=models, device=frames.device,
+                       max_faces=MAX_FACES, embed_in_full=embed,
+                       allow_untrained_embeddings=True)
+    first_ms = []
+    for _ in range(2):  # slab 1 and its overflow re-run, then slab 16
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.detect_faces_batch(frames_np, mode)
+        torch.cuda.synchronize()
+        first_ms.append((time.perf_counter() - t0) * 1e3)
+    keys = _graph_keys(det)
+    print(f"graphs {label}: first two batches {['%.2f' % t for t in first_ms]}"
+          f" ms (eager first calls and captures); captured "
+          + "; ".join(f"{what} inputs {sig}: {ms:.1f} ms"
+                      for what, sig, ms in keys) + f"  [{card}]")
+
+    # Launches and faces over replayed batches.
+    reruns0 = _reruns(det)
+    _reset_launches()
+    faces = [det.detect_faces_batch(frames_np, mode)
+             for _ in range(GRAPH_RUNS)]
+    launches, reruns = _launches(), _reruns(det) - reruns0
+    sizes = (MESH_SIZE,) + ((IRIS_SIZE,) if mode.name == "FULL" else ()) + \
+        ((EMBED_SIZE,) if embed else ())
+    want = {"detection_postprocess": GRAPH_RUNS,
+            "warp_normalize": {s: GRAPH_RUNS + reruns for s in sizes}}
+    if launches != want:
+        raise AssertionError(f"graphs {label}: launches {launches} over "
+                             f"{GRAPH_RUNS} replayed batches, want {want}")
+    with graphs.eager():
+        eager_faces = det.detect_faces_batch(frames_np, mode)
+    if json.dumps(_payload(faces[-1])) != json.dumps(_payload(eager_faces)):
+        raise AssertionError(f"graphs {label}: replayed faces differ from "
+                             f"the eager program's")
+
+    # Program outputs against build_pipeline_program's eager program.
+    kw = {"max_faces": MAX_FACES, "min_score": det.min_score,
+          "with_embeddings": embed}
+    diffs = {}
+    with torch.inference_mode():
+        steady = det._program(HEIGHT, WIDTH, mode, face_slab=MAX_FACES)
+        diffs["steady"] = _program_diff(
+            steady(frames), build_pipeline_program(
+                models, HEIGHT, WIDTH, mode, **kw)(frames))
+        spec = det._program(HEIGHT, WIDTH, mode, face_slab=2)
+        spec(frames)                               # eager, then captured
+        got = spec(frames)
+        diffs["slab 2"] = _program_diff(got, build_pipeline_program(
+            models, HEIGHT, WIDTH, mode, face_slab=2, **kw)(frames))
+        if not (got["det_count"] > 2).any():
+            raise AssertionError(f"graphs {label}: no frame overflows a "
+                                 f"2-face slab")
+        prefix = [got[k][:, :MAX_FACES] for k in (
+            "det_boxes", "det_raw_keypoints", "det_scores", "det_valid")]
+        # Captured by the first batch's re-run at 16 faces.
+        stage = det._face_stage_program(HEIGHT, WIDTH, mode)
+        diffs["overflow re-run"] = _program_diff(
+            stage(frames, *prefix), build_pipeline_program(
+                models, HEIGHT, WIDTH, mode, from_detections=True,
+                with_embeddings=embed)(frames, *prefix))
+    print(f"graphs {label}: replayed outputs against build_pipeline_program's"
+          f" eager program, largest difference: {diffs}; faces equal the "
+          f"eager calls' bit for bit; launches {launches} over {GRAPH_RUNS} "
+          f"replayed batches ({reruns} re-runs)  [{card}]")
+    if any(diffs.values()):
+        raise AssertionError(f"graphs {label}: a replay differs from the "
+                             f"eager program: {diffs}")
+
+    # ms a batch in turns, and the host's time to queue one.
+    ms: dict = {"replayed": [], "eager": []}
+    for how in ("replayed", "eager", "eager", "replayed"):
+        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
+        with ctx:
+            for _ in range(GRAPH_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det.detect_faces_batch(frames_np, mode)
+                torch.cuda.synchronize()
+                ms[how].append((time.perf_counter() - t0) * 1e3)
+    queue: dict = {"replayed": [], "eager": []}
+    for how in ("replayed", "eager", "eager", "replayed"):
+        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
+        with ctx:
+            for _ in range(GRAPH_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                handle = det._stream_dispatch(frames, mode)
+                queue[how].append((time.perf_counter() - t0) * 1e3)
+                det._stream_finish(handle, mode)
+    report = det.memory_report()
+    med = {how: statistics.median(v) for how, v in ms.items()}
+    qmed = {how: statistics.median(v) for how, v in queue.items()}
+    n_faces = sum(len(f) for f in faces[-1])
+    print(f"graphs {label}: ms a batch of {FRAMES} x {HEIGHT}x{WIDTH} "
+          f"(pinned upload included), median of {2 * GRAPH_RUNS} in turns: "
+          f"replayed {med['replayed']:.2f} "
+          f"({n_faces * 1e3 / med['replayed']:.1f} faces/s), eager "
+          f"{med['eager']:.2f}; host ms to queue a batch already on the card "
+          f"(no synchronise): replayed {qmed['replayed']:.3f}, eager "
+          f"{qmed['eager']:.3f}; {report['compiled_programs']} graphs, in "
+          f"the card's graph pool of "
+          f"{report['graph_pool_bytes'] / 2**20:.1f} MiB (shared by the "
+          f"process's live captured programs)  [{card}]")
+    if report["graph_pool_bytes"] <= 0:
+        raise AssertionError(f"graphs {label}: the graph pool holds no "
+                             f"device memory")
+    prof = _graph_profile(det, frames_np, mode, 3, card, label)
+    det.dispose()
+    return {"first_ms": first_ms, "capture_ms": [k[2] for k in keys],
+            "diffs": diffs, "ms": med, "queue_ms": qmed,
+            "pool_bytes": report["graph_pool_bytes"],
+            "graphs": report["compiled_programs"], "launches": launches,
+            "profile": prof, "faces": n_faces}
+
+
+def _graph_b1(models, frames, frames_np, card: str) -> dict:
+    """Phase 14 at B = 1: ``detect_faces`` and
+    ``detect_faces_from_camera_frame`` (an RGBA frame of the same image)
+    on a FULL detector: replayed faces against the eager calls', one K1
+    and one K2 at each site a replayed call, ms a call replayed and eager
+    in turns, and K1 and K2 against their plain versions on the frame."""
+    import torch
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.utils.camera import \
+        camera_frame_from_image
+    det = FaceDetector(models=models, device=frames.device,
+                       max_faces=MAX_FACES)
+    frame = frames_np[0]
+    cam = camera_frame_from_image(frame)
+    out = {}
+    for label, call in (
+            ("detect_faces", lambda: det.detect_faces(frame)),
+            ("detect_faces_from_camera_frame",
+             lambda: det.detect_faces_from_camera_frame(cam))):
+        for _ in range(3):
+            call()
+        reruns0 = _reruns(det)
+        _reset_launches()
+        got = [call() for _ in range(GRAPH_CALLS)]
+        launches = _launches()
+        _check_launches(launches, GRAPH_CALLS, _reruns(det) - reruns0,
+                        f"graphs {label}")
+        with graphs.eager():
+            want = call()
+        if json.dumps(_payload([got[-1]])) != json.dumps(_payload([want])):
+            raise AssertionError(f"graphs {label}: replayed faces differ "
+                                 f"from the eager call's")
+        ms: dict = {"replayed": [], "eager": []}
+        for how in ("replayed", "eager", "eager", "replayed"):
+            ctx = graphs.eager() if how == "eager" else \
+                contextlib.nullcontext()
+            with ctx:
+                for _ in range(GRAPH_CALLS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    ms[how].append((time.perf_counter() - t0) * 1e3)
+        med = {how: statistics.median(v) for how, v in ms.items()}
+        print(f"graphs {label} (B = 1, {WIDTH}x{HEIGHT}, FULL): ms a call, "
+              f"median of {2 * GRAPH_CALLS} in turns: replayed "
+              f"{med['replayed']:.2f}, eager {med['eager']:.2f}; "
+              f"{len(want)} faces equal the eager call's bit for bit; "
+              f"launches {launches} over {GRAPH_CALLS} replayed calls  "
+              f"[{card}]")
+        out[label] = {"ms": med, "launches": launches}
+    det.dispose()
+    out["post_err"] = _check_path_kernels("phase 14 B = 1", models,
+                                          frames[:1], card)
+    return out
+
+
+def _graph_standalone(models, frames, frames_np, card: str) -> dict:
+    """Phase 14's standalone ``FaceDetection`` at B = 1: one program per
+    image size, replayed; its detections against the eager program's bit
+    for bit, one K1 launch a call, ms a call replayed and eager in
+    turns."""
+    import torch
+    from face_detection_tflite_torch.models.standalone import FaceDetection
+    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.pipeline.config import \
+        FaceDetectionModel
+    fd = FaceDetection(FaceDetectionModel.BACK_CAMERA, model=models.detector,
+                       max_detections=MAX_FACES, device=frames.device)
+    frame = frames_np[0]
+    for _ in range(3):
+        fd(frame)
+    detections.detection_postprocess.launches = 0
+    got = [fd(frame) for _ in range(GRAPH_CALLS)]
+    launches = detections.detection_postprocess.launches
+    with graphs.eager():
+        want = fd(frame)
+    same = [(d.bounding_box, d.score, d.keypoints_xy.tolist()) for d in want]
+    if [(d.bounding_box, d.score, d.keypoints_xy.tolist())
+            for d in got[-1]] != same or launches != GRAPH_CALLS:
+        raise AssertionError(f"graphs FaceDetection: replayed detections "
+                             f"differ from the eager program's, or "
+                             f"{launches} K1 launches over {GRAPH_CALLS} "
+                             f"calls")
+    ms: dict = {"replayed": [], "eager": []}
+    for how in ("replayed", "eager", "eager", "replayed"):
+        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
+        with ctx:
+            for _ in range(GRAPH_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fd(frame)
+                ms[how].append((time.perf_counter() - t0) * 1e3)
+    med = {how: statistics.median(v) for how, v in ms.items()}
+    (prog,) = fd._programs.values()
+    capture_ms = [s * 1e3 for s in prog.capture_s.values()]
+    pool = graphs.pool_for(fd.device).nbytes()
+    print(f"graphs FaceDetection (B = 1, {WIDTH}x{HEIGHT}): ms a call, "
+          f"median of {2 * GRAPH_CALLS} in turns: replayed "
+          f"{med['replayed']:.3f}, eager {med['eager']:.3f}; {len(want)} "
+          f"detections equal the eager program's bit for bit; "
+          f"{launches} K1 launches over {GRAPH_CALLS} calls; capture "
+          f"{['%.1f' % c for c in capture_ms]} ms; the card's graph pool "
+          f"{pool / 2**20:.1f} MiB  [{card}]")
+    fd.dispose()
+    return {"ms": med, "launches": launches, "calls": GRAPH_CALLS,
+            "capture_ms": capture_ms, "pool_bytes": pool}
+
+
+def _graph_concurrency(models, frames_np, card: str) -> None:
+    """Phase 14's concurrency checks on one FULL key: two threads calling
+    one detector at once, and a depth-2 stream with every batch's face
+    stages re-run on its ``det_*`` slab after the next batch's replay,
+    each against the same batches' sequential calls (eager for the
+    stream), faces bit for bit."""
+    import threading
+
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.pipeline import graphs
+    a = frames_np
+    b = np.ascontiguousarray(frames_np[::-1])
+    det = FaceDetector(models=models, device=models.device,
+                       max_faces=MAX_FACES)
+    for _ in range(3):
+        det.detect_faces_batch(a)
+        det.detect_faces_batch(b)
+    want = {0: json.dumps(_payload(det.detect_faces_batch(a))),
+            1: json.dumps(_payload(det.detect_faces_batch(b)))}
+    errors = []
+
+    def worker(first: int):
+        try:
+            with torch.inference_mode():
+                for i in range(GRAPH_THREAD_CALLS):
+                    which = (first + i) % 2
+                    got = det.detect_faces_batch(a if which == 0 else b)
+                    if json.dumps(_payload(got)) != want[which]:
+                        errors.append(f"thread {first} call {i}")
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"graphs: two threads on one key gave other "
+                             f"faces than the sequential calls: {errors}")
+    det.dispose()
+
+    # Every batch overflows a 1-face slab, so its face stages re-run on
+    # the det_* slab its replay returned, after the next batch's replay.
+    pinned = FaceDetector(models=models, device=models.device,
+                          max_faces=MAX_FACES)
+    ref = FaceDetector(models=models, device=models.device,
+                       max_faces=MAX_FACES)
+    for d in (pinned, ref):
+        d._speculation_bucket = lambda h, w, mode: 1
+        d._note_face_count = lambda h, w, mode, n: None
+    batches = [a, b, a, b, a]
+    list(pinned.detect_faces_batch_stream(batches[:2], depth=2))  # captures
+    reruns0 = _reruns(pinned)
+    got = list(pinned.detect_faces_batch_stream(batches, depth=2))
+    with graphs.eager():
+        want_s = [ref.detect_faces_batch(x) for x in batches]
+    if any(json.dumps(_payload(g)) != json.dumps(_payload(w))
+           for g, w in zip(got, want_s)):
+        raise AssertionError("graphs: the depth-2 stream's faces differ "
+                             "from the eager sequential calls'")
+    print(f"graphs concurrency (FULL, {FRAMES} x {HEIGHT}x{WIDTH}): two "
+          f"threads x {GRAPH_THREAD_CALLS} replayed calls on one key equal "
+          f"the sequential calls bit for bit; a depth-2 stream of "
+          f"{len(batches)} batches, each re-running its face stages on its "
+          f"replay's det_* slab ({_reruns(pinned) - reruns0} re-runs), "
+          f"equal to the eager sequential calls bit for bit  [{card}]")
+    pinned.dispose()
+    ref.dispose()
+
+
+def _graph_launches(graphs: dict, kernel: str, size=None) -> dict:
+    """A kernel's launches over phase 14's replayed batches of each B = 16
+    cell and its replayed B = 1 calls (K1 also over the standalone
+    calls)."""
+    def count(launches):
+        n = launches[kernel]
+        return n.get(size, 0) if size is not None else n
+    out = {"graph_launches": {
+        **{label: count(c["launches"]) for label, c in
+           graphs["cells"].items()},
+        **{label: count(v["launches"]) for label, v in graphs["b1"].items()
+           if label != "post_err"}},
+        "graph_batches": GRAPH_RUNS, "graph_calls": GRAPH_CALLS}
+    if kernel == "detection_postprocess":
+        out["graph_launches"]["FaceDetection"] = graphs["standalone"][
+            "launches"]
+    return out
+
+
+def _graphs_phase_alone() -> int:
+    """``python3 chip_smoke.py --graphs-phase``: phase 14 alone, on the
+    main path's seeded networks and frames."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch.kernels import build
+    from face_detection_tflite_torch.models import random_init
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    build.load()
+    frames_np = np.random.default_rng(SEED).integers(
+        0, 256, (FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8)
+    frames = torch.from_numpy(frames_np).to("cuda")
+    models = random_init.random_pipeline_models(frames, seed=SEED)[0]
+    _graphs_phase(models, frames, frames_np, card)
+    print(card)
+    return 0
+
+
+def _graphs_phase(models, frames, frames_np, card: str) -> dict:
+    """Phase 14: the programs as captured CUDA graphs
+    (``pipeline/graphs.py``) on the STANDARD, FULL and FULL + embeddings
+    cells at B = 16, ``detect_faces`` and a camera frame at B = 1, the
+    standalone ``FaceDetection`` and two concurrency checks; the copy-in
+    of a frame batch into a graph's static input, timed alone; K1 and K2
+    against their plain versions on the cells' frames."""
+    import torch
+    from face_detection_tflite_torch import FaceDetectionMode
+    static = torch.empty_like(frames)
+    copy_ms = _median_ms(lambda: static.copy_(frames))
+    print(f"graphs: the copy-in of a {FRAMES} x {HEIGHT}x{WIDTH} uint8 batch "
+          f"({frames.numel() / 1e6:.1f} MB) into a graph's static input: "
+          f"{copy_ms:.4f} ms (CUDA events, median of 20)  [{card}]")
+    del static
+    cells = {}
+    for label, mode, embed in (
+            ("STANDARD", FaceDetectionMode.STANDARD, False),
+            ("FULL", FaceDetectionMode.FULL, False),
+            ("FULL + embeddings", FaceDetectionMode.FULL, True)):
+        cells[label] = _graph_cell(label, models, frames, frames_np, mode,
+                                   embed, card)
+    post_err = _check_path_kernels("phase 14 B = 16", models, frames, card)
+    b1 = _graph_b1(models, frames, frames_np, card)
+    alone = _graph_standalone(models, frames, frames_np, card)
+    _graph_concurrency(models, frames_np, card)
+    print("graphs: " + json.dumps({
+        "card": card, "copy_in_ms": copy_ms,
+        "cells": {k: {x: v[x] for x in ("ms", "queue_ms", "capture_ms",
+                                         "pool_bytes", "graphs", "diffs",
+                                         "profile")}
+                  for k, v in cells.items()},
+        "b1": {k: v["ms"] for k, v in b1.items() if k != "post_err"},
+        "standalone": {x: alone[x] for x in ("ms", "capture_ms",
+                                             "pool_bytes")}}))
+    return {"cells": cells, "b1": b1, "standalone": alone,
+            "copy_in_ms": copy_ms,
+            "post_err": max(post_err, b1["post_err"])}
+
+
 # Phase 13: the traced batches a cell, the rounds of the ranges' host cost,
 # the share of device time the ranges must hold, and the kernels' names.
 TRACE_ITERS = 3
@@ -3651,6 +4172,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--trace-phase"]:
         return _trace_phase()
+    if sys.argv[1:] == ["--graphs-phase"]:
+        return _graphs_phase_alone()
     from face_detection_tflite_torch import FaceDetectionMode
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
@@ -3901,12 +4424,16 @@ def main() -> int:
                    alone["post_err"], variants["post_err"],
                    tiers["post_err"], cli["post_err"], scale["post_err"])
 
+    # -- 14. the programs as captured CUDA graphs ------------------------------
+    graphs = _graphs_phase(models, frames, frames_np, card)
+    post_err = max(post_err, graphs["post_err"])
+
     # -- 13. the profiler trace with stage ranges, in a fresh process ----------
     sys.stdout.flush()
     subprocess.run([sys.executable, os.path.abspath(__file__),
                     "--trace-phase"], check=True, timeout=900)
 
-    # -- 14. result lines -----------------------------------------------------
+    # -- 15. result lines -----------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,
                                              896, MAX_FACES)
     nms_bound, nms_by = _nms_bound(counts, FRAMES, 896)
@@ -3947,6 +4474,7 @@ def main() -> int:
          "replica_batches": scale["replica_batches"],
          "dp_launches": scale["dp_launches"]["detection_postprocess"],
          "dp_batches": scale["dp_batches"], "dp_shards": scale["dp_shards"],
+         **_graph_launches(graphs, "detection_postprocess"),
          "max_abs_err": post_err, "ms": post_ms, "device_ms": post_dev_ms,
          "device_ms_by": post_dev_by,
          "host_ms": post_host_ms, "plain_ms": post_plain_ms,
@@ -3981,6 +4509,7 @@ def main() -> int:
          "replica_launches":
              scale["replica_launches"]["warp_normalize"][MESH_SIZE],
          "dp_launches": scale["dp_launches"]["warp_normalize"][MESH_SIZE],
+         **_graph_launches(graphs, "warp_normalize", MESH_SIZE),
          **mesh_site, "max_abs_err": max(k2_err, mesh_site["max_abs_err"])},
         {"name": "warp_normalize_iris64", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
@@ -3998,6 +4527,7 @@ def main() -> int:
          "replica_launches":
              scale["replica_launches"]["warp_normalize"][IRIS_SIZE],
          "dp_launches": scale["dp_launches"]["warp_normalize"][IRIS_SIZE],
+         **_graph_launches(graphs, "warp_normalize", IRIS_SIZE),
          **iris_site},
         {"name": "warp_normalize_embed112", "route": "cuda",
          "source": f"{PACKAGE}/csrc/warp.cu",
@@ -4006,7 +4536,9 @@ def main() -> int:
          "server_embed_launches": serve["embed_launches"][
              "warp_normalize"].get(EMBED_SIZE, 0),
          "cli_launches": cli["embed_launches"]["warp_normalize"][EMBED_SIZE],
-         "cli_images": CLI_IMAGES, **embed_site},
+         "cli_images": CLI_IMAGES,
+         **_graph_launches(graphs, "warp_normalize", EMBED_SIZE),
+         **embed_site},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,7 @@ launch; :func:`check` raises on a non-zero code.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -23,7 +24,7 @@ import types
 import torch
 
 __all__ = ["load", "build", "library_paths", "check", "build_log", "stream",
-           "count_launch", "NVCC_FLAGS"]
+           "count_launch", "tally_launches", "add_launches", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -58,6 +59,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+#: The launch tally of a capture running on this thread (tally_launches).
+_capturing = threading.local()
 _lib: types.SimpleNamespace | None = None
 _log = ""
 
@@ -166,9 +169,38 @@ def check(rc: int, what: str) -> None:
 def count_launch(wrapper, size=None) -> None:
     """Adds one to ``wrapper.launches`` (and, with ``size``, to
     ``wrapper.launches_by_size[size]``) under a lock, since two threads
-    may launch one kernel at once (a server's batcher and a handler)."""
+    may launch one kernel at once (a server's batcher and a handler).
+    While this thread captures a program (:func:`tally_launches`), the
+    launch goes to the capture's tally instead: a capture launches
+    nothing on the card, and each replay of it adds the tally."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally.append((wrapper, size))
+        return
+    add_launches(((wrapper, size),))
+
+
+def add_launches(tally) -> None:
+    """Adds every ``(wrapper, size)`` launch of ``tally`` to the wrappers'
+    counts under one lock: a captured program's replay, which launches
+    what its capture recorded without entering the wrappers."""
     with _count_lock:
-        wrapper.launches += 1
-        if size is not None:
-            by_size = wrapper.launches_by_size
-            by_size[size] = by_size.get(size, 0) + 1
+        for wrapper, size in tally:
+            wrapper.launches += 1
+            if size is not None:
+                by_size = wrapper.launches_by_size
+                by_size[size] = by_size.get(size, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within the block, on this thread, :func:`count_launch` records each
+    launch into the yielded list and leaves the counters alone: around
+    the capture of a CUDA graph (``pipeline/graphs.py``), whose launches
+    happen at each replay."""
+    saved = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = []
+    try:
+        yield tally
+    finally:
+        _capturing.tally = saved

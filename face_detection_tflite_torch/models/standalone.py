@@ -24,17 +24,19 @@ given ``model`` as to a converted file.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..convert.executor import (ConvertedModel, convert_file,
+from ..convert.executor import (ConvertedModel, _check_fp32, convert_file,
                                 fp32_on_the_card, resolve_device)
 from ..ops.detections import detection_postprocess
 from ..ops.letterbox import (letterbox_image, letterbox_params,
                              normalize_image)
+from ..pipeline import graphs
 from ..pipeline.config import (IRIS_INPUT_SIZE, MESH_INPUT_SIZE, MODEL_FILES,
                                FaceDetectionModel as Variant)
 from ..pipeline.programs import (_identify_detector_outputs,
@@ -103,6 +105,12 @@ class FaceDetection(_Disposable):
     card.  ``max_dim`` caps the longer input side (a host INTER_LINEAR
     downscale before detection; boxes and keypoints are normalized, so
     they keep their meaning).
+
+    As the JAX class keeps one jitted program per image size, this one
+    keeps one program per (height, width): on a card a CUDA graph,
+    captured at the size's first call and replayed after
+    (``pipeline/graphs.py``), in its device's graph memory pool; on the
+    CPU the eager program.
     """
 
     def __init__(self, variant: Variant = Variant.BACK_CAMERA,
@@ -118,6 +126,41 @@ class FaceDetection(_Disposable):
         self.anchors = torch.from_numpy(detector_anchors(
             self.model, variant.value)).to(self.device)
         self.max_detections = max_detections
+        self._programs: dict[tuple, object] = {}
+
+    def _program(self, h: int, w: int):
+        """The program of one image size: ``[1, h, w, 3]`` frames ->
+        ``[D, 18]`` packed boxes, keypoints, scores and valid flags (one
+        buffer, one device-to-host copy)."""
+        key = (h, w)
+        if key not in self._programs:
+            lbp = letterbox_params(h, w, self.input_size, self.input_size)
+
+            def run(image):
+                x = letterbox_image(image, lbp)
+                raw_boxes, raw_scores = _identify_detector_outputs(
+                    self.model(x))
+                boxes, kp, scores, valid = detection_postprocess(
+                    raw_boxes, raw_scores, self.anchors,
+                    float(self.input_size), lbp.padding,
+                    max_detections=self.max_detections)
+                d = boxes.shape[1]
+                return torch.cat([boxes[0], kp[0].reshape(d, 12),
+                                  scores[0, :, None],
+                                  valid[0, :, None].float()], dim=1)
+
+            self._programs[key] = graphs.program(
+                run, self.device, functools.partial(
+                    _check_fp32, self.device, bf16=self.model._bf16))
+        return self._programs[key]
+
+    def dispose(self) -> None:
+        """Frees the captured programs, then the network."""
+        for prog in self._programs.values():
+            if isinstance(prog, graphs.CapturedProgram):
+                prog.release()
+        self._programs.clear()
+        super().dispose()
 
     def __call__(self, image) -> list[Detection]:
         self._check_disposed()
@@ -132,19 +175,9 @@ class FaceDetection(_Disposable):
         if self.max_dim is not None:
             image = fit_max_dim(image, self.max_dim)
         h, w = image.shape[:2]
-        lbp = letterbox_params(h, w, self.input_size, self.input_size)
         with torch.inference_mode():
-            x = letterbox_image(normalize_channels(image[None], self.device),
-                                lbp)
-            raw_boxes, raw_scores = _identify_detector_outputs(self.model(x))
-            boxes, kp, scores, valid = detection_postprocess(
-                raw_boxes, raw_scores, self.anchors, float(self.input_size),
-                lbp.padding, max_detections=self.max_detections)
-            # One packed buffer, one device-to-host copy.
-            d = boxes.shape[1]
-            packed = torch.cat([boxes[0], kp[0].reshape(d, 12),
-                                scores[0, :, None],
-                                valid[0, :, None].float()], dim=1).cpu()
+            packed = self._program(h, w)(
+                normalize_channels(image[None], self.device)).cpu()
         packed = packed.numpy()
         boxes, kp = packed[:, :4], packed[:, 4:16].reshape(-1, 6, 2)
         scores, valid = packed[:, 16], packed[:, 17] > 0.5

@@ -104,12 +104,14 @@ def resize_taps(in_size: int, out_size: int
     return lo, hi, frac
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _device_taps(in_size: int, out_size: int, device: torch.device
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`resize_taps` as tensors on ``device``, uploaded once per
     (in size, out size, device): a host-to-device copy in every call would
-    wait for the stream."""
+    wait for the stream.  Never evicted (a few KB an entry): a captured
+    program (``pipeline/graphs.py``) reads these tensors at every
+    replay, so their memory must outlive it."""
     return tuple(torch.from_numpy(a).to(device)
                  for a in resize_taps(in_size, out_size))
 

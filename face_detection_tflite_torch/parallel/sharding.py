@@ -19,6 +19,13 @@ on one card; ``(cpu,) * 8`` is the tests' counterpart of the JAX tests'
     run = data_parallel(lambda d: build_pipeline_program(weights[d], h, w),
                         mesh)
     shards = run(images)                        # one output dict a shard
+
+``FaceDetector(data_parallel=True)`` builds each entry's program as a
+captured one (``pipeline/graphs.py``): a CUDA graph a key in the graph
+memory pool of the entry's device, whose lock orders the replays of
+entries that share a device.  ``ReplicaPool`` needs nothing of its own:
+its workers dispatch through ``FaceDetector._stream_dispatch(device=)``,
+whose programs are captured on that device the same way.
 """
 
 from __future__ import annotations

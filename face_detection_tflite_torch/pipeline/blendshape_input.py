@@ -108,10 +108,11 @@ _SOURCE, _INDEX = pack_indices()
 _IRIS_INDEX = np.minimum(_INDEX, IRIS_STREAM_POINTS - 1)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _tables(device: torch.device):
     """(mesh rows, iris rows, iris-source mask) on ``device``, uploaded
-    once per device."""
+    once per device and never evicted: a captured program
+    (``pipeline/graphs.py``) reads them at every replay."""
     return (torch.from_numpy(_INDEX).long().to(device),
             torch.from_numpy(_IRIS_INDEX).long().to(device),
             torch.from_numpy(_SOURCE.astype(bool))[:, None].to(device))

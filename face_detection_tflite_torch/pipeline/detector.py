@@ -38,6 +38,16 @@ over a mesh of the visible devices with the weights on each
 its own device.  The visible devices come from
 ``parallel.sharding.visible_devices``.
 
+Programs, as in the JAX package, are made once per key (image size,
+mode, face slab, device; the padded batch and the overflow width are the
+inputs' shapes) and dispatched whole: on a card each program key is a
+CUDA graph, captured at its first call (or in ``warmup``) and replayed
+after (``pipeline/graphs.py``), so a first call of a key pays an eager
+run and a capture.  The graphs live in their device's graph memory pool,
+which every captured program of the process on that device shares.
+Inside ``pipeline.timings.trace`` the programs run eagerly,
+so that the trace holds their stage ranges.
+
 ``cost_report`` keeps the JAX detector's keys, but PyTorch has no XLA
 cost analysis: ``flops`` is counted per operator over one call of the
 program (``torch.utils.flop_counter``, before any fusion),
@@ -56,6 +66,7 @@ at "high".  The tiers' counterparts on the card are the executor's
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import threading
 import zlib
@@ -64,7 +75,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..convert.executor import convert_file
+from ..convert.executor import _check_fp32, convert_file
 from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
@@ -76,6 +87,7 @@ from .config import (DEFAULT_MAX_MISSED_FRAMES,
                      DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE, MIN_SCORE,
                      MODEL_FILES, FaceDetectionMode, FaceDetectionModel,
                      SegmentationConfig, SegmentationModel)
+from . import graphs
 from .gates import validate_face_gates
 from .programs import (PipelineModels, build_pipeline_program,
                        network_precision, resolve_device)
@@ -289,6 +301,9 @@ class FaceDetector:
             int(np.prod(s)) == 1 for s in models.mesh.output_shapes)
         self._programs: dict[tuple, object] = {}
         self._programs_lock = threading.Lock()
+        #: The captured programs (pipeline/graphs.py), for their count,
+        #: their pools' bytes and their release in dispose.
+        self._captured_programs: list[graphs.CapturedProgram] = []
         #: Sticky speculation bucket per (H, W, mode).
         self._spec_state: dict[tuple, dict] = {}
         self._spec_lock = threading.Lock()
@@ -442,14 +457,34 @@ class FaceDetector:
             return self._programs[key]
 
     def _sharded(self, build, models, n_batch_args: int):
-        """``build(models)``, or under ``data_parallel`` the program built
-        on each mesh device's networks and run sharded
-        (:func:`~..parallel.sharding.data_parallel`)."""
+        """``build(models)`` captured (:meth:`_captured`), or under
+        ``data_parallel`` the program built and captured on each mesh
+        device's networks and run sharded
+        (:func:`~..parallel.sharding.data_parallel`).  Called under
+        ``_programs_lock``."""
         if self._mesh is None:
-            return build(models)
+            return self._captured(build(models), models)
         mesh_models = self._mesh_models
-        return _sharding.data_parallel(lambda d: build(mesh_models[d]),
-                                       self._mesh, n_batch_args)
+        return _sharding.data_parallel(
+            lambda d: self._captured(build(mesh_models[d]), mesh_models[d]),
+            self._mesh, n_batch_args)
+
+    def _captured(self, fn, models: PipelineModels):
+        """The eager program ``fn`` on ``models``' device as a captured
+        program in that device's graph pool (``pipeline/graphs.py``; on
+        the CPU ``fn`` itself), with the executor's fp32 check on every
+        call.  Called under ``_programs_lock``."""
+        dev = models.device
+        nets = [m for m in (models.detector, models.mesh, models.iris,
+                            models.blendshapes, models.embedding)
+                if m is not None]
+        bf16 = any(getattr(m, "_bf16", False) or getattr(
+            m, "_dtype", torch.float32) is not torch.float32 for m in nets)
+        prog = graphs.program(fn, dev, functools.partial(
+            _check_fp32, dev, bf16=bf16))
+        if isinstance(prog, graphs.CapturedProgram):
+            self._captured_programs.append(prog)
+        return prog
 
     def _models_key(self, device, key: tuple):
         """(the networks a dispatch on ``device`` runs, its programs' cache
@@ -999,7 +1034,9 @@ class FaceDetector:
         three by default) on a zero batch of ``image_shape``, so the first
         real request pays none of it; in the adaptive modes also the
         overflow face-stage program at its smallest reachable slab, 2 (a
-        zero frame detects nothing, so a detection never reaches it).
+        zero frame detects nothing, so a detection never reaches it).  On
+        a card each of these calls captures its program key's CUDA graph
+        (``pipeline/graphs.py``), as the JAX detector's warm-up compiles.
 
         ``devices`` also warms the replica (device-pinned) path on each of
         them: the copy of the weights and each mode's dispatch and finish
@@ -1385,7 +1422,11 @@ class FaceDetector:
 
     def memory_report(self) -> dict:
         """Weight bytes per network (from the modules' tensors), their
-        total and the count of built programs; where replicas were made
+        total, the count of built programs (on a card: of captured CUDA
+        graphs) and the device bytes of the memory pools its graphs live
+        in (``graph_pool_bytes``, 0 off a card; a device's pool is shared
+        with the process's other captured programs there); where replicas
+        were made
         (:meth:`_replica_params`), their count and the weight bytes of
         each replica's networks together."""
         self._check_disposed()
@@ -1404,9 +1445,18 @@ class FaceDetector:
         if self._segmentation is not None:
             report["segmentation"] = nbytes(self._segmentation.model)
         report["total_weights"] = sum(report.values())
-        report["compiled_programs"] = len(self._programs)
         with self._programs_lock:
             replicas = list(self._replica_params_cache.values())
+            captured = list(self._captured_programs)
+            n_programs = len(self._programs)
+        # On a card the programs are CUDA graphs, one a key and batch
+        # shape (pipeline/graphs.py), in one memory pool a device.
+        report["compiled_programs"] = (
+            sum(len(p.keys()) for p in captured)
+            if graphs.graph_maker(self.device) is not None else n_programs)
+        report["graph_pool_bytes"] = sum(
+            pool.nbytes() for pool in {id(p.pool): p.pool
+                                       for p in captured}.values())
         if replicas:
             report["replica_copies"] = len(replicas)
             report["replica_weights"] = sum(
@@ -1431,8 +1481,10 @@ class FaceDetector:
         prog = self._program(h, w, mode)
         if self.device.type == "cuda":
             _build.load()  # the build is not the call's
-        flops, peak = call_cost(prog, torch.zeros(
-            (batch_size, h, w, 3), dtype=torch.uint8, device=self.device))
+        with graphs.eager():  # count the operators, not a replay
+            flops, peak = call_cost(prog, torch.zeros(
+                (batch_size, h, w, 3), dtype=torch.uint8,
+                device=self.device))
         return {"image_bucket": (h, w), "mode": mode.value,
                 "batch_size": batch_size, "flops": flops,
                 "bytes_accessed": None, "transcendentals": None,
@@ -1465,12 +1517,16 @@ class FaceDetector:
     # -- lifetime ------------------------------------------------------------
 
     def dispose(self) -> None:
-        """Releases the programs, the models' device memory (the replicas'
-        and the mesh's copies too), the embedding model, the segmenter,
-        the cached device frame and the decode cache."""
+        """Releases the programs and their captured graphs, then the
+        models' device memory (the replicas' and the mesh's copies too),
+        the embedding model, the segmenter, the cached device frame and
+        the decode cache."""
         self._disposed = True
         with self._programs_lock:
             self._programs.clear()
+            for prog in self._captured_programs:
+                prog.release()
+            self._captured_programs.clear()
             # After _disposed is set: a racing _replica_params either
             # inserted before this clear or raises.
             self._replica_params_cache.clear()

@@ -1,0 +1,333 @@
+"""Captured programs: a CUDA graph per program key, replayed per call.
+
+The JAX package compiles each pipeline program once per key with
+``jax.jit`` and then dispatches it as one executable.  The counterpart on
+a card is a CUDA graph: the eager program (a plain function of tensors,
+``pipeline/programs.py``) is captured once per input signature and then
+replayed with one ``cudaGraphLaunch`` in place of its ~150-1,200 op-by-op
+launches from the host.  This module has no JAX counterpart, as
+``pipeline/upload.py`` has none.
+
+:class:`CapturedProgram` wraps one eager program on one device:
+
+* **Key.**  The owner's cache (``FaceDetector._programs``,
+  ``FaceDetection``'s per-size cache) keys the program by what its
+  closure fixes (image size, mode, face slab, device); the program keys
+  its graphs by the shapes and dtypes of its inputs, which carry the
+  padded batch and the overflow width ``nb`` of the face-stage re-run.
+* **First call.**  The eager program runs on the caller's stream and its
+  outputs are the call's result; it warms everything a capture must not
+  do itself (cuDNN's first calls, the kernels' build and load, K1's
+  shared-memory opt-in, the per-device index tables).  Then the program is
+  captured (``capture_error_mode="thread_local"``, so that another
+  thread's event synchronise does not abort it).  Later calls copy their
+  inputs into the graph's static inputs, replay it and clone its outputs
+  out of the graph's memory, all on the caller's current stream.  The
+  clone is needed: a result that a caller still holds (the speculative
+  ``det_*`` slab, a depth-2 stream's batch in flight) would otherwise be
+  overwritten by the next replay.
+* **Memory.**  One graph memory pool (:class:`GraphPool`) per device,
+  shared by every captured program of the process there.  A key's graph
+  holds the eager program's whole working set (4.5 GB for FULL at
+  B = 16 on an H100), so a pool per detector would hold one working set
+  per detector; in one shared pool each later capture reuses the blocks
+  earlier captures freed, and the pool stays about one working set.  Sharing is safe only while its replays never
+  overlap, so the pool's lock orders each copy-in, replay and clone
+  across threads and owners, and the next caller's stream waits on the
+  event recorded after the last clone.  An owner's ``dispose`` releases
+  its graphs (:meth:`CapturedProgram.release`); once no graph is left in
+  the pool, the next capture hands its memory back to the card and
+  starts a new pool (:meth:`GraphPool.adopt`).
+* **Launch counts.**  A replay enters no kernel wrapper, so the launches
+  a capture records (``kernels.build.tally_launches``) are added to the
+  wrappers' counts at each replay (``kernels.build.add_launches``); a
+  capture itself launches nothing and counts nothing.
+* **Eager calls.**  Inside ``pipeline.timings.trace`` (on every thread)
+  and inside :func:`eager` (on the calling thread) a call runs the eager
+  program: the trace's ``fdt.*`` stage ranges are host ranges entered op
+  by op, which a replay does not enter.  Any other ``torch.profiler``
+  window sees the replays.
+* **Failures.**  A failed capture or replay raises; nothing falls back to
+  the eager program on the card.
+
+Graphs are made through :func:`graph_maker`, the one seam: a CUDA graph on
+a card and none on the CPU, where the owners run the eager program.  The
+tests replace it with a stand-in that re-runs the program into the same
+static outputs at each replay, so results alias as a real graph's do.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+import weakref
+from typing import Callable, Optional
+
+import torch
+
+from ..kernels import build as _build
+from . import timings
+
+__all__ = ["CapturedProgram", "GraphPool", "graph_maker", "pool_for",
+           "program", "eager"]
+
+_local = threading.local()
+#: One capture at a time in the process: a new pool's ``empty_cache``
+#: (:meth:`GraphPool.adopt`) must not free memory under another capture.
+_capture_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def eager():
+    """Within the block, on this thread, captured programs run their eager
+    program (as inside ``timings.trace`` on every thread): what counts a
+    call's operators (``FaceDetector.cost_report``) or marks a network's
+    calls needs the ops run one by one."""
+    saved = getattr(_local, "eager", False)
+    _local.eager = True
+    try:
+        yield
+    finally:
+        _local.eager = saved
+
+
+def _runs_eager() -> bool:
+    return timings.tracing() or getattr(_local, "eager", False)
+
+
+def _map(fn, tree):
+    """``fn`` of each tensor of a pytree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+#: One capture stream a card (a graph cannot be captured on the legacy
+#: default stream).
+_capture_streams: dict[int, "torch.cuda.Stream"] = {}
+
+
+def _cuda_graph(fn: Callable, static_inputs: list, pool: "GraphPool"):
+    """Captures ``fn(*static_inputs)`` into a CUDA graph in ``pool``'s
+    memory, on a side stream; returns (replay, static outputs).  The
+    capture calls ``CUDAGraph.capture_begin``/``capture_end`` itself: the
+    ``torch.cuda.graph`` context would also synchronise the card and
+    empty PyTorch's device and pinned-host caches on entry, under every
+    other thread's feet (a server's batcher, a replica's worker).  A host
+    synchronise inside ``fn`` (``.item()``, ``.cpu()``, a pageable copy)
+    makes the capture fail, and that raises."""
+    device = pool.device
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    held = _Graph(torch.cuda.CUDAGraph(), pool)
+    graph = held.graph
+    with torch.cuda.device(index):
+        stream = _capture_streams.get(index)
+        if stream is None:
+            stream = _capture_streams[index] = torch.cuda.Stream(index)
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=held.handle,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = fn(*static_inputs)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is invalid; fn's error says why
+                    raise
+                graph.capture_end()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing a program on {device} failed: {e} (a host "
+                f"synchronise inside the program, such as .item(), .cpu() "
+                f"or a pageable host-to-device copy, cannot be "
+                f"captured)") from e
+    return held.replay, out
+
+
+class _Graph:
+    """A captured graph, counted live in its pool (:meth:`GraphPool.adopt`)
+    until it is freed."""
+
+    def __init__(self, graph, pool: "GraphPool"):
+        self.graph = graph
+        self.handle = pool.adopt(self)
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def graph_maker(device: torch.device) -> Optional[Callable]:
+    """The function that captures a program on ``device``: a CUDA graph's
+    on a card, None elsewhere (the owners then run the eager program).
+    ``maker(fn, static_inputs, pool)`` returns ``(replay, static
+    outputs)``: ``replay()`` recomputes the outputs in place from the
+    static inputs' current values.  The tests replace this function with
+    one that returns a stand-in, so the captured path runs on the CPU."""
+    return _cuda_graph if device.type == "cuda" else None
+
+
+class GraphPool:
+    """The graph memory of one device, shared by the process's captured
+    programs there, and the lock and event that keep their replays from
+    overlapping (:func:`pool_for`)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.Lock()
+        self._handle = None
+        self._live = 0
+        self._live_lock = threading.Lock()
+        self._done: Optional["torch.cuda.Event"] = None
+
+    def adopt(self, graph: object):
+        """Counts ``graph`` live in this pool until it is freed, and
+        returns the handle to capture it with: a new CUDA memory pool
+        where no graph of the last one is left, since PyTorch frees a
+        graph pool with its last graph and cannot take it back.  Before
+        a new pool, the last one's memory is handed back to the card
+        (``torch.cuda.empty_cache``): PyTorch releases a freed graph
+        pool's blocks only there or on running out of memory outside a
+        capture, never during one, so the old pool would otherwise stay
+        reserved beside the new one."""
+        with self._live_lock:
+            if self._live == 0:
+                if self._handle is not None:
+                    torch.cuda.empty_cache()
+                self._handle = torch.cuda.graph_pool_handle()
+            self._live += 1
+        weakref.finalize(graph, self._freed)
+        return self._handle
+
+    def _freed(self) -> None:
+        with self._live_lock:
+            self._live -= 1
+
+    def wait(self, stream) -> None:
+        """Orders ``stream`` after the last clone out of this pool."""
+        if self._done is not None:
+            stream.wait_event(self._done)
+
+    def record(self, stream) -> None:
+        """Marks the end of a clone out of this pool on ``stream``."""
+        if self.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+
+    def nbytes(self) -> int:
+        """The device bytes of this pool's segments (0 before a capture,
+        and off a card)."""
+        if self._handle is None or self.device.type != "cuda":
+            return 0
+        want = tuple(self._handle)
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if s.get("device") == self.device.index
+                   and tuple(s.get("segment_pool_id") or ()) == want)
+
+
+_pools: dict[torch.device, GraphPool] = {}
+_pools_lock = threading.Lock()
+
+
+def pool_for(device) -> GraphPool:
+    """The graph pool of ``device`` (a card's index made explicit)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _pools_lock:
+        pool = _pools.get(device)
+        if pool is None:
+            pool = _pools[device] = GraphPool(device)
+        return pool
+
+
+class CapturedProgram:
+    """An eager program ``fn(*tensors) -> pytree of tensors`` on one device,
+    captured per input signature on its first call and replayed after
+    (module docstring).  ``guard`` runs on every call, eager or replayed
+    (the executor's fp32 check, which a replay does not enter)."""
+
+    def __init__(self, fn: Callable, pool: GraphPool, maker: Callable,
+                 guard: Optional[Callable[[], None]] = None):
+        self.fn = fn
+        self.pool = pool
+        self._maker = maker
+        self._guard = guard
+        self._graphs: dict[tuple, tuple] = {}
+        #: Host seconds each key's capture took (the eager first call
+        #: not included).
+        self.capture_s: dict[tuple, float] = {}
+
+    def keys(self) -> list[tuple]:
+        """The input signatures (shape and dtype of each input) captured
+        so far."""
+        return list(self._graphs)
+
+    def release(self) -> None:
+        """Frees this program's graphs (a later call captures anew)."""
+        with self.pool.lock:
+            self._graphs.clear()
+            self.capture_s.clear()
+
+    def __call__(self, *args):
+        if self._guard is not None:
+            self._guard()
+        if _runs_eager():
+            return self.fn(*args)
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        with torch.inference_mode():
+            entry = self._graphs.get(key)
+            if entry is None:
+                # As jit compiles on a first call: the eager run is the
+                # call's result, then the capture.
+                out = self.fn(*args)
+                self._capture(key, args)
+                return out
+            return self._replay(entry, args)
+
+    def _capture(self, key: tuple, args) -> None:
+        with _capture_lock, self.pool.lock:
+            if key in self._graphs:
+                return
+            t0 = time.perf_counter()
+            # The first call's values: a stand-in capture runs on them.
+            static = [a.clone(memory_format=torch.contiguous_format)
+                      for a in args]
+            with _build.tally_launches() as tally:
+                replay, out = self._maker(self.fn, static, self.pool)
+            self._graphs[key] = (static, replay, out, tally)
+            self.capture_s[key] = time.perf_counter() - t0
+
+    def _replay(self, entry, args):
+        static, replay, out, tally = entry
+        pool = self.pool
+        with pool.lock:
+            stream = (torch.cuda.current_stream(pool.device)
+                      if pool.device.type == "cuda" else None)
+            if stream is not None:
+                pool.wait(stream)
+            for s, a in zip(static, args):
+                s.copy_(a)
+            replay()
+            result = _map(torch.clone, out)
+            if stream is not None:
+                pool.record(stream)
+        _build.add_launches(tally)
+        return result
+
+
+def program(fn: Callable, device,
+            guard: Optional[Callable[[], None]] = None):
+    """``fn`` as a :class:`CapturedProgram` in ``device``'s pool where
+    :func:`graph_maker` has a maker for ``device``, else ``fn`` itself
+    (the CPU runs the eager program)."""
+    pool = pool_for(device)
+    maker = graph_maker(pool.device)
+    if maker is None:
+        return fn
+    return CapturedProgram(fn, pool, maker, guard)

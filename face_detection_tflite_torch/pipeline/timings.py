@@ -32,12 +32,30 @@ from typing import ContextManager, Iterator
 import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import record_function
 
-__all__ = ["DetectTimings", "FpsCounter", "trace"]
+__all__ = ["DetectTimings", "FpsCounter", "trace", "tracing"]
 
 #: Chrome-trace categories of device activities.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 _NO_RANGE = contextlib.nullcontext()
+
+#: Open :func:`trace` windows, in any thread (see :func:`tracing`).
+_traces = 0
+_traces_lock = threading.Lock()
+
+
+def tracing() -> bool:
+    """Whether a :func:`trace` window is open, in any thread.  Captured
+    programs (``pipeline/graphs.py``) then run their eager program, so
+    that the trace holds the ``fdt.*`` ranges that a graph's replay does
+    not enter."""
+    return _traces > 0
+
+
+def _count_trace(n: int) -> None:
+    global _traces
+    with _traces_lock:
+        _traces += n
 
 
 def stage_range(name: str) -> ContextManager:
@@ -132,6 +150,11 @@ def trace(log_dir: str) -> Iterator[None]:
     lookup an op).  Every thread that runs while the window is open is
     recorded (``profile_all_threads``), so a ``ServingPipeline`` or
     ``ReplicaPool`` worker started before the window reaches the trace.
+    Inside the window every program call runs its eager program, op by
+    op, in place of its captured CUDA graph (``pipeline/graphs.py``,
+    :func:`tracing`), so that the trace holds each op's ``fdt.*`` stage
+    range: the trace shows the eager program's launches and gaps, not a
+    replay's.  Any other ``torch.profiler`` window records the replays.
     With CUDA, every visible card is synchronised at both ends of the
     window, so every kernel queued inside it, on any card, is in the
     trace, and one empty marker kernel is launched at its start (on the
@@ -160,9 +183,11 @@ def trace(log_dir: str) -> Iterator[None]:
                      profile_all_threads=True)) as prof:
         if cuda:
             torch.cuda._sleep(0)  # the marker: one device activity at least
+        _count_trace(1)
         try:
             yield
         finally:
+            _count_trace(-1)
             if cuda:
                 synchronize_all()
     path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}."

@@ -921,3 +921,40 @@ def test_trace_puts_each_kernel_launch_in_its_stage(cuda_device, tmp_path):
     assert count("Memcpy HtoD") == {"fdt.upload": 2}
     assert bd["attributed_share"] >= 0.98
     det.dispose()
+
+
+@pytest.mark.cuda
+def test_captured_programs_replay_the_eager_program(cuda_device):
+    """On the card each program key is a CUDA graph: with every batch
+    overflowing a 1-face slab, the replayed faces equal the eager calls'
+    bit for bit, each replayed batch counts one K1 launch and one K2 at
+    each site plus one at each on its re-run, and the pool holds device
+    memory until ``dispose``."""
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.pipeline import graphs
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (4, 427, 640, 3), dtype=np.uint8)
+    _, models = _small_card_detector(
+        cuda_device, torch.from_numpy(frames).to(cuda_device))
+    det = FaceDetector(models=models, device=cuda_device, max_faces=16)
+    det._speculation_bucket = lambda h, w, mode: 1
+    det._note_face_count = lambda h, w, mode, n: None
+    batches = [frames, np.ascontiguousarray(frames[::-1])]
+    for b in batches:          # the eager first calls, then the captures
+        det.detect_faces_batch(b)
+    k1 = detections.detection_postprocess.launches
+    k2 = dict(warp.warp_normalize.launches_by_size)
+    got = [_faces_bits(det.detect_faces_batch(b)) for b in batches * 2]
+    assert detections.detection_postprocess.launches - k1 == 4
+    assert {s: n - k2.get(s, 0) for s, n in
+            warp.warp_normalize.launches_by_size.items()
+            if n != k2.get(s, 0)} == {192: 8, 64: 8}
+    with graphs.eager():
+        want = [_faces_bits(det.detect_faces_batch(b)) for b in batches * 2]
+    assert got == want and sum(len(per) for per in got[0]) >= 4
+    progs = list(det._programs.values())
+    assert all(isinstance(p, graphs.CapturedProgram) for p in progs)
+    report = det.memory_report()
+    assert report["compiled_programs"] == 2 and report["graph_pool_bytes"] > 0
+    det.dispose()
+    assert all(not p.keys() for p in progs)

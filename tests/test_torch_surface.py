@@ -77,8 +77,9 @@ DELIBERATE = {
     "pipeline.programs:build_pipeline_program(batched)":
         "every port program is batched; there is no vmap to leave out",
     "pipeline.detector:default_compile_cache_dir":
-        "no compile cache: PyTorch runs eagerly and the kernels are built "
-        "once into kernels/_build/",
+        "programs are captured per key as CUDA graphs on the card, but a "
+        "CUDA graph cannot be saved to disk; the kernels are built once "
+        "into kernels/_build/",
     "pipeline.programs:PipelineModels.params":
         "the port's weights live in the networks' nn.Modules; "
         "ConvertedModel.jax_params() gives them in the JAX keys",
