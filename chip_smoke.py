@@ -217,8 +217,10 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    re-runs), the replayed faces against the same detector's eager calls
    (``graphs.eager``) bit for bit, the replayed outputs of the steady
    key, the 2-face speculative key and a forced overflow re-run at 16
-   faces against ``build_pipeline_program``'s eager program (largest
-   difference printed, 0 required), ms a batch replayed and eager in
+   faces against ``build_pipeline_program``'s eager program, the
+   readback packed in the replay against the eager outputs packed op by
+   op (largest difference printed, 0 required), ms a batch replayed and
+   eager in
    turns, the host's ms to queue a batch already on the card with no
    synchronise, the graphs and the pool's bytes, and 3 batches of each
    in a plain ``torch.profiler`` window (busy ms a batch and idle share;
@@ -230,8 +232,26 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    the eager program's, one K1 launch a call, ms a call both ways,
    capture ms, pool bytes); two threads on one key and a depth-2 stream
    whose every batch re-runs its face stages on its replay's ``det_*``
-   slab, each equal to the sequential calls bit for bit; a ``graphs``
-   JSON line of the numbers;
+   slab, each equal to the sequential calls bit for bit; the FULL
+   readback packed inside the 2-face key's graph against the same
+   program captured without it and packed op by op after the replay, on
+   15 of 16 rows (``_graph_pack``: ``_fetch_finish``'s arrays bit for
+   bit, the host µs of the fetch step in turns, the operators the host
+   launches for a replayed batch's call and fetch either way);
+   ``SelfieSegmentation`` at B = 16, the general segmenter in float32 and
+   uint8 and the multiclass one in float32 (``_graph_segmentation``: the
+   size's replayed planes against its eager run, bit for bit, ms a batch
+   both ways in turns, the host's ms to queue a batch, 3 batches in a
+   plain profiler window each way, capture ms, pool bytes);
+   ``FaceEmbedding.embed_batch`` on frame 0 at N = 1, 3, 4 and 16 seeded
+   eye pairs (``_graph_embedding``: slabs 1, 4 and 16, the embeddings
+   against the eager calls' bit for bit, one K2 launch at 112 px a
+   replayed call from the capture's tally, K2 against its plain version
+   on the replay's ROIs, ms a call both ways); ``FaceLandmark``,
+   ``IrisLandmark`` and ``FaceBlendshapesModel`` at B = 1 on seeded
+   inputs (``_graph_single``: bit for bit, ms a call both ways); a
+   ``graphs`` JSON line of the numbers; ``time:`` lines give the seconds
+   into the phase (and into the run, a line a phase);
 15. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
    line.  Each kernel's ``launches`` is its count over the STANDARD main
    path's batches (``full_launches``: over the FULL path's; ``stream_`` and
@@ -257,7 +277,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    embedding phase's (``server_embed_launches``: one ``/v1/embed``);
    ``graph_launches`` over phase 14's ``graph_batches`` replayed batches
    of each B = 16 cell and its ``graph_calls`` replayed B = 1 calls (K1
-   also over the standalone calls);
+   also over the standalone calls, the embedding site also over the
+   ``embed_batch_calls`` replayed ``embed_batch`` calls);
    ``nms_core`` is off the main path (0, and 0 over phase 11's ``detect``
    run, both counted) and its launches in step 3 are ``check_launches``.
    K1's ``max_abs_err`` is its largest box error over every check
@@ -269,6 +290,7 @@ without a result where CUDA is unavailable or the package is missing.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -2324,8 +2346,9 @@ def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
     uint8 readback, :data:`SEG_RUNS` batches of the main path's frames
     through ``SelfieSegmentation`` (dispatch and materialize, the upload
     included) after a warm-up, ms a batch and masks/s; split into the
-    device program (CUDA events around the letterbox, the net and the
-    planes on frames already on the card), the readback (host clock
+    device program (CUDA events around the size's program, the letterbox,
+    the net and the planes, replayed on frames already on the card; the
+    clone out of the graph included), the readback (host clock
     around the non-blocking copy to pinned memory and its event) and the
     host ``upsample`` of the batch's masks to the frames' size.  The
     float32 masks against the CPU on two frames, within
@@ -2335,7 +2358,6 @@ def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.models.segmentation import \
         SelfieSegmentation
-    from face_detection_tflite_torch.ops.letterbox import letterbox_params
     from face_detection_tflite_torch.pipeline.upload import download_async
     multiclass = kind == "multiclass"
     net = convert_model(ir, name=f"segmenter-{kind}-random")
@@ -2350,11 +2372,10 @@ def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
             t0 = time.perf_counter()
             masks = seg(frames_np)
             batch_ms.append((time.perf_counter() - t0) * 1e3)
-        lbp = letterbox_params(HEIGHT, WIDTH, seg.in_h, seg.in_w)
+        prog, _ = seg._program(seg.model, HEIGHT, WIDTH)
         with torch.inference_mode():
-            device_ms = _median_ms(lambda: seg._planes(seg.model, frames, lbp),
-                                   iters=5, warmup=1)
-            planes = seg._planes(seg.model, frames, lbp)
+            device_ms = _median_ms(lambda: prog(frames), iters=5, warmup=1)
+            planes = prog(frames)
             torch.cuda.synchronize()
             reads = []
             for _ in range(5):
@@ -3438,6 +3459,117 @@ def _program_diff(got, want) -> float:
     return worst
 
 
+#: The speculative program's detections, kept on the card for the
+#: overflow re-run (its det_count goes into the packed readback).
+DET_SLAB = ("det_boxes", "det_raw_keypoints", "det_scores", "det_valid")
+
+
+def _det_slab(out) -> dict:
+    return {k: out[k] for k in DET_SLAB}
+
+
+def _eager_fetch_async(out, scale, rows=None):
+    """The readback as the detector started it before it was packed inside
+    each program: the raw outputs' rows (but the det_* slab) packed op by
+    op (``pack_readback``) and their copy to pinned memory started; a
+    handle for ``FaceDetector._fetch_finish``."""
+    from face_detection_tflite_torch.pipeline.detector import pack_readback
+    from face_detection_tflite_torch.pipeline.upload import download_async
+    buf, layout = pack_readback({k: v[:rows] for k, v in out.items()
+                                 if k not in DET_SLAB}, scale)
+    host, event = download_async(buf)
+    return host, event, layout
+
+
+def _eager_readback(out, scale, rows=None) -> dict:
+    """:func:`_eager_fetch_async`'s arrays."""
+    from face_detection_tflite_torch import FaceDetector
+    return FaceDetector._fetch_finish(_eager_fetch_async(out, scale, rows))
+
+
+def _readback_diff(got: dict, want: dict) -> float:
+    """Largest absolute difference of two readbacks (dicts of host
+    arrays); raises where a key, a shape, a dtype, a NaN position or a
+    boolean or integer array differs."""
+    import numpy as np
+    if set(got) != set(want):
+        raise AssertionError(f"readbacks differ in keys: {sorted(got)} "
+                             f"against {sorted(want)}")
+    worst = 0.0
+    for k in want:
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{k}: {g.shape} {g.dtype} against "
+                                 f"{w.shape} {w.dtype}")
+        if not np.issubdtype(w.dtype, np.floating):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{k} differs")
+            continue
+        if not np.array_equal(np.isnan(g), np.isnan(w)):
+            raise AssertionError(f"{k}: NaNs in other places")
+        ok = ~np.isnan(w)
+        if ok.any():
+            worst = max(worst, float(np.abs(g[ok] - w[ok]).max()))
+    return worst
+
+
+def _host_ops(fn) -> dict:
+    """The PyTorch operators ``fn()`` runs, by name, views and
+    allocations left out: what the host launches on the card for it (a
+    replay itself is no operator).  An operator that may return a view
+    (``to``) counts where its result has memory of its own."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def storages(tree):
+        return {t.untyped_storage().data_ptr() for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name.startswith("empty"):
+                return out
+            if not getattr(func, "is_view", False) or \
+                    storages(out) - storages((args, kwargs)):
+                self.ops[name] += 1
+            return out
+
+    with torch.inference_mode(), Count() as count:
+        fn()
+    return dict(count.ops)
+
+
+def _in_turns(calls: int, call, finish=None) -> dict:
+    """Median ms of ``calls`` calls a turn, replayed and (inside
+    ``graphs.eager``) eager, in turns (replayed, eager, eager, replayed),
+    each after a synchronise: ``call()`` to the end of its device work,
+    or with ``finish``, only the host's time to queue ``call()``, whose
+    result ``finish`` then waits for, untimed."""
+    import torch
+    from face_detection_tflite_torch.pipeline import graphs
+    ms: dict = {"replayed": [], "eager": []}
+    for how in ("replayed", "eager", "eager", "replayed"):
+        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
+        with ctx:
+            for _ in range(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = call()
+                if finish is None:
+                    torch.cuda.synchronize()
+                ms[how].append((time.perf_counter() - t0) * 1e3)
+                if finish is not None:
+                    finish(out)
+    return {how: statistics.median(v) for how, v in ms.items()}
+
+
 def _graph_keys(det) -> list:
     """(program, input shapes, capture ms) of every captured graph of
     ``det``: the program as its mode and face slab, or "stage" for the
@@ -3451,20 +3583,20 @@ def _graph_keys(det) -> list:
     return out
 
 
-def _graph_profile(det, images, mode, runs: int, card: str, label: str):
-    """Busy ms a batch, window ms and idle share of ``runs`` batches in a
-    plain ``torch.profiler`` window, replayed and (inside
-    ``graphs.eager``) eager, and the device activities a batch; where the
-    profiler kept no device record, the busy time is CUDA events around
-    the calls queued back to back (:func:`_queued_ms`) and the idle share
-    is not measured."""
+def _graph_profile(call, runs: int, card: str, label: str):
+    """Busy ms a batch, window ms and idle share of ``runs`` batches
+    (``call()`` each) in a plain ``torch.profiler`` window, replayed and
+    (inside ``graphs.eager``) eager, and the device activities a batch;
+    where the profiler kept no device record, the busy time is CUDA
+    events around the calls queued back to back (:func:`_queued_ms`) and
+    the idle share is not measured."""
     import torch
     from face_detection_tflite_torch.pipeline import graphs
     out = {}
     for how in ("replayed", "eager"):
         def run():
             for _ in range(runs):
-                det.detect_faces_batch(images, mode)
+                call()
             torch.cuda.synchronize()
         ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
         with ctx:
@@ -3472,8 +3604,7 @@ def _graph_profile(det, images, mode, runs: int, card: str, label: str):
             _, device = _profiled(run, lambda name: True,
                                   f"phase 14 {label} {how}")
             if not device:
-                ms = _queued_ms(lambda: det.detect_faces_batch(images, mode),
-                                iters=runs)
+                ms = _queued_ms(call, iters=runs)
                 print(f"graphs {label} {how}: the profiler kept no device "
                       f"record; CUDA events around {runs} queued batches: "
                       f"{_num(ms, '.3f')} ms a batch; idle share not "
@@ -3544,63 +3675,54 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
         raise AssertionError(f"graphs {label}: replayed faces differ from "
                              f"the eager program's")
 
-    # Program outputs against build_pipeline_program's eager program.
+    # Program outputs against build_pipeline_program's eager program: the
+    # readback (packed in the replay) against the eager outputs packed op
+    # by op, and the det_* slab the replay keeps on the card.
     kw = {"max_faces": MAX_FACES, "min_score": det.min_score,
           "with_embeddings": embed}
+    scale = det._readback_scale(HEIGHT, WIDTH)
     diffs = {}
     with torch.inference_mode():
         steady = det._program(HEIGHT, WIDTH, mode, face_slab=MAX_FACES)
-        diffs["steady"] = _program_diff(
-            steady(frames), build_pipeline_program(
-                models, HEIGHT, WIDTH, mode, **kw)(frames))
+        diffs["steady"] = _readback_diff(
+            det._fetch(steady(frames)), _eager_readback(
+                build_pipeline_program(models, HEIGHT, WIDTH, mode, **kw)(
+                    frames), scale))
         spec = det._program(HEIGHT, WIDTH, mode, face_slab=2)
         spec(frames)                               # eager, then captured
         got = spec(frames)
-        diffs["slab 2"] = _program_diff(got, build_pipeline_program(
-            models, HEIGHT, WIDTH, mode, face_slab=2, **kw)(frames))
-        if not (got["det_count"] > 2).any():
+        want = build_pipeline_program(models, HEIGHT, WIDTH, mode,
+                                      face_slab=2, **kw)(frames)
+        readback = det._fetch(got)
+        diffs["slab 2"] = max(
+            _readback_diff(readback, _eager_readback(want, scale)),
+            _program_diff(_det_slab(got), _det_slab(want)))
+        if not (readback["det_count"] > 2).any():
             raise AssertionError(f"graphs {label}: no frame overflows a "
                                  f"2-face slab")
-        prefix = [got[k][:, :MAX_FACES] for k in (
-            "det_boxes", "det_raw_keypoints", "det_scores", "det_valid")]
+        prefix = [got[k][:, :MAX_FACES] for k in DET_SLAB]
         # Captured by the first batch's re-run at 16 faces.
         stage = det._face_stage_program(HEIGHT, WIDTH, mode)
-        diffs["overflow re-run"] = _program_diff(
-            stage(frames, *prefix), build_pipeline_program(
-                models, HEIGHT, WIDTH, mode, from_detections=True,
-                with_embeddings=embed)(frames, *prefix))
+        diffs["overflow re-run"] = _readback_diff(
+            det._fetch(stage(frames, *prefix)), _eager_readback(
+                build_pipeline_program(
+                    models, HEIGHT, WIDTH, mode, from_detections=True,
+                    with_embeddings=embed)(frames, *prefix), scale))
     print(f"graphs {label}: replayed outputs against build_pipeline_program's"
-          f" eager program, largest difference: {diffs}; faces equal the "
-          f"eager calls' bit for bit; launches {launches} over {GRAPH_RUNS} "
-          f"replayed batches ({reruns} re-runs)  [{card}]")
+          f" eager program (the readback against its outputs packed op by "
+          f"op), largest difference: {diffs}; faces equal the eager calls' "
+          f"bit for bit; launches {launches} over {GRAPH_RUNS} replayed "
+          f"batches ({reruns} re-runs)  [{card}]")
     if any(diffs.values()):
         raise AssertionError(f"graphs {label}: a replay differs from the "
                              f"eager program: {diffs}")
 
     # ms a batch in turns, and the host's time to queue one.
-    ms: dict = {"replayed": [], "eager": []}
-    for how in ("replayed", "eager", "eager", "replayed"):
-        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
-        with ctx:
-            for _ in range(GRAPH_RUNS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                det.detect_faces_batch(frames_np, mode)
-                torch.cuda.synchronize()
-                ms[how].append((time.perf_counter() - t0) * 1e3)
-    queue: dict = {"replayed": [], "eager": []}
-    for how in ("replayed", "eager", "eager", "replayed"):
-        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
-        with ctx:
-            for _ in range(GRAPH_RUNS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                handle = det._stream_dispatch(frames, mode)
-                queue[how].append((time.perf_counter() - t0) * 1e3)
-                det._stream_finish(handle, mode)
+    med = _in_turns(GRAPH_RUNS,
+                    lambda: det.detect_faces_batch(frames_np, mode))
+    qmed = _in_turns(GRAPH_RUNS, lambda: det._stream_dispatch(frames, mode),
+                     lambda handle: det._stream_finish(handle, mode))
     report = det.memory_report()
-    med = {how: statistics.median(v) for how, v in ms.items()}
-    qmed = {how: statistics.median(v) for how, v in queue.items()}
     n_faces = sum(len(f) for f in faces[-1])
     print(f"graphs {label}: ms a batch of {FRAMES} x {HEIGHT}x{WIDTH} "
           f"(pinned upload included), median of {2 * GRAPH_RUNS} in turns: "
@@ -3615,7 +3737,8 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
     if report["graph_pool_bytes"] <= 0:
         raise AssertionError(f"graphs {label}: the graph pool holds no "
                              f"device memory")
-    prof = _graph_profile(det, frames_np, mode, 3, card, label)
+    prof = _graph_profile(lambda: det.detect_faces_batch(frames_np, mode),
+                          3, card, label)
     det.dispose()
     return {"first_ms": first_ms, "capture_ms": [k[2] for k in keys],
             "diffs": diffs, "ms": med, "queue_ms": qmed,
@@ -3630,7 +3753,6 @@ def _graph_b1(models, frames, frames_np, card: str) -> dict:
     on a FULL detector: replayed faces against the eager calls', one K1
     and one K2 at each site a replayed call, ms a call replayed and eager
     in turns, and K1 and K2 against their plain versions on the frame."""
-    import torch
     from face_detection_tflite_torch import FaceDetector
     from face_detection_tflite_torch.pipeline import graphs
     from face_detection_tflite_torch.utils.camera import \
@@ -3657,17 +3779,7 @@ def _graph_b1(models, frames, frames_np, card: str) -> dict:
         if json.dumps(_payload([got[-1]])) != json.dumps(_payload([want])):
             raise AssertionError(f"graphs {label}: replayed faces differ "
                                  f"from the eager call's")
-        ms: dict = {"replayed": [], "eager": []}
-        for how in ("replayed", "eager", "eager", "replayed"):
-            ctx = graphs.eager() if how == "eager" else \
-                contextlib.nullcontext()
-            with ctx:
-                for _ in range(GRAPH_CALLS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    call()
-                    ms[how].append((time.perf_counter() - t0) * 1e3)
-        med = {how: statistics.median(v) for how, v in ms.items()}
+        med = _in_turns(GRAPH_CALLS, call)
         print(f"graphs {label} (B = 1, {WIDTH}x{HEIGHT}, FULL): ms a call, "
               f"median of {2 * GRAPH_CALLS} in turns: replayed "
               f"{med['replayed']:.2f}, eager {med['eager']:.2f}; "
@@ -3686,7 +3798,6 @@ def _graph_standalone(models, frames, frames_np, card: str) -> dict:
     image size, replayed; its detections against the eager program's bit
     for bit, one K1 launch a call, ms a call replayed and eager in
     turns."""
-    import torch
     from face_detection_tflite_torch.models.standalone import FaceDetection
     from face_detection_tflite_torch.ops import detections
     from face_detection_tflite_torch.pipeline import graphs
@@ -3709,16 +3820,7 @@ def _graph_standalone(models, frames, frames_np, card: str) -> dict:
                              f"differ from the eager program's, or "
                              f"{launches} K1 launches over {GRAPH_CALLS} "
                              f"calls")
-    ms: dict = {"replayed": [], "eager": []}
-    for how in ("replayed", "eager", "eager", "replayed"):
-        ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
-        with ctx:
-            for _ in range(GRAPH_CALLS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fd(frame)
-                ms[how].append((time.perf_counter() - t0) * 1e3)
-    med = {how: statistics.median(v) for how, v in ms.items()}
+    med = _in_turns(GRAPH_CALLS, lambda: fd(frame))
     (prog,) = fd._programs.values()
     capture_ms = [s * 1e3 for s in prog.capture_s.values()]
     pool = graphs.pool_for(fd.device).nbytes()
@@ -3807,6 +3909,257 @@ def _graph_concurrency(models, frames_np, card: str) -> None:
     ref.dispose()
 
 
+#: Phase 14's segmenters: (kind, readback dtype) at B = 16; the faces a
+#: FaceEmbedding.embed_batch call (3 and 4 share the slab-4 graph); the
+#: rounds that time a fetch step.
+SEG_GRAPH_CASES = (("general", "float32"), ("general", "uint8"),
+                   ("multiclass", "float32"))
+EMBED_NS = (1, 3, 4, 16)
+FETCH_ROUNDS = 20
+
+
+def _graph_segmentation(frames, frames_np, card: str) -> dict:
+    """Phase 14's ``SelfieSegmentation`` at B = 16 (:data:`SEG_GRAPH_CASES`,
+    seeded full-width segmenters): the size's program replayed against
+    its eager run (planes bit for bit), ms a batch both ways in turns
+    (upload and masks included), the host's ms to queue a batch already
+    on the card, a profiled window of 3 batches both ways, capture ms and
+    the card's graph pool."""
+    import torch
+    from face_detection_tflite_torch.convert.executor import convert_model
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.models.segmentation import \
+        SelfieSegmentation
+    from face_detection_tflite_torch.pipeline import graphs
+    irs = {kind: random_init.segmenter_ir(kind, SEED + 5)
+           for kind in dict(SEG_GRAPH_CASES)}
+    out = {}
+    for kind, dtype in SEG_GRAPH_CASES:
+        label = f"segmentation {kind} {dtype}"
+        seg = SelfieSegmentation(convert_model(irs[kind]),
+                                 kind == "multiclass", mask_dtype=dtype,
+                                 device=frames.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg(frames_np)                             # eager, then captured
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        prog, _ = seg._program(seg.model, HEIGHT, WIDTH)
+        capture_ms = [c * 1e3 for c in prog.capture_s.values()]
+        with torch.inference_mode():
+            got = prog(frames)
+            with graphs.eager():
+                want = prog(frames)
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"graphs {label}: planes {got.shape} "
+                                     f"{got.dtype} against {want.shape} "
+                                     f"{want.dtype}")
+            diff = (got.float() - want.float()).abs().max().item()
+        if diff != 0:
+            raise AssertionError(f"graphs {label}: replayed planes differ "
+                                 f"from the eager program's by {diff}")
+        ms = _in_turns(GRAPH_RUNS, lambda: seg(frames_np))
+        qmed = _in_turns(GRAPH_RUNS, lambda: seg.dispatch(frames),
+                         seg.materialize)
+        pool = graphs.pool_for(frames.device).nbytes()
+        print(f"graphs {label} ({FRAMES} x {HEIGHT}x{WIDTH}): replayed "
+              f"planes against the eager program's: largest difference "
+              f"{diff:g}; ms a batch (upload and masks included), median of "
+              f"{2 * GRAPH_RUNS} in turns: replayed {ms['replayed']:.2f}, "
+              f"eager {ms['eager']:.2f}; host ms to queue a batch already "
+              f"on the card: replayed {qmed['replayed']:.3f}, eager "
+              f"{qmed['eager']:.3f}; first call {first_ms:.1f} ms, capture "
+              f"{['%.1f' % c for c in capture_ms]} ms; the card's graph "
+              f"pool {pool / 2**20:.1f} MiB  [{card}]")
+        prof = _graph_profile(lambda: seg(frames_np), 3, card, label)
+        seg.dispose()
+        out[f"{kind} {dtype}"] = {"diff": diff, "ms": ms, "queue_ms": qmed,
+                                  "first_ms": first_ms,
+                                  "capture_ms": capture_ms,
+                                  "pool_bytes": pool, "profile": prof}
+    return out
+
+
+def _graph_embedding(models, frames, card: str) -> dict:
+    """Phase 14's ``FaceEmbedding.embed_batch`` on the main path's frame 0
+    (a tensor on the card, as the detector's upload cache passes it) at
+    N = :data:`EMBED_NS` seeded eye pairs (slabs 1, 4, 4 and 16; N = 3
+    and 4 share one graph): the replays against the eager calls bit for
+    bit, K2's 112 px launches a replayed call from the capture's tally,
+    K2 against its plain version on the replay's ROIs (pads included), ms
+    a call both ways in turns."""
+    import math
+
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch.models.embedding import (
+        FaceEmbedding, compute_embedding_alignment)
+    from face_detection_tflite_torch.pipeline import graphs
+    emb = FaceEmbedding(models.embedding, allow_untrained=True,
+                        device=frames.device)
+    frame = frames[0]
+    rng = np.random.default_rng(SEED + 7)
+    pairs = []
+    for _ in range(max(EMBED_NS)):
+        cx = rng.uniform(0.2 * WIDTH, 0.8 * WIDTH)
+        cy = rng.uniform(0.2 * HEIGHT, 0.8 * HEIGHT)
+        half, a = rng.uniform(20, 60), rng.uniform(-0.3, 0.3)
+        dx, dy = half * math.cos(a), half * math.sin(a)
+        pairs.append(((cx - dx, cy - dy), (cx + dx, cy + dy)))
+    out = {"launches": 0, "calls": 0, "by_n": {}}
+    for n in EMBED_NS:
+        label = f"embed_batch N = {n}"
+        emb.embed_batch(frame, pairs[:n])          # eager and captured, or
+        _reset_launches()                          # a replay of slab 4
+        got = [emb.embed_batch(frame, pairs[:n]) for _ in range(GRAPH_CALLS)]
+        k2 = _launches()["warp_normalize"]
+        if k2 != {EMBED_SIZE: GRAPH_CALLS}:
+            raise AssertionError(f"graphs {label}: K2 launches {k2} over "
+                                 f"{GRAPH_CALLS} replayed calls")
+        out["launches"] += k2[EMBED_SIZE]
+        out["calls"] += GRAPH_CALLS
+        with graphs.eager():
+            want = emb.embed_batch(frame, pairs[:n])
+        if not all(np.array_equal(g, want) for g in got):
+            raise AssertionError(f"graphs {label}: replayed embeddings "
+                                 f"differ from the eager call's")
+        slab = 1 << (n - 1).bit_length()
+        aligns = [compute_embedding_alignment(le, re) for le, re in
+                  pairs[:n]] + [(0.0, 0.0, 1.0, 0.0)] * (slab - n)
+        cx, cy, size, theta = (
+            torch.tensor([[a[i] for a in aligns]], dtype=torch.float32,
+                         device=frame.device) for i in range(4))
+        _check_warp(frame[None], [cx, cy, size, torch.cos(-theta),
+                                  torch.sin(-theta)], EMBED_SIZE, None,
+                    f"embedding site, {label}")
+        ms = _in_turns(GRAPH_CALLS, lambda: emb.embed_batch(frame, pairs[:n]))
+        print(f"graphs {label} (slab {slab}, {WIDTH}x{HEIGHT} frame on the "
+              f"card): replayed embeddings equal the eager call's bit for "
+              f"bit; K2 {k2[EMBED_SIZE]} launches at {EMBED_SIZE} px over "
+              f"{GRAPH_CALLS} replayed calls; K2 equals its plain version "
+              f"on the replay's {slab} ROIs; ms a call, median of "
+              f"{2 * GRAPH_CALLS} in turns: replayed {ms['replayed']:.3f}, "
+              f"eager {ms['eager']:.3f}  [{card}]")
+        out["by_n"][n] = {"slab": slab, "ms": ms}
+    prog = emb._programs["many"]
+    slabs = sorted(k[1][0][1] for k in prog.keys())
+    if slabs != [1, 4, 16]:
+        raise AssertionError(f"graphs embed_batch: graphs of slabs {slabs}, "
+                             f"want [1, 4, 16]")
+    out["capture_ms"] = [c * 1e3 for c in prog.capture_s.values()]
+    emb.dispose()
+    return out
+
+
+def _graph_single(models, card: str) -> dict:
+    """Phase 14's three single-network classes at B = 1 on seeded inputs
+    (a 192 px face crop, a 64 px eye crop, 146 points): each replay
+    against the eager call bit for bit, ms a call both ways in turns."""
+    import numpy as np
+    from face_detection_tflite_torch import (FaceBlendshapesModel,
+                                             FaceLandmark, IrisLandmark)
+    from face_detection_tflite_torch.pipeline import graphs
+    rng = np.random.default_rng(SEED + 8)
+    dev = models.device
+    nets = (
+        ("FaceLandmark", FaceLandmark(model=models.mesh, device=dev),
+         rng.integers(0, 256, (MESH_SIZE, MESH_SIZE, 3), dtype=np.uint8)),
+        ("IrisLandmark", IrisLandmark(model=models.iris, device=dev),
+         rng.integers(0, 256, (IRIS_SIZE, IRIS_SIZE, 3), dtype=np.uint8)),
+        ("FaceBlendshapesModel",
+         FaceBlendshapesModel(model=models.blendshapes, device=dev),
+         rng.uniform(0, WIDTH, (146, 2)).astype(np.float32)))
+    out = {}
+    for label, net, x in nets:
+        call = (net.call_with_score if label == "FaceLandmark" else net)
+        for _ in range(3):
+            call(x)
+        got = call(x)
+        with graphs.eager():
+            want = call(x)
+        if label == "FaceLandmark":
+            same = np.array_equal(got[0], want[0]) and got[1] == want[1]
+        else:
+            same = np.array_equal(got, want)
+        if not same:
+            raise AssertionError(f"graphs {label}: the replay differs from "
+                                 f"the eager call")
+        ms = _in_turns(GRAPH_CALLS, lambda: call(x))
+        (prog,) = net._programs.values()
+        capture_ms = [c * 1e3 for c in prog.capture_s.values()]
+        print(f"graphs {label} (B = 1): the replay equals the eager call "
+              f"bit for bit; ms a call, median of {2 * GRAPH_CALLS} in "
+              f"turns: replayed {ms['replayed']:.3f}, eager "
+              f"{ms['eager']:.3f}; capture "
+              f"{['%.1f' % c for c in capture_ms]} ms  [{card}]")
+        net.dispose()
+        out[label] = {"ms": ms, "capture_ms": capture_ms}
+    return out
+
+
+def _graph_pack(models, frames, card: str) -> dict:
+    """Phase 14's readback on the FULL B = 16 cell, packed inside the
+    2-face speculative key's graph against the form before it (the same
+    program captured without the pack, which then runs op by op after
+    the replay), on the first 15 rows: ``_fetch_finish``'s arrays bit for
+    bit, the host µs of the fetch step (from the replay's outputs to the
+    copy's start) in turns, and the operators the host launches for a
+    replayed batch's program call and fetch step (copy-in, clones, pack,
+    copy to the host), each form."""
+    import torch
+    from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
+    from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+    mode = FaceDetectionMode.FULL
+    det = FaceDetector(models=models, device=frames.device,
+                       max_faces=MAX_FACES)
+    scale = det._readback_scale(HEIGHT, WIDTH)
+    rows = FRAMES - 1
+    folded = det._program(HEIGHT, WIDTH, mode, face_slab=2)
+    unfolded = graphs.program(build_pipeline_program(
+        models, HEIGHT, WIDTH, mode, max_faces=MAX_FACES,
+        min_score=det.min_score, face_slab=2), frames.device)
+
+    def fetch(how, out):
+        return (det._fetch_async(out, rows) if how == "folded"
+                else _eager_fetch_async(out, scale, rows))
+    with torch.inference_mode():
+        outs = {}
+        for how, prog in (("folded", folded), ("eager", unfolded)):
+            prog(frames)                           # eager, then captured
+            outs[how] = prog(frames)
+        got = det._fetch_finish(fetch("folded", outs["folded"]))
+        want = det._fetch_finish(fetch("eager", outs["eager"]))
+        diff = _readback_diff(got, want)
+        if diff != 0:
+            raise AssertionError(f"graphs pack: the folded readback differs "
+                                 f"from the eager pack's by {diff}")
+        fetch_us: dict = {"folded": [], "eager": []}
+        for how in ("folded", "eager", "eager", "folded"):
+            for _ in range(FETCH_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                handle = fetch(how, outs[how])
+                fetch_us[how].append((time.perf_counter() - t0) * 1e6)
+                det._wait(handle)
+        ops = {how: _host_ops(lambda: det._wait(fetch(how, prog(frames))))
+               for how, prog in (("folded", folded), ("eager", unfolded))}
+    med = {how: statistics.median(v) for how, v in fetch_us.items()}
+    total = {how: sum(v.values()) for how, v in ops.items()}
+    print(f"graphs pack (FULL, slab 2, {rows} of {FRAMES} rows): "
+          f"_fetch_finish's arrays of the pack inside the graph against the "
+          f"eager pack's: largest difference {diff:g}; host us of the fetch "
+          f"step, median of {2 * FETCH_ROUNDS} in turns: folded "
+          f"{med['folded']:.1f}, eager pack {med['eager']:.1f}; operators "
+          f"the host launches for a replayed batch's program call and fetch "
+          f"step: folded {total['folded']} {ops['folded']}, eager pack "
+          f"{total['eager']} {ops['eager']}  [{card}]")
+    unfolded.release()
+    det.dispose()
+    return {"diff": diff, "fetch_us": med, "ops": ops, "ops_total": total}
+
+
 def _graph_launches(graphs: dict, kernel: str, size=None) -> dict:
     """A kernel's launches over phase 14's replayed batches of each B = 16
     cell and its replayed B = 1 calls (K1 also over the standalone
@@ -3823,6 +4176,10 @@ def _graph_launches(graphs: dict, kernel: str, size=None) -> dict:
     if kernel == "detection_postprocess":
         out["graph_launches"]["FaceDetection"] = graphs["standalone"][
             "launches"]
+    if size == EMBED_SIZE:
+        out["graph_launches"]["embed_batch"] = graphs["embedding"][
+            "launches"]
+        out["embed_batch_calls"] = graphs["embedding"]["calls"]
     return out
 
 
@@ -3857,6 +4214,11 @@ def _graphs_phase(models, frames, frames_np, card: str) -> dict:
     against their plain versions on the cells' frames."""
     import torch
     from face_detection_tflite_torch import FaceDetectionMode
+    t0 = time.perf_counter()
+
+    def stamp(what):
+        print(f"time: phase 14 {what} done {time.perf_counter() - t0:.1f} s "
+              f"into the phase")
     static = torch.empty_like(frames)
     copy_ms = _median_ms(lambda: static.copy_(frames))
     print(f"graphs: the copy-in of a {FRAMES} x {HEIGHT}x{WIDTH} uint8 batch "
@@ -3870,10 +4232,18 @@ def _graphs_phase(models, frames, frames_np, card: str) -> dict:
             ("FULL + embeddings", FaceDetectionMode.FULL, True)):
         cells[label] = _graph_cell(label, models, frames, frames_np, mode,
                                    embed, card)
+        stamp(label)
     post_err = _check_path_kernels("phase 14 B = 16", models, frames, card)
     b1 = _graph_b1(models, frames, frames_np, card)
     alone = _graph_standalone(models, frames, frames_np, card)
     _graph_concurrency(models, frames_np, card)
+    stamp("B = 1, FaceDetection and concurrency")
+    pack = _graph_pack(models, frames, card)
+    seg = _graph_segmentation(frames, frames_np, card)
+    stamp("pack and segmentation")
+    embedding = _graph_embedding(models, frames, card)
+    single = _graph_single(models, card)
+    stamp("embed_batch and single networks")
     print("graphs: " + json.dumps({
         "card": card, "copy_in_ms": copy_ms,
         "cells": {k: {x: v[x] for x in ("ms", "queue_ms", "capture_ms",
@@ -3882,9 +4252,15 @@ def _graphs_phase(models, frames, frames_np, card: str) -> dict:
                   for k, v in cells.items()},
         "b1": {k: v["ms"] for k, v in b1.items() if k != "post_err"},
         "standalone": {x: alone[x] for x in ("ms", "capture_ms",
-                                             "pool_bytes")}}))
+                                             "pool_bytes")},
+        "pack": pack, "segmentation": seg,
+        "embed_batch": {"by_n": embedding["by_n"],
+                        "capture_ms": embedding["capture_ms"],
+                        "k2_launches": embedding["launches"],
+                        "calls": embedding["calls"]},
+        "single": single}))
     return {"cells": cells, "b1": b1, "standalone": alone,
-            "copy_in_ms": copy_ms,
+            "copy_in_ms": copy_ms, "embedding": embedding,
             "post_err": max(post_err, b1["post_err"])}
 
 
@@ -4207,6 +4583,11 @@ def main() -> int:
     frames_np = np.random.default_rng(SEED).integers(
         0, 256, (FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8)
     rng = np.random.default_rng(SEED + 1)
+    t_start = time.perf_counter()
+
+    def stamp(phases):
+        print(f"time: phases {phases} done "
+              f"{time.perf_counter() - t_start:.1f} s into the run")
 
     # -- 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4400,26 +4781,34 @@ def main() -> int:
     emb, embed_site = _embedding_phase(models, cpu_models, frames, frames_np,
                                        runs, card)
 
+    stamp("1-6")
+
     # -- 7. serving: the stream, the server, two threads ------------------------
     _upload_times(frames_np, card)
     stream = _stream_phase(models, frames_np, runs, card)
     serve = _server_phase(models, frames_np, kind, card)
     _threads_phase(models, frames, card)
+    stamp(7)
 
     # -- 8. video, camera frames, standalone classes ----------------------------
     video = _video_phase(frames, card)
     camera = _camera_phase(video["models"], video["decoded"], card)
     alone = _standalone_phase(models, cpu_models, frames, frames_np,
                               full["slab"], iroi, card)
+    stamp(8)
     # -- 9. detector variants and selfie segmentation --------------------------
     variants = _variants_phase(models, cpu_models, frames, frames_np, card)
     seg = _segmentation_phase(models, frames, frames_np, card)
+    stamp(9)
     # -- 10. precision tiers and the int8 detector ----------------------------
     tiers = _tiers_phase(models, det_ir, frames, frames_np, card)
+    stamp(10)
     # -- 11. the command line -------------------------------------------------
     cli = _cli_phase(models, frames_np, video, card)
+    stamp(11)
     # -- 12. scale-out: replicas, data-parallel shards ------------------------
     scale = _replica_phase(models, frames_np, video, card)
+    stamp(12)
     post_err = max(post_err, video["post_err"], camera["post_err"],
                    alone["post_err"], variants["post_err"],
                    tiers["post_err"], cli["post_err"], scale["post_err"])
@@ -4427,11 +4816,13 @@ def main() -> int:
     # -- 14. the programs as captured CUDA graphs ------------------------------
     graphs = _graphs_phase(models, frames, frames_np, card)
     post_err = max(post_err, graphs["post_err"])
+    stamp(14)
 
     # -- 13. the profiler trace with stage ranges, in a fresh process ----------
     sys.stdout.flush()
     subprocess.run([sys.executable, os.path.abspath(__file__),
                     "--trace-phase"], check=True, timeout=900)
+    stamp(13)
 
     # -- 15. result lines -----------------------------------------------------
     post_bound, post_by = _postprocess_bound(counts, slab_leaders, FRAMES,

@@ -17,16 +17,22 @@ every other graph; otherwise it builds :class:`MobileFaceNet` at the
 published widths with seeded weights, drawn as the JAX package draws
 them, so that one seed gives the same weights in both packages.
 
-Deliberate differences from the JAX module: :class:`MobileFaceNet` takes
+:meth:`FaceEmbedding.embed_batch` pads N faces to a power-of-two slab, as
+the JAX one does to bound its compiles, and runs one program per image
+size and slab: on a card a CUDA graph, captured at the key's first call
+and replayed after (``pipeline/graphs.py``).
+
+Deliberate difference from the JAX module: :class:`MobileFaceNet` takes
 any batch ``[N, 112, 112, 3]`` (the JAX function takes N = 1 and is
-vmapped), and :meth:`FaceEmbedding.embed_batch` runs exactly N crops (the
-JAX one pads N to a power of two to bound its compiles).
+vmapped).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
+import threading
 import warnings
 from typing import Optional
 
@@ -40,6 +46,7 @@ from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
                                 _same_pads, _tier, convert_file,
                                 fp32_on_the_card, resolve_device)
 from ..ops.warp import extract_rois_normalized
+from ..pipeline import graphs
 from ..pipeline.config import EMBEDDING_DIM, EMBEDDING_INPUT_SIZE
 from ..pipeline.timings import stage_range
 
@@ -324,6 +331,8 @@ class FaceEmbedding:
         self.model = model.to(self.device).eval()
         self.is_pretrained = "random-init" not in model.name
         self.allow_untrained = allow_untrained
+        self._programs: dict[str, object] = {}
+        self._programs_lock = threading.Lock()
 
     @classmethod
     def load(cls, tflite_path: Optional[str] = None, *,
@@ -391,19 +400,41 @@ class FaceEmbedding:
         or a tensor on the device) and the eye centres in pixels."""
         return self.embed_batch(image, [(left_eye, right_eye)])[0]
 
+    def _batch_program(self, model):
+        """The one crop, network and L2 program (``[1, H, W, 3]`` frames
+        and ``[1, slab]`` ROIs -> ``[1, slab, D]``), captured per image
+        size and slab.  It closes over ``model``, the caller's snapshot,
+        not ``self.model``: a concurrent :meth:`dispose` may null the
+        attribute before the program runs."""
+        with self._programs_lock:
+            if "many" not in self._programs:
+                bf16 = getattr(model, "_bf16", False) or getattr(
+                    model, "_dtype", torch.float32) is not torch.float32
+                self._programs["many"] = graphs.program(
+                    functools.partial(embed_rois, model), self.device,
+                    functools.partial(_check_fp32, self.device, bf16=bf16))
+            return self._programs["many"]
+
     def embed_batch(self, image, eye_pairs) -> np.ndarray:
         """Embeds N faces of ONE image: ``eye_pairs`` is a sequence of
         (left_eye, right_eye) pixel points; returns ``[N, 192]``.  One K2
-        launch cuts the N crops and the network runs once on them, in the
-        ``fdt.embed`` range."""
-        if self.model is None:
+        launch cuts the crops and the network runs once on them, in the
+        ``fdt.embed`` range.  N is padded to a power-of-two slab with a
+        unit ROI at the origin, as in the JAX package, so that a stream of
+        1..16 faces an image keeps at most 5 programs an image size; the
+        pad rows are computed and dropped."""
+        model = self.model  # a concurrent dispose() must give RuntimeError
+        if model is None:
             raise RuntimeError("FaceEmbedding has been disposed")
         self._check_trained()
         aligns = [compute_embedding_alignment(le, re) for le, re in eye_pairs]
         for a in aligns:
             self._check_roi(a[2])
-        if not aligns:
+        n = len(aligns)
+        if n == 0:
             return np.zeros((0, EMBEDDING_DIM), np.float32)
+        slab = 1 << (n - 1).bit_length()
+        aligns += [(0.0, 0.0, 1.0, 0.0)] * (slab - n)
         with stage_range("fdt.embed"):
             frame = self._frame(image)
             # Float64 on the host, float32 on the device, as the JAX
@@ -411,13 +442,18 @@ class FaceEmbedding:
             roi = torch.from_numpy(np.asarray(aligns, np.float32).T[:, None]
                                    .copy()).to(self.device)
             with torch.inference_mode():
-                out = embed_rois(self.model, frame, *roi)
-            return out[0].cpu().numpy()
+                out = self._batch_program(model)(frame, *roi)
+            return out[0, :n].cpu().numpy()
 
     def dispose(self) -> None:
-        """Frees the weights; later embeds raise
-        (`face_embedding.dart:343`)."""
-        self.model = None
+        """Frees the captured programs and the weights; later embeds
+        raise (`face_embedding.dart:343`)."""
+        with self._programs_lock:
+            for prog in self._programs.values():
+                if isinstance(prog, graphs.CapturedProgram):
+                    prog.release()
+            self._programs.clear()
+            self.model = None
 
     # Static helpers mirroring the reference API.
     cosine_similarity = staticmethod(cosine_similarity)

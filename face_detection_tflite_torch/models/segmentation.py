@@ -13,25 +13,32 @@ not held up by the readback.  The mask objects and the padding-aware
 ``upsample`` run on the host in numpy, as in the JAX package
 (`face_types.dart:282-627`).
 
+As the JAX class keeps one jitted program per image size, this one keeps
+one program per (height, width): on a card a CUDA graph, captured at the
+size's first call and replayed after (``pipeline/graphs.py``), one graph
+a batch size, in the graph memory pool of the device it runs on.
+
 Deliberate differences: :class:`SelfieSegmentation` runs on ``cuda``
-unless the caller passes ``device="cpu"`` and compiles nothing (so it keeps
-no per-size program cache).  ``place_on`` moves it to another device, as
-in the JAX package.
+unless the caller passes ``device="cpu"``.  ``place_on`` moves it to
+another device, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
 import enum
+import functools
 import math
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..convert.executor import (ConvertedModel, fp32_on_the_card,
-                                resolve_device)
+from ..convert.executor import (ConvertedModel, _check_fp32,
+                                fp32_on_the_card, resolve_device)
 from ..ops.letterbox import letterbox_image, letterbox_params
+from ..pipeline import graphs
 from ..pipeline.timings import stage_range
 from ..pipeline.upload import download_async
 from ..utils.image import decode_image, normalize_channels
@@ -275,6 +282,8 @@ class SelfieSegmentation:
         self.mask_dtype = mask_dtype
         self.max_output_size = max_output_size
         _, self.in_h, self.in_w, _ = model.input_shapes[0]
+        self._programs: dict[tuple[int, int], tuple] = {}
+        self._programs_lock = threading.Lock()
 
     def place_on(self, device) -> None:
         """Pins the weights and the work to ``device``: a copy of the
@@ -282,8 +291,9 @@ class SelfieSegmentation:
         inputs move there at dispatch.  The counterpart of the reference's
         separate segmentation isolate (`face_detector.dart:1297-1324`):
         on a device of its own, the detector's combined calls run the mask
-        program and the detection at once.  Raises RuntimeError after
-        :meth:`dispose`."""
+        program and the detection at once.  The programs of the old
+        device are released (they run the old copy of the network).
+        Raises RuntimeError after :meth:`dispose`."""
         model = self.model
         if model is None:
             raise RuntimeError("SelfieSegmentation has been disposed")
@@ -291,20 +301,43 @@ class SelfieSegmentation:
         if device == self.device:
             return
         fp32_on_the_card(device)
-        self.model = copy.deepcopy(model).to(device).eval()
-        self.device = device
+        with self._programs_lock:
+            self.model = copy.deepcopy(model).to(device).eval()
+            self.device = device
+            self._release()
 
-    def _planes(self, model: ConvertedModel, images: torch.Tensor, lbp
-                ) -> torch.Tensor:
-        """The device program: letterbox, the net, then the person plane
-        ([B, h, w, 1]) or the six softmax planes, as uint8 where asked."""
-        (raw,) = model(letterbox_image(images, lbp))
-        raw = raw.reshape(raw.shape[0], self.in_h, self.in_w, -1)
-        out = torch.softmax(raw, dim=-1) if self.multiclass else raw[..., :1]
-        if self.mask_dtype == "uint8":
-            out = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0
-                              ).to(torch.uint8)
-        return out
+    def _release(self) -> None:
+        """Frees the captured programs.  Called under ``_programs_lock``."""
+        for prog, _ in self._programs.values():
+            if isinstance(prog, graphs.CapturedProgram):
+                prog.release()
+        self._programs.clear()
+
+    def _program(self, model: ConvertedModel, img_h: int, img_w: int):
+        """(program, letterbox) of one image size: ``[B, img_h, img_w, 3]``
+        frames -> the person plane (``[B, h, w, 1]``) or the six softmax
+        planes, as uint8 where asked.  The program closes over ``model``,
+        the caller's snapshot, not ``self.model``: a concurrent
+        :meth:`dispose` may null the attribute before the program runs."""
+        with self._programs_lock:
+            key = (img_h, img_w)
+            if key not in self._programs:
+                lbp = letterbox_params(img_h, img_w, self.in_h, self.in_w)
+
+                def planes(images):
+                    (raw,) = model(letterbox_image(images, lbp))
+                    raw = raw.reshape(raw.shape[0], self.in_h, self.in_w, -1)
+                    out = (torch.softmax(raw, dim=-1) if self.multiclass
+                           else raw[..., :1])
+                    if self.mask_dtype == "uint8":
+                        out = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0
+                                          ).to(torch.uint8)
+                    return out
+
+                self._programs[key] = (graphs.program(
+                    planes, self.device, functools.partial(
+                        _check_fp32, self.device, bf16=model._bf16)), lbp)
+            return self._programs[key]
 
     def dispatch(self, images):
         """Queues the segmentation of a [B, H, W, C] (or one [H, W, C])
@@ -329,10 +362,9 @@ class SelfieSegmentation:
                     f"image {w}x{h} is smaller than minimum "
                     f"{MIN_SEGMENTATION_INPUT_SIZE}x"
                     f"{MIN_SEGMENTATION_INPUT_SIZE}")
-            lbp = letterbox_params(h, w, self.in_h, self.in_w)
+            prog, lbp = self._program(model, h, w)
             with torch.inference_mode():
-                host, event = download_async(
-                    self._planes(model, images, lbp))
+                host, event = download_async(prog(images))
         return host, event, lbp, b, w, h
 
     def materialize(self, handle) -> list[SegmentationMask]:
@@ -367,9 +399,11 @@ class SelfieSegmentation:
         return self(decode_image(data)[None])[0]
 
     def dispose(self) -> None:
-        """Drops the network; later calls raise
-        (`selfie_segmentation.dart:733`)."""
-        self.model = None
+        """Frees the captured programs and drops the network; later calls
+        raise (`selfie_segmentation.dart:733`)."""
+        with self._programs_lock:
+            self._release()
+            self.model = None
 
     def dispose_async(self) -> None:
         self.dispose()

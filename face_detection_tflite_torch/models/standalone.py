@@ -52,14 +52,47 @@ __all__ = ["FaceDetection", "FaceLandmark", "IrisLandmark",
 
 
 class _Disposable:
-    """`dispose()` semantics shared by the standalone model classes: the
-    reference frees its interpreters and makes later calls throw
-    (`face_detection_model.dart:525` et al.); here dispose drops the
-    network and poisons further use."""
+    """What the standalone model classes share: their programs, one a key
+    (on a card a CUDA graph a key and input signature, captured at its
+    first call and replayed after, ``pipeline/graphs.py``; on the CPU the
+    eager program), and `dispose()`: the reference frees its interpreters
+    and makes later calls throw (`face_detection_model.dart:525` et al.);
+    here dispose frees the programs, drops the network and poisons
+    further use."""
 
     _disposed = False
 
+    def _load(self, key: str, model_dir: Optional[str],
+              model: Optional[ConvertedModel], device, precision) -> None:
+        """Sets ``model`` (``model``, else ``MODEL_FILES[key]`` from the
+        model directory) at ``precision``, in eval mode on the resolved
+        ``device``, with cuDNN's TF32 off where that is the card."""
+        self.device = resolve_device(device)
+        if model is None:
+            from ..pipeline.detector import resolve_model_dir
+            model = convert_file(os.path.join(resolve_model_dir(model_dir),
+                                              MODEL_FILES[key]),
+                                 precision=precision)
+        fp32_on_the_card(self.device)
+        self.model = model.with_precision(precision).to(self.device).eval()
+        self._programs: dict = {}
+
+    def _program_of(self, key, make):
+        """The program of ``key``, made by ``make(model)`` at its first
+        use.  It closes over the network it is given, not ``self.model``,
+        which :meth:`dispose` drops."""
+        if key not in self._programs:
+            self._programs[key] = graphs.program(
+                make(self.model), self.device, functools.partial(
+                    _check_fp32, self.device, bf16=self.model._bf16))
+        return self._programs[key]
+
     def dispose(self) -> None:
+        """Frees the captured programs, then the network."""
+        for prog in self._programs.values():
+            if isinstance(prog, graphs.CapturedProgram):
+                prog.release()
+        self._programs.clear()
         self._disposed = True
         self.model = None
 
@@ -69,31 +102,16 @@ class _Disposable:
                 f"{type(self).__name__} has been disposed")
 
 
-def _load(key: str, model_dir: Optional[str], model: Optional[ConvertedModel],
-          device, precision) -> tuple[ConvertedModel, torch.device]:
-    """The network (``model``, else ``MODEL_FILES[key]`` from the model
-    directory) at ``precision``, in eval mode on the resolved device, with
-    cuDNN's TF32 off where that is the card."""
-    device = resolve_device(device)
-    if model is None:
-        from ..pipeline.detector import resolve_model_dir
-        model = convert_file(os.path.join(resolve_model_dir(model_dir),
-                                          MODEL_FILES[key]),
-                             precision=precision)
-    fp32_on_the_card(device)
-    return model.with_precision(precision).to(device).eval(), device
-
-
 def _crop(crop, size: int, device: torch.device) -> torch.Tensor:
     """A ``[size, size, C]`` crop (numpy or tensor) as ``[1, size, size,
-    C]`` float32 in [-1, 1] on ``device``."""
+    C]`` on ``device``, as it is: the program normalizes it."""
     if tuple(crop.shape[:2]) != (size, size):
         # A ValueError, not an assert: asserts vanish under python -O.
         raise ValueError(f"expects a {size}x{size} crop, got "
                          f"{tuple(crop.shape[:2])}")
     if not isinstance(crop, torch.Tensor):
         crop = np.asarray(crop)
-    return normalize_image(upload(crop, device)[None])
+    return upload(crop, device)[None]
 
 
 class FaceDetection(_Disposable):
@@ -120,26 +138,22 @@ class FaceDetection(_Disposable):
                  model: Optional[ConvertedModel] = None, device=None):
         self.max_dim = max_dim
         self.variant = variant
-        self.model, self.device = _load(variant.value, model_dir, model,
-                                        device, precision)
+        self._load(variant.value, model_dir, model, device, precision)
         self.input_size = self.model.input_shapes[0][1]
         self.anchors = torch.from_numpy(detector_anchors(
             self.model, variant.value)).to(self.device)
         self.max_detections = max_detections
-        self._programs: dict[tuple, object] = {}
 
     def _program(self, h: int, w: int):
         """The program of one image size: ``[1, h, w, 3]`` frames ->
         ``[D, 18]`` packed boxes, keypoints, scores and valid flags (one
         buffer, one device-to-host copy)."""
-        key = (h, w)
-        if key not in self._programs:
-            lbp = letterbox_params(h, w, self.input_size, self.input_size)
+        lbp = letterbox_params(h, w, self.input_size, self.input_size)
 
+        def make(model):
             def run(image):
                 x = letterbox_image(image, lbp)
-                raw_boxes, raw_scores = _identify_detector_outputs(
-                    self.model(x))
+                raw_boxes, raw_scores = _identify_detector_outputs(model(x))
                 boxes, kp, scores, valid = detection_postprocess(
                     raw_boxes, raw_scores, self.anchors,
                     float(self.input_size), lbp.padding,
@@ -148,19 +162,8 @@ class FaceDetection(_Disposable):
                 return torch.cat([boxes[0], kp[0].reshape(d, 12),
                                   scores[0, :, None],
                                   valid[0, :, None].float()], dim=1)
-
-            self._programs[key] = graphs.program(
-                run, self.device, functools.partial(
-                    _check_fp32, self.device, bf16=self.model._bf16))
-        return self._programs[key]
-
-    def dispose(self) -> None:
-        """Frees the captured programs, then the network."""
-        for prog in self._programs.values():
-            if isinstance(prog, graphs.CapturedProgram):
-                prog.release()
-        self._programs.clear()
-        super().dispose()
+            return run
+        return self._program_of((h, w), make)
 
     def __call__(self, image) -> list[Detection]:
         self._check_disposed()
@@ -198,22 +201,29 @@ class FaceLandmark(_Disposable):
     def __init__(self, model_dir: Optional[str] = None,
                  precision: str = "highest", *,
                  model: Optional[ConvertedModel] = None, device=None):
-        self.model, self.device = _load("face_landmark", model_dir, model,
-                                        device, precision)
+        self._load("face_landmark", model_dir, model, device, precision)
         self.input_size = MESH_INPUT_SIZE
+
+    def _make(self, model):
+        """The program: a raw ``[1, 192, 192, C]`` crop -> the landmarks
+        normalized to the crop and the presence score, in one buffer."""
+        def run(crop):
+            lm, score = _identify_landmark_outputs(
+                model(normalize_image(crop)))
+            lm = _unpack_landmarks(lm, self.input_size, clamp=True,
+                                   normalize_z=True)[0]
+            # -1 is the "no score" sentinel of a graph without one.
+            s = (_sigmoid_clipped(score.reshape(1)) if score is not None
+                 else torch.full((1,), -1.0, device=crop.device))
+            return torch.cat([lm.reshape(-1), s])
+        return run
 
     def call_with_score(self, face_crop) -> tuple[np.ndarray,
                                                    Optional[float]]:
         self._check_disposed()
         with torch.inference_mode():
-            x = _crop(face_crop, self.input_size, self.device)
-            lm, score = _identify_landmark_outputs(self.model(x))
-            lm = _unpack_landmarks(lm, self.input_size, clamp=True,
-                                   normalize_z=True)[0]
-            # -1 is the "no score" sentinel of a graph without one.
-            s = (_sigmoid_clipped(score.reshape(1)) if score is not None
-                 else torch.full((1,), -1.0, device=self.device))
-            packed = torch.cat([lm.reshape(-1), s]).cpu().numpy()
+            packed = self._program_of(None, self._make)(
+                _crop(face_crop, self.input_size, self.device)).cpu().numpy()
         s = float(packed[-1])
         return packed[:-1].reshape(-1, 3), (s if s >= 0.0 else None)
 
@@ -231,18 +241,23 @@ class IrisLandmark(_Disposable):
     def __init__(self, model_dir: Optional[str] = None,
                  precision: str = "highest", *,
                  model: Optional[ConvertedModel] = None, device=None):
-        self.model, self.device = _load("iris_landmark", model_dir, model,
-                                        device, precision)
+        self._load("iris_landmark", model_dir, model, device, precision)
         self.input_size = IRIS_INPUT_SIZE
+
+    def _make(self, model):
+        """The program: a raw ``[1, 64, 64, C]`` crop -> ``[76, 3]``."""
+        def run(crop):
+            outs = model(normalize_image(crop))
+            flat = torch.cat([o.reshape(-1) for o in outs])
+            return _unpack_landmarks(flat[None], self.input_size,
+                                     clamp=False, normalize_z=False)[0]
+        return run
 
     def __call__(self, eye_crop) -> np.ndarray:
         self._check_disposed()
         with torch.inference_mode():
-            outs = self.model(_crop(eye_crop, self.input_size, self.device))
-            flat = torch.cat([o.reshape(-1) for o in outs])
-            return _unpack_landmarks(flat[None], self.input_size,
-                                     clamp=False, normalize_z=False
-                                     )[0].cpu().numpy()
+            return self._program_of(None, self._make)(
+                _crop(eye_crop, self.input_size, self.device)).cpu().numpy()
 
 
 class FaceBlendshapesModel(_Disposable):
@@ -256,8 +271,19 @@ class FaceBlendshapesModel(_Disposable):
     def __init__(self, model_dir: Optional[str] = None,
                  precision: str = "highest", *,
                  model: Optional[ConvertedModel] = None, device=None):
-        self.model, self.device = _load("face_blendshapes", model_dir, model,
-                                        device, precision)
+        self._load("face_blendshapes", model_dir, model, device, precision)
+
+    @staticmethod
+    def _make(model):
+        """The program: ``[1, 146, 2]`` pixels -> the 52 clamped
+        coefficients and a no-NaN flag, in one buffer."""
+        def run(pts):
+            (coeffs,) = model(pts)
+            raw = coeffs.reshape(52)
+            ok = ~torch.isnan(raw).any()
+            return torch.cat([torch.clamp(torch.nan_to_num(raw), 0.0, 1.0),
+                              ok.float().reshape(1)])
+        return run
 
     def __call__(self, landmarks_146) -> Optional[np.ndarray]:
         """[146, 2] pixels -> [52] coefficients in [0, 1], or None when the
@@ -269,9 +295,6 @@ class FaceBlendshapesModel(_Disposable):
             raise ValueError(
                 f"blendshape input must be [146, 2] pixels, got {pts.shape}")
         with torch.inference_mode():
-            (coeffs,) = self.model(upload(pts, self.device)[None])
-            raw = coeffs.reshape(52)
-            ok = ~torch.isnan(raw).any()
-            packed = torch.cat([torch.clamp(torch.nan_to_num(raw), 0.0, 1.0),
-                                ok.float().reshape(1)]).cpu().numpy()
+            packed = self._program_of(None, self._make)(
+                upload(pts, self.device)[None]).cpu().numpy()
         return packed[:52] if packed[52] > 0.5 else None

@@ -44,7 +44,11 @@ inputs' shapes) and dispatched whole: on a card each program key is a
 CUDA graph, captured at its first call (or in ``warmup``) and replayed
 after (``pipeline/graphs.py``), so a first call of a key pays an eager
 run and a capture.  The graphs live in their device's graph memory pool,
-which every captured program of the process on that device shares.
+which every captured program of the process on that device shares.  Each
+program packs its own readback into one byte buffer
+(:func:`packed_readback`), where the JAX detector runs a packer program
+of its own after it, so a replay clones that buffer and the speculative
+``det_*`` slab rather than every output.
 Inside ``pipeline.timings.trace`` the programs run eagerly,
 so that the trace holds their stage ranges.
 
@@ -128,6 +132,110 @@ def _each(out, fn):
     """``fn`` of a slab dict, or the list of ``fn`` of each shard dict of a
     sharded program's output."""
     return [fn(o) for o in out] if isinstance(out, list) else fn(out)
+
+
+#: Outputs read back as int16 at the readback's quant scale.
+_QUANT_KEYS = frozenset({"mesh", "iris"})
+#: Sections in this order (4-byte, then 2-byte, then 1-byte), so that every
+#: section's offset in a packed row stays aligned for the host's views.
+_RANK = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
+
+
+def _readback_encoding(name: str, dtype, quant_scale) -> str:
+    if dtype == torch.bool:
+        return "u8"
+    if not dtype.is_floating_point:
+        return "i32"
+    if quant_scale and name in _QUANT_KEYS:
+        return "i16"
+    return "f32"
+
+
+class ReadbackLayout:
+    """Where each output lies in a packed readback row: ``entries`` of
+    (name, shape of a row, encoding) in byte order, and the px -> int16
+    scale of the quantized landmarks.  The host-side half of the JAX
+    detector's readback packer (``_fetch_async``/``_fetch_finish``)."""
+
+    __slots__ = ("entries", "quant_scale")
+
+    def __init__(self, entries: tuple, quant_scale: Optional[float]):
+        self.entries = entries
+        self.quant_scale = quant_scale
+
+    def unpack(self, host: np.ndarray) -> dict:
+        """The arrays of a packed ``[rows, bytes]`` host buffer."""
+        result = {}
+        off = 0
+        for k, row_shape, enc in self.entries:
+            n = int(np.prod(row_shape))
+            shape = (host.shape[0],) + row_shape
+            if enc == "u8":
+                result[k] = (host[:, off:off + n] > 0).reshape(shape)
+                off += n
+            elif enc == "i16":
+                result[k] = (host[:, off:off + 2 * n].view(np.int16)
+                             .astype(np.float32) / self.quant_scale
+                             ).reshape(shape)
+                off += 2 * n
+            elif enc == "i32":
+                result[k] = host[:, off:off + 4 * n].view(
+                    np.int32).reshape(shape)
+                off += 4 * n
+            else:
+                result[k] = host[:, off:off + 4 * n].view(
+                    np.float32).reshape(shape)
+                off += 4 * n
+        return result
+
+
+def pack_readback(out: dict, quant_scale: Optional[float] = None
+                  ) -> tuple[torch.Tensor, ReadbackLayout]:
+    """Packs a program's ``[B, ...]`` outputs into one ``[B, bytes]`` uint8
+    buffer on their device, for one device-to-host copy: fp32 and int32
+    bitcast, bool as a byte, and the mesh and iris landmarks as int16 at
+    ``quant_scale`` px^-1 where it is given (the JAX detector's readback
+    packer, ``pipeline/detector.py::_fetch_async``).  Rows are packed
+    independently, so a prefix of the buffer's rows is the packing of the
+    outputs' same rows."""
+    entries = sorted(((_readback_encoding(k, v.dtype, quant_scale), k, v)
+                      for k, v in out.items()),
+                     key=lambda e: (_RANK[e[0]], e[1]))
+    segs = []
+    for enc, _, x in entries:
+        x = x.reshape(x.shape[0], -1)
+        if enc == "u8":
+            segs.append(x.to(torch.uint8))
+            continue
+        if enc == "i16":
+            x = torch.clamp(torch.round(x * quant_scale), -32767.0,
+                            32767.0).to(torch.int16)
+        elif enc == "i32":
+            x = x.to(torch.int32)
+        else:
+            x = x.float()
+        segs.append(x.contiguous().view(torch.uint8))
+    layout = ReadbackLayout(tuple((k, tuple(v.shape[1:]), e)
+                                  for e, k, v in entries), quant_scale)
+    return torch.cat(segs, dim=1), layout
+
+
+def packed_readback(fn, quant_scale: Optional[float]):
+    """``fn`` (a pipeline program) with its readback packed inside it:
+    ``{"packed": [B, bytes] uint8, "layout": ReadbackLayout}`` beside the
+    ``det_*`` slab a speculative program keeps on the device for the
+    overflow re-run (its ``det_count`` goes into the packed buffer).  On a
+    card the pack is then part of the program key's CUDA graph, and a
+    replay clones one buffer and the slab, not every output."""
+    def run(*args):
+        out = fn(*args)
+        kept = {k: v for k, v in out.items()
+                if k.startswith("det_") and k != "det_count"}
+        with stage_range("fdt.pack"):
+            buf, layout = pack_readback(
+                {k: v for k, v in out.items() if k not in kept}, quant_scale)
+        return {"packed": buf, "layout": layout, **kept}
+    return run
 
 
 def _image_from_packed_bytes(data, width: int, height: int, channels: int,
@@ -436,7 +544,8 @@ class FaceDetector:
                  face_slab: Optional[int] = None, device=None):
         """The pipeline program of one image size and mode on ``device``
         (the detector's own by default), sharded over the mesh under
-        ``data_parallel``."""
+        ``data_parallel``, its readback packed inside it at the size's
+        quant scale (:func:`packed_readback`)."""
         self._check_disposed()
         if face_slab is not None and face_slab >= self.max_faces:
             face_slab = None
@@ -446,11 +555,12 @@ class FaceDetector:
         mfs = 0.0 if self.bucket_images else self.min_face_size
 
         def build(m):
-            return build_pipeline_program(
+            return packed_readback(build_pipeline_program(
                 m, img_h, img_w, mode, max_faces=self.max_faces,
                 min_score=self.min_score, min_face_size=mfs,
                 num_candidates=self.num_candidates, face_slab=face_slab,
-                with_embeddings=self._with_embeddings(mode))
+                with_embeddings=self._with_embeddings(mode)),
+                self._readback_scale(img_h, img_w))
         with self._programs_lock:
             if key not in self._programs:
                 self._programs[key] = self._sharded(build, models, 1)
@@ -514,23 +624,23 @@ class FaceDetector:
 
     def _face_stage_program(self, img_h: int, img_w: int,
                             mode: FaceDetectionMode, device=None):
-        """The overflow re-run's face stages on given detections; under
-        ``data_parallel`` sharded like the main program (the images and
-        the four detection slabs all split on the batch axis)."""
+        """The overflow re-run's face stages on given detections, packed
+        as the main program's; under ``data_parallel`` sharded like the
+        main program (the images and the four detection slabs all split on
+        the batch axis)."""
         models, key = self._models_key(device, (img_h, img_w, mode, "stage"))
 
         def build(m):
-            return build_pipeline_program(
+            return packed_readback(build_pipeline_program(
                 m, img_h, img_w, mode, from_detections=True,
-                with_embeddings=self._with_embeddings(mode))
+                with_embeddings=self._with_embeddings(mode)),
+                self._readback_scale(img_h, img_w))
         with self._programs_lock:
             if key not in self._programs:
                 self._programs[key] = self._sharded(build, models, 5)
             return self._programs[key]
 
     # -- readback ------------------------------------------------------------
-
-    _QUANT_KEYS = frozenset({"mesh", "iris"})
 
     def _readback_scale(self, img_h: int, img_w: int) -> Optional[float]:
         """px -> int16 scale for the landmark readback (0.08 px steps at
@@ -541,80 +651,38 @@ class FaceDetector:
         return scale if scale >= 4.0 else None
 
     @staticmethod
-    def _readback_encoding(name: str, dtype, quant_scale) -> str:
-        if dtype == torch.bool:
-            return "u8"
-        if not dtype.is_floating_point:
-            return "i32"
-        if quant_scale and name in FaceDetector._QUANT_KEYS:
-            return "i16"
-        return "f32"
-
-    def _fetch_async(self, out, quant_scale: Optional[float] = None):
-        """Packs every output into one byte buffer on the device and starts
-        its copy to (pinned) host memory; :meth:`_fetch_finish` waits.  A
-        list of shard outputs (``data_parallel``) is fetched shard by
-        shard, each from its own device."""
-        if isinstance(out, list):
-            return [self._fetch_async(o, quant_scale) for o in out]
+    def _fetch_async(out, rows: Optional[int] = None):
+        """Starts the copy of a program's packed readback (its first
+        ``rows`` rows: the batch's pad rows stay on the device) to pinned
+        host memory; :meth:`_fetch_finish` waits and unpacks.  A list of
+        shard outputs (``data_parallel``) is fetched shard by shard, each
+        from its own device; a shard left with no row is not fetched."""
         with stage_range("fdt.pack"):
-            rank = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
-            entries = sorted(
-                ((self._readback_encoding(k, v.dtype, quant_scale), k, v)
-                 for k, v in out.items()),
-                key=lambda e: (rank[e[0]], e[1]))
-            segs = []
-            for enc, _, x in entries:
-                x = x.reshape(x.shape[0], -1)
-                if enc == "u8":
-                    segs.append(x.to(torch.uint8))
-                    continue
-                if enc == "i16":
-                    x = torch.clamp(torch.round(x * quant_scale), -32767.0,
-                                    32767.0).to(torch.int16)
-                elif enc == "i32":
-                    x = x.to(torch.int32)
-                else:
-                    x = x.float()
-                segs.append(x.contiguous().view(torch.uint8))
-            buf, event = download_async(torch.cat(segs, dim=1))
-            metas = [(k, tuple(v.shape), e) for e, k, v in entries]
-            return buf, event, metas, quant_scale
+            if isinstance(out, list):
+                n = out[0]["packed"].shape[0]
+                rows = len(out) * n if rows is None else rows
+                parts = [(o, min(rows - i * n, n)) for i, o in enumerate(out)
+                         if rows > i * n]
+            else:
+                parts = [(out, rows)]
+            handles = [(*download_async(o["packed"][:r]), o["layout"])
+                       for o, r in parts]
+        return handles if isinstance(out, list) else handles[0]
 
-    def _fetch_finish(self, handle) -> dict:
+    @staticmethod
+    def _fetch_finish(handle) -> dict:
         if isinstance(handle, list):
-            parts = [self._fetch_finish(h) for h in handle]
+            parts = [FaceDetector._fetch_finish(h) for h in handle]
             return parts[0] if len(parts) == 1 else {
                 k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-        buf, event, metas, quant_scale = handle
+        host, event, layout = handle
         if event is not None:
             event.synchronize()
         with stage_range("fdt.pack"):  # the host half of the readback
-            host = buf.numpy()
-            result = {}
-            off = 0
-            for k, shape, enc in metas:
-                n = int(np.prod(shape[1:]))
-                if enc == "u8":
-                    result[k] = (host[:, off:off + n] > 0).reshape(shape)
-                    off += n
-                elif enc == "i16":
-                    result[k] = (host[:, off:off + 2 * n].view(np.int16)
-                                 .astype(np.float32) / quant_scale
-                                 ).reshape(shape)
-                    off += 2 * n
-                elif enc == "i32":
-                    result[k] = host[:, off:off + 4 * n].view(
-                        np.int32).reshape(shape)
-                    off += 4 * n
-                else:
-                    result[k] = host[:, off:off + 4 * n].view(
-                        np.float32).reshape(shape)
-                    off += 4 * n
-        return result
+            return layout.unpack(host.numpy())
 
-    def _fetch(self, out, quant_scale: Optional[float] = None) -> dict:
-        return self._fetch_finish(self._fetch_async(out, quant_scale))
+    def _fetch(self, out, rows: Optional[int] = None) -> dict:
+        return self._fetch_finish(self._fetch_async(out, rows))
 
     @staticmethod
     def _wait(handle) -> None:
@@ -622,24 +690,6 @@ class FaceDetector:
         for h in handle if isinstance(handle, list) else (handle,):
             if h[1] is not None:
                 h[1].synchronize()
-
-    @staticmethod
-    def _rows(out, rows: int):
-        """``out`` (a slab dict, or the list of shard dicts of a sharded
-        program) without its rows from ``rows`` on: the batch's pad rows,
-        trimmed on the device before the readback (in the ``fdt.pack``
-        range).  A shard left with no row is dropped, so its readback
-        never starts."""
-        with stage_range("fdt.pack"):
-            if isinstance(out, list):
-                n = next(iter(out[0].values())).shape[0]
-                kept = [(o, min(max(rows - i * n, 0), n))
-                        for i, o in enumerate(out)]
-                return [o if r == n else {k: v[:r] for k, v in o.items()}
-                        for o, r in kept if r]
-            if rows < next(iter(out.values())).shape[0]:
-                return {k: v[:rows] for k, v in out.items()}
-            return out
 
     # -- speculative single-call dispatch ------------------------------------
 
@@ -689,13 +739,8 @@ class FaceDetector:
         with self.timings.stage(f"dispatch[slab{bucket}]"):
             det = self._program(h, w, mode, face_slab=bucket,
                                 device=device)(inputs)
-        fetch = _each(det, lambda o: {
-            k: v for k, v in o.items()
-            if k == "det_count" or not k.startswith("det_")})
-        fetch = self._rows(fetch, b if real_b is None else real_b)
-        return (bucket, det, self._fetch_async(
-            fetch, self._readback_scale(h, w)), real_b, inputs, (h, w),
-            device)
+        return (bucket, det, self._fetch_async(det, real_b), real_b, inputs,
+                (h, w), device)
 
     def _finish_speculative(self, handle, mode: FaceDetectionMode):
         """Waits for a speculative dispatch; re-runs the face stages on a
@@ -731,10 +776,8 @@ class FaceDetector:
                     "det_valid")]
             out2 = self._face_stage_program(h, w, mode, device)(
                 inputs, *prefix)
-        if real_b is not None:
-            out2 = self._rows(out2, real_b)
         with self.timings.stage("face_readback"):
-            return self._fetch(out2, self._readback_scale(h, w))
+            return self._fetch(out2, real_b)
 
     # -- public detection ----------------------------------------------------
 
@@ -892,8 +935,7 @@ class FaceDetector:
                 with self.timings.stage("dispatch"):
                     dev = self._program(bh, bw, mode, device=device)(
                         self._shard(images))
-                det = self._fetch_async(self._rows(dev, b),
-                                        self._readback_scale(bh, bw))
+                det = self._fetch_async(dev, b)
         sizes = list(orig_sizes) if orig_sizes is not None else [wh] * b
         return images, det, b, sizes, device
 
@@ -1068,7 +1110,7 @@ class FaceDetector:
                     torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev),
                     boxes, kp, torch.full((b, nf), 0.9, device=dev),
                     torch.ones((b, nf), dtype=torch.bool, device=dev))
-                self._fetch(out, self._readback_scale(h, w))
+                self._fetch(out)
         for d in devices or ():
             self._replica_params(d)
             pinned = np.zeros((batch_size, h, w, 3), np.uint8)

@@ -97,12 +97,13 @@ def _runs_eager() -> bool:
 
 
 def _map(fn, tree):
-    """``fn`` of each tensor of a pytree of dicts, lists and tuples."""
+    """``fn`` of each tensor of a pytree of dicts, lists and tuples; a leaf
+    that is no tensor (the detector's readback layout) passes as it is."""
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 #: One capture stream a card (a graph cannot be captured on the legacy

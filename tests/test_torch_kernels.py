@@ -958,3 +958,57 @@ def test_captured_programs_replay_the_eager_program(cuda_device):
     assert report["compiled_programs"] == 2 and report["graph_pool_bytes"] > 0
     det.dispose()
     assert all(not p.keys() for p in progs)
+
+
+@pytest.mark.cuda
+def test_captured_models_replay_the_eager_programs(cuda_device):
+    """On the card the segmenter's program per image size, ``embed_batch``'s
+    program per slab and the single-network classes' programs are CUDA
+    graphs whose replays equal the eager calls bit for bit; K2 counts one
+    112 px launch a replayed ``embed_batch`` call."""
+    from face_detection_tflite_torch import (FaceBlendshapesModel,
+                                             FaceLandmark, IrisLandmark)
+    from face_detection_tflite_torch.models.embedding import (
+        FaceEmbedding, build_mobilefacenet)
+    from face_detection_tflite_torch.models.segmentation import \
+        SelfieSegmentation
+    from face_detection_tflite_torch.pipeline import graphs
+    rng = np.random.default_rng(9)
+    frames = rng.integers(0, 256, (2, 427, 640, 3), dtype=np.uint8)
+    _, models = _small_card_detector(
+        cuda_device, torch.from_numpy(frames).to(cuda_device))
+    seg = SelfieSegmentation(convert_model(random_init.segmenter_ir(
+        "general", seed=8)), device=cuda_device)
+    emb = FaceEmbedding(build_mobilefacenet(0), allow_untrained=True,
+                        device=cuda_device)
+    pairs = [((100.0, 100.0), (140.0, 102.0)),
+             ((300.0, 200.0), (360.0, 190.0)),
+             ((500.0, 300.0), (530.0, 310.0))]
+    crops = [(FaceLandmark(model=models.mesh, device=cuda_device),
+              rng.integers(0, 256, (192, 192, 3), dtype=np.uint8)),
+             (IrisLandmark(model=models.iris, device=cuda_device),
+              rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)),
+             (FaceBlendshapesModel(model=models.blendshapes,
+                                   device=cuda_device),
+              rng.uniform(0, 640, (146, 2)).astype(np.float32))]
+    calls = [lambda: [m.data for m in seg(frames)],
+             lambda: emb.embed_batch(frames[0], pairs)] + [
+        (lambda net=net, x=x: net(x)) for net, x in crops]
+    for call in calls:
+        call()                                     # eager, then captured
+    k2 = warp.warp_normalize.launches_by_size.get(112, 0)
+    got = [call() for call in calls]
+    assert warp.warp_normalize.launches_by_size[112] - k2 == 1
+    with graphs.eager():
+        want = [call() for call in calls]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    progs = [p for p, _ in seg._programs.values()] + \
+        list(emb._programs.values()) + \
+        [p for net, _ in crops for p in net._programs.values()]
+    assert len(progs) == 5 and all(
+        isinstance(p, graphs.CapturedProgram) and len(p.keys()) == 1
+        for p in progs)
+    for owner in [seg, emb] + [net for net, _ in crops]:
+        owner.dispose()
+    assert all(not p.keys() for p in progs)
