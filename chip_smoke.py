@@ -93,8 +93,10 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    batch's own frames (``_check_path_kernels``: K1 on the detector's raw
    outputs, K2 on the program's face and eye ROIs, bit for bit); a run with ``frame_stride=2, max_frames=8, max_dim=640``;
    IDs from 1 after ``reset_tracking``; frames/s against
-   ``detect_faces_batch`` alone, the share of IDs carried over, and the
-   host ms of both smoothers; (b) four decoded frames as I420, NV12,
+   ``detect_faces_batch`` alone, the program keys the video's fresh
+   detector captured and left pending and the card's graph pool bytes
+   after it, the share of IDs carried over, and the host ms of both
+   smoothers; (b) four decoded frames as I420, NV12,
    NV21, RGBA and BGRA camera frames with rows padded by 64 bytes under
    the four rotations (I420 also as a duck-typed planes object) through
    the camera entry points: faces equal bit for bit to
@@ -155,7 +157,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    before it: one K1 and one K2 at 192 and at 64 px an image, plus
    re-runs; K1 and K2 against their plain versions on each image at
    B = 1; its ms an image beside ``detect_faces``'s and the PNG
-   decode's), ``detect --annotate`` (the PNG equal to
+   decode's, the program keys the command's detector captured and left
+   pending and the card's graph pool bytes), ``detect --annotate`` (the
+   PNG equal to
    ``render.annotate``), ``embed`` (equal
    to the API's similarity and distance; one K2 at 112 px an image),
    ``segment --format binary`` (the seeded general segmenter's mask),
@@ -212,7 +216,11 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    same seeded networks and frames): the copy-in of a frame batch into a
    graph's static input, timed alone; STANDARD, FULL and FULL with
    embeddings at B = 16 on a fresh detector each (``_graph_cell``): the
-   first batches' eager runs and each key's capture ms, launches over 5
+   first batches under ``graphs.capture_now`` (each key captured on its
+   first call) and each key's capture by part (``_capture_split``: the
+   pool's adopt and whether it renewed the pool, the program's run under
+   capture, ``capture_end``, the first replay, the card's reservations
+   added), launches over 5
    replayed batches (one K1 and one K2 at each site a batch, plus
    re-runs), the replayed faces against the same detector's eager calls
    (``graphs.eager``) bit for bit, the replayed outputs of the steady
@@ -221,11 +229,16 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    readback packed in the replay against the eager outputs packed op by
    op (largest difference printed, 0 required), ms a batch replayed and
    eager in
-   turns, the host's ms to queue a batch already on the card with no
+   turns (each replayed turn must find its keys captured), the host's ms
+   to queue a batch already on the card with no
    synchronise, the graphs and the pool's bytes, and 3 batches of each
    in a plain ``torch.profiler`` window (busy ms a batch and idle share;
-   CUDA events where the profiler kept no record); K1 and K2 against
-   their plain versions on the cells' frames; ``detect_faces`` and
+   CUDA events where the profiler kept no record); the capture schedule
+   on a fresh FULL detector's steady key (``_graph_schedule``: calls 1 to
+   ``graphs.CAPTURE_AT_CALL`` - 1 eager, the next captures, 3 replays
+   after, each call's outputs against the eager program bit for bit and
+   its ms from CUDA events, one K1 and one K2 at each site a call); K1 and
+   K2 against their plain versions on the cells' frames; ``detect_faces`` and
    ``detect_faces_from_camera_frame`` at B = 1 (faces against the eager
    calls', launches, ms a call both ways, K1 and K2 on the frame); the
    standalone ``FaceDetection`` (one program per size: detections against
@@ -249,7 +262,9 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    replayed call from the capture's tally, K2 against its plain version
    on the replay's ROIs, ms a call both ways); ``FaceLandmark``,
    ``IrisLandmark`` and ``FaceBlendshapesModel`` at B = 1 on seeded
-   inputs (``_graph_single``: bit for bit, ms a call both ways); a
+   inputs (``_graph_single``: bit for bit, ms a call both ways); the
+   call at which each key timed both ways would capture by the rule
+   ``graphs.CAPTURE_AT_CALL`` follows (``_capture_at_call``); a
    ``graphs`` JSON line of the numbers; ``time:`` lines give the seconds
    into the phase (and into the run, a line a phase);
 15. prints the ``kernels`` JSON line and, last, the ``{"ok": true, ...}``
@@ -278,7 +293,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ``graph_launches`` over phase 14's ``graph_batches`` replayed batches
    of each B = 16 cell and its ``graph_calls`` replayed B = 1 calls (K1
    also over the standalone calls, the embedding site also over the
-   ``embed_batch_calls`` replayed ``embed_batch`` calls);
+   ``embed_batch_calls`` replayed ``embed_batch`` calls, and over the
+   ``schedule_calls`` calls of the schedule check);
    ``nms_core`` is off the main path (0, and 0 over phase 11's ``detect``
    run, both counted) and its launches in step 3 are ``check_launches``.
    K1's ``max_abs_err`` is its largest box error over every check
@@ -1665,6 +1681,15 @@ def _face_json(faces) -> list:
     return out
 
 
+def _graphs_held(det) -> dict:
+    """What a path's detector captured (``memory_report``): the program
+    keys captured, those called but not captured, and the card's graph
+    pool bytes, which the process's captured programs share."""
+    report = det.memory_report()
+    return {k: report[k] for k in ("captured_keys", "pending_keys",
+                                   "graph_pool_bytes")}
+
+
 def _video_phase(frames_dev, card: str) -> dict:
     """Phase 8a: a seeded 720p clip written and decoded with cv2, the
     detector calibrated on the decoded frames, ``detect_faces_from_video``
@@ -1729,6 +1754,7 @@ def _video_phase(frames_dev, card: str) -> dict:
         video_s = time.perf_counter() - t0
         launches = _launches()
         reruns = _reruns(det)
+        graphs_held = _graphs_held(det)
         ref_det = detector(False)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1772,7 +1798,8 @@ def _video_phase(frames_dev, card: str) -> dict:
               f"frame {[len(p) for p in got]}, equal bit for bit; "
               f"{len({i for per in ids for i in per})} IDs, {share:.3f} of "
               f"the faces carried their ID over from the frame before; "
-              f"launches {launches} ({reruns} re-runs)  [{card}]")
+              f"launches {launches} ({reruns} re-runs); {graphs_held}  "
+              f"[{card}]")
 
         # The host work of the video path alone: the reader (cv2's decode
         # and BGR-to-RGB conversion) and the batch's np.stack of its
@@ -1837,6 +1864,7 @@ def _video_phase(frames_dev, card: str) -> dict:
             "results": results, "launches": launches,
             "batches": n_batches, "post_err": post_err, "video_fps": VIDEO_FRAMES / video_s,
             "batch_fps": VIDEO_FRAMES / batch_s, "carried": share,
+            "graphs": graphs_held,
             "read_ms": read_ms, "stack_ms": stack_ms,
             "smooth_ms": smooth_ms}
 
@@ -2927,6 +2955,7 @@ def _cli_phase(models, frames_np, video: dict, card: str) -> dict:
             raise AssertionError(f"cli detect exited {rc}: {err}")
         (det,) = seeded["made"]
         reruns = _reruns(det)
+        graphs_held = _graphs_held(det)
         _check_launches(launches, CLI_IMAGES, reruns, "cli detect")
         if nms_launches:
             raise AssertionError(f"cli detect launched nms_core "
@@ -2971,8 +3000,9 @@ def _cli_phase(models, frames_np, video: dict, card: str) -> dict:
               f"the PNG decode alone {decode_ms:.2f} ms; faces "
               f"{[len(f) for f in want]}, equal bit for bit, --annotate "
               f"equal to render.annotate; launches {launches} ({reruns} "
-              f"re-runs)  [{card}]")
+              f"re-runs); {graphs_held}  [{card}]")
         out.update(detect_launches=launches, nms_launches=nms_launches,
+                   graphs=graphs_held,
                    detect_ms=cli_ms, api_ms=api_ms,
                    decode_ms=decode_ms, post_err=post_err)
 
@@ -3546,17 +3576,29 @@ def _host_ops(fn) -> dict:
     return dict(count.ops)
 
 
-def _in_turns(calls: int, call, finish=None) -> dict:
+def _graph_state(programs) -> tuple:
+    """(keys captured, counted calls of the keys not captured yet) over
+    the captured programs ``programs()`` returns."""
+    progs = list(programs())
+    return (sum(len(p.keys()) for p in progs),
+            sum(sum(p.pending().values()) for p in progs))
+
+
+def _in_turns(calls: int, call, programs, finish=None) -> dict:
     """Median ms of ``calls`` calls a turn, replayed and (inside
     ``graphs.eager``) eager, in turns (replayed, eager, eager, replayed),
     each after a synchronise: ``call()`` to the end of its device work,
     or with ``finish``, only the host's time to queue ``call()``, whose
-    result ``finish`` then waits for, untimed."""
+    result ``finish`` then waits for, untimed.  Each replayed turn must
+    find every key it calls captured: over it, neither the captured keys
+    of ``programs()`` nor the counted calls of their keys not captured yet
+    change."""
     import torch
     from face_detection_tflite_torch.pipeline import graphs
     ms: dict = {"replayed": [], "eager": []}
     for how in ("replayed", "eager", "eager", "replayed"):
         ctx = graphs.eager() if how == "eager" else contextlib.nullcontext()
+        before = _graph_state(programs)
         with ctx:
             for _ in range(calls):
                 torch.cuda.synchronize()
@@ -3567,19 +3609,51 @@ def _in_turns(calls: int, call, finish=None) -> dict:
                 ms[how].append((time.perf_counter() - t0) * 1e3)
                 if finish is not None:
                     finish(out)
+        after = _graph_state(programs)
+        if how == "replayed" and (after != before or not after[0]):
+            raise AssertionError(f"a replayed turn met a key not captured: "
+                                 f"(captured keys, calls of the others) "
+                                 f"{before} -> {after}")
     return {how: statistics.median(v) for how, v in ms.items()}
 
 
 def _graph_keys(det) -> list:
-    """(program, input shapes, capture ms) of every captured graph of
-    ``det``: the program as its mode and face slab, or "stage" for the
-    overflow re-run's."""
+    """(name, program) of each of ``det``'s programs: its mode and face
+    slab, or "stage" for the overflow re-run's."""
+    return [(f"{key[2].name} " + ("stage" if key[3] == "stage" else
+                                  f"slab {key[3] or MAX_FACES}"), prog)
+            for key, prog in det._programs.items()]
+
+
+def _capture_split(label: str, programs, card: str) -> list:
+    """Prints each captured key's capture by part (``capture_s`` and
+    ``capture_parts`` of ``pipeline/graphs.py``) of the (name, program)
+    pairs ``programs`` and returns them: host ms of the pool's adopt (and
+    whether it renewed the pool), the program's run under capture,
+    ``capture_end`` and the key's first replay, and the MiB the card's
+    reservations grew by."""
     out = []
-    for key, prog in det._programs.items():
-        what = f"{key[2].name} " + ("stage" if key[3] == "stage" else
-                                    f"slab {key[3] or MAX_FACES}")
-        for sig, s in getattr(prog, "capture_s", {}).items():
-            out.append((what, tuple(shape for shape, _ in sig), s * 1e3))
+    for name, prog in programs:
+        for sig, total in prog.capture_s.items():
+            parts = prog.capture_parts[sig]
+            row = {"program": name,
+                   "inputs": [list(shape) for shape, _ in sig],
+                   "capture_ms": total * 1e3,
+                   **{k[:-2] + "_ms": v * 1e3 for k, v in parts.items()
+                      if k.endswith("_s")},
+                   "renewed": parts["renewed"],
+                   "pool_mib": parts["pool_bytes"] / 2**20}
+            out.append(row)
+            first = ("not yet" if "replay_ms" not in row
+                     else f"{row['replay_ms']:.1f} ms")
+            print(f"graphs {label} capture split, {name} inputs "
+                  f"{tuple(tuple(i) for i in row['inputs'])}: "
+                  f"{row['capture_ms']:.1f} ms = adopt "
+                  f"{row['adopt_ms']:.1f}"
+                  f"{' (a new pool)' if row['renewed'] else ''} + run "
+                  f"{row['run_ms']:.1f} + capture_end {row['end_ms']:.1f} "
+                  f"(+ the static clone); first replay {first}; the card's "
+                  f"reservations +{row['pool_mib']:.1f} MiB  [{card}]")
     return out
 
 
@@ -3629,7 +3703,8 @@ def _graph_profile(call, runs: int, card: str, label: str):
 def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
                 card: str) -> dict:
     """Phase 14 on one B = 16 cell: the captured detector's first calls
-    (capture ms a key), its replays against the eager program of
+    under ``graphs.capture_now`` (each key captured on its first call) and
+    each key's capture by part, its replays against the eager program of
     ``build_pipeline_program`` (the steady key, the speculative 2-face key
     and a forced overflow re-run of the face stages at 16 faces) and its
     faces against the same detector's eager calls, launches over replayed
@@ -3644,17 +3719,16 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
                        max_faces=MAX_FACES, embed_in_full=embed,
                        allow_untrained_embeddings=True)
     first_ms = []
-    for _ in range(2):  # slab 1 and its overflow re-run, then slab 16
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        det.detect_faces_batch(frames_np, mode)
-        torch.cuda.synchronize()
-        first_ms.append((time.perf_counter() - t0) * 1e3)
-    keys = _graph_keys(det)
+    with graphs.capture_now():
+        for _ in range(2):  # slab 1 and its overflow re-run, then slab 16
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det.detect_faces_batch(frames_np, mode)
+            torch.cuda.synchronize()
+            first_ms.append((time.perf_counter() - t0) * 1e3)
     print(f"graphs {label}: first two batches {['%.2f' % t for t in first_ms]}"
-          f" ms (eager first calls and captures); captured "
-          + "; ".join(f"{what} inputs {sig}: {ms:.1f} ms"
-                      for what, sig, ms in keys) + f"  [{card}]")
+          f" ms (under capture_now: eager first calls and captures)  "
+          f"[{card}]")
 
     # Launches and faces over replayed batches.
     reruns0 = _reruns(det)
@@ -3689,7 +3763,8 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
                 build_pipeline_program(models, HEIGHT, WIDTH, mode, **kw)(
                     frames), scale))
         spec = det._program(HEIGHT, WIDTH, mode, face_slab=2)
-        spec(frames)                               # eager, then captured
+        with graphs.capture_now():
+            spec(frames)                           # eager, then captured
         got = spec(frames)
         want = build_pipeline_program(models, HEIGHT, WIDTH, mode,
                                       face_slab=2, **kw)(frames)
@@ -3717,11 +3792,15 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
         raise AssertionError(f"graphs {label}: a replay differs from the "
                              f"eager program: {diffs}")
 
+    split = _capture_split(label, _graph_keys(det), card)
+
     # ms a batch in turns, and the host's time to queue one.
+    def progs():
+        return det._captured_programs
     med = _in_turns(GRAPH_RUNS,
-                    lambda: det.detect_faces_batch(frames_np, mode))
+                    lambda: det.detect_faces_batch(frames_np, mode), progs)
     qmed = _in_turns(GRAPH_RUNS, lambda: det._stream_dispatch(frames, mode),
-                     lambda handle: det._stream_finish(handle, mode))
+                     progs, lambda handle: det._stream_finish(handle, mode))
     report = det.memory_report()
     n_faces = sum(len(f) for f in faces[-1])
     print(f"graphs {label}: ms a batch of {FRAMES} x {HEIGHT}x{WIDTH} "
@@ -3740,11 +3819,83 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
     prof = _graph_profile(lambda: det.detect_faces_batch(frames_np, mode),
                           3, card, label)
     det.dispose()
-    return {"first_ms": first_ms, "capture_ms": [k[2] for k in keys],
+    return {"first_ms": first_ms,
+            "capture_ms": [k["capture_ms"] for k in split],
+            "capture_split": split,
             "diffs": diffs, "ms": med, "queue_ms": qmed,
             "pool_bytes": report["graph_pool_bytes"],
             "graphs": report["compiled_programs"], "launches": launches,
             "profile": prof, "faces": n_faces}
+
+
+#: The schedule check's replayed calls after its capturing call.
+SCHEDULE_EXTRA = 3
+
+
+def _graph_schedule(models, frames, card: str) -> dict:
+    """Phase 14's capture schedule on a fresh FULL detector's steady key at
+    B = 16, called ``graphs.CAPTURE_AT_CALL + SCHEDULE_EXTRA`` times on
+    the frames already on the card: calls 1 to N - 1 eager (no graph, the
+    key pending), call N captures once (its result the first replay's),
+    later calls replay; every call's outputs against
+    ``build_pipeline_program``'s eager program bit for bit (the readback
+    against its outputs packed op by op); one K1 and one K2 at each site
+    a call; ms a call from CUDA events and the host's ms a call."""
+    import torch
+    from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
+    from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.pipeline.programs import \
+        build_pipeline_program
+    mode = FaceDetectionMode.FULL
+    n = graphs.CAPTURE_AT_CALL
+    det = FaceDetector(models=models, device=frames.device,
+                       max_faces=MAX_FACES)
+    prog = det._program(HEIGHT, WIDTH, mode, face_slab=MAX_FACES)
+    with torch.inference_mode():
+        want = build_pipeline_program(models, HEIGHT, WIDTH, mode,
+                                      max_faces=MAX_FACES,
+                                      min_score=det.min_score)(frames)
+    want_rb = _eager_readback(want, det._readback_scale(HEIGHT, WIDTH))
+    calls = []
+    _reset_launches()
+    for call in range(1, n + SCHEDULE_EXTRA + 1):
+        how = "eager" if call < n else "capture" if call == n else "replay"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        with torch.inference_mode():
+            out = prog(frames)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        state = (len(prog.keys()), len(prog.pending()))
+        if state != ((0, 1) if how == "eager" else (1, 0)):
+            raise AssertionError(f"graphs schedule: call {call} ({how}) "
+                                 f"left (captured, pending) {state}")
+        diff = _readback_diff(det._fetch(out), want_rb)
+        if diff != 0:
+            raise AssertionError(f"graphs schedule: call {call} ({how}) "
+                                 f"differs from the eager program by {diff}")
+        calls.append({"call": call, "how": how,
+                      "ms": start.elapsed_time(end), "host_ms": host_ms})
+    launches = _launches()
+    k = len(calls)
+    if launches != {"detection_postprocess": k,
+                    "warp_normalize": {MESH_SIZE: k, IRIS_SIZE: k}}:
+        raise AssertionError(f"graphs schedule: launches {launches} over "
+                             f"{k} calls")
+    split = _capture_split("schedule FULL", [("slab 16", prog)], card)
+    print(f"graphs schedule (FULL, fresh detector, {FRAMES} x "
+          f"{HEIGHT}x{WIDTH} on the card, CAPTURE_AT_CALL = {n}): "
+          + "; ".join(f"call {c['call']} {c['how']} {c['ms']:.2f} ms "
+                      f"(host {c['host_ms']:.2f})" for c in calls)
+          + f" (CUDA events); each equal to the eager program bit for bit;"
+          f" launches {launches} over {k} calls  [{card}]")
+    det.dispose()
+    return {"capture_at_call": n, "calls": calls, "capture_split": split,
+            "launches": launches}
 
 
 def _graph_b1(models, frames, frames_np, card: str) -> dict:
@@ -3766,8 +3917,9 @@ def _graph_b1(models, frames, frames_np, card: str) -> dict:
             ("detect_faces", lambda: det.detect_faces(frame)),
             ("detect_faces_from_camera_frame",
              lambda: det.detect_faces_from_camera_frame(cam))):
-        for _ in range(3):
-            call()
+        with graphs.capture_now():  # the 1-face slab, its re-run, slab 16
+            for _ in range(3):
+                call()
         reruns0 = _reruns(det)
         _reset_launches()
         got = [call() for _ in range(GRAPH_CALLS)]
@@ -3779,7 +3931,7 @@ def _graph_b1(models, frames, frames_np, card: str) -> dict:
         if json.dumps(_payload([got[-1]])) != json.dumps(_payload([want])):
             raise AssertionError(f"graphs {label}: replayed faces differ "
                                  f"from the eager call's")
-        med = _in_turns(GRAPH_CALLS, call)
+        med = _in_turns(GRAPH_CALLS, call, lambda: det._captured_programs)
         print(f"graphs {label} (B = 1, {WIDTH}x{HEIGHT}, FULL): ms a call, "
               f"median of {2 * GRAPH_CALLS} in turns: replayed "
               f"{med['replayed']:.2f}, eager {med['eager']:.2f}; "
@@ -3787,6 +3939,7 @@ def _graph_b1(models, frames, frames_np, card: str) -> dict:
               f"launches {launches} over {GRAPH_CALLS} replayed calls  "
               f"[{card}]")
         out[label] = {"ms": med, "launches": launches}
+    out["capture_split"] = _capture_split("B = 1", _graph_keys(det), card)
     det.dispose()
     out["post_err"] = _check_path_kernels("phase 14 B = 1", models,
                                           frames[:1], card)
@@ -3806,8 +3959,9 @@ def _graph_standalone(models, frames, frames_np, card: str) -> dict:
     fd = FaceDetection(FaceDetectionModel.BACK_CAMERA, model=models.detector,
                        max_detections=MAX_FACES, device=frames.device)
     frame = frames_np[0]
-    for _ in range(3):
-        fd(frame)
+    with graphs.capture_now():
+        for _ in range(3):
+            fd(frame)
     detections.detection_postprocess.launches = 0
     got = [fd(frame) for _ in range(GRAPH_CALLS)]
     launches = detections.detection_postprocess.launches
@@ -3820,9 +3974,10 @@ def _graph_standalone(models, frames, frames_np, card: str) -> dict:
                              f"differ from the eager program's, or "
                              f"{launches} K1 launches over {GRAPH_CALLS} "
                              f"calls")
-    med = _in_turns(GRAPH_CALLS, lambda: fd(frame))
     (prog,) = fd._programs.values()
+    med = _in_turns(GRAPH_CALLS, lambda: fd(frame), lambda: [prog])
     capture_ms = [s * 1e3 for s in prog.capture_s.values()]
+    split = _capture_split("FaceDetection", [("size", prog)], card)
     pool = graphs.pool_for(fd.device).nbytes()
     print(f"graphs FaceDetection (B = 1, {WIDTH}x{HEIGHT}): ms a call, "
           f"median of {2 * GRAPH_CALLS} in turns: replayed "
@@ -3833,7 +3988,8 @@ def _graph_standalone(models, frames, frames_np, card: str) -> dict:
           f"{pool / 2**20:.1f} MiB  [{card}]")
     fd.dispose()
     return {"ms": med, "launches": launches, "calls": GRAPH_CALLS,
-            "capture_ms": capture_ms, "pool_bytes": pool}
+            "capture_ms": capture_ms, "capture_split": split,
+            "pool_bytes": pool}
 
 
 def _graph_concurrency(models, frames_np, card: str) -> None:
@@ -3852,9 +4008,10 @@ def _graph_concurrency(models, frames_np, card: str) -> None:
     b = np.ascontiguousarray(frames_np[::-1])
     det = FaceDetector(models=models, device=models.device,
                        max_faces=MAX_FACES)
-    for _ in range(3):
-        det.detect_faces_batch(a)
-        det.detect_faces_batch(b)
+    with graphs.capture_now():
+        for _ in range(3):
+            det.detect_faces_batch(a)
+            det.detect_faces_batch(b)
     want = {0: json.dumps(_payload(det.detect_faces_batch(a))),
             1: json.dumps(_payload(det.detect_faces_batch(b)))}
     errors = []
@@ -3890,7 +4047,8 @@ def _graph_concurrency(models, frames_np, card: str) -> None:
         d._speculation_bucket = lambda h, w, mode: 1
         d._note_face_count = lambda h, w, mode, n: None
     batches = [a, b, a, b, a]
-    list(pinned.detect_faces_batch_stream(batches[:2], depth=2))  # captures
+    with graphs.capture_now():
+        list(pinned.detect_faces_batch_stream(batches[:2], depth=2))
     reruns0 = _reruns(pinned)
     got = list(pinned.detect_faces_batch_stream(batches, depth=2))
     with graphs.eager():
@@ -3941,7 +4099,8 @@ def _graph_segmentation(frames, frames_np, card: str) -> dict:
                                  device=frames.device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        seg(frames_np)                             # eager, then captured
+        with graphs.capture_now():
+            seg(frames_np)                         # eager, then captured
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         prog, _ = seg._program(seg.model, HEIGHT, WIDTH)
@@ -3958,9 +4117,10 @@ def _graph_segmentation(frames, frames_np, card: str) -> dict:
         if diff != 0:
             raise AssertionError(f"graphs {label}: replayed planes differ "
                                  f"from the eager program's by {diff}")
-        ms = _in_turns(GRAPH_RUNS, lambda: seg(frames_np))
+        ms = _in_turns(GRAPH_RUNS, lambda: seg(frames_np), lambda: [prog])
         qmed = _in_turns(GRAPH_RUNS, lambda: seg.dispatch(frames),
-                         seg.materialize)
+                         lambda: [prog], seg.materialize)
+        split = _capture_split(label, [("size", prog)], card)
         pool = graphs.pool_for(frames.device).nbytes()
         print(f"graphs {label} ({FRAMES} x {HEIGHT}x{WIDTH}): replayed "
               f"planes against the eager program's: largest difference "
@@ -3976,6 +4136,7 @@ def _graph_segmentation(frames, frames_np, card: str) -> dict:
         out[f"{kind} {dtype}"] = {"diff": diff, "ms": ms, "queue_ms": qmed,
                                   "first_ms": first_ms,
                                   "capture_ms": capture_ms,
+                                  "capture_split": split,
                                   "pool_bytes": pool, "profile": prof}
     return out
 
@@ -4009,8 +4170,9 @@ def _graph_embedding(models, frames, card: str) -> dict:
     out = {"launches": 0, "calls": 0, "by_n": {}}
     for n in EMBED_NS:
         label = f"embed_batch N = {n}"
-        emb.embed_batch(frame, pairs[:n])          # eager and captured, or
-        _reset_launches()                          # a replay of slab 4
+        with graphs.capture_now():                 # eager and captured, or
+            emb.embed_batch(frame, pairs[:n])      # a replay of slab 4
+        _reset_launches()
         got = [emb.embed_batch(frame, pairs[:n]) for _ in range(GRAPH_CALLS)]
         k2 = _launches()["warp_normalize"]
         if k2 != {EMBED_SIZE: GRAPH_CALLS}:
@@ -4032,7 +4194,8 @@ def _graph_embedding(models, frames, card: str) -> dict:
         _check_warp(frame[None], [cx, cy, size, torch.cos(-theta),
                                   torch.sin(-theta)], EMBED_SIZE, None,
                     f"embedding site, {label}")
-        ms = _in_turns(GRAPH_CALLS, lambda: emb.embed_batch(frame, pairs[:n]))
+        ms = _in_turns(GRAPH_CALLS, lambda: emb.embed_batch(frame, pairs[:n]),
+                       lambda: emb._programs.values())
         print(f"graphs {label} (slab {slab}, {WIDTH}x{HEIGHT} frame on the "
               f"card): replayed embeddings equal the eager call's bit for "
               f"bit; K2 {k2[EMBED_SIZE]} launches at {EMBED_SIZE} px over "
@@ -4047,6 +4210,8 @@ def _graph_embedding(models, frames, card: str) -> dict:
         raise AssertionError(f"graphs embed_batch: graphs of slabs {slabs}, "
                              f"want [1, 4, 16]")
     out["capture_ms"] = [c * 1e3 for c in prog.capture_s.values()]
+    out["capture_split"] = _capture_split("embed_batch", [("slab", prog)],
+                                          card)
     emb.dispose()
     return out
 
@@ -4072,8 +4237,9 @@ def _graph_single(models, card: str) -> dict:
     out = {}
     for label, net, x in nets:
         call = (net.call_with_score if label == "FaceLandmark" else net)
-        for _ in range(3):
-            call(x)
+        with graphs.capture_now():
+            for _ in range(3):
+                call(x)
         got = call(x)
         with graphs.eager():
             want = call(x)
@@ -4084,16 +4250,18 @@ def _graph_single(models, card: str) -> dict:
         if not same:
             raise AssertionError(f"graphs {label}: the replay differs from "
                                  f"the eager call")
-        ms = _in_turns(GRAPH_CALLS, lambda: call(x))
         (prog,) = net._programs.values()
+        ms = _in_turns(GRAPH_CALLS, lambda: call(x), lambda: [prog])
         capture_ms = [c * 1e3 for c in prog.capture_s.values()]
+        split = _capture_split(label, [("input", prog)], card)
         print(f"graphs {label} (B = 1): the replay equals the eager call "
               f"bit for bit; ms a call, median of {2 * GRAPH_CALLS} in "
               f"turns: replayed {ms['replayed']:.3f}, eager "
               f"{ms['eager']:.3f}; capture "
               f"{['%.1f' % c for c in capture_ms]} ms  [{card}]")
         net.dispose()
-        out[label] = {"ms": ms, "capture_ms": capture_ms}
+        out[label] = {"ms": ms, "capture_ms": capture_ms,
+                      "capture_split": split}
     return out
 
 
@@ -4127,7 +4295,8 @@ def _graph_pack(models, frames, card: str) -> dict:
     with torch.inference_mode():
         outs = {}
         for how, prog in (("folded", folded), ("eager", unfolded)):
-            prog(frames)                           # eager, then captured
+            with graphs.capture_now():
+                prog(frames)                       # eager, then captured
             outs[how] = prog(frames)
         got = det._fetch_finish(fetch("folded", outs["folded"]))
         want = det._fetch_finish(fetch("eager", outs["eager"]))
@@ -4171,8 +4340,10 @@ def _graph_launches(graphs: dict, kernel: str, size=None) -> dict:
         **{label: count(c["launches"]) for label, c in
            graphs["cells"].items()},
         **{label: count(v["launches"]) for label, v in graphs["b1"].items()
-           if label != "post_err"}},
-        "graph_batches": GRAPH_RUNS, "graph_calls": GRAPH_CALLS}
+           if label not in ("post_err", "capture_split")},
+        "schedule": count(graphs["schedule"]["launches"])},
+        "graph_batches": GRAPH_RUNS, "graph_calls": GRAPH_CALLS,
+        "schedule_calls": len(graphs["schedule"]["calls"])}
     if kernel == "detection_postprocess":
         out["graph_launches"]["FaceDetection"] = graphs["standalone"][
             "launches"]
@@ -4180,6 +4351,53 @@ def _graph_launches(graphs: dict, kernel: str, size=None) -> dict:
         out["graph_launches"]["embed_batch"] = graphs["embedding"][
             "launches"]
         out["embed_batch_calls"] = graphs["embedding"]["calls"]
+    return out
+
+
+def _capture_at_call(cells, b1, alone, seg, embedding, single,
+                     card: str) -> dict:
+    """The capture's call by the rule ``graphs.CAPTURE_AT_CALL`` follows:
+    capture once a key's eager calls have lost, against replays, about
+    what its capture costs, so N = 1 + round(C / (E - R)), with E and R a
+    call's median ms eager and replayed in turns and C the key's capture
+    ms less the pool's adopt (a renewal happens only once the pool held
+    no graph; a process's first capture allocates its memory in the
+    run).  For each key phase 14 timed both ways; the B = 1 owners' median
+    is the one the constant takes."""
+    def rule(ms, row):
+        lost = ms["eager"] - ms["replayed"]
+        cost = row["capture_ms"] - row["adopt_ms"]
+        return {"eager_ms": ms["eager"], "replayed_ms": ms["replayed"],
+                "capture_ms": cost,
+                "n": 1 + round(cost / lost) if lost > 0 else None}
+
+    def steady(rows):
+        return next(r for r in rows if r["program"].endswith("slab 16"))
+    b1_keys = {"detect_faces": rule(b1["detect_faces"]["ms"],
+                                    steady(b1["capture_split"])),
+               "FaceDetection": rule(alone["ms"], alone["capture_split"][0]),
+               "embed_batch N = 1": rule(
+                   embedding["by_n"][1]["ms"],
+                   next(r for r in embedding["capture_split"]
+                        if r["inputs"][1] == [1, 1])),
+               **{k: rule(v["ms"], v["capture_split"][0])
+                  for k, v in single.items()}}
+    b16_keys = {**{k: rule(v["ms"], steady(v["capture_split"]))
+                   for k, v in cells.items()},
+                **{f"segmentation {k}": rule(v["ms"], v["capture_split"][0])
+                   for k, v in seg.items()}}
+    ns = [v["n"] for v in b1_keys.values() if v["n"] is not None]
+    out = {"b1": b1_keys, "b16": b16_keys,
+           "b1_median": statistics.median(ns) if ns else None}
+    print("graphs capture call by the rule, N = 1 + round(capture ms less "
+          "adopt / (eager - replayed ms)): B = 1 "
+          + ", ".join(f"{k} {v['n']} ({v['capture_ms']:.1f} / "
+                      f"({v['eager_ms']:.2f} - {v['replayed_ms']:.2f}))"
+                      for k, v in b1_keys.items())
+          + f"; median {out['b1_median']}; B = 16 "
+          + ", ".join(f"{k} {v['n']} ({v['capture_ms']:.1f} / "
+                      f"({v['eager_ms']:.2f} - {v['replayed_ms']:.2f}))"
+                      for k, v in b16_keys.items()) + f"  [{card}]")
     return out
 
 
@@ -4233,6 +4451,7 @@ def _graphs_phase(models, frames, frames_np, card: str) -> dict:
         cells[label] = _graph_cell(label, models, frames, frames_np, mode,
                                    embed, card)
         stamp(label)
+    schedule = _graph_schedule(models, frames, card)
     post_err = _check_path_kernels("phase 14 B = 16", models, frames, card)
     b1 = _graph_b1(models, frames, frames_np, card)
     alone = _graph_standalone(models, frames, frames_np, card)
@@ -4244,23 +4463,43 @@ def _graphs_phase(models, frames, frames_np, card: str) -> dict:
     embedding = _graph_embedding(models, frames, card)
     single = _graph_single(models, card)
     stamp("embed_batch and single networks")
+    by_rule = _capture_at_call(cells, b1, alone, seg, embedding, single,
+                               card)
+    splits = {**{k: v["capture_split"] for k, v in cells.items()},
+              "B = 1": b1["capture_split"],
+              "FaceDetection": alone["capture_split"],
+              **{f"segmentation {k}": v["capture_split"]
+                 for k, v in seg.items()},
+              "embed_batch": embedding["capture_split"],
+              **{k: v["capture_split"] for k, v in single.items()},
+              "schedule": schedule["capture_split"]}
     print("graphs: " + json.dumps({
         "card": card, "copy_in_ms": copy_ms,
+        "capture_median_ms": statistics.median(
+            r["capture_ms"] for rows in splits.values() for r in rows),
+        "capture_split": splits, "capture_at_call_by_rule": by_rule,
+        "schedule": {x: schedule[x] for x in ("capture_at_call", "calls")},
         "cells": {k: {x: v[x] for x in ("ms", "queue_ms", "capture_ms",
                                          "pool_bytes", "graphs", "diffs",
                                          "profile")}
                   for k, v in cells.items()},
-        "b1": {k: v["ms"] for k, v in b1.items() if k != "post_err"},
+        "b1": {k: v["ms"] for k, v in b1.items()
+               if k not in ("post_err", "capture_split")},
         "standalone": {x: alone[x] for x in ("ms", "capture_ms",
                                              "pool_bytes")},
-        "pack": pack, "segmentation": seg,
+        "pack": pack,
+        "segmentation": {k: {x: y for x, y in v.items()
+                             if x != "capture_split"}
+                         for k, v in seg.items()},
         "embed_batch": {"by_n": embedding["by_n"],
                         "capture_ms": embedding["capture_ms"],
                         "k2_launches": embedding["launches"],
                         "calls": embedding["calls"]},
-        "single": single}))
+        "single": {k: {x: y for x, y in v.items() if x != "capture_split"}
+                   for k, v in single.items()}}))
     return {"cells": cells, "b1": b1, "standalone": alone,
             "copy_in_ms": copy_ms, "embedding": embedding,
+            "schedule": schedule,
             "post_err": max(post_err, b1["post_err"])}
 
 

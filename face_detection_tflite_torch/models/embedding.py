@@ -19,8 +19,9 @@ them, so that one seed gives the same weights in both packages.
 
 :meth:`FaceEmbedding.embed_batch` pads N faces to a power-of-two slab, as
 the JAX one does to bound its compiles, and runs one program per image
-size and slab: on a card a CUDA graph, captured at the key's first call
-and replayed after (``pipeline/graphs.py``).
+size and slab: on a card a CUDA graph, captured at the key's
+``graphs.CAPTURE_AT_CALL``-th call and replayed after
+(``pipeline/graphs.py``).
 
 Deliberate difference from the JAX module: :class:`MobileFaceNet` takes
 any batch ``[N, 112, 112, 3]`` (the JAX function takes N = 1 and is

@@ -14,8 +14,9 @@ not held up by the readback.  The mask objects and the padding-aware
 (`face_types.dart:282-627`).
 
 As the JAX class keeps one jitted program per image size, this one keeps
-one program per (height, width): on a card a CUDA graph, captured at the
-size's first call and replayed after (``pipeline/graphs.py``), one graph
+one program per (height, width): on a card a CUDA graph, captured at
+the size's ``graphs.CAPTURE_AT_CALL``-th call and replayed after
+(``pipeline/graphs.py``), one graph
 a batch size, in the graph memory pool of the device it runs on.
 
 Deliberate differences: :class:`SelfieSegmentation` runs on ``cuda``

@@ -54,8 +54,9 @@ __all__ = ["FaceDetection", "FaceLandmark", "IrisLandmark",
 class _Disposable:
     """What the standalone model classes share: their programs, one a key
     (on a card a CUDA graph a key and input signature, captured at its
-    first call and replayed after, ``pipeline/graphs.py``; on the CPU the
-    eager program), and `dispose()`: the reference frees its interpreters
+    ``graphs.CAPTURE_AT_CALL``-th call and replayed after,
+    ``pipeline/graphs.py``; on the CPU the eager program), and
+    `dispose()`: the reference frees its interpreters
     and makes later calls throw (`face_detection_model.dart:525` et al.);
     here dispose frees the programs, drops the network and poisons
     further use."""
@@ -126,9 +127,9 @@ class FaceDetection(_Disposable):
 
     As the JAX class keeps one jitted program per image size, this one
     keeps one program per (height, width): on a card a CUDA graph,
-    captured at the size's first call and replayed after
-    (``pipeline/graphs.py``), in its device's graph memory pool; on the
-    CPU the eager program.
+    captured at the size's ``graphs.CAPTURE_AT_CALL``-th call and
+    replayed after (``pipeline/graphs.py``), in its device's graph memory
+    pool; on the CPU the eager program.
     """
 
     def __init__(self, variant: Variant = Variant.BACK_CAMERA,

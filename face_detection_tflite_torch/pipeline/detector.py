@@ -41,9 +41,9 @@ its own device.  The visible devices come from
 Programs, as in the JAX package, are made once per key (image size,
 mode, face slab, device; the padded batch and the overflow width are the
 inputs' shapes) and dispatched whole: on a card each program key is a
-CUDA graph, captured at its first call (or in ``warmup``) and replayed
-after (``pipeline/graphs.py``), so a first call of a key pays an eager
-run and a capture.  The graphs live in their device's graph memory pool,
+CUDA graph, captured at the key's ``graphs.CAPTURE_AT_CALL``-th call (in
+``warmup`` at its first) and replayed after (``pipeline/graphs.py``), so
+a key called only a few times runs eagerly and pays no capture.  The graphs live in their device's graph memory pool,
 which every captured program of the process on that device shares.  Each
 program packs its own readback into one byte buffer
 (:func:`packed_readback`), where the JAX detector runs a packer program
@@ -1077,48 +1077,53 @@ class FaceDetector:
         real request pays none of it; in the adaptive modes also the
         overflow face-stage program at its smallest reachable slab, 2 (a
         zero frame detects nothing, so a detection never reaches it).  On
-        a card each of these calls captures its program key's CUDA graph
-        (``pipeline/graphs.py``), as the JAX detector's warm-up compiles.
+        a card it runs under ``graphs.capture_now()``: each of these calls
+        runs its program key once eagerly and then captures its CUDA
+        graph (``pipeline/graphs.py``), as the JAX detector's warm-up
+        compiles, where other callers capture a key only at its
+        ``graphs.CAPTURE_AT_CALL``-th call.
 
         ``devices`` also warms the replica (device-pinned) path on each of
         them: the copy of the weights and each mode's dispatch and finish
         (the overflow re-run warms on the detector's own device only)."""
-        self._check_disposed()
-        h, w = image_shape[:2]
-        if self.bucket_images:
-            h, w = self._bucket(h), self._bucket(w)
-        if self.device.type == "cuda":
-            _build.load()
-        dummy = torch.zeros((batch_size, h, w, 3), dtype=torch.uint8,
-                            device=self.device)
-        b = self._batch_pad_target(batch_size)
-        nf = min(2, self.max_faces)
-        for mode in modes or (FaceDetectionMode.FAST,
-                              FaceDetectionMode.STANDARD,
-                              FaceDetectionMode.FULL):
-            self.detect_faces_batch(dummy, mode)
-            if not self.adaptive or mode == FaceDetectionMode.FAST:
-                continue
-            dev = self.device
-            boxes = torch.tensor([0.3, 0.3, 0.7, 0.7], device=dev
-                                 ).expand(b, nf, 4)
-            kp = torch.tensor([[0.4, 0.45], [0.6, 0.45], [0.5, 0.55],
-                               [0.5, 0.62], [0.33, 0.46], [0.67, 0.46]],
-                              device=dev).expand(b, nf, 6, 2)
-            with torch.inference_mode():
-                out = self._face_stage_program(h, w, mode)(
-                    torch.zeros((b, h, w, 3), dtype=torch.uint8, device=dev),
-                    boxes, kp, torch.full((b, nf), 0.9, device=dev),
-                    torch.ones((b, nf), dtype=torch.bool, device=dev))
-                self._fetch(out)
-        for d in devices or ():
-            self._replica_params(d)
-            pinned = np.zeros((batch_size, h, w, 3), np.uint8)
+        with graphs.capture_now():
+            self._check_disposed()
+            h, w = image_shape[:2]
+            if self.bucket_images:
+                h, w = self._bucket(h), self._bucket(w)
+            if self.device.type == "cuda":
+                _build.load()
+            dummy = torch.zeros((batch_size, h, w, 3), dtype=torch.uint8,
+                                device=self.device)
+            b = self._batch_pad_target(batch_size)
+            nf = min(2, self.max_faces)
             for mode in modes or (FaceDetectionMode.FAST,
                                   FaceDetectionMode.STANDARD,
                                   FaceDetectionMode.FULL):
-                self._stream_finish(
-                    self._stream_dispatch(pinned, mode, device=d), mode)
+                self.detect_faces_batch(dummy, mode)
+                if not self.adaptive or mode == FaceDetectionMode.FAST:
+                    continue
+                dev = self.device
+                boxes = torch.tensor([0.3, 0.3, 0.7, 0.7], device=dev
+                                     ).expand(b, nf, 4)
+                kp = torch.tensor([[0.4, 0.45], [0.6, 0.45], [0.5, 0.55],
+                                   [0.5, 0.62], [0.33, 0.46], [0.67, 0.46]],
+                                  device=dev).expand(b, nf, 6, 2)
+                with torch.inference_mode():
+                    out = self._face_stage_program(h, w, mode)(
+                        torch.zeros((b, h, w, 3), dtype=torch.uint8,
+                                    device=dev),
+                        boxes, kp, torch.full((b, nf), 0.9, device=dev),
+                        torch.ones((b, nf), dtype=torch.bool, device=dev))
+                    self._fetch(out)
+            for d in devices or ():
+                self._replica_params(d)
+                pinned = np.zeros((batch_size, h, w, 3), np.uint8)
+                for mode in modes or (FaceDetectionMode.FAST,
+                                      FaceDetectionMode.STANDARD,
+                                      FaceDetectionMode.FULL):
+                    self._stream_finish(
+                        self._stream_dispatch(pinned, mode, device=d), mode)
 
     # -- embeddings ------------------------------------------------------------
 
@@ -1465,9 +1470,12 @@ class FaceDetector:
     def memory_report(self) -> dict:
         """Weight bytes per network (from the modules' tensors), their
         total, the count of built programs (on a card: of captured CUDA
-        graphs) and the device bytes of the memory pools its graphs live
-        in (``graph_pool_bytes``, 0 off a card; a device's pool is shared
-        with the process's other captured programs there); where replicas
+        graphs), the program keys captured (``captured_keys``, as
+        ``compiled_programs`` on a card) and those called but not captured
+        yet (``pending_keys``; both 0 off a card), and the device bytes of
+        the memory pools its graphs live in (``graph_pool_bytes``, 0 off a
+        card; a device's pool is shared with the process's other captured
+        programs there); where replicas
         were made
         (:meth:`_replica_params`), their count and the weight bytes of
         each replica's networks together."""
@@ -1493,8 +1501,10 @@ class FaceDetector:
             n_programs = len(self._programs)
         # On a card the programs are CUDA graphs, one a key and batch
         # shape (pipeline/graphs.py), in one memory pool a device.
+        report["captured_keys"] = sum(len(p.keys()) for p in captured)
+        report["pending_keys"] = sum(len(p.pending()) for p in captured)
         report["compiled_programs"] = (
-            sum(len(p.keys()) for p in captured)
+            report["captured_keys"]
             if graphs.graph_maker(self.device) is not None else n_programs)
         report["graph_pool_bytes"] = sum(
             pool.nbytes() for pool in {id(p.pool): p.pool

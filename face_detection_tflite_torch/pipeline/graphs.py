@@ -15,17 +15,38 @@ launches from the host.  This module has no JAX counterpart, as
   closure fixes (image size, mode, face slab, device); the program keys
   its graphs by the shapes and dtypes of its inputs, which carry the
   padded batch and the overflow width ``nb`` of the face-stage re-run.
-* **First call.**  The eager program runs on the caller's stream and its
-  outputs are the call's result; it warms everything a capture must not
-  do itself (cuDNN's first calls, the kernels' build and load, K1's
-  shared-memory opt-in, the per-device index tables).  Then the program is
-  captured (``capture_error_mode="thread_local"``, so that another
-  thread's event synchronise does not abort it).  Later calls copy their
-  inputs into the graph's static inputs, replay it and clone its outputs
-  out of the graph's memory, all on the caller's current stream.  The
-  clone is needed: a result that a caller still holds (the speculative
-  ``det_*`` slab, a depth-2 stream's batch in flight) would otherwise be
-  overwritten by the next replay.
+* **Schedule.**  A key's calls are counted (under the program's lock).
+  Calls 1 to ``CAPTURE_AT_CALL - 1`` run the eager program on the
+  caller's stream and hold no graph memory; they also warm what a capture
+  must not do itself (cuDNN's first calls, the kernels' build and load,
+  K1's shared-memory opt-in, the per-device index tables).  Call
+  ``CAPTURE_AT_CALL`` copies its inputs into the graph's static inputs,
+  captures the program (``capture_error_mode="thread_local"``, so that
+  another thread's event synchronise does not abort it) and takes its
+  result from the graph's first replay, which so checks the capture;
+  where the calling thread has not run the key before, it runs the
+  eager program first (its result the call's), since a thread's own
+  cuBLAS and cuDNN handles must not be created under capture.
+  Later calls copy their inputs in, replay and clone the outputs out of
+  the graph's memory, all on the caller's current stream.  The clone is
+  needed: a result that a caller still holds (the speculative ``det_*``
+  slab, a depth-2 stream's batch in flight) would otherwise be
+  overwritten by the next replay.  The JAX package compiles a key on its
+  first call but keeps the executable in a disk cache; a CUDA graph
+  cannot be kept on disk, so a key that is called only a few times is
+  not worth its capture.  Inside :func:`capture_now`
+  (``FaceDetector.warmup``) a key is captured on its first call, after
+  one eager run that is the call's result.  Two threads that reach the
+  capture together capture once: the capture takes a process-wide lock
+  and finds the other's graph.
+* **Capture cost.**  ``capture_s`` is a key's host seconds from the
+  static clone to ``capture_end``; ``capture_parts`` splits it: the
+  pool's :meth:`GraphPool.adopt` (``renewed`` where it started a new pool
+  after ``torch.cuda.empty_cache``), the program's host run under
+  capture, ``capture_end`` (the graph's instantiation), the bytes the
+  card's reservations grew by (the key's new pool segments), and the host
+  seconds of the key's first replay (the capturing call's own, or under
+  :func:`capture_now` the next call's).
 * **Memory.**  One graph memory pool (:class:`GraphPool`) per device,
   shared by every captured program of the process there.  A key's graph
   holds the eager program's whole working set (4.5 GB for FULL at
@@ -44,9 +65,9 @@ launches from the host.  This module has no JAX counterpart, as
   capture itself launches nothing and counts nothing.
 * **Eager calls.**  Inside ``pipeline.timings.trace`` (on every thread)
   and inside :func:`eager` (on the calling thread) a call runs the eager
-  program: the trace's ``fdt.*`` stage ranges are host ranges entered op
-  by op, which a replay does not enter.  Any other ``torch.profiler``
-  window sees the replays.
+  program and does not count toward the capture: the trace's ``fdt.*``
+  stage ranges are host ranges entered op by op, which a replay does not
+  enter.  Any other ``torch.profiler`` window sees the replays.
 * **Failures.**  A failed capture or replay raises; nothing falls back to
   the eager program on the card.
 
@@ -70,7 +91,14 @@ from ..kernels import build as _build
 from . import timings
 
 __all__ = ["CapturedProgram", "GraphPool", "graph_maker", "pool_for",
-           "program", "eager"]
+           "program", "eager", "capture_now", "CAPTURE_AT_CALL"]
+
+#: The call of an input signature that captures it; the calls before it
+#: run the eager program.  A key is captured once its eager calls have
+#: lost, against replays, about what its capture costs: on an H100 a
+#: capture's host run and ``capture_end`` cost about three times what an
+#: eager call loses against a replay at B = 1 (PERF.md, section 6).
+CAPTURE_AT_CALL = 4
 
 _local = threading.local()
 #: One capture at a time in the process: a new pool's ``empty_cache``
@@ -79,21 +107,44 @@ _capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def eager():
-    """Within the block, on this thread, captured programs run their eager
-    program (as inside ``timings.trace`` on every thread): what counts a
-    call's operators (``FaceDetector.cost_report``) or marks a network's
-    calls needs the ops run one by one."""
-    saved = getattr(_local, "eager", False)
-    _local.eager = True
+def _set(flag: str):
+    saved = getattr(_local, flag, False)
+    setattr(_local, flag, True)
     try:
         yield
     finally:
-        _local.eager = saved
+        setattr(_local, flag, saved)
+
+
+def eager():
+    """Within the block, on this thread, captured programs run their eager
+    program and do not count the call toward a capture (as inside
+    ``timings.trace`` on every thread): what counts a call's operators
+    (``FaceDetector.cost_report``) or marks a network's calls needs the
+    ops run one by one."""
+    return _set("eager")
+
+
+def capture_now():
+    """Within the block, on this thread, a captured program captures a key
+    on its first call, after one eager run that is the call's result,
+    instead of at call :data:`CAPTURE_AT_CALL`: what warms a process
+    (``FaceDetector.warmup``) pays the captures up front.  :func:`eager`
+    takes precedence."""
+    return _set("capture_now")
 
 
 def _runs_eager() -> bool:
     return timings.tracing() or getattr(_local, "eager", False)
+
+
+def _ran_here(program: "CapturedProgram") -> set:
+    """The keys of ``program`` this thread has run eagerly (kept while the
+    program lives)."""
+    ran = getattr(_local, "ran", None)
+    if ran is None:
+        ran = _local.ran = weakref.WeakKeyDictionary()
+    return ran.setdefault(program, set())
 
 
 def _map(fn, tree):
@@ -113,7 +164,10 @@ _capture_streams: dict[int, "torch.cuda.Stream"] = {}
 
 def _cuda_graph(fn: Callable, static_inputs: list, pool: "GraphPool"):
     """Captures ``fn(*static_inputs)`` into a CUDA graph in ``pool``'s
-    memory, on a side stream; returns (replay, static outputs).  The
+    memory, on a side stream; returns (replay, static outputs, the
+    capture's parts: host seconds of the pool's ``adopt`` and whether it
+    renewed the pool, of the program's run under capture and of
+    ``capture_end``, and the bytes the card's reservations grew by).  The
     capture calls ``CUDAGraph.capture_begin``/``capture_end`` itself: the
     ``torch.cuda.graph`` context would also synchronise the card and
     empty PyTorch's device and pinned-host caches on entry, under every
@@ -123,7 +177,11 @@ def _cuda_graph(fn: Callable, static_inputs: list, pool: "GraphPool"):
     device = pool.device
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
+    renewals = pool.renewals
+    t0 = time.perf_counter()
     held = _Graph(torch.cuda.CUDAGraph(), pool)
+    t1 = time.perf_counter()
+    reserved = torch.cuda.memory_reserved(index)
     graph = held.graph
     with torch.cuda.device(index):
         stream = _capture_streams.get(index)
@@ -141,14 +199,19 @@ def _cuda_graph(fn: Callable, static_inputs: list, pool: "GraphPool"):
                     except RuntimeError:
                         pass  # the capture is invalid; fn's error says why
                     raise
+                t2 = time.perf_counter()
                 graph.capture_end()
+                t3 = time.perf_counter()
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing a program on {device} failed: {e} (a host "
                 f"synchronise inside the program, such as .item(), .cpu() "
                 f"or a pageable host-to-device copy, cannot be "
                 f"captured)") from e
-    return held.replay, out
+    return held.replay, out, {
+        "adopt_s": t1 - t0, "renewed": pool.renewals != renewals,
+        "run_s": t2 - t1, "end_s": t3 - t2,
+        "pool_bytes": torch.cuda.memory_reserved(index) - reserved}
 
 
 class _Graph:
@@ -167,9 +230,11 @@ def graph_maker(device: torch.device) -> Optional[Callable]:
     """The function that captures a program on ``device``: a CUDA graph's
     on a card, None elsewhere (the owners then run the eager program).
     ``maker(fn, static_inputs, pool)`` returns ``(replay, static
-    outputs)``: ``replay()`` recomputes the outputs in place from the
-    static inputs' current values.  The tests replace this function with
-    one that returns a stand-in, so the captured path runs on the CPU."""
+    outputs, parts)``: ``replay()`` recomputes the outputs in place from
+    the static inputs' current values, and ``parts`` is a dict of the
+    capture's cost by part (:func:`_cuda_graph`).  The tests replace this
+    function with one that returns a stand-in, so the captured path runs
+    on the CPU."""
     return _cuda_graph if device.type == "cuda" else None
 
 
@@ -185,6 +250,9 @@ class GraphPool:
         self._live = 0
         self._live_lock = threading.Lock()
         self._done: Optional["torch.cuda.Event"] = None
+        #: How many times :meth:`adopt` started a new CUDA memory pool
+        #: after the last one's graphs were freed.
+        self.renewals = 0
 
     def adopt(self, graph: object):
         """Counts ``graph`` live in this pool until it is freed, and
@@ -200,6 +268,7 @@ class GraphPool:
             if self._live == 0:
                 if self._handle is not None:
                     torch.cuda.empty_cache()
+                    self.renewals += 1
                 self._handle = torch.cuda.graph_pool_handle()
             self._live += 1
         weakref.finalize(graph, self._freed)
@@ -249,9 +318,10 @@ def pool_for(device) -> GraphPool:
 
 class CapturedProgram:
     """An eager program ``fn(*tensors) -> pytree of tensors`` on one device,
-    captured per input signature on its first call and replayed after
-    (module docstring).  ``guard`` runs on every call, eager or replayed
-    (the executor's fp32 check, which a replay does not enter)."""
+    captured per input signature at its :data:`CAPTURE_AT_CALL`-th call
+    and replayed after (module docstring).  ``guard`` runs on every call,
+    eager or replayed (the executor's fp32 check, which a replay does not
+    enter)."""
 
     def __init__(self, fn: Callable, pool: GraphPool, maker: Callable,
                  guard: Optional[Callable[[], None]] = None):
@@ -260,20 +330,36 @@ class CapturedProgram:
         self._maker = maker
         self._guard = guard
         self._graphs: dict[tuple, tuple] = {}
-        #: Host seconds each key's capture took (the eager first call
-        #: not included).
+        #: Counted calls of each input signature, up to its capture.
+        self._calls: dict[tuple, int] = {}
+        self._calls_lock = threading.Lock()
+        #: Host seconds of each key's capture, from the static clone to
+        #: ``capture_end`` (the first replay not included).
         self.capture_s: dict[tuple, float] = {}
+        #: Each key's capture by part (module docstring, "Capture cost").
+        self.capture_parts: dict[tuple, dict] = {}
 
     def keys(self) -> list[tuple]:
         """The input signatures (shape and dtype of each input) captured
         so far."""
         return list(self._graphs)
 
+    def pending(self) -> dict[tuple, int]:
+        """The input signatures called but not captured yet, with their
+        counted calls."""
+        with self._calls_lock:
+            return {k: n for k, n in self._calls.items()
+                    if k not in self._graphs}
+
     def release(self) -> None:
-        """Frees this program's graphs (a later call captures anew)."""
+        """Frees this program's graphs and forgets its call counts (a
+        later call counts toward a capture anew)."""
         with self.pool.lock:
             self._graphs.clear()
             self.capture_s.clear()
+            self.capture_parts.clear()
+        with self._calls_lock:
+            self._calls.clear()
 
     def __call__(self, *args):
         if self._guard is not None:
@@ -284,29 +370,45 @@ class CapturedProgram:
         with torch.inference_mode():
             entry = self._graphs.get(key)
             if entry is None:
-                # As jit compiles on a first call: the eager run is the
-                # call's result, then the capture.
-                out = self.fn(*args)
-                self._capture(key, args)
-                return out
-            return self._replay(entry, args)
+                with self._calls_lock:
+                    calls = self._calls[key] = self._calls.get(key, 0) + 1
+                capture = calls >= CAPTURE_AT_CALL or getattr(
+                    _local, "capture_now", False)
+                ran = _ran_here(self)
+                if not capture or key not in ran:
+                    # An eager call.  Before a capture it warms what the
+                    # capture must not do, in this thread too (its cuBLAS
+                    # and cuDNN handles), and is the call's result.
+                    out = self.fn(*args)
+                    ran.add(key)
+                    if capture:
+                        self._capture(key, args)
+                    return out
+                entry = self._capture(key, args)
+            return self._replay(key, entry, args)
 
-    def _capture(self, key: tuple, args) -> None:
+    def _capture(self, key: tuple, args) -> tuple:
+        """The graph of ``key``, captured on ``args`` unless another
+        thread's call captured it first."""
         with _capture_lock, self.pool.lock:
-            if key in self._graphs:
-                return
+            entry = self._graphs.get(key)
+            if entry is not None:
+                return entry
             t0 = time.perf_counter()
-            # The first call's values: a stand-in capture runs on them.
+            # The call's values: a stand-in capture runs on them.
             static = [a.clone(memory_format=torch.contiguous_format)
                       for a in args]
             with _build.tally_launches() as tally:
-                replay, out = self._maker(self.fn, static, self.pool)
-            self._graphs[key] = (static, replay, out, tally)
+                replay, out, parts = self._maker(self.fn, static, self.pool)
+            entry = self._graphs[key] = (static, replay, out, tally)
             self.capture_s[key] = time.perf_counter() - t0
+            self.capture_parts[key] = parts
+            return entry
 
-    def _replay(self, entry, args):
+    def _replay(self, key: tuple, entry, args):
         static, replay, out, tally = entry
         pool = self.pool
+        t0 = time.perf_counter()
         with pool.lock:
             stream = (torch.cuda.current_stream(pool.device)
                       if pool.device.type == "cuda" else None)
@@ -318,6 +420,9 @@ class CapturedProgram:
             result = _map(torch.clone, out)
             if stream is not None:
                 pool.record(stream)
+        parts = self.capture_parts.get(key)
+        if parts is not None and "replay_s" not in parts:
+            parts["replay_s"] = time.perf_counter() - t0
         _build.add_launches(tally)
         return result
 

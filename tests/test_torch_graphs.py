@@ -13,7 +13,9 @@ of ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import time
 import types
 
 import numpy as np
@@ -55,7 +57,9 @@ def _leaves(tree) -> list:
 
 
 class StandIn:
-    """The stand-in graph maker: counts captures and replays."""
+    """The stand-in graph maker: counts captures and replays, and reports
+    its capture's parts as the CUDA graph maker does (the host run timed,
+    the pool's parts 0)."""
 
     def __init__(self):
         self.captures = 0
@@ -63,7 +67,11 @@ class StandIn:
 
     def __call__(self, fn, static, pool):
         self.captures += 1
+        t0 = time.perf_counter()
         out = fn(*static)
+        parts = {"adopt_s": 0.0, "renewed": False,
+                 "run_s": time.perf_counter() - t0, "end_s": 0.0,
+                 "pool_bytes": 0}
 
         def replay():
             self.replays += 1
@@ -73,7 +81,7 @@ class StandIn:
                 new = fn(*static)
             for s, n in zip(_leaves(out), _leaves(new)):
                 s.copy_(n)
-        return replay, out
+        return replay, out, parts
 
 
 @pytest.fixture
@@ -110,22 +118,23 @@ def test_captured_detector_matches_eager_and_jax(setup, stand_in, mode):
     frames, other, models, jmodels = setup
     det = _one_face_bucket(_detector(models))
     ref = _one_face_bucket(_detector(models))
-    for batch in (frames, other, frames, other):
-        got = det.detect_faces_batch(batch, mode)
+    for i, batch in enumerate((frames, other, frames, other)):
+        with graphs.capture_now() if i == 0 else contextlib.nullcontext():
+            got = det.detect_faces_batch(batch, mode)
         with graphs.eager():
             want = ref.detect_faces_batch(batch, mode)
         assert _payload(got) == _payload(want)
         assert max(len(f) for f in got) > 1  # the re-run ran
-    # Two programs a batch: each captured on its first batch shape and
-    # replayed on the three batches after it.
+    # Two programs a batch: each captured on the first batch (under
+    # capture_now) and replayed on the three batches after it.
     assert stand_in.captures == 2 and stand_in.replays == 6
     assert det.memory_report()["compiled_programs"] == 2
     # The JAX program's outputs are fp32: read the replay back unquantized.
     det32 = _detector(models, quantized_readback=False)
     prog = det32._program(H, W, mode, face_slab=2)
-    with torch.inference_mode():
-        prog(torch.from_numpy(frames))             # captures
-        out = prog(torch.from_numpy(frames))
+    with torch.inference_mode(), graphs.capture_now():
+        prog(torch.from_numpy(frames))             # captured
+        out = prog(torch.from_numpy(frames))       # replayed
     got = {**det32._fetch(out), **{k: v.numpy() for k, v in out.items()
                                    if k.startswith("det_")}}
     assert stand_in.replays == 7
@@ -146,7 +155,8 @@ def test_replays_keep_distinct_results(setup, stand_in):
     x1, x2 = torch.from_numpy(frames), torch.from_numpy(other)
     with torch.inference_mode():
         want1, want2 = prog.fn(x1), prog.fn(x2)
-        prog(x1)                                   # eager, then captured
+        with graphs.capture_now():
+            prog(x1)                               # eager, then captured
         r2 = prog(x2)
         r3 = prog(x1)
     assert stand_in.replays == 2
@@ -169,7 +179,8 @@ def test_depth_two_stream_keeps_results_in_flight(setup, stand_in):
     batches = [frames, other, frames, other, frames]
     det = _one_face_bucket(_detector(models))
     ref = _one_face_bucket(_detector(models))
-    got = list(det.detect_faces_batch_stream(batches, FULL, depth=2))
+    with graphs.capture_now():  # both programs captured on the first batch
+        got = list(det.detect_faces_batch_stream(batches, FULL, depth=2))
     with graphs.eager():
         want = [ref.detect_faces_batch(b, FULL) for b in batches]
     assert stand_in.replays == 8
@@ -183,8 +194,9 @@ def _counting_wrapper():
 
 def test_replay_adds_the_captured_tally(stand_in):
     """A program's kernel launches are counted once a call: on the eager
-    first call by the wrappers, on each replay from the capture's tally;
-    the capture itself counts nothing.  The guard runs on every call."""
+    calls by the wrappers, on each replay (the capturing call's included)
+    from the capture's tally; the capture itself counts nothing.  The
+    guard runs on every call."""
     k1, k2 = _counting_wrapper(), _counting_wrapper()
     guards = []
 
@@ -197,7 +209,7 @@ def test_replay_adds_the_captured_tally(stand_in):
     prog = graphs.program(fn, CPU, guard=lambda: guards.append(1))
     assert isinstance(prog, graphs.CapturedProgram)
     x = torch.arange(4.0)
-    for calls in range(1, 5):
+    for calls in range(1, graphs.CAPTURE_AT_CALL + 3):
         assert torch.equal(prog(x + calls)["y"], (x + calls) * 2)
         assert k1.launches == calls and len(guards) == calls
         assert k2.launches_by_size == {64: calls, 192: calls}
@@ -221,7 +233,8 @@ def test_calls_inside_trace_run_eager(setup, stand_in, tmp_path):
     and the trace holds the ``fdt.*`` stage ranges of every FULL stage."""
     frames, _, models, _ = setup
     det = _detector(models)
-    for _ in range(3):
+    # The 1-face slab and its re-run, then the steady key until it replays.
+    for _ in range(graphs.CAPTURE_AT_CALL + 2):
         want = det.detect_faces_batch(frames)
     replays = stand_in.replays
     assert replays >= 1 and not timings.tracing()
@@ -241,16 +254,18 @@ def test_calls_inside_trace_run_eager(setup, stand_in, tmp_path):
 def test_keys_differ_by_padded_batch_and_nb(setup, stand_in):
     """The main program keeps one graph a padded batch (3 frames pad to
     the ladder's 4 and share its graph); the face-stage program one a
-    re-run width ``nb``."""
+    re-run width ``nb``.  Under ``capture_now`` each key is captured on
+    its first call; outside it a key called once stays pending."""
     frames, _, models, _ = setup
     det = _detector(models, adaptive=False)
-    for rows in ([0], [0, 1], [0, 1, 0], [1, 0, 1, 0], [0]):
-        det.detect_faces_batch(frames[rows], FULL)
+    with graphs.capture_now():
+        for rows in ([0], [0, 1], [0, 1, 0], [1, 0, 1, 0], [0]):
+            det.detect_faces_batch(frames[rows], FULL)
     prog = det._program(H, W, FULL)
     assert sorted(k[0][0][0] for k in prog.keys()) == [1, 2, 4]
     stage = det._face_stage_program(H, W, FULL)
     imgs = torch.from_numpy(frames)
-    with torch.inference_mode():
+    with torch.inference_mode(), graphs.capture_now():
         slab = det._fetch(prog(imgs))
         for nb in (2, 4, 2):
             stage(imgs, *(torch.from_numpy(slab[k][:, :nb]) for k in (
@@ -258,23 +273,34 @@ def test_keys_differ_by_padded_batch_and_nb(setup, stand_in):
     assert sorted(k[1][0][1] for k in stage.keys()) == [2, 4]
     assert det.memory_report()["compiled_programs"] == 5
     assert stand_in.replays == 4
+    det.detect_faces_batch(frames[[0, 1] * 4], FULL)   # a batch of 8, once
+    assert sorted(k[0][0][0] for k in prog.keys()) == [1, 2, 4]
+    assert [k[0][0][0] for k in prog.pending()] == [8]
+    report = det.memory_report()
+    assert report["compiled_programs"] == report["captured_keys"] == 5
+    assert report["pending_keys"] == 1 and stand_in.captures == 5
 
 
 def test_dispose_releases_every_graph(setup, stand_in):
     frames, _, models, _ = setup
     det = _detector(models)
     for mode in (STANDARD, FULL):
-        for _ in range(2):
-            det.detect_faces_batch(frames, mode)
+        with graphs.capture_now():
+            for _ in range(2):
+                det.detect_faces_batch(frames, mode)
+        det.detect_faces_batch(frames[:1], mode)   # a key left pending
     progs = list(det._programs.values())
     assert progs == det._captured_programs
     report = det.memory_report()
     assert report["compiled_programs"] == sum(len(p.keys()) for p in progs) \
         >= 2
+    assert report["pending_keys"] == sum(len(p.pending()) for p in progs) \
+        == 2
     assert report["graph_pool_bytes"] == 0   # no card
     det.dispose()
     assert not det._captured_programs and not det._programs
-    assert all(not p.keys() and not p.capture_s for p in progs)
+    assert all(not p.keys() and not p.capture_s and not p.capture_parts
+               and not p.pending() for p in progs)
 
 
 def test_data_parallel_shards_replay(setup, stand_in, monkeypatch):
@@ -287,8 +313,9 @@ def test_data_parallel_shards_replay(setup, stand_in, monkeypatch):
     det = _detector(models, data_parallel=True, adaptive=False)
     ref = _detector(models, adaptive=False)
     assert det._mesh == (CPU, CPU)
-    for batch in (frames, other, frames):
-        got = det.detect_faces_batch(batch, FULL)
+    for i, batch in enumerate((frames, other, frames)):
+        with graphs.capture_now() if i == 0 else contextlib.nullcontext():
+            got = det.detect_faces_batch(batch, FULL)
         with graphs.eager():
             want = ref.detect_faces_batch(batch, FULL)
         for g, w in zip(got, want):
@@ -301,8 +328,8 @@ def test_data_parallel_shards_replay(setup, stand_in, monkeypatch):
                 assert np.abs(a.mesh.points - b.mesh.points).max() <= 1e-2
     (prog,) = det._captured_programs
     assert prog.pool is graphs.pool_for(CPU)
-    # The first shard's first call runs eager; every other shard call of
-    # the three batches replays.
+    # The first shard's first call runs eager and captures (capture_now);
+    # every other shard call of the three batches replays.
     assert stand_in.captures == 1 and stand_in.replays == 5
 
 
@@ -317,7 +344,8 @@ def test_standalone_face_detection_keeps_a_program_per_size(setup, stand_in):
     small = np.ascontiguousarray(frames[0, :80, :128])
     found = 0
     for img in (frames[0], other[0], small, frames[1], small):
-        got = fd(img)
+        with graphs.capture_now():                 # each size's first call
+            got = fd(img)
         with graphs.eager():
             want = ref(img)
         assert len(got) == len(want)
@@ -356,8 +384,10 @@ def test_a_pool_renews_its_handle_once_its_graphs_are_freed(monkeypatch):
     c = _Held()
     assert pool.adopt(c) == (0, 0)     # b still lives in the pool
     assert not emptied
+    assert pool.renewals == 0
     del b, c
     assert pool.adopt(_Held()) == (0, 1) and emptied == [1]
+    assert pool.renewals == 1
 
 
 def test_programs_run_eager_without_a_maker(setup):

@@ -15,6 +15,7 @@ the card by phase 14 of ``chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import threading
@@ -73,8 +74,9 @@ def _masks_equal(got, want) -> None:
 @pytest.mark.parametrize("kind", ["general", "multiclass"])
 def test_segmentation_replays_match_eager_and_jax(stand_in, kind,
                                                   mask_dtype):
-    """One program per image size, captured at its first call: the
-    replays' masks equal the eager program's bit for bit, and the JAX
+    """One program per image size, captured (under ``capture_now``) at
+    its first call: the replays' masks equal the eager program's bit for
+    bit, and the JAX
     package's within ``test_torch_segmentation``'s budgets (float32 within
     1e-5, uint8 equal away from .5 ties)."""
     frames, models, _, jseg = _setup(kind)
@@ -82,8 +84,9 @@ def test_segmentation_replays_match_eager_and_jax(stand_in, kind,
     seg = t_seg.SelfieSegmentation(models.segmentation, multiclass,
                                    mask_dtype=mask_dtype, device="cpu")
     other = np.ascontiguousarray(frames[::-1, ::-1])
-    for batch in (frames, other, frames):
-        got = seg(batch)
+    for i, batch in enumerate((frames, other, frames)):
+        with graphs.capture_now() if i == 0 else contextlib.nullcontext():
+            got = seg(batch)
         with graphs.eager():
             want = seg(batch)
         _masks_equal(got, want)
@@ -112,8 +115,9 @@ def test_segmentation_keys_and_release(stand_in):
     frames, models, _, _ = _setup("general")
     seg = t_seg.SelfieSegmentation(models.segmentation, device="cpu")
     small = np.ascontiguousarray(frames[:, :80, :128])
-    for batch in (frames, small, frames, small):
-        seg(batch)
+    with graphs.capture_now():                     # each size's first call
+        for batch in (frames, small, frames, small):
+            seg(batch)
     assert sorted(seg._programs) == [(80, 128), (H, W)]
     assert stand_in.captures == 2 and stand_in.replays == 2
     progs = [p for p, _ in seg._programs.values()]
@@ -122,7 +126,8 @@ def test_segmentation_keys_and_release(stand_in):
     assert seg.device.type == "meta"
 
     seg = t_seg.SelfieSegmentation(models.segmentation, device="cpu")
-    seg(frames)
+    with graphs.capture_now():
+        seg(frames)
     seg(frames)
     progs = [p for p, _ in seg._programs.values()]
     assert progs[0].keys()
@@ -139,9 +144,10 @@ def test_segmentation_and_detector_replay_from_two_threads(stand_in):
     frames, models, _, _ = _setup("general")
     seg = t_seg.SelfieSegmentation(models.segmentation, device="cpu")
     det = FaceDetector(models=models, device="cpu", max_faces=MAX_FACES)
-    want_masks = seg(frames)                       # eager, then captured
-    for _ in range(2):  # the 1-face slab and its re-run, then the steady key
-        want_faces = _payload(det.detect_faces_batch(frames))
+    with graphs.capture_now():
+        want_masks = seg(frames)                   # eager, then captured
+        for _ in range(2):  # the 1-face slab and its re-run, then slab 16
+            want_faces = _payload(det.detect_faces_batch(frames))
     replays = stand_in.replays
     (sprog, _), = seg._programs.values()
     assert sprog.pool is det._captured_programs[0].pool is \
@@ -196,7 +202,8 @@ def test_embed_batch_pads_to_a_power_of_two_slab(stand_in, monkeypatch):
                             device="cpu")
     pairs = _PAIRS + [((50.0, 60.0), (80.0, 75.0))]
     four = pairs + [((150.0, 40.0), (190.0, 44.0))]
-    got3 = mine.embed_batch(_FRAME, pairs)             # eager, then captured
+    with graphs.capture_now():
+        got3 = mine.embed_batch(_FRAME, pairs)         # eager, then captured
     got4 = mine.embed_batch(_FRAME, four)
     again = mine.embed_batch(_FRAME, pairs)
     assert stand_in.captures == 1 and stand_in.replays == 2
@@ -215,6 +222,10 @@ def test_embed_batch_pads_to_a_power_of_two_slab(stand_in, monkeypatch):
                            ).embed_batch(_FRAME, pairs)
     assert np.abs(again - ref).max() <= 1e-5
     mine.embed_batch(_FRAME, pairs[:1])               # slab 1: a new key
+    assert [k[1][0] for k in prog.keys()] == [(1, 4)]
+    assert [(k[1][0], n) for k, n in prog.pending().items()] == [((1, 1), 1)]
+    with graphs.capture_now():                        # counted once before
+        mine.embed_batch(_FRAME, pairs[:1])
     assert sorted(k[1][0] for k in prog.keys()) == [(1, 1), (1, 4)]
     mine.dispose()
     assert not mine._programs and not prog.keys()
@@ -243,8 +254,10 @@ def test_single_network_classes_replay_and_release(setup, stand_in):
         (iris, iris, (eye, eye[:, ::-1])),
         (bs, bs, (pts, pts[::-1] * 0.5)))
     for net, call, inputs in calls:
-        for x in inputs + inputs:
-            got = call(x)
+        for i, x in enumerate(inputs + inputs):
+            with graphs.capture_now() if i == 0 else \
+                    contextlib.nullcontext():
+                got = call(x)
             with graphs.eager():
                 want = call(x)
             if isinstance(want, tuple):
@@ -254,6 +267,9 @@ def test_single_network_classes_replay_and_release(setup, stand_in):
                 np.testing.assert_array_equal(got, want)
     assert stand_in.captures == 3 and stand_in.replays == 9
     lm, score = mesh.call_with_score(face.astype(np.float32))
+    assert stand_in.captures == 3                  # a new key, eager
+    with graphs.capture_now():
+        assert mesh.call_with_score(face.astype(np.float32))[1] == score
     assert stand_in.captures == 4
     np.testing.assert_array_equal(lm, mesh.call_with_score(face)[0])
     for net, _, _ in calls:
@@ -310,7 +326,8 @@ def test_folded_pack_reads_back_the_eager_outputs(setup, stand_in,
     slab = ("det_boxes", "det_raw_keypoints", "det_scores", "det_valid")
     with torch.inference_mode():
         prog = det._program(H, W, FULL, face_slab=2)
-        prog(images)                               # eager, then captured
+        with graphs.capture_now():
+            prog(images)                           # eager, then captured
         out = prog(images)
         want = build_pipeline_program(models, H, W, FULL, face_slab=2,
                                       **_kw(det))(images)
@@ -327,7 +344,8 @@ def test_folded_pack_reads_back_the_eager_outputs(setup, stand_in,
 
         prefix = [out[k][:, :MAX_FACES] for k in slab]
         stage = det._face_stage_program(H, W, FULL)
-        stage(images, *prefix)                     # eager, then captured
+        with graphs.capture_now():
+            stage(images, *prefix)                 # eager, then captured
         out2 = stage(images, *prefix)
         want2 = build_pipeline_program(models, H, W, FULL,
                                        from_detections=True)(images, *prefix)
@@ -356,7 +374,8 @@ def test_folded_pack_over_two_shards(setup, stand_in, monkeypatch,
         assert (b, images.shape[0]) == (len(rows), padded)
         with torch.inference_mode():
             prog = det._program(H, W, FULL)
-            prog(images)
+            with graphs.capture_now():
+                prog(images)
             outs = prog(images)
             assert isinstance(outs, list) and len(outs) == 2
             handle = det._fetch_async(outs, b)
@@ -382,8 +401,9 @@ def test_folded_pack_through_the_entry_point(setup, stand_in):
         d._speculation_bucket = lambda h, w, mode: 1
         d._note_face_count = lambda h, w, mode, n: None
     batch = frames[[0, 1, 0]]
-    for _ in range(3):
-        got = det.detect_faces_batch(batch)
+    for i in range(3):
+        with graphs.capture_now() if i == 0 else contextlib.nullcontext():
+            got = det.detect_faces_batch(batch)
         with graphs.eager():
             want = ref.detect_faces_batch(batch)
         assert json.dumps(_payload(got)) == json.dumps(_payload(want))

@@ -940,8 +940,9 @@ def test_captured_programs_replay_the_eager_program(cuda_device):
     det._speculation_bucket = lambda h, w, mode: 1
     det._note_face_count = lambda h, w, mode, n: None
     batches = [frames, np.ascontiguousarray(frames[::-1])]
-    for b in batches:          # the eager first calls, then the captures
-        det.detect_faces_batch(b)
+    with graphs.capture_now():  # each key eager on a, then captured
+        for b in batches:
+            det.detect_faces_batch(b)
     k1 = detections.detection_postprocess.launches
     k2 = dict(warp.warp_normalize.launches_by_size)
     got = [_faces_bits(det.detect_faces_batch(b)) for b in batches * 2]
@@ -994,8 +995,9 @@ def test_captured_models_replay_the_eager_programs(cuda_device):
     calls = [lambda: [m.data for m in seg(frames)],
              lambda: emb.embed_batch(frames[0], pairs)] + [
         (lambda net=net, x=x: net(x)) for net, x in crops]
-    for call in calls:
-        call()                                     # eager, then captured
+    with graphs.capture_now():
+        for call in calls:
+            call()                                 # eager, then captured
     k2 = warp.warp_normalize.launches_by_size.get(112, 0)
     got = [call() for call in calls]
     assert warp.warp_normalize.launches_by_size[112] - k2 == 1

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Warms the PyTorch port before serving: builds the CUDA kernels and makes
-the first call of each program key of the benchmark bucket.
+"""Warms the PyTorch port before serving: builds the CUDA kernels and
+captures the CUDA graph of each program key of the benchmark bucket.
 
 The port's counterpart of ``tools/warm_tpu.py``.  The port keeps no
 compile cache (PyTorch runs eagerly), so "warm" means two things here:
@@ -12,13 +12,16 @@ compile cache (PyTorch runs eagerly), so "warm" means two things here:
    bucket (853x1280, the BACK_CAMERA detector): FAST, STANDARD and FULL at
    the batch size (with the adaptive modes' overflow face-stage program),
    then STANDARD at each size of the batch ladder 1, 2, 4 and 8 that the
-   HTTP micro-batcher drains into.
+   HTTP micro-batcher drains into.  ``warmup`` runs under
+   ``pipeline.graphs.capture_now()``, so each key runs once eagerly and
+   is captured on that call, where a key met later is captured only once
+   it repeats.
 
     python tools/warm_torch.py [--batch 16]
 
-Run as a script, only step 1 outlasts the process: the first calls of
-step 2 (cuDNN's algorithm choice, the allocator's pool) belong to the
-process that makes them.  They spare a server its first calls only where
+Run as a script, only step 1 outlasts the process: the first calls and
+the CUDA graphs of step 2 (cuDNN's algorithm choice, the allocator's
+pool, the graph pool) belong to the process that makes them.  They spare a server its first calls only where
 :func:`warm` runs inside the serving process, on its own detector.
 
 It prints each step's seconds.  There is no CPU fallback: without a
