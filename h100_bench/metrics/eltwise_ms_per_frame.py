@@ -1,0 +1,10 @@
+"""``eltwise_ms_per_frame``: device ms of every kernel that is not K1, K2,
+a convolution, a GEMM or a copy (``counts/kernels.py``) in the traced
+window, per frame.  Layer: networks."""
+
+from h100_bench.counts import kernels
+
+
+def read(ctx):
+    s = ctx.trace.time_by(lambda n: kernels.kind(n) == "eltwise")
+    return s * 1e3 / ctx.frames if s > 0 and ctx.frames else None
