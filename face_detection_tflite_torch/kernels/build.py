@@ -55,6 +55,8 @@ _SIGNATURES = {
                               _I, _I, _F, _VP, _I, _VP),
     "fdt_warp_normalize_f32": (_VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP,
                                _VP, _I, _I, _F, _VP, _I, _VP),
+    # buf, slot, device, stream (a stage stamp, pipeline/timings.py)
+    "fdt_stage_stamp": (_VP, _I, _I, _VP),
 }
 
 _lock = threading.Lock()

@@ -52,6 +52,19 @@ of its own after it, so a replay clones that buffer and the speculative
 Inside ``pipeline.timings.trace`` the programs run eagerly,
 so that the trace holds their stage ranges.
 
+``timings`` (:class:`~.timings.DetectTimings`) gets the host spans of every
+call and batch (``pipeline/timings.py``): ``upload`` (with
+``upload.ring_wait`` and ``upload.stage`` inside it on a card),
+``dispatch[slab<n>]`` (with ``replay``, ``eager`` or ``capture`` inside),
+``pack`` (the start of the readback's copy), ``compute_wait`` (the wait for
+the readback), ``readback`` (its unpack), ``face_stages[<n>]`` and
+``face_readback`` for an overflow re-run, ``materialize`` (the ``Face``
+objects) and ``track``; the spans of one call or batch carry its number
+as their unit.  On a card it also gets each stage group's device ms a
+call, ``device.detect``, ``device.mesh``, ``device.iris``,
+``device.blendshapes`` and ``device.embedding``, from the stage stamps the
+programs carry back in their readback.
+
 ``cost_report`` keeps the JAX detector's keys, but PyTorch has no XLA
 cost analysis: ``flops`` is counted per operator over one call of the
 program (``torch.utils.flop_counter``, before any fusion),
@@ -71,6 +84,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import itertools
 import os
 import threading
 import zlib
@@ -91,11 +105,11 @@ from .config import (DEFAULT_MAX_MISSED_FRAMES,
                      DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE, MIN_SCORE,
                      MODEL_FILES, FaceDetectionMode, FaceDetectionModel,
                      SegmentationConfig, SegmentationModel)
-from . import graphs
+from . import graphs, timings
 from .gates import validate_face_gates
 from .programs import (PipelineModels, build_pipeline_program,
                        network_precision, resolve_device)
-from .timings import DetectTimings, stage_range
+from .timings import DetectTimings, span, stage_range
 from .tracker import TemporalFaceTracker, validate_tracking_config
 from .types import Detection, Face, FaceMesh, RectF
 from .types import split_meshes_if_concatenated as _split_meshes
@@ -139,6 +153,9 @@ _QUANT_KEYS = frozenset({"mesh", "iris"})
 #: Sections in this order (4-byte, then 2-byte, then 1-byte), so that every
 #: section's offset in a packed row stays aligned for the host's views.
 _RANK = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
+#: The readback entry of a program's stage stamps (``pipeline/timings.py``):
+#: its int64 stamps as int32 pairs, the same in every row.
+STAMPS = "stamps"
 
 
 def _readback_encoding(name: str, dtype, quant_scale) -> str:
@@ -153,15 +170,19 @@ def _readback_encoding(name: str, dtype, quant_scale) -> str:
 
 class ReadbackLayout:
     """Where each output lies in a packed readback row: ``entries`` of
-    (name, shape of a row, encoding) in byte order, and the px -> int16
-    scale of the quantized landmarks.  The host-side half of the JAX
-    detector's readback packer (``_fetch_async``/``_fetch_finish``)."""
+    (name, shape of a row, encoding) in byte order, the px -> int16
+    scale of the quantized landmarks, and the names of the program's stage
+    stamps in the :data:`STAMPS` entry (empty where it has none).  The
+    host-side half of the JAX detector's readback packer
+    (``_fetch_async``/``_fetch_finish``)."""
 
-    __slots__ = ("entries", "quant_scale")
+    __slots__ = ("entries", "quant_scale", "stamps")
 
-    def __init__(self, entries: tuple, quant_scale: Optional[float]):
+    def __init__(self, entries: tuple, quant_scale: Optional[float],
+                 stamps: tuple = ()):
         self.entries = entries
         self.quant_scale = quant_scale
+        self.stamps = stamps
 
     def unpack(self, host: np.ndarray) -> dict:
         """The arrays of a packed ``[rows, bytes]`` host buffer."""
@@ -226,14 +247,26 @@ def packed_readback(fn, quant_scale: Optional[float]):
     ``det_*`` slab a speculative program keeps on the device for the
     overflow re-run (its ``det_count`` goes into the packed buffer).  On a
     card the pack is then part of the program key's CUDA graph, and a
-    replay clones one buffer and the slab, not every output."""
+    replay clones one buffer and the slab, not every output.  On a card
+    the program also stamps the start of each stage group and its end
+    (``timings.stamping``), and the stamps go into the packed buffer
+    (:data:`STAMPS`), so that each call carries its own."""
     def run(*args):
-        out = fn(*args)
+        with timings.stamping(args[0].device) as stamps:
+            out = fn(*args)
+            if stamps is not None:
+                stamps.stamp("pack")
         kept = {k: v for k, v in out.items()
                 if k.startswith("det_") and k != "det_count"}
+        packed = {k: v for k, v in out.items() if k not in kept}
         with stage_range("fdt.pack"):
-            buf, layout = pack_readback(
-                {k: v for k, v in out.items() if k not in kept}, quant_scale)
+            if stamps is not None:
+                rows = next(iter(packed.values())).shape[0]
+                packed[STAMPS] = stamps.values().view(torch.int32)[
+                    None].expand(rows, -1)
+            buf, layout = pack_readback(packed, quant_scale)
+        if stamps is not None:
+            layout.stamps = tuple(stamps.names)
         return {"packed": buf, "layout": layout, **kept}
     return run
 
@@ -339,6 +372,9 @@ class FaceDetector:
         self.bucket_images = bucket_images
         self.bucket_batches = bucket_batches
         self.quantized_readback = quantized_readback
+        #: Accepted for the JAX detector's surface; no effect here: the
+        #: readback's ``compute_wait`` and ``readback`` spans are always
+        #: timed apart, since the wait and the unpack are separate steps.
         self.detailed_timings = detailed_timings
         self._disposed = False
         try:
@@ -422,6 +458,8 @@ class FaceDetector:
         self._decode_cache = None
         self._decode_cache_lock = threading.Lock()
         self.timings = DetectTimings()
+        #: Call and batch numbers: the unit of their spans.
+        self._units = itertools.count(1)
         self._tracking_enabled = enable_tracking
         self._tracker = TemporalFaceTracker(
             max_missed_frames=max_missed_frames)
@@ -657,7 +695,7 @@ class FaceDetector:
         host memory; :meth:`_fetch_finish` waits and unpacks.  A list of
         shard outputs (``data_parallel``) is fetched shard by shard, each
         from its own device; a shard left with no row is not fetched."""
-        with stage_range("fdt.pack"):
+        with span("pack"):
             if isinstance(out, list):
                 n = out[0]["packed"].shape[0]
                 rows = len(out) * n if rows is None else rows
@@ -671,15 +709,25 @@ class FaceDetector:
 
     @staticmethod
     def _fetch_finish(handle) -> dict:
+        """Waits for a fetch (span ``compute_wait``) and unpacks it (span
+        ``readback``); a program's stage stamps go to the enclosing span's
+        timings as ``device.<group>`` ms (``timings.record_stamps``), not
+        into the arrays."""
         if isinstance(handle, list):
             parts = [FaceDetector._fetch_finish(h) for h in handle]
             return parts[0] if len(parts) == 1 else {
                 k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
         host, event, layout = handle
-        if event is not None:
-            event.synchronize()
-        with stage_range("fdt.pack"):  # the host half of the readback
-            return layout.unpack(host.numpy())
+        with span("compute_wait"):
+            if event is not None:
+                event.synchronize()
+        with span("readback"):
+            out = layout.unpack(host.numpy())
+            stamps = out.pop(STAMPS, None)
+            if stamps is not None and len(stamps):
+                timings.record_stamps(layout.stamps,
+                                      stamps[0].view(np.int64))
+            return out
 
     def _fetch(self, out, rows: Optional[int] = None) -> dict:
         return self._fetch_finish(self._fetch_async(out, rows))
@@ -747,14 +795,7 @@ class FaceDetector:
         wider prefix iff an image overflowed the speculated bucket (on the
         same device's networks, or sharded under ``data_parallel``)."""
         bucket, det, fetch, real_b, inputs, (h, w), device = handle
-        if self.detailed_timings:
-            with self.timings.stage("compute_wait"):
-                self._wait(fetch)
-            with self.timings.stage("readback"):
-                out = self._fetch_finish(fetch)
-        else:
-            with self.timings.stage("compute_readback"):
-                out = self._fetch_finish(fetch)
+        out = self._fetch_finish(fetch)
         if mode == FaceDetectionMode.FAST:
             return out
         if "det_count" in out:
@@ -789,14 +830,16 @@ class FaceDetector:
         ndarray reuses its upload (:meth:`_device_put_cached`).  With
         tracking enabled, the faces carry tracking IDs."""
         gen0 = self._tracking_generation  # read before the detection
-        if not isinstance(image, torch.Tensor):
-            image = np.asarray(image)
-        if image.ndim == 3 and image.shape[-1] in (1, 3, 4):
-            image = self._device_put_cached(image)
-        with stage_range("fdt.upload"):
-            batch = image[None]
-        return self._attach_tracking(
-            self.detect_faces_batch(batch, mode)[0], gen0)
+        with span(None, self.timings, next(self._units)):
+            with span("upload"):
+                if not isinstance(image, torch.Tensor):
+                    image = np.asarray(image)
+                if image.ndim == 3 and image.shape[-1] in (1, 3, 4):
+                    image = self._put_cached(image)
+                batch = image[None]
+                prep = self._prepared(batch)
+            return self._attach_tracking(self.detect_faces_batch(
+                batch, mode, _prepared=prep)[0], gen0)
 
     def _attach_tracking(self, faces: list[Face], gen_snapshot: int
                          ) -> list[Face]:
@@ -808,7 +851,7 @@ class FaceDetector:
         IDs nor updates the fresh tracker (face_tracker.dart:211-214)."""
         if not self._tracking_enabled:
             return faces
-        with self._tracker_lock:
+        with self.timings.stage("track"), self._tracker_lock:
             if gen_snapshot != self._tracking_generation:
                 return faces
             ids = self._tracker.update(
@@ -842,24 +885,28 @@ class FaceDetector:
 
     def _prepare_batch(self, raw, device=None):
         """Uploads (:func:`upload`) to ``device`` (the detector's own by
-        default), channel-normalizes and bucket-pads one batch.  Returns
-        (images, b, (w, h)) with the pre-pad size, or None for an empty
-        batch.  Pads go bottom/right, so pixel coordinates of the content
-        are unchanged."""
+        default), channel-normalizes and bucket-pads one batch, in the
+        ``upload`` span.  Returns (images, b, (w, h)) with the pre-pad
+        size, or None for an empty batch.  Pads go bottom/right, so pixel
+        coordinates of the content are unchanged."""
+        with self.timings.stage("upload"):
+            return self._prepared(raw, device)
+
+    def _prepared(self, raw, device=None):
+        """:meth:`_prepare_batch` in the caller's span."""
         if not isinstance(raw, torch.Tensor):
             raw = np.asarray(raw)
         validate_batch_shape(raw.shape)   # before the upload
         if raw.shape[0] == 0:
             return None
-        with stage_range("fdt.upload"):
-            images = normalize_channels(raw, device or self.device)
-            b, h, w, _ = images.shape
-            pad_rows = self._batch_pad_target(b) - b
-            hb, wb = ((self._bucket(h), self._bucket(w))
-                      if self.bucket_images else (h, w))
-            if (pad_rows, hb, wb) != (0, h, w):
-                images = torch.nn.functional.pad(
-                    images, (0, 0, 0, wb - w, 0, hb - h, 0, pad_rows))
+        images = normalize_channels(raw, device or self.device)
+        b, h, w, _ = images.shape
+        pad_rows = self._batch_pad_target(b) - b
+        hb, wb = ((self._bucket(h), self._bucket(w))
+                  if self.bucket_images else (h, w))
+        if (pad_rows, hb, wb) != (0, h, w):
+            images = torch.nn.functional.pad(
+                images, (0, 0, 0, wb - w, 0, hb - h, 0, pad_rows))
         return images, b, (w, h)
 
     def detect_faces_batch_stream(self, batches,
@@ -920,7 +967,12 @@ class FaceDetector:
                     "data_parallel=True (one shards batches across "
                     "chips, the other replicates per chip)")
             device = resolve_device(device)
-        with torch.inference_mode(), _sharding.on_device(device):
+        # The batch's number, or the enclosing call's (detect_faces).
+        unit = timings.current_unit(self.timings)
+        if unit is None:
+            unit = next(self._units)
+        with span(None, self.timings, unit), torch.inference_mode(), \
+                _sharding.on_device(device):
             prep = prepared if prepared is not None else \
                 self._prepare_batch(raw, device)
             if prep is None:
@@ -937,19 +989,22 @@ class FaceDetector:
                         self._shard(images))
                 det = self._fetch_async(dev, b)
         sizes = list(orig_sizes) if orig_sizes is not None else [wh] * b
-        return images, det, b, sizes, device
+        return images, det, b, sizes, device, unit
 
     def _stream_finish(self, item, mode: FaceDetectionMode
                        ) -> list[list[Face]]:
         """Waits for a :meth:`_stream_dispatch` handle and builds faces."""
         if item is None:
             return []
-        images, det, b, orig_sizes, device = item
-        with torch.inference_mode(), _sharding.on_device(device):
-            out = (self._finish_speculative(det, mode)
-                   if self.adaptive else self._fetch_finish(det))
-        return self._postprocess_slab(out, b, images.shape[1],
-                                      images.shape[2], orig_sizes, mode)
+        images, det, b, orig_sizes, device, unit = item
+        with span(None, self.timings, unit):
+            with torch.inference_mode(), _sharding.on_device(device):
+                out = (self._finish_speculative(det, mode)
+                       if self.adaptive else self._fetch_finish(det))
+            with span("materialize"):
+                return self._postprocess_slab(out, b, images.shape[1],
+                                              images.shape[2], orig_sizes,
+                                              mode)
 
     def _postprocess_slab(self, out, b, bh, bw, orig_sizes, mode
                           ) -> list[list[Face]]:
@@ -1048,26 +1103,30 @@ class FaceDetector:
         853x1280 frame), which catches most in-place reuse of a caller's
         buffer; an edit confined to unsampled bytes is not caught.  A
         checksum of the whole frame would tax every detection that never
-        embeds.  The upload runs in the ``fdt.upload`` range."""
-        with stage_range("fdt.upload"):
-            if isinstance(arr, torch.Tensor):
-                return upload(arr, self.device)
-            arr = np.ascontiguousarray(arr)
+        embeds.  The upload runs in the ``upload`` span."""
+        with self.timings.stage("upload"):
+            return self._put_cached(arr)
 
-            def sentinel(a: np.ndarray) -> int:
-                flat = a.reshape(-1).view(np.uint8)
-                step = max(1, flat.size // 65536)
-                return zlib.adler32(np.ascontiguousarray(flat[::step]))
+    def _put_cached(self, arr) -> torch.Tensor:
+        """:meth:`_device_put_cached` in the caller's span."""
+        if isinstance(arr, torch.Tensor):
+            return upload(arr, self.device)
+        arr = np.ascontiguousarray(arr)
 
-            with self._devput_lock:
-                cached = self._devput_cache
-                if (cached is not None and cached[0] is arr
-                        and cached[1] == sentinel(arr)):
-                    return cached[2]
-            dev = upload(arr, self.device)
-            with self._devput_lock:
-                self._devput_cache = (arr, sentinel(arr), dev)
-            return dev
+        def sentinel(a: np.ndarray) -> int:
+            flat = a.reshape(-1).view(np.uint8)
+            step = max(1, flat.size // 65536)
+            return zlib.adler32(np.ascontiguousarray(flat[::step]))
+
+        with self._devput_lock:
+            cached = self._devput_cache
+            if (cached is not None and cached[0] is arr
+                    and cached[1] == sentinel(arr)):
+                return cached[2]
+        dev = upload(arr, self.device)
+        with self._devput_lock:
+            self._devput_cache = (arr, sentinel(arr), dev)
+        return dev
 
     def warmup(self, image_shape: tuple, batch_size: int = 1,
                modes: Optional[Sequence[FaceDetectionMode]] = None,
@@ -1472,7 +1531,9 @@ class FaceDetector:
         total, the count of built programs (on a card: of captured CUDA
         graphs), the program keys captured (``captured_keys``, as
         ``compiled_programs`` on a card) and those called but not captured
-        yet (``pending_keys``; both 0 off a card), and the device bytes of
+        yet (``pending_keys``), the calls that ran a key's eager program
+        (``eager_calls``) and those that replayed its graph (``replays``;
+        all four 0 off a card), and the device bytes of
         the memory pools its graphs live in (``graph_pool_bytes``, 0 off a
         card; a device's pool is shared with the process's other captured
         programs there); where replicas
@@ -1503,6 +1564,9 @@ class FaceDetector:
         # shape (pipeline/graphs.py), in one memory pool a device.
         report["captured_keys"] = sum(len(p.keys()) for p in captured)
         report["pending_keys"] = sum(len(p.pending()) for p in captured)
+        counts = [c for p in captured for c in p.counts().values()]
+        report["eager_calls"] = sum(c["eager"] for c in counts)
+        report["replays"] = sum(c["replays"] for c in counts)
         report["compiled_programs"] = (
             report["captured_keys"]
             if graphs.graph_maker(self.device) is not None else n_programs)

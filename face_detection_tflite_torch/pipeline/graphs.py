@@ -67,7 +67,19 @@ launches from the host.  This module has no JAX counterpart, as
   and inside :func:`eager` (on the calling thread) a call runs the eager
   program and does not count toward the capture: the trace's ``fdt.*``
   stage ranges are host ranges entered op by op, which a replay does not
-  enter.  Any other ``torch.profiler`` window sees the replays.
+  enter.  Any other ``torch.profiler`` window sees the replays, and in
+  them the host spans (``pipeline/timings.py``) ``replay`` (the copy-in,
+  the graph's launch and the clone), ``eager`` (an eager call) and
+  ``capture``, which record into the detector whose span encloses the
+  call.  Inside a replay the detector's programs still mark their stage
+  groups: the stage stamps they launch from their ranges are captured
+  into the graph and write the card's clock at every replay
+  (``pipeline/timings.py``, "Stage stamps").
+* **Counts.**  Per key, the eager calls (forced ones included), the
+  replays and the captures are counted (:meth:`CapturedProgram.counts`;
+  the replays under the pool's lock, the rest under the call counts'
+  lock), so that a key that runs eagerly is seen
+  (``FaceDetector.memory_report()``'s ``eager_calls`` and ``replays``).
 * **Failures.**  A failed capture or replay raises; nothing falls back to
   the eager program on the card.
 
@@ -338,6 +350,11 @@ class CapturedProgram:
         self.capture_s: dict[tuple, float] = {}
         #: Each key's capture by part (module docstring, "Capture cost").
         self.capture_parts: dict[tuple, dict] = {}
+        #: Per key: eager calls and captures (under ``_calls_lock``),
+        #: replays (under the pool's lock).
+        self._eager: dict[tuple, int] = {}
+        self._captures: dict[tuple, int] = {}
+        self._replays: dict[tuple, int] = {}
 
     def keys(self) -> list[tuple]:
         """The input signatures (shape and dtype of each input) captured
@@ -351,35 +368,56 @@ class CapturedProgram:
             return {k: n for k, n in self._calls.items()
                     if k not in self._graphs}
 
+    def counts(self) -> dict[tuple, dict[str, int]]:
+        """Per input signature, its ``eager`` calls, ``replays`` and
+        ``captures`` so far (since the last :meth:`release`)."""
+        with self._calls_lock:
+            eager, captures = dict(self._eager), dict(self._captures)
+        with self.pool.lock:
+            replays = dict(self._replays)
+        return {k: {"eager": eager.get(k, 0), "replays": replays.get(k, 0),
+                    "captures": captures.get(k, 0)}
+                for k in set(eager) | set(captures) | set(replays)}
+
     def release(self) -> None:
         """Frees this program's graphs and forgets its call counts (a
-        later call counts toward a capture anew)."""
+        later call counts toward a capture anew) and :meth:`counts`."""
         with self.pool.lock:
             self._graphs.clear()
             self.capture_s.clear()
             self.capture_parts.clear()
+            self._replays.clear()
         with self._calls_lock:
             self._calls.clear()
+            self._eager.clear()
+            self._captures.clear()
 
     def __call__(self, *args):
         if self._guard is not None:
             self._guard()
-        if _runs_eager():
-            return self.fn(*args)
         key = tuple((tuple(a.shape), a.dtype) for a in args)
+        if _runs_eager():
+            with self._calls_lock:
+                self._eager[key] = self._eager.get(key, 0) + 1
+            with timings.span("eager"):
+                return self.fn(*args)
         with torch.inference_mode():
             entry = self._graphs.get(key)
             if entry is None:
+                ran = _ran_here(self)
                 with self._calls_lock:
                     calls = self._calls[key] = self._calls.get(key, 0) + 1
-                capture = calls >= CAPTURE_AT_CALL or getattr(
-                    _local, "capture_now", False)
-                ran = _ran_here(self)
-                if not capture or key not in ran:
+                    capture = calls >= CAPTURE_AT_CALL or getattr(
+                        _local, "capture_now", False)
+                    eager = not capture or key not in ran
+                    if eager:
+                        self._eager[key] = self._eager.get(key, 0) + 1
+                if eager:
                     # An eager call.  Before a capture it warms what the
                     # capture must not do, in this thread too (its cuBLAS
                     # and cuDNN handles), and is the call's result.
-                    out = self.fn(*args)
+                    with timings.span("eager"):
+                        out = self.fn(*args)
                     ran.add(key)
                     if capture:
                         self._capture(key, args)
@@ -394,22 +432,27 @@ class CapturedProgram:
             entry = self._graphs.get(key)
             if entry is not None:
                 return entry
-            t0 = time.perf_counter()
-            # The call's values: a stand-in capture runs on them.
-            static = [a.clone(memory_format=torch.contiguous_format)
-                      for a in args]
-            with _build.tally_launches() as tally:
-                replay, out, parts = self._maker(self.fn, static, self.pool)
-            entry = self._graphs[key] = (static, replay, out, tally)
-            self.capture_s[key] = time.perf_counter() - t0
-            self.capture_parts[key] = parts
+            with timings.span("capture"):
+                t0 = time.perf_counter()
+                # The call's values: a stand-in capture runs on them.
+                static = [a.clone(memory_format=torch.contiguous_format)
+                          for a in args]
+                with _build.tally_launches() as tally:
+                    replay, out, parts = self._maker(self.fn, static,
+                                                     self.pool)
+                entry = self._graphs[key] = (static, replay, out, tally)
+                self.capture_s[key] = time.perf_counter() - t0
+                self.capture_parts[key] = parts
+            with self._calls_lock:
+                self._captures[key] = self._captures.get(key, 0) + 1
             return entry
 
     def _replay(self, key: tuple, entry, args):
         static, replay, out, tally = entry
         pool = self.pool
         t0 = time.perf_counter()
-        with pool.lock:
+        with timings.span("replay"), pool.lock:
+            self._replays[key] = self._replays.get(key, 0) + 1
             stream = (torch.cuda.current_stream(pool.device)
                       if pool.device.type == "cuda" else None)
             if stream is not None:

@@ -28,7 +28,7 @@ import torch
 
 from ..convert.executor import resolve_device
 from .config import FaceDetectionMode
-from .timings import stage_range
+from .timings import span
 from .upload import upload
 from ..utils.image import decode_images, validate_batch_shape
 
@@ -114,7 +114,7 @@ class ServingPipeline:
         # Shape first, so a malformed batch raises here and not in the
         # worker's stream.
         validate_batch_shape(images.shape)
-        with stage_range("fdt.upload"):
+        with span("upload", self._det.timings):
             images = upload(images, self._device or self._det.device)
         # The stream of the pipeline's device current on this thread, not
         # of this thread's current device.

@@ -21,6 +21,11 @@ work of earlier batches.
 The way back, :func:`download_async`, copies a device tensor into pinned
 host memory without blocking and records an event that the reader waits
 on, the analog of the JAX package's ``copy_to_host_async``.
+
+Two host spans (``pipeline/timings.py``) split an upload to a card:
+``upload.ring_wait``, the wait for a ring slot's last copy, and
+``upload.stage``, the copy into pinned memory.  They record into the
+detector whose span encloses the upload.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import threading
 
 import numpy as np
 import torch
+
+from . import timings
 
 __all__ = ["upload", "download_async", "RING_SLOTS"]
 
@@ -67,7 +74,8 @@ def _slot(nbytes: int, index: int) -> list:
     slot = slots[nxt]
     ring[1] = (nxt + 1) % RING_SLOTS
     if slot[1] is not None:
-        slot[1].synchronize()
+        with timings.span("upload.ring_wait"):
+            slot[1].synchronize()
     if slot[0] is None or slot[0].numel() < nbytes:
         slot[0] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
     return slot
@@ -105,7 +113,8 @@ def upload(data, device: torch.device) -> torch.Tensor:
     stream = _upload_stream(device)
     slot = _slot(nbytes, stream.device_index)
     staged = slot[0][:nbytes].view(dtype).view(host.shape)
-    np.copyto(staged.numpy(), host, casting="unsafe")
+    with timings.span("upload.stage"):
+        np.copyto(staged.numpy(), host, casting="unsafe")
     compute = torch.cuda.current_stream(device)
     with torch.cuda.stream(stream):
         dev = torch.empty(host.shape, dtype=staged.dtype, device=device)

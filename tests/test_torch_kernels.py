@@ -1014,3 +1014,53 @@ def test_captured_models_replay_the_eager_programs(cuda_device):
     for owner in [seg, emb] + [net for net, _ in crops]:
         owner.dispose()
     assert all(not p.keys() for p in progs)
+
+
+@pytest.mark.cuda
+def test_replay_stage_stamps_lie_inside_the_replay(cuda_device):
+    """The stage stamps of a captured program (``pipeline/timings.py``,
+    ``csrc/stamp.cu``) at a replay: they rise through the program's stage
+    groups and lie between two stamps launched on the same stream just
+    before and just after the replay; the readback names them, and
+    ``_fetch_finish`` adds each group's device ms once to the enclosing
+    span's timings."""
+    from face_detection_tflite_torch.pipeline import graphs, timings
+    from face_detection_tflite_torch.pipeline.detector import (
+        STAMPS, FaceDetector, packed_readback)
+
+    def body(x):
+        with timings.stage_range("fdt.letterbox"):
+            y = x * 2.0
+        with timings.stage_range("fdt.mesh"):
+            for _ in range(8):
+                y = torch.tanh(y @ x)
+        with timings.stage_range("fdt.iris"):
+            y = torch.sin(y)
+        return {"y": y}
+
+    prog = graphs.program(packed_readback(body, None), cuda_device)
+    assert isinstance(prog, graphs.CapturedProgram)
+    x = torch.randn(256, 256, device=cuda_device) / 16
+    with graphs.capture_now():
+        prog(x)                                   # eager, then captured
+    bracket = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    timings._cuda_stamp(bracket, 0)
+    out = prog(x)
+    timings._cuda_stamp(bracket, 1)
+    torch.cuda.synchronize()
+    (counts,) = prog.counts().values()
+    assert counts == {"eager": 1, "replays": 1, "captures": 1}
+    assert out["layout"].stamps == ("detect", "mesh", "iris", "pack")
+    rows = out["layout"].unpack(out["packed"].cpu().numpy())[STAMPS]
+    stamps = rows[0].view(np.int64)
+    lo, hi = bracket.cpu().tolist()
+    assert lo <= stamps[0] and stamps[-1] <= hi, (lo, stamps, hi)
+    assert np.all(np.diff(stamps) >= 0) and stamps[2] > stamps[1], stamps
+    t = timings.DetectTimings()
+    with timings.span(None, t, 1):
+        FaceDetector._fetch_finish(FaceDetector._fetch_async(out))
+    assert {k: t.calls[k] for k in t.calls if k.startswith("device.")} == {
+        "device.detect": 1, "device.mesh": 1, "device.iris": 1}
+    assert t.total_ms["device.mesh"] == pytest.approx(
+        (stamps[2] - stamps[1]) * 1e-6)
+    prog.release()

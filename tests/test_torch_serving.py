@@ -27,6 +27,7 @@ from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
 from face_detection_tflite_torch.convert import executor as t_exec
 from face_detection_tflite_torch.parallel import sharding
 from face_detection_tflite_torch.pipeline import server as t_server
+from face_detection_tflite_torch.pipeline.timings import DetectTimings
 from face_detection_tflite_torch.pipeline.upload import upload
 from face_detection_tflite_torch.utils import image as t_image
 from face_detection_tflite_torch.utils import native as t_native
@@ -234,11 +235,13 @@ def test_pipeline_results_in_submit_order(setup):
 class _GatedDetector:
     """Stands in for a detector: the first dispatch waits for ``start``,
     every finish for ``gate``; it records the dispatched batches' tags and
-    the most batches alive at once (dispatched, not yet finished)."""
+    the most batches alive at once (dispatched, not yet finished).  Its
+    ``timings`` get the pipeline's upload spans."""
 
     device = torch.device("cpu")
 
     def __init__(self):
+        self.timings = DetectTimings()
         self.start, self.gate = threading.Event(), threading.Event()
         self.dispatched = []
         self.live = self.most_live = 0

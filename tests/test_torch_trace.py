@@ -4,7 +4,9 @@ JAX package's names the port lacked.
 
 On the small seeded pipeline on the CPU (``torch_parity.small_pipeline``):
 ``trace`` writes a Chrome trace holding every range of a FULL call with
-embeddings; every aten op of the traced calls lies in exactly one range;
+embeddings and the host spans around them (``pipeline/timings.py``), each
+span with its batch's number; every aten op of the traced calls lies in
+exactly one stage range;
 the outputs with and without the trace are equal bit for bit, and equal
 to the JAX package's within ``test_torch_full``'s tolerances.
 The ranges are entered only while a profiler runs, a worker thread's
@@ -50,6 +52,14 @@ FULL_EMBED_STAGES = {"fdt.upload", "fdt.letterbox", "fdt.detector",
                      "fdt.postprocess", "fdt.mesh", "fdt.iris",
                      "fdt.blendshapes", "fdt.refine", "fdt.embedding",
                      "fdt.pack"}
+#: Every stage range: what holds each op (the upload, the readback's start
+#: and its unpack are host spans that hold ops too).
+STAGES = FULL_EMBED_STAGES | {"fdt.embed", "fdt.segmentation",
+                              "fdt.readback"}
+#: The host spans around the stages of a batch on the CPU, by name less
+#: its bracket (an overflow re-run's among them).
+BATCH_SPANS = {"fdt.dispatch", "fdt.compute_wait", "fdt.readback",
+               "fdt.face_stages", "fdt.face_readback", "fdt.materialize"}
 
 
 def _tool():
@@ -91,10 +101,16 @@ def _ranges(events):
             and e["name"].startswith("fdt.")]
 
 
+def _names(events) -> set:
+    """The ``fdt.*`` ranges' names, each less its bracket."""
+    return {re.sub(r"\[.*\]$", "", r["name"]) for r in _ranges(events)}
+
+
 def _assert_each_op_in_one_range(events):
-    """Every aten op lies inside exactly one ``fdt.*`` range of its
-    thread, so no op is left out and no two ranges nest."""
-    ranges = _ranges(events)
+    """Every aten op lies inside exactly one stage range (:data:`STAGES`)
+    of its thread, so no op is left out and no two stage ranges nest; the
+    host spans hold stage ranges."""
+    ranges = [r for r in _ranges(events) if r["name"] in STAGES]
     ops = [e for e in events if e.get("ph") == "X"
            and e.get("cat") == "cpu_op" and e["name"].startswith("aten::")]
     assert ops and ranges
@@ -136,8 +152,12 @@ def test_trace_holds_every_stage_of_a_full_call_with_embeddings(
     faces, events = _traced(tmp_path, lambda: [
         traced_det.detect_faces_batch(frames) for _ in range(2)])
     assert any(k.startswith("face_stages[") for k in traced_det.timings.calls)
-    assert {r["name"] for r in _ranges(events)} == FULL_EMBED_STAGES
+    assert _names(events) == FULL_EMBED_STAGES | BATCH_SPANS
     _assert_each_op_in_one_range(events)
+    # Each host span carries its batch's number: two batches, two units.
+    units = {str(r["args"]["Concrete Inputs"][0]) for r in _ranges(events)
+             if r["name"] not in STAGES}
+    assert units == {"1", "2"}, units
     plain_det = _detector(models, embed_in_full=True)
     plain = [plain_det.detect_faces_batch(frames) for _ in range(2)]
     got, want = _face_arrays(faces), _face_arrays(plain)
@@ -155,10 +175,11 @@ def test_each_op_in_one_range_in_the_other_modes(setup, tmp_path, mode):
         det.detect_faces_batch(frames, mode) for _ in range(2)])
     _assert_each_op_in_one_range(events)
     want = {"fdt.upload", "fdt.letterbox", "fdt.detector",
-            "fdt.postprocess", "fdt.pack"}
+            "fdt.postprocess", "fdt.pack", "fdt.dispatch",
+            "fdt.compute_wait", "fdt.readback", "fdt.materialize"}
     if mode is FaceDetectionMode.STANDARD:
         want.add("fdt.mesh")
-    assert {r["name"] for r in _ranges(events)} == want
+    assert _names(events) - {"fdt.face_stages", "fdt.face_readback"} == want
 
 
 def test_single_image_and_standalone_embeddings_are_ranged(setup, tmp_path):
@@ -172,7 +193,7 @@ def test_single_image_and_standalone_embeddings_are_ranged(setup, tmp_path):
             det.detect_faces(frames[0])))
     assert faces and all(e is not None for e in embs)
     _assert_each_op_in_one_range(events)
-    names = {r["name"] for r in _ranges(events)}
+    names = _names(events)
     assert {"fdt.upload", "fdt.embed", "fdt.pack"} <= names
 
 

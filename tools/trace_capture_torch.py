@@ -11,7 +11,10 @@ name (``fdt.upload``, ``fdt.letterbox``, ``fdt.detector``,
 ``fdt.refine``, ``fdt.embedding``, ``fdt.pack``; ``fdt.segmentation`` and
 ``fdt.embed`` for the segmenter's and ``FaceEmbedding``'s own calls;
 entered only while a profiler runs, ``pipeline.timings.stage_range``),
-and :func:`stage_breakdown` reads a trace's device time by range.
+and :func:`stage_breakdown` reads a trace's device time by range.  The
+detector's host spans (``fdt.dispatch[slab<n>]``, ``fdt.compute_wait``,
+``fdt.materialize`` ...) hold the stage ranges; a launch belongs to the
+innermost range around it.
 
     python tools/trace_capture_torch.py [--out DIR] [--batch 16] [--iters 3]
     # full timeline: chrome://tracing or https://ui.perfetto.dev on the file
