@@ -18,7 +18,14 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    keypoints equal, boxes within 1e-6); K2 (ROI warp + normalize) at 16
    frames x 16 faces x 192 px with mixed mirrors (bit for bit); it prints
    the kernels' times, the plain versions' and, for K2,
-   ``F.grid_sample``'s (CUDA events, warm-up, median of 20);
+   ``F.grid_sample``'s (CUDA events, warm-up, median of 20); K5, the
+   residual add and activation of the networks (``residual_act``), bit
+   for bit at the largest tensor of each of its sites on the main paths
+   (iris 512 x 32x32x64 and mesh 256 x 96x96x16 with a residual and
+   PReLU, the mesh's channel pad 256 x 48x48x32 from 16, MobileFaceNet
+   256 x 56x56x128 PReLU alone, the detector 16 x 128x128x24 with a
+   residual and ReLU; seeded values with -0.0, NaN and +-inf planted),
+   with its ms, device ms, the plain version's ms and its byte bound;
 4. drives the STANDARD main path (``_drive_main_path``): ``FaceDetector``
    over 16 seeded 853x1280 uint8 frames with the full-depth, full-width
    seeded BlazeFace-back, FaceMesh, iris and blendshape nets; prints ms
@@ -297,6 +304,13 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    ``schedule_calls`` calls of the schedule check);
    ``nms_core`` is off the main path (0, and 0 over phase 11's ``detect``
    run, both counted) and its launches in step 3 are ``check_launches``.
+   K5's (``residual_act``) are counted over the same runs of each path
+   (``embed_launches``: the embedding phase's batches), held on the main
+   paths and the captured cells to one launch a planned pass of each
+   network call (``per_call``: the detector's, the mesh's, the iris
+   net's and MobileFaceNet's; the Mixer has none), with
+   ``op_by_op_launches`` the PRELUs and RELU ADDs that ran op by op there
+   (0 on every main path).
    K1's ``max_abs_err`` is its largest box error over every check
    against the plain version (steps 3, 4, 8, 9, 10, 11, 12 and 14).
 
@@ -668,6 +682,8 @@ def _layer(kernel_name: str) -> str:
         return "launch floor"
     if "warp_normalize" in n:
         return "K2 warp_normalize"
+    if "residual_act" in n:
+        return "K5 residual_act"
     if any(t in n for t in ("conv", "cudnn", "implicit", "winograd", "nhwc",
                             "fprop")):
         return "convolutions"
@@ -810,7 +826,7 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
     import numpy as np
     import torch
     from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
-    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops import detections, epilogue
     from face_detection_tflite_torch.ops import nms as nms_mod
     from face_detection_tflite_torch.ops import warp as warp_mod
     from face_detection_tflite_torch.pipeline.programs import \
@@ -825,6 +841,8 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
     nms_mod.nms_core.launches = 0
     warp_mod.warp_normalize.launches = 0
     warp_mod.warp_normalize.launches_by_size = {}
+    epilogue.residual_act.launches = 0
+    epilogue.ran_op_by_op.launches = 0
     mode_args = () if full else (mode,)
     batch_ms, faces = [], None
     for _ in range(runs):
@@ -836,7 +854,9 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
     launches = {
         "detection_postprocess": detections.detection_postprocess.launches,
         "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size),
-        "nms_core": nms_mod.nms_core.launches}
+        "nms_core": nms_mod.nms_core.launches,
+        "residual_act": epilogue.residual_act.launches,
+        "op_by_op": epilogue.ran_op_by_op.launches}
     reruns = _reruns(det)
     per_image = [len(f) for f in faces]
     steady = statistics.median(batch_ms[2:])
@@ -856,6 +876,12 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
         raise AssertionError(f"{name}: the main path did not run one K1 "
                              f"launch a batch and one K2 a batch and crop "
                              f"size (plus one a re-run): {launches}")
+    k5 = _k5_want(models, runs, reruns, full, embed)
+    if {k: launches[k] for k in k5} != k5:
+        raise AssertionError(f"{name}: K5 and op-by-op launches "
+                             f"{launches}, want {k5} (one K5 launch a "
+                             f"planned pass of each network call, "
+                             f"{_k5_per_call(models)})")
     if min(per_image) < 1:
         raise AssertionError(f"{name}: an image came back with no face")
     for face in (f for per in faces for f in per):
@@ -1083,6 +1109,82 @@ def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
             "library_ms": lib_ms}
 
 
+#: K5's sites (``ops/epilogue.py``): name -> (N, H, W, C, C_r (0: no
+#: residual), act), the largest tensor of each fused site of the main
+#: paths' networks at their batch (16 frames, 256 face crops, 512 eye
+#: crops, 256 embedding crops).
+K5_SITES = {
+    "iris": (512, 32, 32, 64, 64, "PRELU"),
+    "mesh": (256, 96, 96, 16, 16, "PRELU"),
+    "mesh_pad": (256, 48, 48, 32, 16, "PRELU"),
+    "mobilefacenet": (256, 56, 56, 128, 0, "PRELU"),
+    "detector": (16, 128, 128, 24, 24, "RELU"),
+}
+
+
+def _k5_sites(card: str) -> dict:
+    """Holds K5 bit for bit against its plain version at each site of
+    :data:`K5_SITES` on seeded values with -0.0, +0.0, NaN and +-inf
+    planted, one launch a call, and times both: the kernel's event and
+    device ms (:func:`_kernel_ms`), the plain version's event ms, and the
+    bound of its bytes (y and the residual read once, the output written
+    once, over HBM3 bandwidth).  Returns the ``kernels`` fields by site."""
+    import torch
+    from face_detection_tflite_torch.ops import epilogue
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def draw(shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        flat = x.view(-1)
+        picks = torch.randint(0, flat.numel(), (5 * 64,), generator=g,
+                              device=dev)
+        for j, v in enumerate((-0.0, 0.0, float("nan"), float("inf"),
+                               float("-inf"))):
+            flat[picks[j::5]] = v
+        return x
+
+    out = {}
+    for site, (n, h, w, c, cr, act) in K5_SITES.items():
+        y = draw((n, h, w, c))
+        r = draw((n, h, w, cr)) if cr else None
+        alpha = ((torch.rand(c, generator=g, device=dev) - 0.5)
+                 if act == "PRELU" else None)
+
+        def kernel():
+            return epilogue.residual_act(y, r, act, alpha)
+
+        def plain():
+            return epilogue.residual_act_plain(y, r, act, alpha)
+
+        before = epilogue.residual_act.launches
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if epilogue.residual_act.launches != before + 1:
+            raise AssertionError(f"K5 {site}: "
+                                 f"{epilogue.residual_act.launches - before}"
+                                 f" launches a call")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"K5 {site}: the kernel differs from its "
+                                 f"plain version")
+        ms, dev_ms, dev_by = _kernel_ms(kernel, "K5 residual_act")
+        plain_ms = _median_ms(plain, iters=5, warmup=1)
+        nbytes = 4 * (2 * y.numel() + (r.numel() if r is not None else 0))
+        bound_ms, bound_by = _bound(nbytes, 2 * y.numel())
+        out[site] = {"shape": [n, h, w, c], "residual_channels": cr,
+                     "act": act, "max_abs_err": 0.0, "ms": ms,
+                     "device_ms": dev_ms, "device_ms_by": dev_by,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        print(f"K5 residual_act {site} {n}x{h}x{w}x{c}, residual C_r={cr}, "
+              f"{act}: bit for bit; kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms, {dev_by}), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; the device time "
+              f"{100 * bound_ms / dev_ms:.0f}% of it)  [{card}]")
+        del y, r, got, want
+    return out
+
+
 def _embedding_phase(models, cpu_models, frames, frames_np, runs: int,
                      card: str) -> tuple[dict, dict]:
     """Step 6: FULL with the fused embedding stage through
@@ -1206,18 +1308,48 @@ def _payload(faces) -> list:
 
 
 def _reset_launches() -> None:
-    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops import detections, epilogue
     from face_detection_tflite_torch.ops import warp as warp_mod
     detections.detection_postprocess.launches = 0
     warp_mod.warp_normalize.launches = 0
     warp_mod.warp_normalize.launches_by_size = {}
+    epilogue.residual_act.launches = 0
+    epilogue.ran_op_by_op.launches = 0
 
 
 def _launches() -> dict:
-    from face_detection_tflite_torch.ops import detections
+    from face_detection_tflite_torch.ops import detections, epilogue
     from face_detection_tflite_torch.ops import warp as warp_mod
     return {"detection_postprocess": detections.detection_postprocess.launches,
-            "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size)}
+            "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size),
+            "residual_act": epilogue.residual_act.launches,
+            "op_by_op": epilogue.ran_op_by_op.launches}
+
+
+def _k5_per_call(models) -> dict:
+    """K5 launches one call of each network makes: its planned passes
+    (``ConvertedModel._epilogues``), every PReLU of MobileFaceNet."""
+    out = {}
+    for role in ("detector", "mesh", "iris", "blendshapes", "embedding"):
+        m = getattr(models, role, None)
+        if m is not None:
+            out[role] = (len(m._epilogues) if hasattr(m, "_epilogues") else
+                         sum(1 for k, _ in m.named_buffers()
+                             if k.endswith("_a")))
+    return out
+
+
+def _k5_want(models, calls: int, reruns: int, full: bool,
+             embed: bool) -> dict:
+    """K5 and op-by-op launches of ``calls`` calls of a path with
+    ``reruns`` overflow re-runs of the face stages: the detector's passes
+    a call, the face networks' a call and a re-run."""
+    per = _k5_per_call(models)
+    faces = per["mesh"] + (per["iris"] + per.get("blendshapes", 0)
+                           if full else 0) + (per["embedding"] if embed
+                                              else 0)
+    return {"residual_act": calls * per["detector"] + (calls + reruns) * faces,
+            "op_by_op": 0}
 
 
 def _reruns(det) -> int:
@@ -1233,7 +1365,7 @@ def _check_launches(launches: dict, calls: int, reruns: int, label: str
     want = {"detection_postprocess": calls,
             "warp_normalize": {MESH_SIZE: calls + reruns,
                                IRIS_SIZE: calls + reruns}}
-    if launches != want:
+    if {k: launches[k] for k in want} != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
 
 
@@ -3296,7 +3428,7 @@ def _replica_phase(models, frames_np, video: dict, card: str) -> dict:
     want_dp = {"detection_postprocess": 2 * DP_RUNS,
                "warp_normalize": {MESH_SIZE: 2 * (DP_RUNS + dp_reruns),
                                   IRIS_SIZE: 2 * (DP_RUNS + dp_reruns)}}
-    if dp_launches != want_dp:
+    if {k: dp_launches[k] for k in want_dp} != want_dp:
         raise AssertionError(f"data_parallel launches {dp_launches}, want "
                              f"{want_dp}")
     if [len(f) for f in got] != [len(f) for f in ref]:
@@ -3739,7 +3871,9 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
     sizes = (MESH_SIZE,) + ((IRIS_SIZE,) if mode.name == "FULL" else ()) + \
         ((EMBED_SIZE,) if embed else ())
     want = {"detection_postprocess": GRAPH_RUNS,
-            "warp_normalize": {s: GRAPH_RUNS + reruns for s in sizes}}
+            "warp_normalize": {s: GRAPH_RUNS + reruns for s in sizes},
+            **_k5_want(models, GRAPH_RUNS, reruns, mode.name == "FULL",
+                       embed)}
     if launches != want:
         raise AssertionError(f"graphs {label}: launches {launches} over "
                              f"{GRAPH_RUNS} replayed batches, want {want}")
@@ -3883,7 +4017,8 @@ def _graph_schedule(models, frames, card: str) -> dict:
     launches = _launches()
     k = len(calls)
     if launches != {"detection_postprocess": k,
-                    "warp_normalize": {MESH_SIZE: k, IRIS_SIZE: k}}:
+                    "warp_normalize": {MESH_SIZE: k, IRIS_SIZE: k},
+                    **_k5_want(models, k, 0, True, False)}:
         raise AssertionError(f"graphs schedule: launches {launches} over "
                              f"{k} calls")
     split = _capture_split("schedule FULL", [("slab 16", prog)], card)
@@ -4901,11 +5036,14 @@ def main() -> int:
     if k2_err != 0:
         raise AssertionError(f"K2: kernel differs from plain by {k2_err}")
     print(f"K2 warp_normalize 16x16x{s}^2 mixed flips: max_abs_err={k2_err:.3g}")
+    k5_sites = _k5_sites(card)
 
     # -- 4. the STANDARD main path --------------------------------------------
     t0 = time.perf_counter()
     models, det_ir, mesh_ir, iris_ir, bs_ir = \
         random_init.random_pipeline_models(frames, seed=SEED)
+    print(f"K5 launches a network call (planned passes): "
+          f"{_k5_per_call(models)}")
     print(f"models: BlazeFace back {len(det_ir.ops)} ops / "
           f"{models.detector.num_params} weights, FaceMesh "
           f"{len(mesh_ir.ops)} ops / {models.mesh.num_params} weights, "
@@ -5169,6 +5307,38 @@ def main() -> int:
          "cli_images": CLI_IMAGES,
          **_graph_launches(graphs, "warp_normalize", EMBED_SIZE),
          **embed_site},
+        {"name": "residual_act", "route": "cuda",
+         "source": f"{PACKAGE}/csrc/epilogue.cu", "replaces": None,
+         "fuses": "face_detection_tflite_tpu/convert/executor.py ADD, RELU, "
+                  "PRELU and channel PAD",
+         "per_call": _k5_per_call(models),
+         "launches": std["launches"]["residual_act"],
+         "full_launches": full["launches"]["residual_act"],
+         "embed_launches": emb["launches"]["residual_act"],
+         "op_by_op_launches": {
+             "launches": std["launches"]["op_by_op"],
+             "full_launches": full["launches"]["op_by_op"],
+             "embed_launches": emb["launches"]["op_by_op"],
+             "int8_launches": tiers["int8"]["launches"]["op_by_op"]},
+         "stream_launches": stream["launches"]["residual_act"],
+         "server_launches": serve["launches"]["residual_act"],
+         "server_batches": len(serve["batch_sizes"]),
+         "video_launches": video["launches"]["residual_act"],
+         "video_batches": video["batches"],
+         "camera_launches": camera["launches"]["residual_act"],
+         "camera_frames": camera["frames"],
+         **_variant_launches(variants, "residual_act"),
+         "segmentation_combined_launches":
+             seg["combined_launches"]["residual_act"],
+         "segmentation_server_launches":
+             seg["server_launches"]["residual_act"],
+         **_tier_launches(tiers, "residual_act"),
+         "cli_launches": cli["detect_launches"]["residual_act"],
+         "cli_images": CLI_IMAGES,
+         "replica_launches": scale["replica_launches"]["residual_act"],
+         "dp_launches": scale["dp_launches"]["residual_act"],
+         **_graph_launches(graphs, "residual_act"),
+         **k5_sites["iris"], "sites": k5_sites},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -57,19 +57,25 @@ Differences from the JAX executor, all deliberate:
 
 Conversion-time passes (numpy, no device work) are those of the JAX
 executor: constant fp16 ``DEQUANTIZE`` and ``DENSIFY`` fold into fp32
-weights, and static shape arithmetic folds into constants.
+weights, and static shape arithmetic folds into constants.  One more
+pass plans, from the graph's structure, which ADD, RELU, PRELU and
+channel-PAD ops run as one residual-add-and-activation pass
+(:func:`_plan_epilogues`, ``ops/epilogue.py``; on a card the K5 kernel),
+whose every value equals the ops' one by one; parameters and the state
+dict do not change.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.epilogue import ran_op_by_op, residual_act
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
 __all__ = ["ConvertedModel", "SUPPORTED_OPS", "convert_model", "convert_file",
@@ -349,6 +355,113 @@ def mixed_precision(ops, frac: float = 0.5, low: str = "default",
     return spec
 
 
+class _Epilogue(NamedTuple):
+    """A planned run of :func:`ops.epilogue.residual_act` in place of the
+    ops it absorbs: ``act(env[y] + pad(env[residual]))``, ``alpha`` the
+    PRELU's weight tensor."""
+    y: int
+    residual: Optional[int]
+    act: str
+    alpha: Optional[int]
+
+
+def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
+                    shapes: dict, dtypes: dict, param_key: dict,
+                    statics: dict) -> tuple[dict, frozenset, frozenset]:
+    """Which ops run as one residual-add-and-activation pass, from the
+    graph's structure alone.  Two patterns fuse:
+
+    * a 4-D ADD with a fused RELU, or with none and then a PRELU that is
+      its output's only reader; one operand may be a PAD that only
+      zero-pads the last axis at its end and whose only reader is the ADD;
+    * a 4-D PRELU on any other input.
+
+    Nothing fuses where an absorbed tensor (the ADD's output before a
+    PRELU, the PAD's output) has another reader, is a graph output or
+    lies on a quantization grid, where an operand is a constant, where
+    the ADD's operands differ in shape or where the PRELU's alpha is not
+    one constant per channel.  The pass's own output may lie on a grid:
+    ``forward`` snaps it as it snaps any op's.  Returns (anchor op index
+    -> :class:`_Epilogue`, the absorbed op indices, the candidates (every
+    PRELU, every ADD with a fused RELU) that run op by op)."""
+    readers: dict[int, int] = {}
+    for op in ops:
+        for t in op.inputs:
+            readers[t] = readers.get(t, 0) + 1
+    producer = {t: i for i, op in enumerate(ops) for t in op.outputs}
+    outputs = set(output_ixs)
+
+    def absorbable(t) -> bool:
+        return readers.get(t) == 1 and t not in outputs and \
+            t not in act_quant
+
+    def activation(t) -> bool:
+        """A 4-D tensor some op writes, float32 when the program runs (a
+        float32 tensor, or one snapped to its quantization grid)."""
+        return t in producer and len(shapes.get(t, ())) == 4 and (
+            np.dtype(dtypes.get(t, np.float32)) == np.float32
+            or t in act_quant)
+
+    def channel_pad(t) -> Optional[tuple[int, int]]:
+        """(PAD op index, its input) where ``t`` is absorbable and a PAD's
+        output that only zero-pads the last axis at its end."""
+        p = producer.get(t)
+        if p is None or ops[p].name != "PAD" or not absorbable(t):
+            return None
+        src = ops[p].inputs[0]
+        pads = statics.get(ops[p].inputs[1])
+        if pads is None or not activation(src):
+            return None
+        pads = np.asarray(pads).reshape(-1, 2)
+        if pads.shape != (4, 2) or pads[:3].any() or pads[3, 0] != 0:
+            return None
+        return p, src
+
+    def add_operands(op) -> Optional[tuple[int, int, list[int]]]:
+        """(y, residual, absorbed PAD ops) of a fusable ADD."""
+        a, b = op.inputs[:2]
+        if not (activation(a) and activation(b)) or shapes[a] != shapes[b]:
+            return None
+        for y, r in ((a, b), (b, a)):
+            pad = channel_pad(r)
+            if pad is not None:
+                return y, pad[1], [pad[0]]
+        return a, b, []
+
+    def per_channel(alpha, x) -> bool:
+        shp = shapes.get(alpha, ())
+        return alpha in param_key and len(shp) >= 1 and \
+            shp[-1] == shapes[x][3] and all(d == 1 for d in shp[:-1])
+
+    plan: dict[int, _Epilogue] = {}
+    absorbed: set[int] = set()
+    candidates = set()
+    for i, op in enumerate(ops):
+        act = op.options.get("activation") if op.name == "ADD" else None
+        if op.name == "PRELU" or act == "RELU":
+            candidates.add(i)
+        out = op.outputs[0]
+        if op.name == "ADD" and act == "RELU" and activation(out):
+            found = add_operands(op)
+            if found is not None:
+                plan[i] = _Epilogue(found[0], found[1], "RELU", None)
+                absorbed.update(found[2])
+        elif op.name == "PRELU" and activation(op.inputs[0]) and \
+                activation(out) and per_channel(op.inputs[1], op.inputs[0]):
+            x = op.inputs[0]
+            add = producer[x]
+            found = (add_operands(ops[add]) if ops[add].name == "ADD" and
+                     ops[add].options.get("activation") is None and
+                     absorbable(x) else None)
+            if found is None:
+                plan[i] = _Epilogue(x, None, "PRELU", op.inputs[1])
+            else:
+                plan[i] = _Epilogue(found[0], found[1], "PRELU",
+                                    op.inputs[1])
+                absorbed.update(found[2] + [add])
+    return plan, frozenset(absorbed), frozenset(candidates - set(plan))
+
+
 def _refresh_low(module, incompatible_keys=None) -> None:
     """Load-state-dict post hook: re-derives the bf16 weight copies from
     the fp32 weights just loaded."""
@@ -607,6 +720,13 @@ class ConvertedModel(nn.Module):
             op.outputs[0] for op in ops if op.name == "FULLY_CONNECTED"
             and readers.get(op.outputs[0]) == {"RESHAPE"}
             and op.outputs[0] not in output_ixs)
+        #: The residual-add-and-activation passes (:func:`_plan_epilogues`):
+        #: anchor op index -> its pass, the ops the passes absorb, and the
+        #: PRELUs and ADDs with a fused RELU left op by op (each counted by
+        #: ``ops.epilogue.ran_op_by_op`` where it runs on a card).
+        self._epilogues, self._absorbed, self._op_by_op = _plan_epilogues(
+            ops, output_ixs, self._act_quant, shapes, dtypes, param_key,
+            statics)
         self.precision = precision
         #: Each op's tier ("highest", "high" or "default"; None for the
         #: ops no tier reaches), indexed as the pruned op list.
@@ -711,8 +831,21 @@ class ConvertedModel(nn.Module):
             env[tix] = x
         device = inputs[0].device
         _check_fp32(device, bf16=self._bf16)
+        on_card = device.type == "cuda"
         for i, op in enumerate(self._ops):
-            self._run_op(i, op, env, n)
+            if i in self._absorbed:
+                continue
+            ep = self._epilogues.get(i)
+            if ep is None:
+                self._run_op(i, op, env, n)
+                if on_card and i in self._op_by_op:
+                    ran_op_by_op()
+            else:
+                env[op.outputs[0]] = residual_act(
+                    env[ep.y], None if ep.residual is None
+                    else env[ep.residual], ep.act,
+                    None if ep.alpha is None
+                    else getattr(self, self._param_key[ep.alpha]).reshape(-1))
             for t in op.outputs:
                 if t in self._act_quant and t in env:
                     env[t] = _fake_quant(env[t], self._qscale[self._qslot[t]],

@@ -46,6 +46,7 @@ from ..convert.checkpoint import load_params_npz, swap_params
 from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
                                 _same_pads, _tier, convert_file,
                                 fp32_on_the_card, resolve_device)
+from ..ops.epilogue import residual_act
 from ..ops.warp import extract_rois_normalized
 from ..pipeline import graphs
 from ..pipeline.config import EMBEDDING_DIM, EMBEDDING_INPUT_SIZE
@@ -187,7 +188,8 @@ class MobileFaceNet(nn.Module):
 
     Convolutions use TF-style SAME pads, which are asymmetric at stride 2
     (0 before, 1 after on an even input); the final 7x7 global depthwise
-    convolution is VALID; PReLU is ``where(y >= 0, y, y * a)``; a
+    convolution is VALID; PReLU is ``where(y >= 0, y, y * a)``, run as
+    one ``ops.epilogue.residual_act`` pass; a
     bottleneck adds its input where its stride is 1 and its channels stay.
     Weights are buffers keyed as the JAX params.  ``precision`` is a tier
     of the executor for every convolution ("highest", "high" or
@@ -267,8 +269,10 @@ class MobileFaceNet(nn.Module):
         else:
             y = F.conv2d(x, w, b, stride=stride, padding=pad, groups=groups)
         if prelu:
-            a = getattr(self, f"{name}_a")[:, None, None]
-            y = torch.where(y >= 0, y, y * a)
+            # One pass over the NHWC view of the channels_last output
+            # (ops/epilogue.py; the K5 kernel on a card).
+            y = residual_act(y.permute(0, 2, 3, 1), None, "PRELU",
+                             getattr(self, f"{name}_a")).permute(0, 3, 1, 2)
         return y
 
     def _bottleneck(self, name: str, x, expand: int, out_c: int,

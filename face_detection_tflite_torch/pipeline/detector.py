@@ -98,6 +98,7 @@ from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
 from ..models.segmentation import SegmentationMask, SelfieSegmentation
+from ..ops import epilogue
 from ..parallel import sharding as _sharding
 from ..utils.camera import (CameraRotation, _plane_field,
                             camera_frame_from_planes, decode_camera_frame)
@@ -1536,7 +1537,11 @@ class FaceDetector:
         all four 0 off a card), and the device bytes of
         the memory pools its graphs live in (``graph_pool_bytes``, 0 off a
         card; a device's pool is shared with the process's other captured
-        programs there); where replicas
+        programs there), the process's PRELUs and ADDs with a fused RELU
+        run so far on a card, in one residual-add-and-activation pass
+        (``epilogue_fused``: the K5 launches,
+        ``ops.epilogue.residual_act.launches``) and op by op
+        (``epilogue_op_by_op``; both 0 off a card); where replicas
         were made
         (:meth:`_replica_params`), their count and the weight bytes of
         each replica's networks together."""
@@ -1556,6 +1561,8 @@ class FaceDetector:
         if self._segmentation is not None:
             report["segmentation"] = nbytes(self._segmentation.model)
         report["total_weights"] = sum(report.values())
+        report["epilogue_fused"] = epilogue.residual_act.launches
+        report["epilogue_op_by_op"] = epilogue.ran_op_by_op.launches
         with self._programs_lock:
             replicas = list(self._replica_params_cache.values())
             captured = list(self._captured_programs)

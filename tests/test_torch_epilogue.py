@@ -1,0 +1,414 @@
+"""The residual-add-and-activation pass (``ops/epilogue.py``, K5 on a
+card) on the CPU: its plain version against the op sequence it replaces,
+the executor's plan over BlazeBlocks built with ``random_init``'s graph
+builder, the planned models against the unplanned ones (bit for bit) and
+against the JAX executor, the int8 detector, MobileFaceNet's PReLUs, and
+the counts ``FaceDetector.memory_report()`` reports.  The kernel itself
+is held to the plain version in ``test_torch_kernels.py`` on the card."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from face_detection_tflite_torch.convert.executor import convert_model
+from face_detection_tflite_torch.convert.tflite import PADDING_VALID
+from face_detection_tflite_torch.models import embedding, random_init
+from face_detection_tflite_torch.ops import epilogue
+from face_detection_tflite_torch.pipeline.detector import FaceDetector
+
+from .torch_parity import both_models, rel_err
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _specials(shape, seed) -> torch.Tensor:
+    """Normal values with -0.0, +0.0, NaN, +inf and -inf planted."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g)
+    flat = x.view(-1)
+    picks = torch.randperm(flat.numel(), generator=g)[:5 * 7]
+    for j, v in enumerate((-0.0, 0.0, float("nan"), float("inf"),
+                           float("-inf"))):
+        flat[picks[j::5]] = v
+    return x
+
+
+def _unfused(y, r, act, alpha):
+    """The executor's op sequence before the plan: PAD, ADD, then RELU or
+    PRELU with its [1, 1, C] weight."""
+    x = y
+    if r is not None:
+        if r.shape[3] < y.shape[3]:
+            r = F.pad(r, [0, y.shape[3] - r.shape[3]])
+        x = torch.add(x, r)
+    if act == "RELU":
+        x = torch.relu(x)
+    else:
+        a = alpha.reshape(1, 1, -1)
+        x = torch.where(x >= 0, x, x * a)
+    return x
+
+
+@pytest.mark.parametrize("act", epilogue.ACTS)
+@pytest.mark.parametrize("residual", ["none", "same", "padded"])
+def test_plain_equals_the_unfused_ops_bit_for_bit(act, residual):
+    y = _specials((2, 5, 6, 8), 1)
+    r = {"none": None, "same": _specials((2, 5, 6, 8), 2),
+         "padded": _specials((2, 5, 6, 4), 3)}[residual]
+    alpha = (torch.rand(8, generator=torch.Generator().manual_seed(4)) - 0.5
+             if act == "PRELU" else None)
+    want = _unfused(y, r, act, alpha)
+    got = epilogue.residual_act_plain(y, r, act, alpha)
+    assert torch.equal(_bits(got), _bits(want))
+    before = epilogue.residual_act.launches
+    assert torch.equal(_bits(epilogue.residual_act(y, r, act, alpha)),
+                       _bits(want))
+    assert epilogue.residual_act.launches == before
+
+
+@pytest.mark.parametrize("args,match", [
+    (dict(act="GELU"), "act must be"),
+    (dict(act=None), "act must be"),
+    (dict(act="PRELU"), "alpha is given"),
+    (dict(act="RELU", alpha=torch.ones(8)), "alpha is given"),
+    (dict(act="PRELU", alpha=torch.ones(7)), "alpha must be"),
+    (dict(residual=torch.ones(2, 5, 6, 9)), "residual must be"),
+    (dict(residual=torch.ones(2, 5, 5, 8)), "residual must be"),
+    (dict(y=torch.ones(5, 6, 8)), "y must be"),
+])
+def test_wrapper_rejects_bad_arguments_on_every_device(args, match):
+    kw = dict(y=torch.ones(2, 5, 6, 8), residual=None, act="RELU",
+              alpha=None)
+    kw.update(args)
+    with pytest.raises(ValueError, match=match):
+        epilogue.residual_act(kw["y"], kw["residual"], kw["act"], kw["alpha"])
+    with pytest.raises(ValueError, match="device"):
+        epilogue.residual_act(torch.empty((1, 2, 2, 4), device="meta"), None,
+                              "RELU")
+
+
+# -- the executor's plan ----------------------------------------------------
+
+
+def _graph(build):
+    """The port's IR of the graph ``build(g)`` makes on ``random_init``'s
+    graph builder, returning its (inputs, outputs)."""
+    g = random_init._Graph(np.random.default_rng(7))
+    ins, outs = build(g)
+    return g.ir(ins, outs, "test")
+
+
+def _names(m, indices) -> list[str]:
+    return sorted(m._ops[i].name for i in indices)
+
+
+def _stem(g, c=8, size=6):
+    """(graph input, a 1x1 convolution of it to ``c`` channels): the
+    plan fuses activations that ops write."""
+    x = g.tensor((1, size, size, 3))
+    return x, g.conv(x, c, 1)
+
+
+def _block(stride, prelu, cin=8, cout=16, size=12):
+    def build(g):
+        x, h = _stem(g, cin, size)
+        return [x], [g.block(h, cout, stride=stride, prelu=prelu)]
+    return build
+
+
+def _stem_prelu(g):
+    x = g.tensor((1, 12, 12, 3))
+    return [x], [g.prelu(g.conv(x, 8, 3, stride=2))]
+
+
+#: name -> (graph, the plan's anchor op, its residual's producer, the
+#: absorbed ops, the pass's act).
+PATTERNS = {
+    "detector_block": (_block(1, False, cin=16), "ADD", "CONV_2D", [],
+                       "RELU"),
+    "detector_block_pad_s2": (_block(2, False), "ADD", "MAX_POOL_2D",
+                              ["PAD"], "RELU"),
+    "mesh_block": (_block(1, True, cin=16), "PRELU", "CONV_2D", ["ADD"],
+                   "PRELU"),
+    "mesh_block_pad": (_block(1, True), "PRELU", "CONV_2D", ["ADD", "PAD"],
+                       "PRELU"),
+    "iris_block_pad_s2": (_block(2, True), "PRELU", "MAX_POOL_2D",
+                          ["ADD", "PAD"], "PRELU"),
+    "stem_prelu": (_stem_prelu, "PRELU", None, [], "PRELU"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PATTERNS))
+def test_plan_fuses_the_blazeblock_patterns(name):
+    build, anchor, res_from, absorbed, act = PATTERNS[name]
+    ir = _graph(build)
+    m = convert_model(ir)
+    ((i, ep),) = m._epilogues.items()
+    assert not m._op_by_op
+    assert m._ops[i].name == anchor and ep.act == act
+    assert _names(m, m._absorbed) == sorted(absorbed)
+    producer = {t: op.name for op in m._ops for t in op.outputs}
+    if res_from is None:
+        assert ep.residual is None
+    else:
+        assert producer[ep.residual] == res_from
+    assert producer[ep.y] == "CONV_2D"
+    assert (ep.alpha is not None) == (act == "PRELU")
+    # A spatial PAD (before the stride-2 depthwise) is never absorbed.
+    assert [op.name for op in m._ops].count("PAD") - absorbed.count("PAD") \
+        == (1 if "s2" in name else 0)
+
+
+def _add_then(g, x, act, pad=False):
+    """conv(x) + x (x channel-padded where ``pad``)."""
+    c = g.shape(x)[3]
+    y = g.conv(x, 2 * c if pad else c, 1)
+    r = g.pad(x, [[0, 0], [0, 0], [0, 0], [0, c]]) if pad else x
+    return y, r, g.op("ADD", [y, r], g.shape(y), activation=act)
+
+
+def _two_readers(g):
+    x, h = _stem(g)
+    _, _, s = _add_then(g, h, None)
+    return [x], [g.prelu(s), g.op("RELU", [s], g.shape(s))]
+
+
+def _graph_output(g):
+    x, h = _stem(g)
+    _, _, s = _add_then(g, h, None)
+    return [x], [g.prelu(s), s]
+
+
+def _pad_two_readers(g):
+    x, h = _stem(g)
+    y = g.conv(h, 16, 1)
+    r = g.pad(h, [[0, 0], [0, 0], [0, 0], [0, 8]])
+    s = g.op("ADD", [y, r], g.shape(y), activation="RELU")
+    return [x], [s, g.op("RELU", [r], g.shape(r))]
+
+
+def _spatial_pad(g):
+    x = g.tensor((1, 6, 6, 3))
+    y = g.conv(x, 8, 1)
+    r = g.pad(g.conv(x, 8, 3, padding=PADDING_VALID),
+              [[0, 0], [1, 1], [1, 1], [0, 0]])
+    return [x], [g.op("ADD", [y, r], g.shape(y), activation="RELU")]
+
+
+def _front_pad(g):
+    x, h = _stem(g)
+    r = g.pad(h, [[0, 0], [0, 0], [0, 0], [2, 0]])
+    y = g.conv(h, 10, 1)
+    return [x], [g.op("ADD", [y, r], g.shape(y), activation="RELU")]
+
+
+def _broadcast(g):
+    x = g.tensor((1, 6, 6, 3))
+    y = g.conv(x, 8, 1)
+    m = g.mean(y, [1, 2])
+    return [x], [g.op("ADD", [y, m], g.shape(y), activation="RELU")]
+
+
+def _constant_operand(g):
+    x = g.tensor((1, 6, 6, 3))
+    y = g.conv(x, 8, 1)
+    c = g.const(np.ones((1, 6, 6, 8), np.float32))
+    return [x], [g.op("ADD", [y, c], g.shape(y), activation="RELU")]
+
+
+def _alpha_scalar(g):
+    x = g.tensor((1, 6, 6, 3))
+    y = g.conv(x, 8, 1)
+    a = g.const(np.full((1, 1, 1), 0.2, np.float32))
+    return [x], [g.op("PRELU", [y, a], g.shape(y))]
+
+
+#: name -> (graph, the absorbed ops, the passes' residual count, the
+#: passes, the candidates left op by op).
+REFUSALS = {
+    # The ADD stays (its output has a second reader); the PRELU runs alone.
+    "add_output_two_readers": (_two_readers, [], 0, 1, []),
+    "add_output_is_a_graph_output": (_graph_output, [], 0, 1, []),
+    # The PAD stays (a second reader; a spatial pad; a pad at the front):
+    # the ADD fuses with the PAD's output as its residual.
+    "pad_two_readers": (_pad_two_readers, [], 1, 1, []),
+    "spatial_pad": (_spatial_pad, [], 1, 1, []),
+    "pad_at_the_front": (_front_pad, [], 1, 1, []),
+    # Nothing fuses.
+    "broadcast_operand": (_broadcast, [], 0, 0, ["ADD"]),
+    "constant_operand": (_constant_operand, [], 0, 0, ["ADD"]),
+    "alpha_not_per_channel": (_alpha_scalar, [], 0, 0, ["PRELU"]),
+}
+
+
+def _check_planned_against_unplanned(ir, n=3, seed=0):
+    """The planned model's outputs equal the same model's with the plan
+    emptied (the ops one by one) bit for bit, at batch ``n``."""
+    m = convert_model(ir)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        0, 1, (n,) + tuple(m.input_shapes[0][1:])).astype(np.float32))
+    got = m(x)
+    m._epilogues, m._absorbed = {}, frozenset()
+    want = m(x)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(REFUSALS))
+def test_plan_refuses_what_it_must_not_absorb(name):
+    build, absorbed, with_residual, passes, op_by_op = REFUSALS[name]
+    ir = _graph(build)
+    m = convert_model(ir)
+    assert len(m._epilogues) == passes
+    assert _names(m, m._op_by_op) == op_by_op
+    assert _names(m, m._absorbed) == absorbed
+    assert sum(ep.residual is not None
+               for ep in m._epilogues.values()) == with_residual
+    _check_planned_against_unplanned(ir)
+
+
+def _on_grid(ir, tensors):
+    """``ir`` with ``tensors`` on an int8 grid, as a quantized graph
+    has its activations."""
+    for t in tensors:
+        ir.tensors[t] = dataclasses.replace(
+            ir.tensors[t], dtype=np.int8,
+            quant={"scale": np.asarray([0.05], np.float32),
+                   "zero_point": np.asarray([3], np.int64), "dim": 0})
+    return ir
+
+
+@pytest.mark.parametrize("grid", ["relu_add", "prelu_add", "both"])
+def test_plan_on_fake_quantised_add_outputs(grid):
+    """An ADD with a fused RELU whose output lies on an int8 grid still
+    runs in the pass (``forward`` snaps the pass's output as it snaps the
+    ADD's); an ADD output on a grid before a PRELU is an intermediate and
+    stays op by op, the PRELU then running alone.  Either way the planned
+    model equals the unplanned one bit for bit."""
+    def build(g):
+        x, h = _stem(g)
+        _, _, s = _add_then(g, h, "RELU")
+        _, _, t = _add_then(g, s, None)
+        return [x], [g.prelu(t)]
+    ir = _graph(build)
+    relu_add, prelu_add = [op.outputs[0] for op in ir.ops
+                           if op.name == "ADD"]
+    assert len(convert_model(ir)._epilogues) == 2
+    snapped = {"relu_add": [relu_add], "prelu_add": [prelu_add],
+               "both": [relu_add, prelu_add]}[grid]
+    m = convert_model(_on_grid(ir, snapped))
+    acts = sorted((m._ops[i].name, ep.residual is None)
+                  for i, ep in m._epilogues.items())
+    assert not m._op_by_op
+    if prelu_add in snapped:
+        assert acts == [("ADD", False), ("PRELU", True)]
+        assert not m._absorbed
+    else:
+        assert acts == [("ADD", False), ("PRELU", False)]
+        assert _names(m, m._absorbed) == ["ADD"]
+    _check_planned_against_unplanned(ir)
+
+
+def test_int8_detector_runs_its_relu_adds_in_the_pass():
+    """The int8 detector (``random_init.quantized_ir``): every ADD with a
+    fused RELU is planned, its PADs, on their inputs' grids, stay; the
+    planned model equals the unplanned one bit for bit."""
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 96, 144, 3), dtype=np.uint8))
+    det_ir = random_init.blazeface_back_ir(seed=2, blocks_per_stage=1)
+    q_ir = random_init.quantized_ir(det_ir, frames, seed=1)
+    q = convert_model(q_ir)
+    relu_adds = [i for i, op in enumerate(q._ops) if op.name == "ADD"
+                 and op.options.get("activation") == "RELU"]
+    assert relu_adds and sorted(q._epilogues) == relu_adds
+    assert not q._op_by_op and not q._absorbed
+    assert len(relu_adds) == len(convert_model(det_ir)._epilogues)
+    _check_planned_against_unplanned(q_ir, n=2, seed=3)
+
+
+#: name -> (graph at one block a stage, passes, absorbed op names).
+NETWORKS = {"detector": (lambda: random_init.blazeface_back_ir(5, 1), 7,
+                         {"PAD": 2}),
+            "mesh": (lambda: random_init.face_mesh_ir(5, 1), 15,
+                     {"ADD": 13, "PAD": 3}),
+            "iris": (lambda: random_init.iris_landmark_ir(5, 1), 14,
+                     {"ADD": 13, "PAD": 1})}
+
+
+@pytest.mark.parametrize("role", sorted(NETWORKS))
+def test_planned_networks_match_the_jax_executor(role):
+    """Every candidate of the full-width detector, mesh and iris nets
+    fuses; the planned port equals the unplanned one bit for bit and the
+    JAX executor within ``test_torch_executor.py``'s 2e-6 of the output's
+    largest magnitude."""
+    build, passes, absorbed = NETWORKS[role]
+    ir = build()
+    jm, tm = both_models(ir)
+    assert len(tm._epilogues) == passes and not tm._op_by_op
+    names = [tm._ops[i].name for i in tm._absorbed]
+    assert {k: names.count(k) for k in set(names)} == absorbed
+    x = np.random.default_rng(1).uniform(
+        -1, 1, tuple(tm.input_shapes[0])).astype(np.float32)
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(x))
+    for out, want in zip(got, jm.fn(jm.params, x)):
+        assert rel_err(out.numpy(), want) <= 2e-6
+    _check_planned_against_unplanned(ir, n=2, seed=1)
+
+
+def test_mobilefacenet_prelus_run_in_the_pass():
+    """MobileFaceNet's 33 PReLUs go through ``residual_act`` on the NHWC
+    view; its output equals the NCHW ``where`` it replaced bit for bit."""
+    net = embedding.build_mobilefacenet(seed=3)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (2, 112, 112, 3)).astype(np.float32))
+    calls = []
+    real = embedding.residual_act
+
+    def counted(y, residual, act, alpha=None):
+        calls.append((tuple(y.shape), residual, act))
+        return real(y, residual, act, alpha)
+
+    def nchw_where(y, residual, act, alpha=None):
+        y = y.permute(0, 3, 1, 2)
+        return torch.where(y >= 0, y, y * alpha[:, None, None]
+                           ).permute(0, 2, 3, 1)
+
+    embedding.residual_act = counted
+    try:
+        (got,) = net(x)
+        embedding.residual_act = nchw_where
+        (want,) = net(x)
+    finally:
+        embedding.residual_act = real
+    assert len(calls) == 33 and calls[0] == ((2, 56, 56, 64), None, "PRELU")
+    assert all(c[1:] == (None, "PRELU") for c in calls)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_memory_report_counts_the_passes_that_ran(monkeypatch):
+    """``memory_report()`` gives the process's K5 launches and the
+    candidates that ran op by op, 0 off a card; both counters take what
+    ``count_launch`` adds to them."""
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 96, 144, 3), dtype=np.uint8))
+    models, *_ = random_init.random_pipeline_models(
+        frames, seed=2, detector_blocks=1, mesh_blocks=1, iris_blocks=1,
+        mixer_blocks=1, per_image=12)
+    det = FaceDetector(models=models, device="cpu")
+    monkeypatch.setattr(epilogue.residual_act, "launches", 0)
+    monkeypatch.setattr(epilogue.ran_op_by_op, "launches", 0)
+    det.detect_faces_batch(frames.numpy())
+    report = det.memory_report()
+    assert (report["epilogue_fused"], report["epilogue_op_by_op"]) == (0, 0)
+    epilogue.ran_op_by_op()
+    epilogue.ran_op_by_op()
+    monkeypatch.setattr(epilogue.residual_act, "launches", 5)
+    report = det.memory_report()
+    assert (report["epilogue_fused"], report["epilogue_op_by_op"]) == (5, 2)

@@ -17,7 +17,8 @@ from face_detection_tflite_torch.convert.executor import (convert_model,
                                                           fp32_on_the_card)
 from face_detection_tflite_torch.kernels import build
 from face_detection_tflite_torch.models import random_init
-from face_detection_tflite_torch.ops import detections, nms, warp
+from face_detection_tflite_torch.models.embedding import build_mobilefacenet
+from face_detection_tflite_torch.ops import detections, epilogue, nms, warp
 from face_detection_tflite_torch.ops.anchors import (SSD_BACK, SSD_FULL,
                                                      generate_anchors)
 from face_detection_tflite_torch.ops.detections import _topk_candidates
@@ -1064,3 +1065,196 @@ def test_replay_stage_stamps_lie_inside_the_replay(cuda_device):
     assert t.total_ms["device.mesh"] == pytest.approx(
         (stamps[2] - stamps[1]) * 1e-6)
     prog.release()
+
+
+# -- K5: the residual add and activation (ops/epilogue.py, csrc/epilogue.cu)
+
+#: site -> (N, H, W, C, C_r (0: no residual), act): the largest tensors of
+#: each fused site of the benchmark's networks at their batch (16 frames,
+#: 256 face crops, 512 eye crops), at B = 1, the scalar path (a C or C_r
+#: not a multiple of 4) and the other combinations.
+EPILOGUE_SITES = {
+    "detector_128": (16, 128, 128, 24, 24, "RELU"),
+    "detector_pad_64": (16, 64, 64, 48, 24, "RELU"),
+    "mesh_96": (256, 96, 96, 16, 16, "PRELU"),
+    "mesh_pad_48": (256, 48, 48, 32, 16, "PRELU"),
+    "iris_32": (512, 32, 32, 64, 64, "PRELU"),
+    "mobilefacenet_56": (256, 56, 56, 128, 0, "PRELU"),
+    "stem_b1": (1, 96, 96, 16, 0, "PRELU"),
+    "mesh_pad_b1": (1, 48, 48, 32, 16, "PRELU"),
+    "detector_b1": (1, 128, 128, 24, 24, "RELU"),
+    "odd_c": (3, 7, 9, 5, 3, "PRELU"),
+    "odd_c_residual": (2, 5, 5, 8, 6, "RELU"),
+    "iris_pad_16": (512, 16, 16, 128, 64, "PRELU"),
+    "relu_only": (4, 8, 8, 16, 0, "RELU"),
+}
+
+
+def _eltwise_input(shape, seed, device, offset=0):
+    """Normal values with -0.0, +0.0, NaN and +-inf planted, made on the
+    card; ``offset`` floats into a larger buffer (a pointer off the
+    16-byte alignment)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, generator=g, device=device)[offset:]
+    picks = torch.randint(0, n, (5 * 64,), generator=g, device=device)
+    for j, v in enumerate((-0.0, 0.0, float("nan"), float("inf"),
+                           float("-inf"))):
+        flat[picks[j::5]] = v
+    return flat.view(shape)
+
+
+def _epilogue_args(site, device, offset=0):
+    n, h, w, c, cr, act = EPILOGUE_SITES[site]
+    y = _eltwise_input((n, h, w, c), 1, device, offset)
+    r = _eltwise_input((n, h, w, cr), 2, device, offset) if cr else None
+    alpha = (torch.rand(c, device=device) - 0.5) if act == "PRELU" else None
+    return y, r, act, alpha
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sorted(EPILOGUE_SITES))
+def test_epilogue_kernel_matches_plain(cuda_device, site):
+    """K5 equals its plain version (PAD, ADD, ReLU or PReLU one by one on
+    the card) bit for bit at every site's shape, -0.0, NaN and inf
+    included, on the vector path and, from a pointer off the 16-byte
+    alignment, on the scalar path."""
+    for offset in (0, 1):
+        y, r, act, alpha = _epilogue_args(site, cuda_device, offset)
+        before = epilogue.residual_act.launches
+        got = epilogue.residual_act(y, r, act, alpha)
+        torch.cuda.synchronize()
+        assert epilogue.residual_act.launches == before + 1
+        assert got.is_contiguous() and got.shape == y.shape
+        assert _same_bits(got, epilogue.residual_act_plain(y, r, act, alpha))
+
+
+@pytest.mark.cuda
+def test_epilogue_relu_and_prelu_special_values(cuda_device):
+    """ReLU equals ``torch.relu`` on the card for -0.0, +0.0, NaN and
+    +-inf; PReLU sends NaN through the multiply as ``torch.where``; a
+    padded channel turns -0.0 into +0.0 as ``F.pad`` then ``add``."""
+    vals = torch.tensor([-0.0, 0.0, float("nan"), float("inf"),
+                         -0.0, float("-inf"), float("nan"), -3.0],
+                        device=cuda_device).view(1, 1, 1, 8)
+    alpha = torch.full((8,), 0.25, device=cuda_device)
+    assert _same_bits(epilogue.residual_act(vals, None, "RELU"),
+                      torch.relu(vals))
+    assert _same_bits(epilogue.residual_act(vals, None, "PRELU", alpha),
+                      torch.where(vals >= 0, vals, vals * alpha))
+    zero4 = torch.zeros((1, 1, 1, 4), device=cuda_device)
+    got = epilogue.residual_act(vals, zero4, "PRELU", alpha)
+    assert _same_bits(got, epilogue.residual_act_plain(vals, zero4, "PRELU",
+                                                       alpha))
+    # -0.0 in a padded channel (4) and in a residual one (0) both add +0.0.
+    assert [math.copysign(1.0, got[0, 0, 0, i].item()) for i in (0, 4)] \
+        == [1.0, 1.0]
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_inside_a_graph_replay(cuda_device):
+    """Captured into a CUDA graph, K5 recomputes from the static inputs'
+    new values at each replay, bit for bit as the plain version."""
+    y, r, act, alpha = _epilogue_args("mesh_pad_b1", cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        epilogue.residual_act(y, r, act, alpha)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = epilogue.residual_act(y, r, act, alpha)
+    for seed in (5, 6):
+        y.copy_(_eltwise_input(y.shape, seed, cuda_device))
+        r.copy_(_eltwise_input(r.shape, seed + 10, cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out, epilogue.residual_act_plain(y, r, act, alpha))
+
+
+@pytest.mark.cuda
+def test_epilogue_wrapper_raises_on_what_the_kernel_does_not_take(
+        cuda_device):
+    y = torch.randn(2, 4, 4, 8, device=cuda_device)
+    alpha = torch.rand(8, device=cuda_device)
+    before = epilogue.residual_act.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        epilogue.residual_act(y.permute(0, 2, 1, 3), None, "RELU")
+    with pytest.raises(ValueError, match="contiguous"):
+        epilogue.residual_act(y, torch.randn(2, 4, 4, 4, device=cuda_device
+                                             ).transpose(1, 2), "RELU")
+    with pytest.raises(TypeError, match="float32"):
+        epilogue.residual_act(y.double(), None, "RELU")
+    with pytest.raises(ValueError, match="is on cpu"):
+        epilogue.residual_act(y, y.cpu(), "RELU")
+    with pytest.raises(ValueError, match="is on cpu"):
+        epilogue.residual_act(y, None, "PRELU", alpha.cpu())
+    assert epilogue.residual_act.launches == before
+
+
+#: role -> the full-width, full-depth seeded network of the main path.
+EPILOGUE_NETWORKS = {
+    "detector": lambda: convert_model(random_init.blazeface_back_ir(11)),
+    "mesh": lambda: convert_model(random_init.face_mesh_ir(12)),
+    "iris": lambda: convert_model(random_init.iris_landmark_ir(13)),
+    "embedding": lambda: build_mobilefacenet(14),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", sorted(EPILOGUE_NETWORKS))
+def test_every_fused_site_runs_k5_on_nhwc_inputs(cuda_device, monkeypatch,
+                                                 role):
+    """Every planned site of the main path's networks takes K5 at B = 16
+    and B = 1 (the wrapper raises on an input that is not NHWC
+    contiguous, so none is), one launch a planned pass (each PReLU of
+    MobileFaceNet), none op by op, and the network's outputs equal those
+    with the plain version at every site bit for bit."""
+    from face_detection_tflite_torch.convert import executor
+    from face_detection_tflite_torch.models import embedding
+    model = EPILOGUE_NETWORKS[role]().to(cuda_device).eval()
+    passes = (len(model._epilogues) if role != "embedding" else
+              sum(1 for k, _ in model.named_buffers() if k.endswith("_a")))
+    assert passes > 0
+    shape = tuple(model.input_shapes[0][1:]) if role != "embedding" else \
+        (112, 112, 3)
+    for b in (16, 1):
+        x = torch.rand((b,) + shape, device=cuda_device) * 2 - 1
+        before = (epilogue.residual_act.launches,
+                  epilogue.ran_op_by_op.launches)
+        with torch.inference_mode():
+            got = model(x)
+        torch.cuda.synchronize()
+        assert (epilogue.residual_act.launches - before[0],
+                epilogue.ran_op_by_op.launches - before[1]) == (passes, 0)
+        with monkeypatch.context() as m:
+            m.setattr(executor, "residual_act", epilogue.residual_act_plain)
+            m.setattr(embedding, "residual_act", epilogue.residual_act_plain)
+            with torch.inference_mode():
+                want = model(x)
+        for a, w in zip(got, want):
+            assert _same_bits(a, w)
+
+
+@pytest.mark.cuda
+def test_op_by_op_candidates_are_counted_on_the_card(cuda_device):
+    """A PRELU the plan leaves op by op (a scalar alpha) counts one
+    ``ran_op_by_op`` a call on the card, and no K5 launch."""
+    g = random_init._Graph(np.random.default_rng(0))
+    x = g.tensor((1, 6, 6, 3))
+    y = g.conv(x, 8, 1)
+    a = g.const(np.full((1, 1, 1), 0.2, np.float32))
+    m = convert_model(g.ir([x], [g.op("PRELU", [y, a], g.shape(y))], "t"))
+    m = m.to(cuda_device).eval()
+    assert not m._epilogues and len(m._op_by_op) == 1
+    inp = torch.rand((2, 6, 6, 3), device=cuda_device)
+    before = (epilogue.residual_act.launches, epilogue.ran_op_by_op.launches)
+    with torch.inference_mode():
+        m(inp)
+    assert (epilogue.residual_act.launches - before[0],
+            epilogue.ran_op_by_op.launches - before[1]) == (0, 1)
