@@ -1,5 +1,6 @@
 """Model FLOPs from the layer shapes: 2 per multiply-add of every
-convolution, depthwise convolution and fully-connected layer.
+convolution, depthwise convolution, transposed convolution and
+fully-connected layer.
 
 ``macs/<network>.json`` is the frozen count of one run of a network
 (counted over the benchmark's graphs by :func:`graph_macs` and
@@ -51,6 +52,13 @@ def graph_macs(graph) -> int:
         elif op.name == "FULLY_CONNECTED":
             cout, cin = graph.tensors[op.inputs[1]].shape
             total += int(np.prod(out)) // cout * cin * cout
+        elif op.name in ("TRANSPOSE_CONV",
+                         "CUSTOM:Convolution2DTransposeBias"):
+            # Each input value meets a filter tap of each output channel.
+            w, x = ((op.inputs[0], op.inputs[1]) if op.name ==
+                    "TRANSPOSE_CONV" else (op.inputs[1], op.inputs[0]))
+            cout, kh, kw, cin = graph.tensors[w].shape
+            total += int(np.prod(graph.tensors[x].shape)) * kh * kw * cout
     return total
 
 

@@ -4,7 +4,9 @@ correctness check.
 The traffic mix names its ``loop`` (``h100_bench/loops/<loop>.py``),
 which calls the program's entry on units of ``batch`` frames (1 where
 the mix gives none) cycled through the pool; the configuration names
-its ``reference`` (``h100_bench/reference/<reference>.py``).
+its ``reference`` (``h100_bench/reference/<reference>.py``), the face
+pipeline that calibrates the detector, and its checks
+(``harness/check.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import time
 
 import numpy as np
 import torch
+
+from h100_bench.checks import faces
 
 from . import check, netspec, system
 from .frames import make_frames
@@ -88,27 +92,52 @@ class Setup:
         raise RuntimeError(f"warm-up left program keys uncaptured: {report}")
 
 
-def reference(config: dict, nets: dict, device):
-    """The configuration's plain reference over ``nets``."""
-    return plugin("reference", config["reference"]).Reference(
-        nets, device, config["max_faces"])
+#: Halvings of the log interval of passing anchors a frame in the search
+#: for a mix's ``calibrate_faces``.
+FACE_STEPS = 8
 
 
 def calibrate(nets, frames: np.ndarray, config: dict, mix: dict, device):
-    """The detector's score bias set so that about the mix's
-    ``calibrate_anchors`` anchors a frame pass, on the pool's frames, with
-    the reference's detector.  Returns the calibrated reference (without
-    the embedding network)."""
-    bare = {k: v for k, v in nets.items() if k != "embedding"}
-    ref = reference(config, bare, device)
+    """The detector's score bias set on the pool's frames, with the
+    reference's detector: so that about the mix's ``calibrate_anchors``
+    anchors a frame pass, or, where the mix gives ``calibrate_faces``, so
+    that the frames give that many detections a frame on average (the
+    passing anchors a frame found by bisection; the seed's weights set
+    how many detections an anchor count gives).  Returns the calibrated
+    reference over the face roles alone (detector, mesh, iris,
+    blendshapes)."""
+    ref = faces.reference(config, nets, device, faces.FACE_ROLES)
+    blocks = [torch.from_numpy(frames[i:i + 16]).to(device)
+              for i in range(0, len(frames), 16)]
     with torch.inference_mode():
-        logits = torch.cat([ref.detector_logits(
-            torch.from_numpy(frames[i:i + 16]).to(device))
-            for i in range(0, len(frames), 16)])
-    netspec.calibrate_score_bias(nets["detector"],
-                                 logits.double().cpu().numpy(),
-                                 mix["calibrate_anchors"])
-    return reference(config, bare, device)
+        logits = torch.cat([ref.detector_logits(x) for x in blocks])
+    logits = logits.double().cpu().numpy()
+    det = nets["detector"]
+    if "calibrate_faces" not in mix:
+        netspec.calibrate_score_bias(det, logits, mix["calibrate_anchors"])
+        return faces.reference(config, nets, device, faces.FACE_ROLES)
+    target = mix["calibrate_faces"]
+    biases = {t: det.tensors[t].data.copy()
+              for t in netspec.score_bias_tensors(det)}
+
+    def faces_a_frame(log_anchors: float) -> float:
+        for t, data in biases.items():
+            det.tensors[t].data = data.copy()
+        netspec.calibrate_score_bias(det, logits, float(np.exp(log_anchors)))
+        ref = faces.reference(config, nets, device, faces.FACE_ROLES)
+        with torch.inference_mode():
+            return float(np.mean([n for x in blocks
+                                  for n in ref.count_faces(x)]))
+
+    lo, hi, best = 0.0, float(np.log(logits.shape[1])), None
+    for _ in range(FACE_STEPS):
+        mid = 0.5 * (lo + hi)
+        mean = faces_a_frame(mid)
+        if best is None or abs(mean - target) < best[0]:
+            best = (abs(mean - target), mid)
+        lo, hi = (mid, hi) if mean < target else (lo, mid)
+    faces_a_frame(best[1])
+    return faces.reference(config, nets, device, faces.FACE_ROLES)
 
 
 def select_frames(ref, frames: np.ndarray, mix: dict,
@@ -117,19 +146,24 @@ def select_frames(ref, frames: np.ndarray, mix: dict,
     ``faces_cycle`` (repeated to fill the pool): each position takes the
     next unused frame, in order, with that many detections.  Every seed
     then gives the same face counts in the same order, so the same
-    program keys in the same order."""
+    program keys in the same order.  Where no frame with a position's
+    count is left, the next unused frame of the nearest count that has
+    one stands in (the lower of two), so that a seed whose frames fall
+    short still runs."""
     with torch.inference_mode():
         counts = ref.count_faces(torch.from_numpy(frames).to(device))
     pattern = mix["faces_cycle"]
-    free = {n: [i for i, c in enumerate(counts) if c == n]
-            for n in set(pattern)}
+    free: dict[int, list[int]] = {}
+    for i, c in enumerate(counts):
+        free.setdefault(c, []).append(i)
     picks = []
     for pos in range(mix["pool"]):
         n = pattern[pos % len(pattern)]
-        if not free[n]:
-            raise RuntimeError(f"too few of {len(frames)} frames have {n} "
-                               f"faces for the mix's pool")
-        picks.append(free[n].pop(0))
+        left = [c for c, idx in free.items() if idx]
+        if not left:
+            raise RuntimeError(f"{len(frames)} frames are too few for the "
+                               f"mix's pool of {mix['pool']}")
+        picks.append(free[min(left, key=lambda c: (abs(c - n), c))].pop(0))
     return np.ascontiguousarray(frames[picks])
 
 
@@ -195,28 +229,35 @@ class Sample:
 
 def check_outputs(setup: Setup, chosen: dict, limits: dict,
                   operands=None, whole_pool: bool = False) -> dict:
-    """The reference over the chosen units' frames ({unit: (pool indices,
-    faces)}; over every frame of the pool with ``whole_pool``), and the
-    comparison.  Runs after the program's state is freed."""
+    """Each check's reference over the chosen units' frames ({unit: (pool
+    indices, answers a frame)}; over every frame of the pool with
+    ``whole_pool``), and the comparisons.  Runs after the program's state
+    is freed.  ``ref`` is the face reference's answer by pool index."""
     frames = setup.frames
-    device = setup.device
     pool = sorted({i for idx, _ in chosen.values() for i in idx})
     if whole_pool:
         pool = list(range(len(frames)))
-    ref = reference(setup.config, setup.nets, device)
-    with torch.inference_mode():
-        out = ref(torch.from_numpy(frames[pool]).to(device), operands)
-    by_frame = dict(zip(pool, out))
-    pairs = []
-    for idx, faces in chosen.values():
-        for i, got in zip(idx, faces):
-            pairs.append(([check.port_face(f) for f in got], by_frame[i]))
-    h, w = frames.shape[1:3]
-    res = check.compare(pairs, h, w)
-    ok, shown = check.judge(res["numbers"], res["counts"], limits,
-                            "embedding" in setup.nets)
-    return {"correct": ok, "checks": shown, "counts": res["counts"],
-            "ref": by_frame}
+    hw = frames.shape[1:3]
+    results, by_faces = {}, None
+    for name, mod in check.modules(setup.config):
+        ref = mod.reference(setup.config, setup.nets, setup.device)
+        with torch.inference_mode():
+            out = ref(torch.from_numpy(frames[pool]).to(setup.device),
+                      operands)
+        del ref
+        by_frame = dict(zip(pool, out))
+        pairs = [(mod.port_answer(check.frame_answer(got), setup.config),
+                  by_frame[i])
+                 for idx, answers in chosen.values()
+                 for i, got in zip(idx, answers)]
+        results[name] = mod.compare(pairs, hw, setup.config)
+        if name == "faces":
+            by_faces = by_frame
+    ok, shown = check.judge(results, limits, setup.config)
+    bad = set().union(*(r["bad"] for r in results.values()))
+    return {"correct": ok, "checks": shown, "failed": len(bad),
+            "counts": {name: r["counts"] for name, r in results.items()},
+            "ref": by_faces}
 
 
 def free(setup: Setup) -> None:

@@ -8,8 +8,8 @@ picks its frames, the picking) runs the plain reference; its seconds are
 reported as the part ``calibration`` and left out of ``setup_s``.  Then
 the window: ``seconds`` of the cell's closed loop (``--trace 0``), or
 ``trace_units`` units under the profiler (``--trace 1``).  Then the
-program is freed, and the reference checks a seeded sample of the
-window's answers.
+program is freed, and the configuration's checks hold a seeded sample
+of the window's answers to the plain reference (``check.py``).
 """
 
 from __future__ import annotations
@@ -114,7 +114,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device,
     result = {
         "correct": res["correct"],
         "attempted": frames,
-        "failed": res["counts"]["bad_frames"],
+        "failed": res["failed"],
         "metrics": metrics,
         "device": {"platform": "gpu" if dev.type == "cuda" else dev.type,
                    "kind": (torch.cuda.get_device_name(dev)

@@ -12,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 
 from face_detection_tflite_torch import (FaceDetectionMode,
-                                         FaceDetectionModel, FaceDetector)
+                                         FaceDetectionModel, FaceDetector,
+                                         SegmentationConfig,
+                                         SegmentationModel)
 from face_detection_tflite_torch.convert.checkpoint import swap_params
 from face_detection_tflite_torch.convert.executor import convert_model
 from face_detection_tflite_torch.convert.tflite import (ModelIR, OpIR,
@@ -55,6 +57,19 @@ def to_ir(graph) -> ModelIR:
             o = {"padding": 1, "stride_w": o["stride"],
                  "stride_h": o["stride"], "filter_w": o["filter"],
                  "filter_h": o["filter"], "activation": None}
+        elif op.name == "AVERAGE_POOL_2D":
+            (fh, fw), (sh, sw) = o["filter"], o["stride"]
+            o = {"padding": o["padding"], "stride_h": sh, "stride_w": sw,
+                 "filter_h": fh, "filter_w": fw, "activation": None}
+        elif op.name == "RESIZE_BILINEAR":
+            inputs.append(const(o.pop("size")))
+        elif op.name in ("TRANSPOSE_CONV",
+                         "CUSTOM:Convolution2DTransposeBias"):
+            s = o.pop("stride")
+            o.update(stride_h=s, stride_w=s)
+            if op.name == "TRANSPOSE_CONV":
+                inputs.insert(0, const(o.pop("output_shape")))
+                o["activation"] = None
         elif op.name == "RESHAPE":
             inputs.append(const(o["new_shape"]))
         elif op.name == "MEAN":
@@ -81,7 +96,11 @@ def mode(config: dict) -> FaceDetectionMode:
 def make_detector(nets: dict, config: dict, device) -> FaceDetector:
     """The ``FaceDetector`` of ``config`` on the benchmark's networks: each
     role's graph converted to the port's IR, or, for a parameter dict
-    (``embedding``), MobileFaceNet loaded from it as a checkpoint."""
+    (``embedding``), MobileFaceNet loaded from it as a checkpoint.  A
+    ``segmentation`` role goes in as ``PipelineModels(segmentation=...)``
+    with the configuration's ``segmentation`` block (``model``, a
+    ``SegmentationModel`` name; ``mask_dtype``; ``precision``) as its
+    ``SegmentationConfig``."""
     models = {}
     for role, net in nets.items():
         if isinstance(net, dict):
@@ -91,9 +110,14 @@ def make_detector(nets: dict, config: dict, device) -> FaceDetector:
             models[role] = convert_model(to_ir(net), name=role)
     variant = FaceDetectionModel[config["detector_model"]]
     detector = models.pop("detector")
+    seg = config.get("segmentation")
+    seg_config = None if seg is None else SegmentationConfig(
+        model=SegmentationModel[seg["model"]], mask_dtype=seg["mask_dtype"],
+        precision=seg["precision"])
     return FaceDetector(variant, max_faces=config["max_faces"],
                         precision=config["precision"],
                         embed_in_full="embedding" in models,
                         allow_untrained_embeddings=True, device=device,
+                        segmentation_config=seg_config,
                         models=PipelineModels(detector, variant.value,
                                               device=device, **models))

@@ -120,13 +120,15 @@ def back_anchors() -> np.ndarray:
     return np.asarray(out, np.float32)
 
 
-def letterbox_geometry(h: int, w: int, size: int):
-    """(new_h, new_w, pad_top, pad_bottom, pad_left, pad_right)."""
-    scale = min(size / w, size / h)
-    new_w = min(size, max(1, int(math.floor(w * scale + 0.5))))
+def letterbox_geometry(h: int, w: int, size: int, width: int | None = None):
+    """(new_h, new_w, pad_top, pad_bottom, pad_left, pad_right) of the fit
+    into ``size`` rows and ``width`` (else ``size``) columns."""
+    width = width or size
+    scale = min(width / w, size / h)
+    new_w = min(width, max(1, int(math.floor(w * scale + 0.5))))
     new_h = min(size, max(1, int(math.floor(h * scale + 0.5))))
-    pt, pl = (size - new_h) // 2, (size - new_w) // 2
-    return new_h, new_w, pt, size - new_h - pt, pl, size - new_w - pl
+    pt, pl = (size - new_h) // 2, (width - new_w) // 2
+    return new_h, new_w, pt, size - new_h - pt, pl, width - new_w - pl
 
 
 def _taps(n_in: int, n_out: int, device):
@@ -139,10 +141,12 @@ def _taps(n_in: int, n_out: int, device):
             torch.from_numpy(frac).to(device))
 
 
-def letterbox(frames: torch.Tensor, size: int) -> torch.Tensor:
-    """uint8 ``[B, H, W, 3]`` -> float ``[B, size, size, 3]`` in [-1, 1]."""
+def letterbox(frames: torch.Tensor, size: int, width: int | None = None
+              ) -> torch.Tensor:
+    """uint8 ``[B, H, W, 3]`` -> float ``[B, size, width or size, 3]`` in
+    [-1, 1]."""
     b, h, w, _ = frames.shape
-    nh, nw, pt, pb, pl, pr = letterbox_geometry(h, w, size)
+    nh, nw, pt, pb, pl, pr = letterbox_geometry(h, w, size, width)
     lo, hi, f = _taps(h, nh, frames.device)
     f = f[:, None, None]
     x = frames[:, lo].float() * (1.0 - f) + frames[:, hi].float() * f

@@ -18,10 +18,9 @@ CELLS = [w["name"] for w in manifest.load_manifest()["workloads"]]
 
 def _judged(cell, seed, device, operands):
     r = control.readings(cell, seed, device, operands)
-    embeds = bool(cell["config"]["networks"].get("embedding"))
-    ok, shown = check.judge(r["numbers"], r["counts"],
+    ok, shown = check.judge(r["results"],
                             check.load_limits(cell["workload"]["name"]),
-                            embeds)
+                            cell["config"])
     return ok, shown, r
 
 
@@ -44,7 +43,8 @@ def test_the_control_fails_at_a_test_size(workload):
     # The fp32 reference against itself reads nothing beyond the
     # readback's own rounding.
     same = control.readings(tiny_cell(workload), 2 ** 31 + 3,
-                            torch.device("cpu"), None)["numbers"]
+                            torch.device("cpu"), None)["results"]["faces"][
+                                "numbers"]
     assert same.pop("landmark_err_px") < 1e-9
     assert all(v == 0 for v in same.values()), same
 

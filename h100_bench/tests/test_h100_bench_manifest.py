@@ -83,6 +83,8 @@ def test_every_cell_finds_its_files_by_name(bench):
         assert manifest.plugin("frames", cell["mix"]["frames"]["kind"]).make
         cfg = cell["config"]
         assert manifest.plugin("reference", cfg["reference"]).Reference
+        for name in cfg.get("answers", ["faces"]):
+            assert manifest.plugin("checks", name).compare
         for spec in cfg["networks"].values():
             if spec:
                 assert manifest.plugin("networks", spec["builder"]).build
@@ -106,23 +108,44 @@ def test_no_cell_named_in_harness_code(bench):
             assert c not in text, f"{path} names the cell {c}"
 
 
-def test_configuration_files_state_their_widths(bench):
+#: A segmenter's input and class planes, by ``SegmentationModel`` name.
+SEGMENTERS = {"GENERAL": ([256, 256], 1), "LANDSCAPE": ([144, 256], 1),
+              "MULTICLASS": ([256, 256], 6)}
+
+
+def check_widths(cfg: dict) -> None:
+    """A configuration states its networks' published inputs and shapes;
+    a segmenting one its segmenter's, by the model it names."""
     from face_detection_tflite_torch import (FaceDetectionMode,
                                              FaceDetectionModel)
     from h100_bench.reference.mobilefacenet import BLOCKS
+    assert cfg["precision"] == "highest"
+    assert cfg["mode"] in FaceDetectionMode.__members__
+    assert cfg["detector_model"] in FaceDetectionModel.__members__
+    nets = cfg["networks"]
+    assert nets["detector"]["input"] == 256
+    assert nets["detector"]["anchors"] == 896
+    assert nets["mesh"]["input"] == 192 and nets["iris"]["input"] == 64
+    if nets.get("embedding"):
+        # The reference states MobileFaceNet's bottlenecks itself.
+        assert [tuple(b) for b in nets["embedding"]["blocks"]] == BLOCKS
+    if nets.get("segmentation"):
+        seg = cfg["segmentation"]
+        assert seg["precision"] == "highest"
+        assert seg["mask_dtype"] in ("float32", "uint8")
+        spec = nets["segmentation"]
+        assert [spec["in_hw"], spec["classes"]] == list(
+            SEGMENTERS[seg["model"]])
+        assert all(len(s) == 7 for s in spec["stages"])
+        assert "masks" in cfg["answers"]
+
+
+def test_configuration_files_state_their_widths(bench):
     for c in bench["configs"]:
         with open(os.path.join(ROOT, c["file"])) as f:
             cfg = json.load(f)
-        assert cfg["name"] == c["name"] and cfg["precision"] == "highest"
-        assert cfg["mode"] in FaceDetectionMode.__members__
-        assert cfg["detector_model"] in FaceDetectionModel.__members__
-        nets = cfg["networks"]
-        assert nets["detector"]["input"] == 256
-        assert nets["detector"]["anchors"] == 896
-        assert nets["mesh"]["input"] == 192 and nets["iris"]["input"] == 64
-        if nets.get("embedding"):
-            # The reference states MobileFaceNet's bottlenecks itself.
-            assert [tuple(b) for b in nets["embedding"]["blocks"]] == BLOCKS
+        assert cfg["name"] == c["name"]
+        check_widths(cfg)
 
 
 def test_a_module_name_from_data_stays_inside_its_folder():

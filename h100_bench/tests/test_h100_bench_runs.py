@@ -17,7 +17,7 @@ CELLS = ["full.stream16", "full_embed.stream16", "full.single720"]
 def test_reference_agrees_with_the_port_on_the_cpu(workload):
     result, err = run_tiny(workload)
     assert result["correct"], err
-    counts = result["sample"]
+    counts = result["sample"]["faces"]
     assert counts["compared"] > 0 and counts["faces"] > 0
     assert result["checks"]["face_mismatch"]["value"] == 0
     assert list(result)[-1] == "checks"
