@@ -19,6 +19,16 @@ the size's ``graphs.CAPTURE_AT_CALL``-th call and replayed after
 (``pipeline/graphs.py``), one graph
 a batch size, in the graph memory pool of the device it runs on.
 
+On a card the program stamps the card's clock at its start (the stage
+group ``segmentation``) and once before its planes are copied out, and the
+stamps ride behind the planes' bytes in the one readback
+(``pipeline/timings.py``, "Stage stamps"); after the mask wait they add
+``device.segmentation`` ms to the timings of the span the caller has
+open.  Three host spans record into those timings too:
+``segment.dispatch`` (the upload, the program's queueing and the
+readback's start), ``segment.wait`` (blocked on the readback) and
+``segment.materialize`` (the mask objects).
+
 Deliberate differences: :class:`SelfieSegmentation` runs on ``cuda``
 unless the caller passes ``device="cpu"``.  ``place_on`` moves it to
 another device, as in the JAX package.
@@ -39,8 +49,8 @@ import torch
 from ..convert.executor import (ConvertedModel, _check_fp32,
                                 fp32_on_the_card, resolve_device)
 from ..ops.letterbox import letterbox_image, letterbox_params
-from ..pipeline import graphs
-from ..pipeline.timings import stage_range
+from ..pipeline import graphs, timings
+from ..pipeline.timings import span, stage_range
 from ..pipeline.upload import download_async
 from ..utils.image import decode_image, normalize_channels
 
@@ -314,11 +324,20 @@ class SelfieSegmentation:
                 prog.release()
         self._programs.clear()
 
+    def captured(self) -> list:
+        """The captured programs, one an image size (none off a card)."""
+        with self._programs_lock:
+            return [p for p, _ in self._programs.values()
+                    if isinstance(p, graphs.CapturedProgram)]
+
     def _program(self, model: ConvertedModel, img_h: int, img_w: int):
         """(program, letterbox) of one image size: ``[B, img_h, img_w, 3]``
-        frames -> the person plane (``[B, h, w, 1]``) or the six softmax
-        planes, as uint8 where asked.  The program closes over ``model``,
-        the caller's snapshot, not ``self.model``: a concurrent
+        frames -> (the person plane (``[B, h, w, 1]``) or the six softmax
+        planes, as uint8 where asked; the names of its stage stamps).  On
+        a card the planes come as one flat byte buffer with the stamps'
+        int64 values behind them (:meth:`materialize` splits it); off a
+        card the names are empty.  The program closes over ``model``, the
+        caller's snapshot, not ``self.model``: a concurrent
         :meth:`dispose` may null the attribute before the program runs."""
         with self._programs_lock:
             key = (img_h, img_w)
@@ -326,14 +345,22 @@ class SelfieSegmentation:
                 lbp = letterbox_params(img_h, img_w, self.in_h, self.in_w)
 
                 def planes(images):
-                    (raw,) = model(letterbox_image(images, lbp))
-                    raw = raw.reshape(raw.shape[0], self.in_h, self.in_w, -1)
-                    out = (torch.softmax(raw, dim=-1) if self.multiclass
-                           else raw[..., :1])
-                    if self.mask_dtype == "uint8":
-                        out = torch.round(torch.clamp(out, 0.0, 1.0) * 255.0
-                                          ).to(torch.uint8)
-                    return out
+                    with timings.stamping(images.device) as stamps:
+                        with stage_range("fdt.segmentation"):
+                            (raw,) = model(letterbox_image(images, lbp))
+                            raw = raw.reshape(raw.shape[0], self.in_h,
+                                              self.in_w, -1)
+                            out = (torch.softmax(raw, dim=-1)
+                                   if self.multiclass else raw[..., :1])
+                            if self.mask_dtype == "uint8":
+                                out = torch.round(torch.clamp(
+                                    out, 0.0, 1.0) * 255.0).to(torch.uint8)
+                        if stamps is None:
+                            return out, ()
+                        stamps.stamp("pack")
+                    return torch.cat([out.reshape(-1).view(torch.uint8),
+                                      stamps.values().view(torch.uint8)]), \
+                        tuple(stamps.names)
 
                 self._programs[key] = (graphs.program(
                     planes, self.device, functools.partial(
@@ -343,8 +370,9 @@ class SelfieSegmentation:
     def dispatch(self, images):
         """Queues the segmentation of a [B, H, W, C] (or one [H, W, C])
         RGB batch, numpy or tensor, and starts the planes' copy to pinned
-        host memory; returns the handle :meth:`materialize` takes.  Raises
-        RuntimeError after :meth:`dispose`."""
+        host memory, in the span ``segment.dispatch``; returns the handle
+        :meth:`materialize` takes.  Raises RuntimeError after
+        :meth:`dispose`."""
         model = self.model  # a concurrent dispose() must give RuntimeError
         if model is None:
             raise RuntimeError("SelfieSegmentation has been disposed")
@@ -354,7 +382,7 @@ class SelfieSegmentation:
         # other 3-D array is a [B, H, W] grayscale batch.
         if images.ndim == 3 and images.shape[-1] in (1, 3, 4):
             images = images[None]
-        with stage_range("fdt.segmentation"):
+        with span("segment.dispatch"):
             images = normalize_channels(images, self.device)
             b, h, w, _ = images.shape
             if (h < MIN_SEGMENTATION_INPUT_SIZE
@@ -365,30 +393,42 @@ class SelfieSegmentation:
                     f"{MIN_SEGMENTATION_INPUT_SIZE}")
             prog, lbp = self._program(model, h, w)
             with torch.inference_mode():
-                host, event = download_async(prog(images))
-        return host, event, lbp, b, w, h
+                out, stamps = prog(images)
+                host, event = download_async(out)
+        return host, event, lbp, b, w, h, stamps
 
     def materialize(self, handle) -> list[SegmentationMask]:
-        """Waits for a :meth:`dispatch` handle's copy and builds the mask
-        objects (multiclass: person = 1 - background)."""
-        host, event, lbp, b, w, h = handle
-        if event is not None:
-            event.synchronize()
-        planes = host.numpy()
-        if planes.dtype == np.uint8:
-            planes = planes.astype(np.float32) * (1.0 / 255.0)
-        masks: list[SegmentationMask] = []
-        for i in range(b):
-            if self.multiclass:
-                masks.append(MulticlassSegmentationMask(
-                    1.0 - planes[i, ..., 0], w, h, lbp.padding,
-                    class_data=planes[i],
-                    default_max_size=self.max_output_size))
-            else:
-                masks.append(SegmentationMask(
-                    planes[i, ..., 0], w, h, lbp.padding,
-                    default_max_size=self.max_output_size))
-        return masks
+        """Waits for a :meth:`dispatch` handle's copy (span
+        ``segment.wait``) and builds the mask objects (span
+        ``segment.materialize``; multiclass: person = 1 - background).
+        The program's stage stamps go to the enclosing span's timings as
+        ``device.segmentation`` ms, not into the planes."""
+        host, event, lbp, b, w, h, stamps = handle
+        with span("segment.wait"):
+            if event is not None:
+                event.synchronize()
+        with span("segment.materialize"):
+            planes = host.numpy()
+            if stamps:
+                tail = 8 * len(stamps)
+                timings.record_stamps(stamps, planes[-tail:].view(np.int64))
+                planes = planes[:-tail].view(
+                    np.uint8 if self.mask_dtype == "uint8" else np.float32
+                ).reshape(b, self.in_h, self.in_w, -1)
+            if planes.dtype == np.uint8:
+                planes = planes.astype(np.float32) * (1.0 / 255.0)
+            masks: list[SegmentationMask] = []
+            for i in range(b):
+                if self.multiclass:
+                    masks.append(MulticlassSegmentationMask(
+                        1.0 - planes[i, ..., 0], w, h, lbp.padding,
+                        class_data=planes[i],
+                        default_max_size=self.max_output_size))
+                else:
+                    masks.append(SegmentationMask(
+                        planes[i, ..., 0], w, h, lbp.padding,
+                        default_max_size=self.max_output_size))
+            return masks
 
     def __call__(self, images) -> list[SegmentationMask]:
         """Segments a [B, H, W, 3] RGB batch (uint8 or float 0..255)."""

@@ -1463,13 +1463,16 @@ class FaceDetector:
         enabled the faces carry tracking IDs (face_detector.dart:911)."""
         seg = self._segmenter()
         gen0 = self._tracking_generation
-        if not isinstance(image, torch.Tensor):
-            image = self._device_put_cached(np.asarray(image))
-        images = normalize_channels(image[None], self.device)
-        handle = seg.dispatch(images)
-        faces = self._attach_tracking(
-            self.detect_faces_batch(images, mode)[0], gen0)
-        return faces, seg.materialize(handle)[0]
+        with span(None, self.timings, next(self._units)):
+            with span("upload"):
+                if not isinstance(image, torch.Tensor):
+                    image = self._put_cached(np.asarray(image))
+                images = normalize_channels(image[None], self.device)
+                prep = self._prepared(images)
+            handle = seg.dispatch(images)
+            faces = self._attach_tracking(self.detect_faces_batch(
+                images, mode, _prepared=prep)[0], gen0)
+            return faces, seg.materialize(handle)[0]
 
     def detect_faces_with_segmentation_from_bytes(
             self, data: bytes,
@@ -1492,16 +1495,20 @@ class FaceDetector:
     def detect_faces_with_segmentation_batch(
             self, images, mode: FaceDetectionMode = FaceDetectionMode.FULL
     ) -> list[tuple[list[Face], SegmentationMask]]:
-        """Combined detect + segment over a batch: one upload, the mask
-        program queued before the detection, its readback waited on
-        last.  Tracking is not applied, as in :meth:`detect_faces_batch`."""
+        """Combined detect + segment over a batch: one upload (span
+        ``upload``), the mask program queued before the detection, its
+        readback waited on last (the ``segment.*`` spans).  Tracking is
+        not applied, as in :meth:`detect_faces_batch`."""
         seg = self._segmenter()
-        if not isinstance(images, torch.Tensor):
-            images = np.asarray(images)
-        images = normalize_channels(images, self.device)
-        handle = seg.dispatch(images)
-        faces = self.detect_faces_batch(images, mode)
-        return list(zip(faces, seg.materialize(handle)))
+        with span(None, self.timings, next(self._units)):
+            with span("upload"):
+                if not isinstance(images, torch.Tensor):
+                    images = np.asarray(images)
+                images = normalize_channels(images, self.device)
+                prep = self._prepared(images)
+            handle = seg.dispatch(images)
+            faces = self.detect_faces_batch(images, mode, _prepared=prep)
+            return list(zip(faces, seg.materialize(handle)))
 
     # -- observability ---------------------------------------------------------
 
@@ -1534,7 +1541,9 @@ class FaceDetector:
         ``compiled_programs`` on a card) and those called but not captured
         yet (``pending_keys``), the calls that ran a key's eager program
         (``eager_calls``) and those that replayed its graph (``replays``;
-        all four 0 off a card), and the device bytes of
+        all four 0 off a card), each over the detector's and its
+        segmenter's captured programs, the segmenter's replays apart
+        (``segmentation_replays``), and the device bytes of
         the memory pools its graphs live in (``graph_pool_bytes``, 0 off a
         card; a device's pool is shared with the process's other captured
         programs there), the process's PRELUs and ADDs with a fused RELU
@@ -1567,6 +1576,9 @@ class FaceDetector:
             replicas = list(self._replica_params_cache.values())
             captured = list(self._captured_programs)
             n_programs = len(self._programs)
+        seg = (self._segmentation.captured()
+               if self._segmentation is not None else [])
+        captured += seg
         # On a card the programs are CUDA graphs, one a key and batch
         # shape (pipeline/graphs.py), in one memory pool a device.
         report["captured_keys"] = sum(len(p.keys()) for p in captured)
@@ -1574,6 +1586,8 @@ class FaceDetector:
         counts = [c for p in captured for c in p.counts().values()]
         report["eager_calls"] = sum(c["eager"] for c in counts)
         report["replays"] = sum(c["replays"] for c in counts)
+        report["segmentation_replays"] = sum(
+            c["replays"] for p in seg for c in p.counts().values())
         report["compiled_programs"] = (
             report["captured_keys"]
             if graphs.graph_maker(self.device) is not None else n_programs)

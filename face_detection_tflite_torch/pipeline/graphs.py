@@ -103,7 +103,8 @@ from ..kernels import build as _build
 from . import timings
 
 __all__ = ["CapturedProgram", "GraphPool", "graph_maker", "pool_for",
-           "program", "eager", "capture_now", "CAPTURE_AT_CALL"]
+           "program", "eager", "capture_now", "thread_flags", "flags_set",
+           "CAPTURE_AT_CALL"]
 
 #: The call of an input signature that captures it; the calls before it
 #: run the eager program.  A key is captured once its eager calls have
@@ -144,6 +145,24 @@ def capture_now():
     (``FaceDetector.warmup``) pays the captures up front.  :func:`eager`
     takes precedence."""
     return _set("capture_now")
+
+
+def thread_flags() -> tuple:
+    """The flags of :func:`eager` and :func:`capture_now` set on this
+    thread, for a worker thread that runs this thread's calls
+    (:func:`flags_set`)."""
+    return tuple(f for f in ("eager", "capture_now")
+                 if getattr(_local, f, False))
+
+
+@contextlib.contextmanager
+def flags_set(flags: tuple):
+    """Within the block, on this thread, the flags ``flags`` of another
+    thread (:func:`thread_flags`) are set too."""
+    with contextlib.ExitStack() as stack:
+        for flag in flags:
+            stack.enter_context(_set(flag))
+        yield
 
 
 def _runs_eager() -> bool:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..convert.executor import resolve_device
+from . import graphs
 from .config import FaceDetectionMode
 from .timings import span
 from .upload import upload
@@ -49,7 +50,18 @@ class ServingPipeline:
     The worker runs each batch on the stream that was current on the
     submitting thread for the pipeline's device, the stream its upload is
     ordered on, and in inference mode (both are per-thread state in
-    PyTorch).
+    PyTorch), and queues its programs (an overflow re-run's too) under
+    the submitting thread's ``graphs.eager()`` and
+    ``graphs.capture_now()`` (per-thread state of the captured programs),
+    so that a batch submitted inside ``capture_now()`` captures its
+    program keys at their first call.
+
+    Every span of a batch (``pipeline/timings.py``) records into the
+    detector's timings with the batch's number as its unit: the upload on
+    the submitting thread; the segmenter's ``segment.dispatch``, the
+    detection's dispatch, its readback's wait, the mask's wait
+    (``segment.wait``), the faces' and the masks' build
+    (``materialize``, ``segment.materialize``) on the worker.
 
     ``device`` pins the pipeline to one device with its own copy of the
     detector's weights (``FaceDetector._replica_params``; a
@@ -114,7 +126,10 @@ class ServingPipeline:
         # Shape first, so a malformed batch raises here and not in the
         # worker's stream.
         validate_batch_shape(images.shape)
-        with span("upload", self._det.timings):
+        # The batch's number: the unit of every span of the batch, here
+        # and on the worker.
+        unit = next(self._det._units)
+        with span("upload", self._det.timings, unit):
             images = upload(images, self._device or self._det.device)
         # The stream of the pipeline's device current on this thread, not
         # of this thread's current device.
@@ -128,7 +143,8 @@ class ServingPipeline:
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError("ServingPipeline is closed")
-            item = (images, orig_sizes, stream, fut)
+            item = (images, orig_sizes, stream, fut, unit,
+                    graphs.thread_flags())
             if block:
                 self._q.put(item)
             else:
@@ -147,11 +163,14 @@ class ServingPipeline:
         # batch's readback blocks; with the queue empty, pending work
         # finishes at once.  Futures resolve in submit order.
         pending: collections.deque = collections.deque()
+        timings = self._det.timings
 
         def finish_one():
-            fut, handle, stream, seg_handle = pending.popleft()
+            fut, handle, stream, seg_handle, unit, flags = pending.popleft()
             try:
-                with _on_stream(stream):
+                # An overflow re-run queues a program here.
+                with _on_stream(stream), span(None, timings, unit), \
+                        graphs.flags_set(flags):
                     result = self._det._stream_finish(handle, self._mode)
                     if seg_handle is not None:
                         result = list(zip(result,
@@ -170,13 +189,14 @@ class ServingPipeline:
                 continue
             if item is None:
                 break
-            images, orig_sizes, stream, fut = item
+            images, orig_sizes, stream, fut, unit, flags = item
             # QUEUED -> RUNNING; a Future cancelled while queued is
             # skipped, and a running one can no longer be cancelled.
             if not fut.set_running_or_notify_cancel():
                 continue
             try:
-                with _on_stream(stream):
+                with _on_stream(stream), span(None, timings, unit), \
+                        graphs.flags_set(flags):
                     seg_handle = (
                         self._det._segmentation.dispatch(images)
                         if self._with_segmentation and images.shape[0]
@@ -185,7 +205,7 @@ class ServingPipeline:
                               if self._device is not None else {})
                     pending.append((fut, self._det._stream_dispatch(
                         images, self._mode, orig_sizes, **pinned), stream,
-                        seg_handle))
+                        seg_handle, unit, flags))
             except Exception as e:
                 fut.set_exception(e)
             if len(pending) > self._depth:

@@ -34,7 +34,8 @@ so that a call outside a trace pays a flag read a stage and not
 device time by stage.  A captured program's replay enters no range.
 
 **Stage stamps.**  A program run under :func:`stamping` (the detector's
-programs, ``pipeline/detector.py::packed_readback``) writes the card's
+programs, ``pipeline/detector.py::packed_readback``, and the segmenter's,
+``models/segmentation.py``) writes the card's
 ``%globaltimer`` into a small int64 buffer at its start and at the start
 of each top-level stage group (:data:`STAMPED`), through a one-thread
 kernel (``csrc/stamp.cu``) that :func:`stage_range` launches on entry;
@@ -219,13 +220,14 @@ class DetectTimings:
         return "DetectTimings(" + ", ".join(parts) + ")"
 
 
-#: The stage ranges that open a stage group of the detector's programs,
-#: and the group's name: a program stamps the card's clock on entering
-#: each (and once before its readback is packed, ``"pack"``), so that the
-#: groups' device ms are the differences of consecutive stamps.
+#: The stage ranges that open a stage group of the detector's programs
+#: (and of the segmenter's, ``fdt.segmentation``), and the group's name: a
+#: program stamps the card's clock on entering each (and once before its
+#: readback is packed, ``"pack"``), so that the groups' device ms are the
+#: differences of consecutive stamps.
 STAMPED = {"fdt.letterbox": "detect", "fdt.mesh": "mesh",
            "fdt.iris": "iris", "fdt.blendshapes": "blendshapes",
-           "fdt.embedding": "embedding"}
+           "fdt.embedding": "embedding", "fdt.segmentation": "segmentation"}
 #: Slots of a program's stamp buffer: the groups and the final stamp.
 STAMP_SLOTS = 8
 _DEVICE_KEYS = {g: "device." + g for g in STAMPED.values()}

@@ -1067,6 +1067,53 @@ def test_replay_stage_stamps_lie_inside_the_replay(cuda_device):
     prog.release()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_dtype", ["float32", "uint8"])
+def test_segmenter_replay_stamps_its_group(cuda_device, mask_dtype):
+    """The multiclass segmenter's captured program stamps its start and
+    its end at every replay, between two stamps launched on the same
+    stream just before and just after it; the stamps ride behind the
+    planes, whose masks equal an eager call's bit for bit, and the mask's
+    build adds ``device.segmentation`` once to the enclosing span's
+    timings, with the ``segment.*`` spans."""
+    from face_detection_tflite_torch.models.segmentation import \
+        SelfieSegmentation
+    from face_detection_tflite_torch.pipeline import graphs, timings
+    frames = np.random.default_rng(4).integers(0, 256, (3, 360, 640, 3),
+                                               dtype=np.uint8)
+    seg = SelfieSegmentation(convert_model(random_init.segmenter_ir(
+        "multiclass", seed=8)), True, mask_dtype=mask_dtype,
+        device=cuda_device)
+    with graphs.capture_now():
+        seg(frames)                               # eager, then captured
+    with graphs.eager():
+        want = seg(frames)
+    x = torch.from_numpy(frames).to(cuda_device)
+    bracket = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    timings._cuda_stamp(bracket, 0)
+    handle = seg.dispatch(x)
+    timings._cuda_stamp(bracket, 1)
+    assert handle[-1] == ("segmentation", "pack")
+    t = timings.DetectTimings()
+    with timings.span(None, t, 1):
+        got = seg.materialize(handle)
+    torch.cuda.synchronize()
+    (prog,) = seg.captured()
+    (counts,) = prog.counts().values()
+    assert counts["replays"] == 1 and counts["captures"] == 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.class_data, w.class_data)
+        np.testing.assert_array_equal(g.data, w.data)
+    stamps = handle[0].numpy()[-16:].view(np.int64)
+    lo, hi = bracket.cpu().tolist()
+    assert lo <= stamps[0] < stamps[1] <= hi, (lo, stamps, hi)
+    assert dict(t.calls) == {"segment.wait": 1, "segment.materialize": 1,
+                             "device.segmentation": 1}
+    assert t.total_ms["device.segmentation"] == pytest.approx(
+        (stamps[1] - stamps[0]) * 1e-6)
+    seg.dispose()
+
+
 # -- K5: the residual add and activation (ops/epilogue.py, csrc/epilogue.cu)
 
 #: site -> (N, H, W, C, C_r (0: no residual), act): the largest tensors of

@@ -10,6 +10,7 @@ within 1e-6; mesh, iris and eye landmarks within one step of the int16
 readback (plus float rounding); head angles within 1e-3 degree."""
 
 import io
+import itertools
 import json
 import random
 import threading
@@ -236,12 +237,14 @@ class _GatedDetector:
     """Stands in for a detector: the first dispatch waits for ``start``,
     every finish for ``gate``; it records the dispatched batches' tags and
     the most batches alive at once (dispatched, not yet finished).  Its
-    ``timings`` get the pipeline's upload spans."""
+    ``timings`` get the pipeline's upload spans, and ``_units`` numbers
+    the batches, as a detector's does."""
 
     device = torch.device("cpu")
 
     def __init__(self):
         self.timings = DetectTimings()
+        self._units = itertools.count(1)
         self.start, self.gate = threading.Event(), threading.Event()
         self.dispatched = []
         self.live = self.most_live = 0
