@@ -19,13 +19,18 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    frames x 16 faces x 192 px with mixed mirrors (bit for bit); it prints
    the kernels' times, the plain versions' and, for K2,
    ``F.grid_sample``'s (CUDA events, warm-up, median of 20); K5, the
-   residual add and activation of the networks (``residual_act``), bit
-   for bit at the largest tensor of each of its sites on the main paths
-   (iris 512 x 32x32x64 and mesh 256 x 96x96x16 with a residual and
-   PReLU, the mesh's channel pad 256 x 48x48x32 from 16, MobileFaceNet
-   256 x 56x56x128 PReLU alone, the detector 16 x 128x128x24 with a
-   residual and ReLU; seeded values with -0.0, NaN and +-inf planted),
-   with its ms, device ms, the plain version's ms and its byte bound;
+   convolutions' bias, residual add and activation (``residual_act``),
+   bit for bit at the largest tensor of each of its sites on the main
+   paths, each with its convolution's bias (iris 512 x 32x32x64 and mesh
+   256 x 96x96x16 with a residual and PReLU, the mesh's channel pad
+   256 x 48x48x32 from 16, MobileFaceNet 256 x 56x56x128 PReLU alone,
+   the detector 16 x 128x128x24 with a residual and ReLU, the multiclass
+   segmenter's standalone ReLU 16 x 128x128x48 and its bare residual ADD
+   16 x 128x128x24, and in place the bias alone of the iris net's
+   depthwise convolution 512 x 32x32x64 and the detector stem's bias
+   and ReLU 16 x 128x128x24; seeded values with -0.0, NaN and +-inf
+   planted in y, the residual and the bias), with its ms, device ms, the
+   plain version's ms and its byte bound;
 4. drives the STANDARD main path (``_drive_main_path``): ``FaceDetector``
    over 16 seeded 853x1280 uint8 frames with the full-depth, full-width
    seeded BlazeFace-back, FaceMesh, iris and blendshape nets; prints ms
@@ -308,9 +313,11 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    (``embed_launches``: the embedding phase's batches), held on the main
    paths and the captured cells to one launch a planned pass of each
    network call (``per_call``: the detector's, the mesh's, the iris
-   net's and MobileFaceNet's; the Mixer has none), with
+   net's and MobileFaceNet's, one a float32 convolution with a bias
+   besides the passes that take no bias; the Mixer has none), with
    ``op_by_op_launches`` the PRELUs and RELU ADDs that ran op by op there
-   (0 on every main path).
+   and ``bias_op_by_op_launches`` the float32 convolutions' biases that
+   PyTorch added (both 0 on every main path).
    K1's ``max_abs_err`` is its largest box error over every check
    against the plain version (steps 3, 4, 8, 9, 10, 11, 12 and 14).
 
@@ -826,7 +833,7 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
     import numpy as np
     import torch
     from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
-    from face_detection_tflite_torch.ops import detections, epilogue
+    from face_detection_tflite_torch.ops import detections
     from face_detection_tflite_torch.ops import nms as nms_mod
     from face_detection_tflite_torch.ops import warp as warp_mod
     from face_detection_tflite_torch.pipeline.programs import \
@@ -841,8 +848,7 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
     nms_mod.nms_core.launches = 0
     warp_mod.warp_normalize.launches = 0
     warp_mod.warp_normalize.launches_by_size = {}
-    epilogue.residual_act.launches = 0
-    epilogue.ran_op_by_op.launches = 0
+    _reset_k5_counts()
     mode_args = () if full else (mode,)
     batch_ms, faces = [], None
     for _ in range(runs):
@@ -854,9 +860,7 @@ def _drive_main_path(models, cpu_models, frames, frames_np, mode, runs: int,
     launches = {
         "detection_postprocess": detections.detection_postprocess.launches,
         "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size),
-        "nms_core": nms_mod.nms_core.launches,
-        "residual_act": epilogue.residual_act.launches,
-        "op_by_op": epilogue.ran_op_by_op.launches}
+        "nms_core": nms_mod.nms_core.launches, **_k5_counts()}
     reruns = _reruns(det)
     per_image = [len(f) for f in faces]
     steady = statistics.median(batch_ms[2:])
@@ -1110,34 +1114,43 @@ def _time_warp(frames, roi, s: int, flip, label: str, sizes, card: str
 
 
 #: K5's sites (``ops/epilogue.py``): name -> (N, H, W, C, C_r (0: no
-#: residual), act), the largest tensor of each fused site of the main
+#: residual), act, in place), the largest tensor of each site of the main
 #: paths' networks at their batch (16 frames, 256 face crops, 512 eye
-#: crops, 256 embedding crops).
+#: crops, 256 embedding crops), each with its convolution's bias: the
+#: blocks' ends, a standalone ReLU and a bare residual ADD of the
+#: multiclass segmenter, and in place a depthwise convolution's bias
+#: alone and the detector stem's bias and fused ReLU.
 K5_SITES = {
-    "iris": (512, 32, 32, 64, 64, "PRELU"),
-    "mesh": (256, 96, 96, 16, 16, "PRELU"),
-    "mesh_pad": (256, 48, 48, 32, 16, "PRELU"),
-    "mobilefacenet": (256, 56, 56, 128, 0, "PRELU"),
-    "detector": (16, 128, 128, 24, 24, "RELU"),
+    "iris": (512, 32, 32, 64, 64, "PRELU", False),
+    "mesh": (256, 96, 96, 16, 16, "PRELU", False),
+    "mesh_pad": (256, 48, 48, 32, 16, "PRELU", False),
+    "mobilefacenet": (256, 56, 56, 128, 0, "PRELU", False),
+    "detector": (16, 128, 128, 24, 24, "RELU", False),
+    "segmenter_relu": (16, 128, 128, 48, 0, "RELU", False),
+    "segmenter_add": (16, 128, 128, 24, 24, None, False),
+    "iris_dw_bias": (512, 32, 32, 64, 0, None, True),
+    "detector_stem": (16, 128, 128, 24, 0, "RELU", True),
 }
 
 
 def _k5_sites(card: str) -> dict:
     """Holds K5 bit for bit against its plain version at each site of
     :data:`K5_SITES` on seeded values with -0.0, +0.0, NaN and +-inf
-    planted, one launch a call, and times both: the kernel's event and
-    device ms (:func:`_kernel_ms`), the plain version's event ms, and the
-    bound of its bytes (y and the residual read once, the output written
-    once, over HBM3 bandwidth).  Returns the ``kernels`` fields by site."""
+    planted (in y, the residual and the bias), one launch a call, and
+    times both: the kernel's event and device ms (:func:`_kernel_ms`),
+    the plain version's event ms, and the bound of its bytes (y, the
+    residual and the bias read once, the output written once, over HBM3
+    bandwidth).  An in-place site writes over a fresh copy of y each
+    check.  Returns the ``kernels`` fields by site."""
     import torch
     from face_detection_tflite_torch.ops import epilogue
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
 
-    def draw(shape):
+    def draw(shape, planted=64):
         x = torch.randn(shape, generator=g, device=dev)
         flat = x.view(-1)
-        picks = torch.randint(0, flat.numel(), (5 * 64,), generator=g,
+        picks = torch.randint(0, flat.numel(), (5 * planted,), generator=g,
                               device=dev)
         for j, v in enumerate((-0.0, 0.0, float("nan"), float("inf"),
                                float("-inf"))):
@@ -1145,43 +1158,54 @@ def _k5_sites(card: str) -> dict:
         return x
 
     out = {}
-    for site, (n, h, w, c, cr, act) in K5_SITES.items():
+    for site, (n, h, w, c, cr, act, inplace) in K5_SITES.items():
         y = draw((n, h, w, c))
         r = draw((n, h, w, cr)) if cr else None
         alpha = ((torch.rand(c, generator=g, device=dev) - 0.5)
                  if act == "PRELU" else None)
+        bias = draw((c,), planted=1)
 
         def kernel():
-            return epilogue.residual_act(y, r, act, alpha)
+            return epilogue.residual_act(y, r, act, alpha, bias, inplace)
 
         def plain():
-            return epilogue.residual_act_plain(y, r, act, alpha)
+            return epilogue.residual_act_plain(y, r, act, alpha, bias)
 
         before = epilogue.residual_act.launches
-        got, want = kernel(), plain()
+        want = plain()
+        y_in = y.clone()
+        got = kernel()
         torch.cuda.synchronize()
         if epilogue.residual_act.launches != before + 1:
             raise AssertionError(f"K5 {site}: "
                                  f"{epilogue.residual_act.launches - before}"
                                  f" launches a call")
+        if (got.data_ptr() == y.data_ptr()) != inplace:
+            raise AssertionError(f"K5 {site}: in place {inplace}, the "
+                                 f"output at y {not inplace}")
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"K5 {site}: the kernel differs from its "
                                  f"plain version")
+        y.copy_(y_in)
+        del y_in, got, want
         ms, dev_ms, dev_by = _kernel_ms(kernel, "K5 residual_act")
         plain_ms = _median_ms(plain, iters=5, warmup=1)
-        nbytes = 4 * (2 * y.numel() + (r.numel() if r is not None else 0))
+        nbytes = 4 * (2 * y.numel() + c +
+                      (r.numel() if r is not None else 0))
         bound_ms, bound_by = _bound(nbytes, 2 * y.numel())
         out[site] = {"shape": [n, h, w, c], "residual_channels": cr,
-                     "act": act, "max_abs_err": 0.0, "ms": ms,
+                     "act": act, "bias": True, "in_place": inplace,
+                     "max_abs_err": 0.0, "ms": ms,
                      "device_ms": dev_ms, "device_ms_by": dev_by,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by}
         print(f"K5 residual_act {site} {n}x{h}x{w}x{c}, residual C_r={cr}, "
-              f"{act}: bit for bit; kernel {ms:.4f} ms (device "
-              f"{dev_ms:.4f} ms, {dev_by}), plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; the device time "
+              f"{act}, bias{', in place' if inplace else ''}: bit for bit; "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, {dev_by}), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; the device time "
               f"{100 * bound_ms / dev_ms:.0f}% of it)  [{card}]")
-        del y, r, got, want
+        del y, r
     return out
 
 
@@ -1307,35 +1331,58 @@ def _payload(faces) -> list:
                                    for f in per] for per in faces]))
 
 
+#: K5's counters (``ops/epilogue.py``) as the launch dicts name them.
+_K5_COUNTS = {"residual_act": "residual_act", "op_by_op": "ran_op_by_op",
+              "bias_folded": "bias_folded", "bias_alone": "bias_alone",
+              "bias_op_by_op": "bias_op_by_op"}
+
+
+def _reset_k5_counts() -> None:
+    from face_detection_tflite_torch.ops import epilogue
+    for attr in _K5_COUNTS.values():
+        getattr(epilogue, attr).launches = 0
+
+
+def _k5_counts() -> dict:
+    from face_detection_tflite_torch.ops import epilogue
+    return {key: getattr(epilogue, attr).launches
+            for key, attr in _K5_COUNTS.items()}
+
+
 def _reset_launches() -> None:
-    from face_detection_tflite_torch.ops import detections, epilogue
+    from face_detection_tflite_torch.ops import detections
     from face_detection_tflite_torch.ops import warp as warp_mod
     detections.detection_postprocess.launches = 0
     warp_mod.warp_normalize.launches = 0
     warp_mod.warp_normalize.launches_by_size = {}
-    epilogue.residual_act.launches = 0
-    epilogue.ran_op_by_op.launches = 0
+    _reset_k5_counts()
 
 
 def _launches() -> dict:
-    from face_detection_tflite_torch.ops import detections, epilogue
+    from face_detection_tflite_torch.ops import detections
     from face_detection_tflite_torch.ops import warp as warp_mod
     return {"detection_postprocess": detections.detection_postprocess.launches,
             "warp_normalize": dict(warp_mod.warp_normalize.launches_by_size),
-            "residual_act": epilogue.residual_act.launches,
-            "op_by_op": epilogue.ran_op_by_op.launches}
+            **_k5_counts()}
 
 
 def _k5_per_call(models) -> dict:
     """K5 launches one call of each network makes: its planned passes
-    (``ConvertedModel._epilogues``), every PReLU of MobileFaceNet."""
+    (``ConvertedModel._epilogues`` and its convolutions' own bias passes,
+    ``_bias_passes``); MobileFaceNet one a convolution in float32 (its
+    bias with the PReLU, the residual or alone), else one a PReLU."""
+    import torch
     out = {}
     for role in ("detector", "mesh", "iris", "blendshapes", "embedding"):
         m = getattr(models, role, None)
-        if m is not None:
-            out[role] = (len(m._epilogues) if hasattr(m, "_epilogues") else
-                         sum(1 for k, _ in m.named_buffers()
-                             if k.endswith("_a")))
+        if m is None:
+            continue
+        if hasattr(m, "_epilogues"):
+            out[role] = len(m._epilogues) + len(m._bias_passes)
+        else:
+            last = "_b" if m._dtype is torch.float32 else "_a"
+            out[role] = sum(1 for k, _ in m.named_buffers()
+                            if k.endswith(last))
     return out
 
 
@@ -1349,7 +1396,7 @@ def _k5_want(models, calls: int, reruns: int, full: bool,
                            if full else 0) + (per["embedding"] if embed
                                               else 0)
     return {"residual_act": calls * per["detector"] + (calls + reruns) * faces,
-            "op_by_op": 0}
+            "op_by_op": 0, "bias_op_by_op": 0}
 
 
 def _reruns(det) -> int:
@@ -3874,7 +3921,7 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
             "warp_normalize": {s: GRAPH_RUNS + reruns for s in sizes},
             **_k5_want(models, GRAPH_RUNS, reruns, mode.name == "FULL",
                        embed)}
-    if launches != want:
+    if {k: launches[k] for k in want} != want:
         raise AssertionError(f"graphs {label}: launches {launches} over "
                              f"{GRAPH_RUNS} replayed batches, want {want}")
     with graphs.eager():
@@ -4016,9 +4063,10 @@ def _graph_schedule(models, frames, card: str) -> dict:
                       "ms": start.elapsed_time(end), "host_ms": host_ms})
     launches = _launches()
     k = len(calls)
-    if launches != {"detection_postprocess": k,
-                    "warp_normalize": {MESH_SIZE: k, IRIS_SIZE: k},
-                    **_k5_want(models, k, 0, True, False)}:
+    want = {"detection_postprocess": k,
+            "warp_normalize": {MESH_SIZE: k, IRIS_SIZE: k},
+            **_k5_want(models, k, 0, True, False)}
+    if {key: launches[key] for key in want} != want:
         raise AssertionError(f"graphs schedule: launches {launches} over "
                              f"{k} calls")
     split = _capture_split("schedule FULL", [("slab 16", prog)], card)
@@ -5311,8 +5359,9 @@ def main() -> int:
          **embed_site},
         {"name": "residual_act", "route": "cuda",
          "source": f"{PACKAGE}/csrc/epilogue.cu", "replaces": None,
-         "fuses": "face_detection_tflite_tpu/convert/executor.py ADD, RELU, "
-                  "PRELU and channel PAD",
+         "fuses": "face_detection_tflite_tpu/convert/executor.py CONV_2D "
+                  "and DEPTHWISE_CONV_2D bias, ADD, RELU, PRELU and "
+                  "channel PAD",
          "per_call": _k5_per_call(models),
          "launches": std["launches"]["residual_act"],
          "full_launches": full["launches"]["residual_act"],
@@ -5322,6 +5371,16 @@ def main() -> int:
              "full_launches": full["launches"]["op_by_op"],
              "embed_launches": emb["launches"]["op_by_op"],
              "int8_launches": tiers["int8"]["launches"]["op_by_op"]},
+         "bias_op_by_op_launches": {
+             key: path["launches"]["bias_op_by_op"] for key, path in (
+                 ("launches", std), ("full_launches", full),
+                 ("embed_launches", emb),
+                 ("int8_launches", tiers["int8"]))},
+         "bias_launches": {
+             key: {k: path["launches"][k] for k in ("bias_folded",
+                                                    "bias_alone")}
+             for key, path in (("launches", std), ("full_launches", full),
+                               ("embed_launches", emb))},
          "stream_launches": stream["launches"]["residual_act"],
          "server_launches": serve["launches"]["residual_act"],
          "server_batches": len(serve["batch_sizes"]),

@@ -75,12 +75,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.epilogue import ran_op_by_op, residual_act
+from ..ops.epilogue import bias_op_by_op, ran_op_by_op, residual_act
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
-__all__ = ["ConvertedModel", "SUPPORTED_OPS", "convert_model", "convert_file",
-           "fp32_on_the_card", "mixed_precision", "params_from_jax",
-           "resolve_device"]
+__all__ = ["ConvertedModel", "SUPPORTED_OPS", "conv2d", "convert_model",
+           "convert_file", "fp32_on_the_card", "mixed_precision",
+           "params_from_jax", "resolve_device"]
 
 #: Ops this executor runs: those the JAX executor lowers.  DEQUANTIZE of a
 #: constant and DENSIFY fold away at conversion; a DEQUANTIZE or QUANTIZE
@@ -186,6 +186,36 @@ def _conv_padding(opts, h, w, kh, kw) -> list[tuple[int, int]]:
             _same_pads(w, opts["stride_w"], eff_kw),
         ]
     return [(0, 0), (0, 0)]
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+           *, stride: tuple[int, int], pads, dilation=(1, 1), groups: int = 1
+           ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A TFLite convolution of NHWC ``x`` by ``w`` (OIHW, or
+    ``[C*m, 1, kh, kw]`` depthwise; both in the tier's operand dtype):
+    ``F.conv2d`` on the channels_last view ``x.permute(0, 3, 1, 2)``, with
+    an explicit ``F.pad`` where the ``pads`` ((top, bottom), (left,
+    right)) are asymmetric.  Returns the NHWC view of its float32 output
+    and the bias still to add.  Behind bf16 operands the bias is added
+    here, in float32 after the cast as after the TPU's conv with
+    ``preferred_element_type=float32``, and None returned; a float32
+    convolution runs without it and returns it, for a K5 pass
+    (:func:`ops.epilogue.residual_act`) to add, alone or with the op
+    after the convolution.  The one path of every convolution's bias,
+    the executor's and MobileFaceNet's."""
+    (pt, pb), (pl, pr) = pads
+    xc = x.permute(0, 3, 1, 2)
+    if pt == pb and pl == pr:
+        padding = (pt, pl)
+    else:
+        xc = F.pad(xc, (pl, pr, pt, pb))
+        padding = (0, 0)
+    y = F.conv2d(xc, w, None, stride=stride, padding=padding,
+                 dilation=dilation, groups=groups).permute(0, 2, 3, 1)
+    if y.dtype is torch.float32:
+        return y, bias
+    y = y.float()
+    return (y if bias is None else y + bias), None
 
 
 def _dequantize_const(t, data: np.ndarray) -> np.ndarray:
@@ -357,19 +387,22 @@ def mixed_precision(ops, frac: float = 0.5, low: str = "default",
 
 class _Epilogue(NamedTuple):
     """A planned run of :func:`ops.epilogue.residual_act` in place of the
-    ops it absorbs: ``act(env[y] + pad(env[residual]))``, ``alpha`` the
-    PRELU's weight tensor."""
+    ops it absorbs: ``act((env[y] + bias) + pad(env[residual]))``,
+    ``alpha`` the PRELU's weight tensor, ``bias`` that of the convolution
+    that writes ``y`` (run without it) where the pass takes it."""
     y: int
     residual: Optional[int]
-    act: str
+    act: Optional[str]
     alpha: Optional[int]
+    bias: Optional[int] = None
 
 
 def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
                     shapes: dict, dtypes: dict, param_key: dict,
-                    statics: dict) -> tuple[dict, frozenset, frozenset]:
-    """Which ops run as one residual-add-and-activation pass, from the
-    graph's structure alone.  Two patterns fuse:
+                    statics: dict, tiers: tuple
+                    ) -> tuple[dict, frozenset, frozenset, dict, frozenset]:
+    """Which ops run as one bias, residual-add-and-activation pass, from
+    the graph's structure alone.  Two patterns fuse:
 
     * a 4-D ADD with a fused RELU, or with none and then a PRELU that is
       its output's only reader; one operand may be a PAD that only
@@ -381,13 +414,30 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
     lies on a quantization grid, where an operand is a constant, where
     the ADD's operands differ in shape or where the PRELU's alpha is not
     one constant per channel.  The pass's own output may lie on a grid:
-    ``forward`` snaps it as it snaps any op's.  Returns (anchor op index
-    -> :class:`_Epilogue`, the absorbed op indices, the candidates (every
-    PRELU, every ADD with a fused RELU) that run op by op)."""
+    ``forward`` snaps it as it snaps any op's.
+
+    Then every CONV_2D and DEPTHWISE_CONV_2D at a float32 tier with a
+    bias of one constant a channel runs without it.  Where its output's
+    only reader is a pass's ``y`` (or its same-width residual, which the
+    pass then takes as ``y``), a standalone 4-D RELU, or a 4-D ADD with
+    no activation whose other operand is an activation of the same shape,
+    that pass takes the bias (the RELU and the ADD become passes of their
+    own); its output must then be no graph output, on no grid, and the
+    convolution have no fused activation.  Every other such convolution
+    is followed by an in-place bias pass of its own, with its fused RELU
+    where it has one (any other fused activation runs after it); the
+    snap of an output on a grid still follows the convolution.
+
+    Returns (anchor op index -> :class:`_Epilogue`, the absorbed op
+    indices, the candidates (every PRELU, every ADD with a fused RELU)
+    that run op by op, convolution op index -> the act (None or "RELU")
+    of its own bias pass, the convolutions whose bias a pass takes)."""
     readers: dict[int, int] = {}
-    for op in ops:
+    reader: dict[int, int] = {}  # tensor -> an op that reads it
+    for i, op in enumerate(ops):
         for t in op.inputs:
             readers[t] = readers.get(t, 0) + 1
+            reader[t] = i
     producer = {t: i for i, op in enumerate(ops) for t in op.outputs}
     outputs = set(output_ixs)
 
@@ -459,7 +509,52 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
                 plan[i] = _Epilogue(found[0], found[1], "PRELU",
                                     op.inputs[1])
                 absorbed.update(found[2] + [add])
-    return plan, frozenset(absorbed), frozenset(candidates - set(plan))
+
+    # The convolutions' biases: into the pass that reads the output, else
+    # a pass of their own.
+    bias_passes: dict[int, Optional[str]] = {}
+    folded: set[int] = set()
+    for i, op in enumerate(ops):
+        out = op.outputs[0]
+        if op.name not in ("CONV_2D", "DEPTHWISE_CONV_2D") or \
+                _TIER_DTYPE[tiers[i]] is not torch.float32 or \
+                len(op.inputs) < 3 or op.inputs[2] < 0 or \
+                op.inputs[2] not in param_key or not activation(out) or \
+                shapes.get(op.inputs[2]) != (shapes[out][3],):
+            continue
+        fused_act = op.options.get("activation")
+        if fused_act is not None or not absorbable(out):
+            bias_passes[i] = "RELU" if fused_act == "RELU" else None
+            continue
+        b, j = op.inputs[2], reader[out]
+        fold = None
+        for k, ep in plan.items():
+            if ep.bias is None and ep.y == out:
+                fold = k, ep._replace(bias=b)
+            elif ep.bias is None and ep.residual == out and \
+                    shapes[ep.y] == shapes[out]:
+                fold = k, ep._replace(y=out, residual=ep.y, bias=b)
+            if fold is not None:
+                break
+        if fold is None and j not in plan and j not in absorbed and \
+                activation(ops[j].outputs[0]):
+            if ops[j].name == "RELU":
+                fold = j, _Epilogue(out, None, "RELU", None, b)
+            elif ops[j].name == "ADD" and \
+                    ops[j].options.get("activation") is None:
+                found = add_operands(ops[j])
+                if found is not None:
+                    y, r, pads = found
+                    fold = j, _Epilogue(out, r if y == out else y, None,
+                                        None, b)
+                    absorbed.update(pads)
+        if fold is None:
+            bias_passes[i] = None
+        else:
+            plan[fold[0]] = fold[1]
+            folded.add(i)
+    return (plan, frozenset(absorbed), frozenset(candidates - set(plan)),
+            bias_passes, frozenset(folded))
 
 
 def _refresh_low(module, incompatible_keys=None) -> None:
@@ -720,18 +815,23 @@ class ConvertedModel(nn.Module):
             op.outputs[0] for op in ops if op.name == "FULLY_CONNECTED"
             and readers.get(op.outputs[0]) == {"RESHAPE"}
             and op.outputs[0] not in output_ixs)
-        #: The residual-add-and-activation passes (:func:`_plan_epilogues`):
-        #: anchor op index -> its pass, the ops the passes absorb, and the
-        #: PRELUs and ADDs with a fused RELU left op by op (each counted by
-        #: ``ops.epilogue.ran_op_by_op`` where it runs on a card).
-        self._epilogues, self._absorbed, self._op_by_op = _plan_epilogues(
-            ops, output_ixs, self._act_quant, shapes, dtypes, param_key,
-            statics)
         self.precision = precision
         #: Each op's tier ("highest", "high" or "default"; None for the
         #: ops no tier reaches), indexed as the pruned op list.
         self.tiers = (_resolve_tiers(ops, precision) if tiers is None
                       else tiers)
+        #: The bias, residual-add-and-activation passes
+        #: (:func:`_plan_epilogues`): anchor op index -> its pass, the ops
+        #: the passes absorb, the PRELUs and ADDs with a fused RELU left op
+        #: by op (each counted by ``ops.epilogue.ran_op_by_op`` where it
+        #: runs on a card), the float32 convolutions followed by a bias
+        #: pass of their own (-> its act) and those whose bias a pass
+        #: takes.  A float32 convolution in neither has its bias added by
+        #: PyTorch (``ops.epilogue.bias_op_by_op`` on a card).
+        (self._epilogues, self._absorbed, self._op_by_op, self._bias_passes,
+         self._bias_folded) = _plan_epilogues(
+            ops, output_ixs, self._act_quant, shapes, dtypes, param_key,
+            statics, self.tiers)
         # Weight tensor -> the key of its bf16 copy, for the weights that
         # bf16-tier ops take as an operand (not as a bias).
         self._low_key = {
@@ -845,7 +945,9 @@ class ConvertedModel(nn.Module):
                     env[ep.y], None if ep.residual is None
                     else env[ep.residual], ep.act,
                     None if ep.alpha is None
-                    else getattr(self, self._param_key[ep.alpha]).reshape(-1))
+                    else getattr(self, self._param_key[ep.alpha]).reshape(-1),
+                    None if ep.bias is None
+                    else getattr(self, self._param_key[ep.bias]))
             for t in op.outputs:
                 if t in self._act_quant and t in env:
                     env[t] = _fake_quant(env[t], self._qscale[self._qslot[t]],
@@ -897,27 +999,25 @@ class ConvertedModel(nn.Module):
             dtype = _TIER_DTYPE[self.tiers[i]]
             x = self._operand(env, op.inputs[0], dtype)
             w = self._operand(env, op.inputs[1], dtype)  # OIHW / [C*m, 1, kh, kw]
-            (pt, pb), (pl, pr) = _conv_padding(o, x.shape[1], x.shape[2],
-                                               w.shape[2], w.shape[3])
-            xc = x.permute(0, 3, 1, 2)
-            if pt == pb and pl == pr:
-                pad = (pt, pl)
-            else:
-                xc = F.pad(xc, (pl, pr, pt, pb))
-                pad = (0, 0)
-            bias = get(op.inputs[2]) if len(op.inputs) > 2 and \
-                op.inputs[2] >= 0 else None
-            low = dtype is not torch.float32
-            y = F.conv2d(xc, w, None if low else bias,
-                         stride=(o["stride_h"], o["stride_w"]), padding=pad,
-                         dilation=(o["dilation_h"], o["dilation_w"]),
-                         groups=x.shape[3] if nm == "DEPTHWISE_CONV_2D" else 1)
-            y = y.permute(0, 2, 3, 1)
-            if low:
-                # The epilogue runs in fp32, as after the TPU's conv with
-                # preferred_element_type=float32.
-                y = y.float() if bias is None else y.float() + bias
-            env[out] = _act(y, o["activation"])
+            y, bias = conv2d(
+                x, w, get(op.inputs[2]) if len(op.inputs) > 2 and
+                op.inputs[2] >= 0 else None,
+                stride=(o["stride_h"], o["stride_w"]),
+                pads=_conv_padding(o, x.shape[1], x.shape[2], w.shape[2],
+                                   w.shape[3]),
+                dilation=(o["dilation_h"], o["dilation_w"]),
+                groups=x.shape[3] if nm == "DEPTHWISE_CONV_2D" else 1)
+            act = o["activation"]
+            if i in self._bias_passes:
+                # The bias, and a fused RELU, in one pass over y in place.
+                y = residual_act(y, None, self._bias_passes[i], None, bias,
+                                 inplace=True)
+                act = None if act == "RELU" else act
+            elif bias is not None and i not in self._bias_folded:
+                y = y + bias
+                if y.is_cuda:
+                    bias_op_by_op()
+            env[out] = _act(y, act)
         elif nm in ("TRANSPOSE_CONV", "CUSTOM:Convolution2DTransposeBias"):
             # Builtin inputs: (output_shape, filter, x[, bias]); MediaPipe's
             # custom op: (x, filter, bias).

@@ -1,22 +1,25 @@
-// Residual add and activation in one pass for Hopper (sm_90a), K5 of the
-// port.
+// A convolution's bias, residual add and activation in one pass for Hopper
+// (sm_90a), K5 of the port.
 //
 // No TPU kernel corresponds to it: on the TPU, XLA fused the elementwise
 // ops after each convolution into the convolution's own fusion.  Run one
-// PyTorch op at a time, a BlazeBlock's end (ADD, ReLU or PReLU, the
-// channel pad of its residual) took three to five full passes over its
-// activation, a PReLU alone three (compare, a broadcast multiply, where):
-// 38-46 bytes moved an element.  This kernel does it in one pass:
+// PyTorch op at a time, a convolution's bias took a broadcast add of its
+// own after cuDNN's kernel, and a BlazeBlock's end (ADD, ReLU or PReLU,
+// the channel pad of its residual) three to five more full passes over
+// its activation, a PReLU alone three (compare, a broadcast multiply,
+// where).  This kernel does it in one pass:
 //
-//   out[n,h,w,c] = act(y[n,h,w,c] + (c < C_r ? r[n,h,w,c] : 0.0f))
-//   act: ReLU or PReLU(alpha[c]); r optional
+//   out[n,h,w,c] = act((y[n,h,w,c] + b[c]) + (c < C_r ? r[n,h,w,c] : 0.0f))
+//   act: none, ReLU or PReLU(alpha[c]); b and r optional
 //
 // over NHWC tensors with C innermost, r with C_r <= C channels (its
 // channels past C_r are the zeros of TFLite's channel PAD).  Every value is
 // bit for bit that of the unfused ops (ops/epilogue.py, the plain
-// version): padded channels compute y + 0.0f (so -0.0 becomes +0.0, as
-// F.pad then add), PReLU is x >= 0 ? x : x * a (NaN takes the multiply, as
-// torch.where), ReLU is torch.relu's clamp_min: NaN passes, else fmaxf(x, 0).
+// version): the bias is added first and rounded, as after the
+// convolution, then the residual (never y + (b + r)); padded channels
+// compute v + 0.0f (so -0.0 becomes +0.0, as F.pad then add), PReLU is
+// x >= 0 ? x : x * a (NaN takes the multiply, as torch.where), ReLU is
+// torch.relu's clamp_min: NaN passes, else fmaxf(x, 0).
 //
 // What bounds it on this card: bytes.  It reads y (and r) and writes the
 // output once: 8 bytes an element, 12 with a residual; at 3.35 TB/s the
@@ -28,10 +31,15 @@
 //   channels); a scalar path for any other width;
 // - each thread issues its four vectors' loads before it computes, so a
 //   warp keeps several lines in flight;
-// - alpha, a few hundred floats, comes through the read-only cache;
+// - alpha and the bias, a few hundred floats each, come through the
+//   read-only cache;
 // - a 32-bit index: the host splits a launch at whole rows beyond 2^30
 //   vectors.
-// It allocates nothing: the wrapper allocates the output.
+// A bias pass with no residual may run in place (out == y), the output
+// overwriting the convolution's: that instance reads y with plain loads,
+// neither pointer __restrict__, so no read goes through the read-only
+// path of a buffer the kernel writes.  It allocates nothing: the wrapper
+// allocates the output, or passes y as the output.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,29 +51,34 @@ constexpr int kItems = 4;  // vectors a thread
 // Most vectors a launch covers, so that every index fits 32 bits.
 constexpr long long kMaxVectors = 1LL << 30;
 
-enum { kActRelu = 1, kActPrelu = 2 };
+enum { kActNone = 0, kActRelu = 1, kActPrelu = 2 };
 enum { kResNone = 0, kResSame = 1, kResPadded = 2 };
 
 template <int A>
 __device__ __forceinline__ float act(float v, float a) {
+  if (A == kActNone) return v;
   if (A == kActRelu) return isnan(v) ? v : fmaxf(v, 0.0f);
   return v >= 0.0f ? v : __fmul_rn(v, a);
 }
 
-template <int A, int R>
-__device__ __forceinline__ float one(float y, float r, float a) {
-  return act<A>(R == kResNone ? y : __fadd_rn(y, r), a);
+template <int A, int R, bool B>
+__device__ __forceinline__ float one(float y, float b, float r, float a) {
+  const float v = B ? __fadd_rn(y, b) : y;
+  return act<A>(R == kResNone ? v : __fadd_rn(v, r), a);
 }
 
-template <int A, int R>
-__device__ __forceinline__ float apply(float y, float r, float a) {
-  return one<A, R>(y, r, a);
+template <int A, int R, bool B>
+__device__ __forceinline__ float apply(float y, float b, float r, float a) {
+  return one<A, R, B>(y, b, r, a);
 }
 
-template <int A, int R>
-__device__ __forceinline__ float4 apply(float4 y, float4 r, float4 a) {
-  return make_float4(one<A, R>(y.x, r.x, a.x), one<A, R>(y.y, r.y, a.y),
-                     one<A, R>(y.z, r.z, a.z), one<A, R>(y.w, r.w, a.w));
+template <int A, int R, bool B>
+__device__ __forceinline__ float4 apply(float4 y, float4 b, float4 r,
+                                        float4 a) {
+  return make_float4(one<A, R, B>(y.x, b.x, r.x, a.x),
+                     one<A, R, B>(y.y, b.y, r.y, a.y),
+                     one<A, R, B>(y.z, b.z, r.z, a.z),
+                     one<A, R, B>(y.w, b.w, r.w, a.w));
 }
 
 template <typename V>
@@ -78,23 +91,24 @@ __device__ __forceinline__ float4 zero<float4>() {
 }
 
 // V is float4 (c, cr and n counted in vectors) or float; n fits 31 bits.
-template <typename V, int A, int R>
-__global__ void __launch_bounds__(kThreads)
-residual_act_kernel(const V* __restrict__ y, const V* __restrict__ r,
-                    const V* __restrict__ alpha, V* __restrict__ out,
-                    unsigned n, unsigned c, unsigned cr) {
+// InPlace: out is y, read with plain loads.
+template <typename V, int A, int R, bool B, bool InPlace>
+__device__ __forceinline__ void body(const V* y, const V* r, const V* alpha,
+                                     const V* bias, V* out, unsigned n,
+                                     unsigned c, unsigned cr) {
   const unsigned base = blockIdx.x * (kThreads * kItems) + threadIdx.x;
-  V yv[kItems], rv[kItems], av[kItems];
+  V yv[kItems], rv[kItems], av[kItems], bv[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const unsigned i = base + k * kThreads;
-    yv[k] = rv[k] = av[k] = zero<V>();
+    yv[k] = rv[k] = av[k] = bv[k] = zero<V>();
     if (i >= n) continue;
-    yv[k] = __ldg(y + i);
-    if (A == kActPrelu || R == kResPadded) {
+    yv[k] = InPlace ? y[i] : __ldg(y + i);
+    if (A == kActPrelu || R == kResPadded || B) {
       const unsigned row = i / c;
       const unsigned ch = i - row * c;
       if (A == kActPrelu) av[k] = __ldg(alpha + ch);
+      if (B) bv[k] = __ldg(bias + ch);
       if (R == kResPadded && ch < cr) rv[k] = __ldg(r + row * cr + ch);
     }
     if (R == kResSame) rv[k] = __ldg(r + i);
@@ -102,54 +116,97 @@ residual_act_kernel(const V* __restrict__ y, const V* __restrict__ r,
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const unsigned i = base + k * kThreads;
-    if (i < n) out[i] = apply<A, R>(yv[k], rv[k], av[k]);
+    if (i < n) out[i] = apply<A, R, B>(yv[k], bv[k], rv[k], av[k]);
   }
 }
 
-template <typename V, int A, int R>
-cudaError_t run(const float* y, const float* r, const float* alpha,
-                float* out, long long rows, int c, int cr, int width,
-                cudaStream_t stream) {
-  // c, cr in floats; width floats a vector.
-  const long long cv = c / width;
-  const long long crv = cr / width;
+template <typename V, int A, int R, bool B>
+__global__ void __launch_bounds__(kThreads)
+residual_act_kernel(const V* __restrict__ y, const V* __restrict__ r,
+                    const V* __restrict__ alpha, const V* __restrict__ bias,
+                    V* __restrict__ out, unsigned n, unsigned c,
+                    unsigned cr) {
+  body<V, A, R, B, false>(y, r, alpha, bias, out, n, c, cr);
+}
+
+// The in-place bias pass (act none or ReLU): x is both y and the output.
+template <typename V, int A>
+__global__ void __launch_bounds__(kThreads)
+residual_act_inplace_kernel(V* x, const V* __restrict__ bias, unsigned n,
+                            unsigned c) {
+  body<V, A, kResNone, true, true>(x, nullptr, nullptr, bias, x, n, c, 0);
+}
+
+struct Args {
+  const float* y;
+  const float* r;
+  const float* alpha;
+  const float* bias;
+  float* out;
+  long long rows;
+  int c, cr;   // in floats
+  int width;   // floats a vector
+  cudaStream_t stream;
+};
+
+template <typename V, int A, int R, bool B>
+cudaError_t run(const Args& a) {
+  const long long cv = a.c / a.width;
+  const long long crv = a.cr / a.width;
   const long long chunk = kMaxVectors / cv > 0 ? kMaxVectors / cv : 1;
-  for (long long row0 = 0; row0 < rows; row0 += chunk) {
-    const long long n = (rows - row0 < chunk ? rows - row0 : chunk) * cv;
-    const long long blocks = (n + kThreads * kItems - 1) / (kThreads * kItems);
-    residual_act_kernel<V, A, R><<<static_cast<unsigned>(blocks), kThreads,
-                                   0, stream>>>(
-        reinterpret_cast<const V*>(y + row0 * c),
-        r ? reinterpret_cast<const V*>(r + row0 * cr) : nullptr,
-        reinterpret_cast<const V*>(alpha),
-        reinterpret_cast<V*>(out + row0 * c), static_cast<unsigned>(n),
-        static_cast<unsigned>(cv), static_cast<unsigned>(crv));
+  for (long long row0 = 0; row0 < a.rows; row0 += chunk) {
+    const long long n =
+        (a.rows - row0 < chunk ? a.rows - row0 : chunk) * cv;
+    const unsigned blocks = static_cast<unsigned>(
+        (n + kThreads * kItems - 1) / (kThreads * kItems));
+    V* out = reinterpret_cast<V*>(a.out + row0 * a.c);
+    const V* bias = reinterpret_cast<const V*>(a.bias);
+    bool launched = false;
+    if constexpr (R == kResNone && B && A != kActPrelu) {
+      if (a.out == a.y) {
+        residual_act_inplace_kernel<V, A>
+            <<<blocks, kThreads, 0, a.stream>>>(
+                out, bias, static_cast<unsigned>(n),
+                static_cast<unsigned>(cv));
+        launched = true;
+      }
+    }
+    if (!launched)
+      residual_act_kernel<V, A, R, B><<<blocks, kThreads, 0, a.stream>>>(
+          reinterpret_cast<const V*>(a.y + row0 * a.c),
+          a.r ? reinterpret_cast<const V*>(a.r + row0 * a.cr) : nullptr,
+          reinterpret_cast<const V*>(a.alpha), bias, out,
+          static_cast<unsigned>(n), static_cast<unsigned>(cv),
+          static_cast<unsigned>(crv));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
+template <typename V, int A, int R>
+cudaError_t by_bias(const Args& a) {
+  if (a.bias != nullptr) return run<V, A, R, true>(a);
+  // A pass with no act, no bias and no residual does nothing: the entry
+  // point refuses it, so it has no instance.
+  if constexpr (A == kActNone && R == kResNone)
+    return cudaErrorInvalidValue;
+  else
+    return run<V, A, R, false>(a);
+}
+
 template <typename V, int A>
-cudaError_t by_residual(const float* y, const float* r, const float* alpha,
-                        float* out, long long rows, int c, int cr, int width,
-                        cudaStream_t stream) {
-  if (r == nullptr)
-    return run<V, A, kResNone>(y, r, alpha, out, rows, c, cr, width, stream);
-  if (cr == c)
-    return run<V, A, kResSame>(y, r, alpha, out, rows, c, cr, width, stream);
-  return run<V, A, kResPadded>(y, r, alpha, out, rows, c, cr, width, stream);
+cudaError_t by_residual(const Args& a) {
+  if (a.r == nullptr) return by_bias<V, A, kResNone>(a);
+  if (a.cr == a.c) return by_bias<V, A, kResSame>(a);
+  return by_bias<V, A, kResPadded>(a);
 }
 
 template <typename V>
-cudaError_t by_act(const float* y, const float* r, const float* alpha,
-                   float* out, long long rows, int c, int cr, int act_code,
-                   int width, cudaStream_t stream) {
-  if (act_code == kActRelu)
-    return by_residual<V, kActRelu>(y, r, alpha, out, rows, c, cr, width,
-                                    stream);
-  return by_residual<V, kActPrelu>(y, r, alpha, out, rows, c, cr, width,
-                                   stream);
+cudaError_t by_act(int act_code, const Args& a) {
+  if (act_code == kActRelu) return by_residual<V, kActRelu>(a);
+  if (act_code == kActPrelu) return by_residual<V, kActPrelu>(a);
+  return by_residual<V, kActNone>(a);
 }
 
 bool aligned16(const void* p) {
@@ -159,14 +216,20 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // y, out: [rows, c] float32; r: [rows, cr] or null (cr 0); alpha: [c] for
-// PReLU (act 2), else ignored; act 1 ReLU, 2 PReLU.
+// PReLU (act 2), else ignored; bias: [c] or null; act 0 none, 1 ReLU,
+// 2 PReLU.  out == y runs in place: only for a bias pass with no residual
+// and act none or ReLU.
 extern "C" int fdt_residual_act(const void* y, const void* r,
-                                const void* alpha, void* out, long long rows,
-                                int c, int cr, int act_code, int device,
-                                void* stream) {
+                                const void* alpha, const void* bias,
+                                void* out, long long rows, int c, int cr,
+                                int act_code, int device, void* stream) {
+  const bool in_place = out == y;
   if (rows < 0 || c < 1 || cr < 0 || cr > c || (r == nullptr) != (cr == 0) ||
-      (act_code != kActRelu && act_code != kActPrelu) ||
-      (act_code == kActPrelu && alpha == nullptr))
+      act_code < kActNone || act_code > kActPrelu ||
+      (act_code == kActPrelu && alpha == nullptr) ||
+      (act_code == kActNone && r == nullptr && bias == nullptr) ||
+      (in_place && (r != nullptr || bias == nullptr ||
+                    act_code == kActPrelu)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   // `device` is made current for the launch only, as in warp.cu.
@@ -177,16 +240,21 @@ extern "C" int fdt_residual_act(const void* y, const void* r,
     cudaGetLastError();
     return static_cast<int>(err);
   }
-  const float* yf = static_cast<const float*>(y);
-  const float* rf = static_cast<const float*>(r);
-  const float* af = act_code == kActPrelu ? static_cast<const float*>(alpha)
-                                          : nullptr;
-  float* of = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = c % 4 == 0 && cr % 4 == 0 && aligned16(y) &&
-                   aligned16(r) && aligned16(af) && aligned16(out);
-  err = vec ? by_act<float4>(yf, rf, af, of, rows, c, cr, act_code, 4, s)
-            : by_act<float>(yf, rf, af, of, rows, c, cr, act_code, 1, s);
+  Args a{static_cast<const float*>(y),
+         static_cast<const float*>(r),
+         act_code == kActPrelu ? static_cast<const float*>(alpha) : nullptr,
+         static_cast<const float*>(bias),
+         static_cast<float*>(out),
+         rows, c, cr, 1, static_cast<cudaStream_t>(stream)};
+  const bool vec = c % 4 == 0 && cr % 4 == 0 && aligned16(a.y) &&
+                   aligned16(a.r) && aligned16(a.alpha) &&
+                   aligned16(a.bias) && aligned16(a.out);
+  if (vec) {
+    a.width = 4;
+    err = by_act<float4>(act_code, a);
+  } else {
+    err = by_act<float>(act_code, a);
+  }
   if (previous != device) cudaSetDevice(previous);
   return static_cast<int>(err);
 }

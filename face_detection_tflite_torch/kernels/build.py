@@ -57,10 +57,10 @@ _SIGNATURES = {
                                _VP, _I, _I, _F, _VP, _I, _VP),
     # buf, slot, device, stream (a stage stamp, pipeline/timings.py)
     "fdt_stage_stamp": (_VP, _I, _I, _VP),
-    # y, residual, alpha, out, rows, c, c_residual, act, device, stream
-    # (K5, ops/epilogue.py)
-    "fdt_residual_act": (_VP, _VP, _VP, _VP, ctypes.c_longlong, _I, _I, _I,
-                         _I, _VP),
+    # y, residual, alpha, bias, out, rows, c, c_residual, act, device,
+    # stream (K5, ops/epilogue.py)
+    "fdt_residual_act": (_VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I, _I,
+                         _I, _I, _VP),
 }
 
 _lock = threading.Lock()

@@ -39,12 +39,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..convert.checkpoint import load_params_npz, swap_params
 from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
-                                _same_pads, _tier, convert_file,
+                                _same_pads, _tier, conv2d, convert_file,
                                 fp32_on_the_card, resolve_device)
 from ..ops.epilogue import residual_act
 from ..ops.warp import extract_rois_normalized
@@ -188,9 +187,11 @@ class MobileFaceNet(nn.Module):
 
     Convolutions use TF-style SAME pads, which are asymmetric at stride 2
     (0 before, 1 after on an even input); the final 7x7 global depthwise
-    convolution is VALID; PReLU is ``where(y >= 0, y, y * a)``, run as
-    one ``ops.epilogue.residual_act`` pass; a
+    convolution is VALID; PReLU is ``where(y >= 0, y, y * a)``; a
     bottleneck adds its input where its stride is 1 and its channels stay.
+    The network runs on NHWC tensors; each convolution goes through
+    ``executor.conv2d`` and its bias, with the PReLU or the residual add
+    after it, through one ``ops.epilogue.residual_act`` pass.
     Weights are buffers keyed as the JAX params.  ``precision`` is a tier
     of the executor for every convolution ("highest", "high" or
     "default"; the JAX function's ``precision``): at "default" they take
@@ -247,51 +248,44 @@ class MobileFaceNet(nn.Module):
         return self
 
     def _conv(self, name: str, x, stride: int = 1, groups: int = 1,
-              prelu: bool = True, same: bool = True):
+              prelu: bool = True, same: bool = True, residual=None):
+        """One convolution of NHWC ``x`` and what follows it: its bias in
+        one ``ops.epilogue.residual_act`` pass (the K5 kernel on a card)
+        with its PReLU or the bottleneck's residual add (in place where
+        it has neither); at a bf16 tier ``executor.conv2d`` adds the bias
+        and the pass takes only the PReLU."""
         low = self._dtype is not torch.float32
         w = getattr(self, f"_bf_{name}_w" if low else f"{name}_w")
-        if low:
-            x = x.to(self._dtype)
-        pad = (0, 0)
-        if same:
-            (pt, pb), (pl, pr) = (_same_pads(x.shape[2], stride, w.shape[2]),
-                                  _same_pads(x.shape[3], stride, w.shape[3]))
-            if pt == pb and pl == pr:
-                pad = (pt, pl)
-            else:
-                x = F.pad(x, (pl, pr, pt, pb))
-        b = getattr(self, f"{name}_b")
-        if low:
-            # The bias and PReLU run in fp32, after the TPU's conv with
-            # preferred_element_type=float32.
-            y = F.conv2d(x, w, None, stride=stride, padding=pad,
-                         groups=groups).float() + b[:, None, None]
-        else:
-            y = F.conv2d(x, w, b, stride=stride, padding=pad, groups=groups)
-        if prelu:
-            # One pass over the NHWC view of the channels_last output
-            # (ops/epilogue.py; the K5 kernel on a card).
-            y = residual_act(y.permute(0, 2, 3, 1), None, "PRELU",
-                             getattr(self, f"{name}_a")).permute(0, 3, 1, 2)
-        return y
+        pads = ((_same_pads(x.shape[1], stride, w.shape[2]),
+                 _same_pads(x.shape[2], stride, w.shape[3])) if same
+                else ((0, 0), (0, 0)))
+        y, bias = conv2d(x.to(self._dtype) if low else x, w,
+                         getattr(self, f"{name}_b"), stride=(stride, stride),
+                         pads=pads, groups=groups)
+        act = "PRELU" if prelu else None
+        if bias is None and act is None:
+            return y if residual is None else y + residual
+        return residual_act(y, residual, act,
+                            getattr(self, f"{name}_a") if prelu else None,
+                            bias, inplace=act is None and residual is None)
 
     def _bottleneck(self, name: str, x, expand: int, out_c: int,
                     stride: int):
-        c_in = x.shape[1]
+        c_in = x.shape[3]
         h = self._conv(f"{name}_e", x)                          # 1x1 expand
         h = self._conv(f"{name}_d", h, stride=stride,
                        groups=c_in * expand)                    # 3x3 dw
-        h = self._conv(f"{name}_p", h, prelu=False)             # 1x1 project
-        return h + x if stride == 1 and c_in == out_c else h
+        return self._conv(f"{name}_p", h, prelu=False,          # 1x1 project
+                          residual=x if stride == 1 and c_in == out_c
+                          else None)
 
     def forward(self, x: torch.Tensor):
         s = EMBEDDING_INPUT_SIZE
         if x.dim() != 4 or tuple(x.shape[1:]) != (s, s, 3) or x.shape[0] < 1:
             raise ValueError(f"embedding input expects shape (N, {s}, {s}, 3)"
                              f" with N >= 1, got {tuple(x.shape)}")
-        h = x.permute(0, 3, 1, 2)       # a channels_last view, no copy
         _check_fp32(x.device, bf16=self._dtype is not torch.float32)
-        h = self._conv("stem", h, stride=2)
+        h = self._conv("stem", x, stride=2)
         h = self._conv("stem_dw", h, groups=64)
         for bi, (t, c, n, stride) in enumerate(_MFN_BLOCKS):
             for ri in range(n):

@@ -1,20 +1,31 @@
-"""A convolution's elementwise tail in one pass: the residual add (its
-channel pad included) and the ReLU or PReLU after it.  The Hopper kernel
-(``csrc/epilogue.cu``, K5) and its plain PyTorch version.
+"""A convolution's elementwise tail in one pass: its bias, the residual
+add (its channel pad included) and the ReLU or PReLU after it.  The
+Hopper kernel (``csrc/epilogue.cu``, K5) and its plain PyTorch version.
 
 No TPU kernel corresponds to it (XLA fused these ops into the
 convolution's fusion there).  The function, on NHWC float32 tensors::
 
-    out = act(y + pad(r))      act: ReLU or PReLU(alpha[c])
+    out = act((y + bias) + pad(r))      act: none, ReLU or PReLU(alpha[c])
 
-where ``r`` (optional) has ``C_r <= C`` channels and ``pad`` zero-pads
-its last axis at the end to ``C``, as TFLite's channel PAD before a
-BlazeBlock's ADD does.  The plain version is the op sequence the executor
-ran before: ``F.pad``, ``torch.add``, then ``torch.relu`` or
-``torch.where(x >= 0, x, x * alpha)``; the kernel equals it bit for bit.
-The executor (``convert/executor.py``) plans which of a graph's ADD, RELU,
-PRELU and PAD ops run here; MobileFaceNet (``models/embedding.py``) runs
-its PReLUs here.
+where ``bias`` (optional) has one value a channel, ``r`` (optional) has
+``C_r <= C`` channels and ``pad`` zero-pads its last axis at the end to
+``C``, as TFLite's channel PAD before a BlazeBlock's ADD does.  The
+plain version is the op sequence the executor ran before: the
+convolution's bias add, ``F.pad``, ``torch.add``, then ``torch.relu``
+or ``torch.where(x >= 0, x, x * alpha)``; the kernel equals it bit for
+bit.  The executor (``convert/executor.py``) plans which convolutions
+run without their bias and which of a graph's ADD, RELU, PRELU and PAD
+ops run here; MobileFaceNet (``models/embedding.py``) runs each
+convolution's bias here, with its PReLU or its residual.
+
+Counters (``kernels.build.count_launch``: a captured program's replays
+add what its capture recorded), read by ``FaceDetector.memory_report()``:
+``residual_act.launches`` (every K5 launch), :data:`ran_fused` (passes
+that took a PRELU or an ADD with a fused RELU), :data:`ran_op_by_op`
+(such an activation that ran op by op), :data:`bias_folded` (a
+convolution's bias added in a pass that also did the op after it),
+:data:`bias_alone` (a bias pass alone) and :data:`bias_op_by_op` (a
+float32 convolution's bias added by PyTorch on a card).
 """
 
 from __future__ import annotations
@@ -26,19 +37,23 @@ import torch.nn.functional as F
 
 from ..kernels import build as _build
 
-__all__ = ["ACTS", "ran_op_by_op", "residual_act", "residual_act_plain"]
+__all__ = ["ACTS", "bias_alone", "bias_folded", "bias_op_by_op",
+           "ran_fused", "ran_op_by_op", "residual_act", "residual_act_plain"]
 
-#: The activations the pass takes: ReLU, PReLU.  A bare add is one
-#: launch already and is never planned here.
+#: The activations the pass takes besides none (``act=None``): ReLU,
+#: PReLU.  A pass with no activation carries a bias, a residual or both.
 ACTS = ("RELU", "PRELU")
-_ACT_CODE = {"RELU": 1, "PRELU": 2}
+_ACT_CODE = {None: 0, "RELU": 1, "PRELU": 2}
 
 
-def _check(y, residual, act, alpha) -> None:
+def _check(y, residual, act, alpha, bias, inplace) -> None:
     """Shapes and arguments, on every device."""
     if act not in _ACT_CODE:
-        raise ValueError(f"residual_act: act must be one of {ACTS}, got "
-                         f"{act!r}")
+        raise ValueError(f"residual_act: act must be None or one of {ACTS},"
+                         f" got {act!r}")
+    if act is None and residual is None and bias is None:
+        raise ValueError(f"residual_act: act must be one of {ACTS} in a "
+                         f"pass with no bias and no residual")
     if (alpha is None) != (act != "PRELU"):
         raise ValueError("residual_act: alpha is given for PRELU and only "
                          "there")
@@ -52,41 +67,58 @@ def _check(y, residual, act, alpha) -> None:
         raise ValueError(f"residual_act: the residual must be [N, H, W, C_r]"
                          f" with y's N, H, W and 1 <= C_r <= C, got "
                          f"{tuple(residual.shape)} for y {tuple(y.shape)}")
-    if alpha is not None and (alpha.dim() != 1 or alpha.shape[0] != c):
-        raise ValueError(f"residual_act: alpha must be [C] = [{c}], got "
-                         f"{tuple(alpha.shape)}")
+    for name, t in (("alpha", alpha), ("bias", bias)):
+        if t is not None and (t.dim() != 1 or t.shape[0] != c):
+            raise ValueError(f"residual_act: {name} must be [C] = [{c}], got "
+                             f"{tuple(t.shape)}")
+    if inplace and (bias is None or residual is not None or act == "PRELU"):
+        raise ValueError("residual_act: in place only for a bias pass with "
+                         "no residual and act None or RELU")
 
 
 def residual_act_plain(y: torch.Tensor, residual: Optional[torch.Tensor],
-                       act: str, alpha: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
-    """Plain version of the kernel: the unfused op sequence."""
-    _check(y, residual, act, alpha)
-    x = y
+                       act: Optional[str],
+                       alpha: Optional[torch.Tensor] = None,
+                       bias: Optional[torch.Tensor] = None,
+                       inplace: bool = False) -> torch.Tensor:
+    """Plain version of the kernel: the unfused op sequence (a new
+    tensor, also where ``inplace`` asks the kernel to write into ``y``)."""
+    _check(y, residual, act, alpha, bias, inplace)
+    x = y if bias is None else torch.add(y, bias)
     if residual is not None:
         if residual.shape[3] < y.shape[3]:
             residual = F.pad(residual, (0, y.shape[3] - residual.shape[3]))
         x = torch.add(x, residual)
     if act == "RELU":
         return torch.relu(x)
-    return torch.where(x >= 0, x, x * alpha)
+    if act == "PRELU":
+        return torch.where(x >= 0, x, x * alpha)
+    return x
 
 
-def residual_act(y: torch.Tensor, residual: Optional[torch.Tensor], act: str,
-                 alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``act(y + pad(residual))``: ``y [N, H, W, C]`` float32, optional
-    ``residual [N, H, W, C_r]`` (``C_r <= C``, zero-padded to ``C``),
-    ``act`` one of :data:`ACTS`, ``alpha [C]`` for PRELU.  The kernel for
-    CUDA tensors (one launch; ``residual_act.launches`` counts them), the
-    plain version for CPU tensors.  On a card every tensor must be float32,
-    contiguous (NHWC with C innermost) and on ``y``'s device: anything else
-    raises, nothing is copied."""
+def residual_act(y: torch.Tensor, residual: Optional[torch.Tensor],
+                 act: Optional[str], alpha: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None,
+                 inplace: bool = False) -> torch.Tensor:
+    """``act((y + bias) + pad(residual))``: ``y [N, H, W, C]`` float32,
+    optional ``bias [C]``, optional ``residual [N, H, W, C_r]``
+    (``C_r <= C``, zero-padded to ``C``), ``act`` None or one of
+    :data:`ACTS`, ``alpha [C]`` for PRELU; a pass with no act has a bias
+    or a residual.  ``inplace`` (a bias pass with no residual and act None
+    or RELU): on a card the output is written over ``y`` and ``y`` is
+    returned, so the caller must hold no other reader of ``y``.  The
+    kernel for CUDA tensors (one launch; ``residual_act.launches`` counts
+    them, and the module's counters what the pass did), the plain version
+    for CPU tensors.  On a card every tensor must be float32, contiguous
+    (NHWC with C innermost) and on ``y``'s device: anything else raises,
+    nothing is copied."""
     if y.device.type == "cpu":
-        return residual_act_plain(y, residual, act, alpha)
-    _check(y, residual, act, alpha)
+        return residual_act_plain(y, residual, act, alpha, bias, inplace)
+    _check(y, residual, act, alpha, bias, inplace)
     if y.device.type != "cuda":
         raise ValueError(f"residual_act: unsupported device {y.device}")
-    for name, t in (("y", y), ("residual", residual), ("alpha", alpha)):
+    for name, t in (("y", y), ("residual", residual), ("alpha", alpha),
+                    ("bias", bias)):
         if t is None:
             continue
         if t.device != y.device:
@@ -98,7 +130,8 @@ def residual_act(y: torch.Tensor, residual: Optional[torch.Tensor], act: str,
         if not t.is_contiguous():
             raise ValueError(f"residual_act: {name} must be contiguous "
                              f"(NHWC, C innermost), got strides {t.stride()}")
-    out = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    out = y if inplace else torch.empty(y.shape, dtype=torch.float32,
+                                        device=y.device)
     c = y.shape[3]
     rows = y.numel() // c if c else 0
     if rows:
@@ -106,25 +139,47 @@ def residual_act(y: torch.Tensor, residual: Optional[torch.Tensor], act: str,
                  else torch.cuda.current_device())
         rc = _build.load().fdt_residual_act(
             y.data_ptr(), None if residual is None else residual.data_ptr(),
-            None if alpha is None else alpha.data_ptr(), out.data_ptr(),
+            None if alpha is None else alpha.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
             rows, c, 0 if residual is None else residual.shape[3],
             _ACT_CODE[act], index, _build.stream(index))
         _build.check(rc, "residual_act")
         _build.count_launch(residual_act)
+        if act == "PRELU" or (act == "RELU" and residual is not None):
+            ran_fused()
+        if bias is not None:
+            (bias_alone if act is None and residual is None
+             else bias_folded)()
     return out
 
 
 residual_act.launches = 0
 
 
-def ran_op_by_op() -> None:
-    """Counts one PRELU or ADD with a fused RELU that ran op by op on a
-    card, where no plan put it in :func:`residual_act`
-    (``ran_op_by_op.launches``; a captured program's replays count it as
-    they count the kernels' launches).  With ``residual_act.launches``
-    it gives the share of these activations that ran in the pass
-    (``FaceDetector.memory_report()``)."""
-    _build.count_launch(ran_op_by_op)
+class _Count:
+    """A count kept as a kernel's launches are (``.launches``, through
+    ``kernels.build.count_launch``, so a captured program's replays add
+    what its capture recorded); calling it adds one."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self) -> None:
+        _build.count_launch(self)
 
 
-ran_op_by_op.launches = 0
+#: A PRELU, or an ADD with a fused RELU, that ran in the pass on a card:
+#: a pass with a PReLU, or with a ReLU after its residual.
+ran_fused = _Count()
+#: A PRELU or an ADD with a fused RELU that ran op by op on a card, where
+#: no plan put it in :func:`residual_act` (with :data:`ran_fused`, the
+#: share of these activations that ran in the pass).
+ran_op_by_op = _Count()
+#: A convolution's bias added in a pass that also did the op after the
+#: convolution (its fused or standalone activation, the residual add).
+bias_folded = _Count()
+#: A convolution's bias added in a pass of its own.
+bias_alone = _Count()
+#: A float32 convolution's bias added by PyTorch on a card, where no plan
+#: gave it to :func:`residual_act`.
+bias_op_by_op = _Count()

@@ -1547,10 +1547,13 @@ class FaceDetector:
         the memory pools its graphs live in (``graph_pool_bytes``, 0 off a
         card; a device's pool is shared with the process's other captured
         programs there), the process's PRELUs and ADDs with a fused RELU
-        run so far on a card, in one residual-add-and-activation pass
-        (``epilogue_fused``: the K5 launches,
-        ``ops.epilogue.residual_act.launches``) and op by op
-        (``epilogue_op_by_op``; both 0 off a card); where replicas
+        run so far on a card, in K5's pass (``epilogue_fused``,
+        ``ops.epilogue.ran_fused``) and op by op (``epilogue_op_by_op``),
+        and its float32 convolutions' biases added on a card in a K5 pass
+        that also did the op after the convolution (``bias_folded``), in
+        a K5 pass alone (``bias_alone``) and by PyTorch
+        (``bias_op_by_op``) (all five 0 off a card; a captured program's
+        replays count what its capture recorded); where replicas
         were made
         (:meth:`_replica_params`), their count and the weight bytes of
         each replica's networks together."""
@@ -1570,8 +1573,10 @@ class FaceDetector:
         if self._segmentation is not None:
             report["segmentation"] = nbytes(self._segmentation.model)
         report["total_weights"] = sum(report.values())
-        report["epilogue_fused"] = epilogue.residual_act.launches
+        report["epilogue_fused"] = epilogue.ran_fused.launches
         report["epilogue_op_by_op"] = epilogue.ran_op_by_op.launches
+        for key in ("bias_folded", "bias_alone", "bias_op_by_op"):
+            report[key] = getattr(epilogue, key).launches
         with self._programs_lock:
             replicas = list(self._replica_params_cache.values())
             captured = list(self._captured_programs)

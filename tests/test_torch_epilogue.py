@@ -71,6 +71,50 @@ def test_plain_equals_the_unfused_ops_bit_for_bit(act, residual):
     assert epilogue.residual_act.launches == before
 
 
+def _unfused_with_bias(y, bias, r, act, alpha):
+    """The convolution's bias add as the executor ran it before (after
+    the convolution, on the NCHW view), then the ops of :func:`_unfused`
+    (an act of None: the residual add alone)."""
+    x = (y.permute(0, 3, 1, 2) + bias[:, None, None]).permute(0, 2, 3, 1)
+    if act is None:
+        if r.shape[3] < y.shape[3]:
+            r = F.pad(r, [0, y.shape[3] - r.shape[3]])
+        return torch.add(x, r)
+    return _unfused(x, r, act, alpha)
+
+
+@pytest.mark.parametrize("act", (None,) + epilogue.ACTS)
+@pytest.mark.parametrize("residual", ["none", "same", "padded"])
+def test_plain_with_a_bias_equals_the_unfused_ops_bit_for_bit(act,
+                                                               residual):
+    """``act((y + bias) + pad(r))``: the bias first, rounded, then the
+    residual and the act, bit for bit as the ops one by one, with -0.0,
+    NaN and +-inf planted in y, the bias and the residual; a bias pass
+    alone (no act, no residual) is the bias add; in place the plain
+    version returns the same values; off a card nothing is counted."""
+    y = _specials((2, 5, 6, 8), 1)
+    bias = _specials((40,), 5)[::5].contiguous()
+    r = {"none": None, "same": _specials((2, 5, 6, 8), 2),
+         "padded": _specials((2, 5, 6, 4), 3)}[residual]
+    alpha = (torch.rand(8, generator=torch.Generator().manual_seed(4)) - 0.5
+             if act == "PRELU" else None)
+    if act is None and r is None:
+        want = (y.permute(0, 3, 1, 2) + bias[:, None, None]).permute(
+            0, 2, 3, 1)
+    else:
+        want = _unfused_with_bias(y, bias, r, act, alpha)
+    assert torch.equal(_bits(epilogue.residual_act_plain(
+        y, r, act, alpha, bias)), _bits(want))
+    counts = [c.launches for c in (epilogue.residual_act, epilogue.ran_fused,
+                                   epilogue.bias_folded, epilogue.bias_alone)]
+    inplace = r is None and act != "PRELU"
+    got = epilogue.residual_act(y.clone(), r, act, alpha, bias, inplace)
+    assert torch.equal(_bits(got), _bits(want))
+    assert counts == [c.launches for c in (
+        epilogue.residual_act, epilogue.ran_fused, epilogue.bias_folded,
+        epilogue.bias_alone)]
+
+
 @pytest.mark.parametrize("args,match", [
     (dict(act="GELU"), "act must be"),
     (dict(act=None), "act must be"),
@@ -80,13 +124,21 @@ def test_plain_equals_the_unfused_ops_bit_for_bit(act, residual):
     (dict(residual=torch.ones(2, 5, 6, 9)), "residual must be"),
     (dict(residual=torch.ones(2, 5, 5, 8)), "residual must be"),
     (dict(y=torch.ones(5, 6, 8)), "y must be"),
+    (dict(bias=torch.ones(7)), "bias must be"),
+    (dict(bias=torch.ones(1, 8)), "bias must be"),
+    (dict(act="PRELU", alpha=torch.ones(8), bias=torch.ones(8),
+          inplace=True), "in place"),
+    (dict(residual=torch.ones(2, 5, 6, 8), bias=torch.ones(8),
+          inplace=True), "in place"),
+    (dict(inplace=True), "in place"),
 ])
 def test_wrapper_rejects_bad_arguments_on_every_device(args, match):
     kw = dict(y=torch.ones(2, 5, 6, 8), residual=None, act="RELU",
-              alpha=None)
+              alpha=None, bias=None, inplace=False)
     kw.update(args)
     with pytest.raises(ValueError, match=match):
-        epilogue.residual_act(kw["y"], kw["residual"], kw["act"], kw["alpha"])
+        epilogue.residual_act(kw["y"], kw["residual"], kw["act"], kw["alpha"],
+                              kw["bias"], kw["inplace"])
     with pytest.raises(ValueError, match="device"):
         epilogue.residual_act(torch.empty((1, 2, 2, 4), device="meta"), None,
                               "RELU")
@@ -231,9 +283,11 @@ def _alpha_scalar(g):
 #: name -> (graph, the absorbed ops, the passes' residual count, the
 #: passes, the candidates left op by op).
 REFUSALS = {
-    # The ADD stays (its output has a second reader); the PRELU runs alone.
-    "add_output_two_readers": (_two_readers, [], 0, 1, []),
-    "add_output_is_a_graph_output": (_graph_output, [], 0, 1, []),
+    # The ADD does not join the PRELU (its output has a second reader, or
+    # is a graph output); the PRELU runs alone, the ADD as a pass of its
+    # own that takes its convolution's bias.
+    "add_output_two_readers": (_two_readers, [], 1, 2, []),
+    "add_output_is_a_graph_output": (_graph_output, [], 1, 2, []),
     # The PAD stays (a second reader; a spatial pad; a pad at the front):
     # the ADD fuses with the PAD's output as its residual.
     "pad_two_readers": (_pad_two_readers, [], 1, 1, []),
@@ -246,14 +300,41 @@ REFUSALS = {
 }
 
 
-def _check_planned_against_unplanned(ir, n=3, seed=0):
+def _seeded_biases(m, seed, specials=False):
+    """Gives every convolution's bias of ``m`` seeded nonzero values (with
+    -0.0, NaN and +-inf planted where ``specials``), so that a bias the
+    plan moves shows in the outputs."""
+    g = torch.Generator().manual_seed(seed)
+    for op in m._ops:
+        if op.name in ("CONV_2D", "DEPTHWISE_CONV_2D") and \
+                len(op.inputs) > 2 and op.inputs[2] in m._param_key:
+            b = getattr(m, m._param_key[op.inputs[2]])
+            b.copy_(_specials(b.shape, int(torch.randint(
+                1 << 30, (1,), generator=g))) if specials and b.numel() >= 35
+                else 0.1 * torch.randn(b.shape, generator=g))
+
+
+def _unplan(m):
+    """Empties ``m``'s plan: every op one by one, every bias added by
+    PyTorch after its convolution."""
+    m._epilogues, m._absorbed = {}, frozenset()
+    m._bias_passes, m._bias_folded = {}, frozenset()
+
+
+def _check_planned_against_unplanned(ir, n=3, seed=0, specials=False):
     """The planned model's outputs equal the same model's with the plan
-    emptied (the ops one by one) bit for bit, at batch ``n``."""
+    emptied (the ops one by one) bit for bit, at batch ``n``, on seeded
+    nonzero biases (with -0.0, NaN and inf planted where ``specials``,
+    and then in the input too)."""
     m = convert_model(ir)
+    _seeded_biases(m, seed, specials)
     x = torch.from_numpy(np.random.default_rng(seed).normal(
         0, 1, (n,) + tuple(m.input_shapes[0][1:])).astype(np.float32))
+    if specials:
+        x = torch.where(_specials(x.shape, seed).isfinite(), x,
+                        _specials(x.shape, seed))
     got = m(x)
-    m._epilogues, m._absorbed = {}, frozenset()
+    _unplan(m)
     want = m(x)
     for a, b in zip(got, want):
         assert torch.equal(_bits(a), _bits(b))
@@ -289,7 +370,8 @@ def test_plan_on_fake_quantised_add_outputs(grid):
     """An ADD with a fused RELU whose output lies on an int8 grid still
     runs in the pass (``forward`` snaps the pass's output as it snaps the
     ADD's); an ADD output on a grid before a PRELU is an intermediate and
-    stays op by op, the PRELU then running alone.  Either way the planned
+    does not join it, the PRELU then running alone and the ADD as a pass
+    of its own that takes its convolution's bias.  Either way the planned
     model equals the unplanned one bit for bit."""
     def build(g):
         x, h = _stem(g)
@@ -307,7 +389,7 @@ def test_plan_on_fake_quantised_add_outputs(grid):
                   for i, ep in m._epilogues.items())
     assert not m._op_by_op
     if prelu_add in snapped:
-        assert acts == [("ADD", False), ("PRELU", True)]
+        assert acts == [("ADD", False), ("ADD", False), ("PRELU", True)]
         assert not m._absorbed
     else:
         assert acts == [("ADD", False), ("PRELU", False)]
@@ -330,6 +412,226 @@ def test_int8_detector_runs_its_relu_adds_in_the_pass():
     assert not q._op_by_op and not q._absorbed
     assert len(relu_adds) == len(convert_model(det_ir)._epilogues)
     _check_planned_against_unplanned(q_ir, n=2, seed=3)
+
+
+# -- the convolutions' biases -------------------------------------------
+
+
+def _plant_conv_outputs(monkeypatch):
+    """Plants -0.0, +0.0, NaN and +-inf at seeded places of every
+    convolution's output (before its bias), the same places on every
+    call."""
+    from face_detection_tflite_torch.convert import executor
+    real = executor.conv2d
+
+    def planted(*args, **kwargs):
+        y, bias = real(*args, **kwargs)
+        if y.numel() < 35:
+            return y, bias
+        sp = _specials(y.shape, y.numel())
+        return torch.where(sp.isfinite() & (sp != 0), y, sp), bias
+    monkeypatch.setattr(executor, "conv2d", planted)
+
+
+def _conv_out(g, x, cout, act=None):
+    """A 1x1 convolution with a seeded nonzero bias."""
+    y = g.conv(x, cout, 1, act=act)
+    g.tensors[g.ops[-1].inputs[2]] = dataclasses.replace(
+        g.tensors[g.ops[-1].inputs[2]],
+        data=g.rng.normal(0, 0.1, cout).astype(np.float32))
+    return y
+
+
+def _bias_into_add_relu(g):
+    x, h = _stem(g)
+    return [x], [g.op("ADD", [_conv_out(g, h, 8), h], g.shape(h),
+                      activation="RELU")]
+
+
+def _bias_as_the_residual(g):
+    """The convolution is the ADD's second operand: the pass takes it as
+    ``y`` and the other operand as the residual."""
+    x, h = _stem(g)
+    p = g.op("MAX_POOL_2D", [h], g.shape(h), padding=PADDING_VALID,
+             stride_w=1, stride_h=1, filter_w=1, filter_h=1, activation=None)
+    return [x], [g.op("ADD", [p, _conv_out(g, h, 8)], g.shape(h),
+                      activation="RELU")]
+
+
+def _bias_into_prelu(g):
+    x, h = _stem(g)
+    return [x], [g.prelu(_conv_out(g, h, 8))]
+
+
+def _bias_into_a_standalone_relu(g):
+    x, h = _stem(g)
+    y = _conv_out(g, h, 8)
+    return [x], [g.op("RELU", [y], g.shape(y))]
+
+
+def _bias_into_a_bare_add(g):
+    x, h = _stem(g)
+    return [x], [g.op("ADD", [h, _conv_out(g, h, 8)], g.shape(h),
+                      activation=None)]
+
+
+def _bias_into_a_padded_add(g):
+    x, h = _stem(g)
+    r = g.pad(h, [[0, 0], [0, 0], [0, 0], [0, 8]])
+    return [x], [g.op("ADD", [_conv_out(g, h, 16), r], (1, 6, 6, 16),
+                      activation=None)]
+
+
+def _fused_relu(g):
+    x, h = _stem(g)
+    return [x], [_conv_out(g, h, 8, act="RELU")]
+
+
+def _fused_relu6(g):
+    x, h = _stem(g)
+    return [x], [_conv_out(g, h, 8, act="RELU6")]
+
+
+def _hard_swish(g):
+    x, h = _stem(g)
+    return [x], [g.hard_swish(_conv_out(g, h, 8))]
+
+
+def _conv_two_readers(g):
+    x, h = _stem(g)
+    y = _conv_out(g, h, 8)
+    return [x], [g.op("RELU", [y], g.shape(y)), g.prelu(y)]
+
+
+def _conv_graph_output(g):
+    x, h = _stem(g)
+    y = _conv_out(g, h, 8)
+    return [x], [g.op("RELU", [y], g.shape(y)), y]
+
+
+#: name -> (graph, its last convolution's bias: "folded" into the pass at
+#: the named op, "alone" (a pass of its own, with the act given); the
+#: passes; the ops that still follow the last convolution).
+BIAS_PATTERNS = {
+    "into_add_relu": (_bias_into_add_relu, ("folded", "ADD"), 1, []),
+    "as_the_residual": (_bias_as_the_residual, ("folded", "ADD"), 1,
+                        ["MAX_POOL_2D"]),
+    "into_prelu": (_bias_into_prelu, ("folded", "PRELU"), 1, []),
+    "into_a_standalone_relu": (_bias_into_a_standalone_relu,
+                               ("folded", "RELU"), 1, []),
+    "into_a_bare_add": (_bias_into_a_bare_add, ("folded", "ADD"), 1, []),
+    "into_a_padded_add": (_bias_into_a_padded_add, ("folded", "ADD"), 1,
+                          []),
+    "fused_relu": (_fused_relu, ("alone", "RELU"), 0, []),
+    "fused_relu6": (_fused_relu6, ("alone", None), 0, []),
+    "hard_swish": (_hard_swish, ("alone", None), 0, ["HARD_SWISH"]),
+    # Refused: two readers (the PRELU then runs alone), a graph output.
+    "two_readers": (_conv_two_readers, ("alone", None), 1, ["RELU"]),
+    "graph_output": (_conv_graph_output, ("alone", None), 0, ["RELU"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BIAS_PATTERNS))
+def test_plan_takes_each_convolutions_bias(name, monkeypatch):
+    """Every float32 convolution with a bias runs without it: the last
+    convolution of each graph puts its bias into the pass of the op that
+    reads it, or takes a pass of its own; the stem's (two readers) a pass
+    of its own.  The planned model equals the ops one by one bit for bit,
+    -0.0, NaN and inf planted in the convolutions' outputs and biases."""
+    build, (how, at), passes, after = BIAS_PATTERNS[name]
+    ir = _graph(build)
+    m = convert_model(ir)
+    convs = [i for i, op in enumerate(m._ops) if op.name == "CONV_2D"]
+    stem, last = convs[0], convs[-1]
+    assert m._bias_passes.get(stem, "none") is None
+    assert len(m._epilogues) == passes and not m._op_by_op
+    if how == "folded":
+        assert last in m._bias_folded and last not in m._bias_passes
+        ((i, ep),) = m._epilogues.items()
+        assert m._ops[i].name == at
+        assert ep.y == m._ops[last].outputs[0]
+        assert ep.bias == m._ops[last].inputs[2]
+    else:
+        assert last not in m._bias_folded and m._bias_passes[last] == at
+        assert all(ep.bias is None for ep in m._epilogues.values())
+    live = [op.name for i, op in enumerate(m._ops) if i > stem and
+            i not in m._epilogues and i not in m._absorbed and
+            op.name != "CONV_2D"]
+    assert sorted(live) == sorted(after)
+    _plant_conv_outputs(monkeypatch)
+    _check_planned_against_unplanned(ir, specials=True)
+
+
+def test_bias_on_a_grid_and_at_a_bf16_tier():
+    """A convolution whose output lies on an int8 grid takes a bias pass
+    of its own (the snap follows it, as it follows the convolution); at a
+    bf16 tier no convolution runs a bias pass (``conv2d`` adds the bias in
+    float32 after the cast) while the PRELU and ADD passes stay."""
+    ir = _graph(_bias_into_a_bare_add)
+    conv_out = ir.ops[-1].inputs[1]
+    m = convert_model(_on_grid(ir, [conv_out]))
+    last = max(i for i, op in enumerate(m._ops) if op.name == "CONV_2D")
+    assert m._bias_passes[last] is None and not m._bias_folded
+    assert not m._epilogues
+    _check_planned_against_unplanned(ir, specials=True)
+    ir = _graph(_block(1, True, cin=16))
+    m = convert_model(ir, precision="default")
+    assert not m._bias_passes and not m._bias_folded
+    assert [(m._ops[i].name, ep.bias) for i, ep in m._epilogues.items()] \
+        == [("PRELU", None)]
+    _check_planned_against_unplanned(ir)
+    assert convert_model(ir, precision="high")._bias_folded
+
+
+#: role -> (full-width, full-depth seeded graph, convolutions whose bias
+#: a pass of another op takes, convolutions with a pass of their own, of
+#: them with a fused RELU, the new passes' anchors).
+BIAS_NETWORKS = {
+    "detector": (lambda: random_init.blazeface_back_ir(5), 31, 38, 2, {}),
+    "mesh": (lambda: random_init.face_mesh_ir(5), 21, 21, 0, {}),
+    "iris": (lambda: random_init.iris_landmark_ir(5), 35, 36, 0, {}),
+    "multiclass_segmenter": (lambda: random_init.selfie_multiclass_ir(5),
+                             32, 53, 15, {"RELU": 18, "ADD": 14}),
+}
+
+
+@pytest.mark.parametrize("role", sorted(BIAS_NETWORKS))
+def test_plan_takes_the_biases_of_the_benchmark_networks(role):
+    """On the seeded full-depth detector, mesh, iris net and multiclass
+    segmenter every convolution's bias is planned: into the BlazeBlocks'
+    passes (the 1x1 convolution before each ADD, the first before its
+    PReLU), the segmenter's standalone RELUs and bare residual ADDs, or
+    a pass of its own (the depthwise convolutions, the heads, the stems);
+    no PRELU or RELU ADD runs op by op."""
+    build, folded, alone, alone_relu, new = BIAS_NETWORKS[role]
+    m = convert_model(build())
+    convs = {i for i, op in enumerate(m._ops)
+             if op.name in ("CONV_2D", "DEPTHWISE_CONV_2D")}
+    assert (len(m._bias_folded), len(m._bias_passes)) == (folded, alone)
+    assert set(m._bias_passes) | m._bias_folded == convs
+    assert sum(a == "RELU" for a in m._bias_passes.values()) == alone_relu
+    assert not m._op_by_op
+    producer = {t: i for i, op in enumerate(m._ops) for t in op.outputs}
+    assert {producer[ep.y] for ep in m._epilogues.values()
+            if ep.bias is not None} == set(m._bias_folded)
+    names = [m._ops[i].name for i, ep in m._epilogues.items()
+             if m._ops[i].name == "RELU" or ep.act is None]
+    assert {k: names.count(k) for k in set(names)} == new
+
+
+def test_multiclass_segmenter_planned_equals_unplanned():
+    """The multiclass segmenter at a test size (its stages at two blocks
+    and quarter width) with its RELU and bare-ADD passes equals the ops
+    one by one bit for bit."""
+    spec = dict(random_init.MULTICLASS_SEGMENTER)
+    spec["stages"] = [(max(8, e // 4), max(8, c // 4), k, s, se, hs, 2)
+                      for e, c, k, s, se, hs, _ in spec["stages"]]
+    spec["stem"] = 8
+    ir = random_init.selfie_multiclass_ir(6, spec=spec)
+    m = convert_model(ir)
+    assert any(m._ops[i].name == "RELU" for i in m._epilogues)
+    assert any(ep.act is None for ep in m._epilogues.values())
+    _check_planned_against_unplanned(ir, n=2, seed=4)
 
 
 #: name -> (graph at one block a stage, passes, absorbed op names).
@@ -363,52 +665,74 @@ def test_planned_networks_match_the_jax_executor(role):
 
 
 def test_mobilefacenet_prelus_run_in_the_pass():
-    """MobileFaceNet's 33 PReLUs go through ``residual_act`` on the NHWC
-    view; its output equals the NCHW ``where`` it replaced bit for bit."""
+    """Each of MobileFaceNet's 50 convolutions runs without its bias and
+    one ``residual_act`` pass on the NHWC output adds it: with the PReLU
+    (33), with the bottleneck's residual (12 stride-1 projections) or
+    alone in place (5); its output equals the unfused ops (the bias add,
+    the NCHW ``where``, ``h + x``) bit for bit, on seeded nonzero biases."""
     net = embedding.build_mobilefacenet(seed=3)
+    g = torch.Generator().manual_seed(4)
+    for key, b in net.named_buffers():
+        if key.endswith("_b"):
+            b.copy_(0.1 * torch.randn(b.shape, generator=g))
     x = torch.from_numpy(np.random.default_rng(2).uniform(
         -1, 1, (2, 112, 112, 3)).astype(np.float32))
     calls = []
     real = embedding.residual_act
 
-    def counted(y, residual, act, alpha=None):
-        calls.append((tuple(y.shape), residual, act))
-        return real(y, residual, act, alpha)
+    def counted(y, residual, act, alpha=None, bias=None, inplace=False):
+        calls.append((tuple(y.shape), residual is not None, act,
+                      bias is not None, inplace))
+        return real(y, residual, act, alpha, bias, inplace)
 
-    def nchw_where(y, residual, act, alpha=None):
-        y = y.permute(0, 3, 1, 2)
-        return torch.where(y >= 0, y, y * alpha[:, None, None]
-                           ).permute(0, 2, 3, 1)
+    def unfused(y, residual, act, alpha=None, bias=None, inplace=False):
+        y = y.permute(0, 3, 1, 2) + bias[:, None, None]
+        if act == "PRELU":
+            y = torch.where(y >= 0, y, y * alpha[:, None, None])
+        if residual is not None:
+            y = y + residual.permute(0, 3, 1, 2)
+        return y.permute(0, 2, 3, 1)
 
     embedding.residual_act = counted
     try:
         (got,) = net(x)
-        embedding.residual_act = nchw_where
+        embedding.residual_act = unfused
         (want,) = net(x)
     finally:
         embedding.residual_act = real
-    assert len(calls) == 33 and calls[0] == ((2, 56, 56, 64), None, "PRELU")
-    assert all(c[1:] == (None, "PRELU") for c in calls)
+    assert len(calls) == 50
+    assert calls[0] == ((2, 56, 56, 64), False, "PRELU", True, False)
+    kinds = [c[1:] for c in calls]
+    assert kinds.count((False, "PRELU", True, False)) == 33
+    assert kinds.count((True, None, True, False)) == 12
+    assert kinds.count((False, None, True, True)) == 5
     assert torch.equal(_bits(got), _bits(want))
 
 
 def test_memory_report_counts_the_passes_that_ran(monkeypatch):
-    """``memory_report()`` gives the process's K5 launches and the
-    candidates that ran op by op, 0 off a card; both counters take what
-    ``count_launch`` adds to them."""
+    """``memory_report()`` gives the process's PRELUs and RELU ADDs run in
+    K5 and op by op, and its convolutions' biases folded, alone and op by
+    op, all 0 off a card; each counter takes what ``count_launch`` adds
+    to it."""
     frames = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (2, 96, 144, 3), dtype=np.uint8))
     models, *_ = random_init.random_pipeline_models(
         frames, seed=2, detector_blocks=1, mesh_blocks=1, iris_blocks=1,
         mixer_blocks=1, per_image=12)
     det = FaceDetector(models=models, device="cpu")
-    monkeypatch.setattr(epilogue.residual_act, "launches", 0)
-    monkeypatch.setattr(epilogue.ran_op_by_op, "launches", 0)
+    keys = {"epilogue_fused": epilogue.ran_fused,
+            "epilogue_op_by_op": epilogue.ran_op_by_op,
+            "bias_folded": epilogue.bias_folded,
+            "bias_alone": epilogue.bias_alone,
+            "bias_op_by_op": epilogue.bias_op_by_op}
+    for counter in keys.values():
+        monkeypatch.setattr(counter, "launches", 0)
     det.detect_faces_batch(frames.numpy())
     report = det.memory_report()
-    assert (report["epilogue_fused"], report["epilogue_op_by_op"]) == (0, 0)
-    epilogue.ran_op_by_op()
-    epilogue.ran_op_by_op()
-    monkeypatch.setattr(epilogue.residual_act, "launches", 5)
+    assert {k: report[k] for k in keys} == dict.fromkeys(keys, 0)
+    for j, counter in enumerate(keys.values()):
+        for _ in range(j + 1):
+            counter()
+    monkeypatch.setattr(epilogue.ran_fused, "launches", 5)
     report = det.memory_report()
-    assert (report["epilogue_fused"], report["epilogue_op_by_op"]) == (5, 2)
+    assert [report[k] for k in keys] == [5, 2, 3, 4, 5]

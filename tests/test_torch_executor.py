@@ -396,3 +396,28 @@ def test_random_full_models_match_jax(which):
             r = np.asarray(r).reshape(g.shape)
             assert np.isfinite(g.numpy()).all()
             assert rel_err(g, r) <= 2e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_leaves_a_float32_bias_to_the_pass(dtype):
+    """``executor.conv2d``, the one path of the executor's and
+    MobileFaceNet's convolutions: on NHWC input with asymmetric SAME pads
+    (an explicit ``F.pad``) it returns the NHWC view of the output; a
+    float32 convolution runs without its bias and hands it back for a K5
+    pass, one behind bf16 operands adds it in float32 after the cast."""
+    import torch.nn.functional as F
+
+    from face_detection_tflite_torch.convert.executor import conv2d
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 10, 10, 4, generator=g).to(dtype)
+    w = torch.randn(6, 4, 3, 3, generator=g).to(dtype)
+    b = torch.randn(6, generator=g)
+    y, rest = conv2d(x, w, b, stride=(2, 2), pads=((0, 1), (0, 1)))
+    want = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (0, 1, 0, 1)), w,
+                    stride=2).float().permute(0, 2, 3, 1)
+    assert y.dtype == torch.float32 and y.shape == (2, 5, 5, 6)
+    if dtype is torch.float32:
+        assert rest is b and torch.equal(y, want)
+        assert y.is_contiguous()
+    else:
+        assert rest is None and torch.equal(y, want + b)

@@ -1181,6 +1181,80 @@ def test_epilogue_kernel_matches_plain(cuda_device, site):
         assert _same_bits(got, epilogue.residual_act_plain(y, r, act, alpha))
 
 
+#: site -> (N, H, W, C, C_r, act, in place): K5 with its convolution's
+#: bias at the five block and PReLU site shapes of :data:`EPILOGUE_SITES`,
+#: a standalone ReLU and a bare residual ADD of the multiclass segmenter,
+#: in place a depthwise convolution's bias alone and the detector stem's
+#: bias and ReLU, at B = 1 and on the scalar path.
+BIAS_SITES = {
+    "detector_128": (16, 128, 128, 24, 24, "RELU", False),
+    "mesh_96": (256, 96, 96, 16, 16, "PRELU", False),
+    "mesh_pad_48": (256, 48, 48, 32, 16, "PRELU", False),
+    "iris_32": (512, 32, 32, 64, 64, "PRELU", False),
+    "mobilefacenet_56": (256, 56, 56, 128, 0, "PRELU", False),
+    "segmenter_relu_128": (16, 128, 128, 48, 0, "RELU", False),
+    "segmenter_add_128": (16, 128, 128, 24, 24, None, False),
+    "add_padded": (4, 8, 8, 32, 16, None, False),
+    "bias_alone": (4, 8, 8, 16, 0, None, False),
+    "iris_dw_in_place": (512, 32, 32, 64, 0, None, True),
+    "detector_stem_in_place": (16, 128, 128, 24, 0, "RELU", True),
+    "in_place_b1": (1, 48, 48, 32, 0, None, True),
+    "odd_c_in_place": (3, 7, 9, 5, 0, "RELU", True),
+    "odd_c_residual": (2, 5, 5, 8, 6, None, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sorted(BIAS_SITES))
+def test_epilogue_bias_kernel_matches_plain(cuda_device, site):
+    """K5 with a bias equals its plain version (the bias add, then PAD,
+    ADD, ReLU or PReLU one by one on the card) bit for bit, -0.0, NaN and
+    inf planted in y, the residual and the bias, on the vector path and,
+    from a pointer off the 16-byte alignment, the scalar path; in place
+    it writes over y and returns it, one launch either way, counted as a
+    folded or a lone bias."""
+    n, h, w, c, cr, act, inplace = BIAS_SITES[site]
+    for offset in (0, 1):
+        y = _eltwise_input((n, h, w, c), 1, cuda_device, offset)
+        r = _eltwise_input((n, h, w, cr), 2, cuda_device, offset) if cr \
+            else None
+        alpha = (torch.rand(c, device=cuda_device) - 0.5) if act == "PRELU" \
+            else None
+        bias = _eltwise_input((c,), 3, cuda_device, offset)
+        want = epilogue.residual_act_plain(y, r, act, alpha, bias)
+        kind = epilogue.bias_alone if act is None and r is None \
+            else epilogue.bias_folded
+        before = (epilogue.residual_act.launches, kind.launches)
+        got = epilogue.residual_act(y, r, act, alpha, bias, inplace)
+        torch.cuda.synchronize()
+        assert (epilogue.residual_act.launches, kind.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert (got.data_ptr() == y.data_ptr()) == inplace
+        assert got.is_contiguous() and got.shape == (n, h, w, c)
+        assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_epilogue_bias_wrapper_refuses_before_a_launch(cuda_device):
+    """A bias that is not one float32 value a channel on y's device, or an
+    in-place pass that is not a bias pass without residual or PReLU,
+    raises before any launch."""
+    y = torch.randn(2, 4, 4, 8, device=cuda_device)
+    b = torch.randn(8, device=cuda_device)
+    before = epilogue.residual_act.launches
+    with pytest.raises(ValueError, match="bias must be"):
+        epilogue.residual_act(y, None, None, None, b[:4])
+    with pytest.raises(TypeError, match="float32"):
+        epilogue.residual_act(y, None, None, None, b.double())
+    with pytest.raises(ValueError, match="is on cpu"):
+        epilogue.residual_act(y, None, "RELU", None, b.cpu())
+    with pytest.raises(ValueError, match="in place"):
+        epilogue.residual_act(y, y, None, None, b, inplace=True)
+    with pytest.raises(ValueError, match="in place"):
+        epilogue.residual_act(y, None, "PRELU", b, b, inplace=True)
+    assert epilogue.residual_act.launches == before
+
+
 @pytest.mark.cuda
 def test_epilogue_relu_and_prelu_special_values(cuda_device):
     """ReLU equals ``torch.relu`` on the card for -0.0, +0.0, NaN and
@@ -1250,35 +1324,59 @@ EPILOGUE_NETWORKS = {
     "mesh": lambda: convert_model(random_init.face_mesh_ir(12)),
     "iris": lambda: convert_model(random_init.iris_landmark_ir(13)),
     "embedding": lambda: build_mobilefacenet(14),
+    "segmenter": lambda: convert_model(random_init.selfie_multiclass_ir(15)),
 }
+
+
+def _k5_counts():
+    return {k: getattr(epilogue, k).launches for k in (
+        "residual_act", "ran_op_by_op", "bias_folded", "bias_alone",
+        "bias_op_by_op")}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("role", sorted(EPILOGUE_NETWORKS))
 def test_every_fused_site_runs_k5_on_nhwc_inputs(cuda_device, monkeypatch,
                                                  role):
-    """Every planned site of the main path's networks takes K5 at B = 16
-    and B = 1 (the wrapper raises on an input that is not NHWC
-    contiguous, so none is), one launch a planned pass (each PReLU of
-    MobileFaceNet), none op by op, and the network's outputs equal those
-    with the plain version at every site bit for bit."""
+    """Every planned site of the main path's networks and the multiclass
+    segmenter takes K5 at B = 16 and B = 1 (the wrapper raises on an input
+    that is not NHWC contiguous, so none is), one launch a planned pass
+    (each convolution's own bias pass among them; one a convolution of
+    MobileFaceNet), none op by op, each convolution's bias counted once,
+    folded or alone, and none added by PyTorch; the network's outputs on
+    seeded nonzero biases equal those with the plain version at every
+    site bit for bit."""
     from face_detection_tflite_torch.convert import executor
     from face_detection_tflite_torch.models import embedding
-    model = EPILOGUE_NETWORKS[role]().to(cuda_device).eval()
-    passes = (len(model._epilogues) if role != "embedding" else
-              sum(1 for k, _ in model.named_buffers() if k.endswith("_a")))
+    model = EPILOGUE_NETWORKS[role]().eval()
+    g = torch.Generator().manual_seed(16)
+    if role == "embedding":
+        biases = [b for k, b in model.named_buffers() if k.endswith("_b")]
+        passes, folded = len(biases), len(biases) - 5
+    else:
+        biases = [getattr(model, model._param_key[op.inputs[2]])
+                  for i, op in enumerate(model._ops)
+                  if i in model._bias_folded or i in model._bias_passes]
+        passes = len(model._epilogues) + len(model._bias_passes)
+        folded = len(model._bias_folded) + sum(
+            a is not None for a in model._bias_passes.values())
+    for b in biases:
+        b.copy_(0.1 * torch.randn(b.shape, generator=g))
+    model = model.to(cuda_device)
     assert passes > 0
     shape = tuple(model.input_shapes[0][1:]) if role != "embedding" else \
         (112, 112, 3)
-    for b in (16, 1):
-        x = torch.rand((b,) + shape, device=cuda_device) * 2 - 1
-        before = (epilogue.residual_act.launches,
-                  epilogue.ran_op_by_op.launches)
+    for n in (16, 1):
+        x = torch.rand((n,) + shape, device=cuda_device) * 2 - 1
+        before = _k5_counts()
         with torch.inference_mode():
             got = model(x)
         torch.cuda.synchronize()
-        assert (epilogue.residual_act.launches - before[0],
-                epilogue.ran_op_by_op.launches - before[1]) == (passes, 0)
+        after = _k5_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "residual_act": passes, "ran_op_by_op": 0,
+            "bias_folded": folded, "bias_alone": len(biases) - folded,
+            "bias_op_by_op": 0}
         with monkeypatch.context() as m:
             m.setattr(executor, "residual_act", epilogue.residual_act_plain)
             m.setattr(embedding, "residual_act", epilogue.residual_act_plain)
@@ -1291,7 +1389,8 @@ def test_every_fused_site_runs_k5_on_nhwc_inputs(cuda_device, monkeypatch,
 @pytest.mark.cuda
 def test_op_by_op_candidates_are_counted_on_the_card(cuda_device):
     """A PRELU the plan leaves op by op (a scalar alpha) counts one
-    ``ran_op_by_op`` a call on the card, and no K5 launch."""
+    ``ran_op_by_op`` a call on the card; its convolution's bias takes the
+    one K5 launch, a pass of its own."""
     g = random_init._Graph(np.random.default_rng(0))
     x = g.tensor((1, 6, 6, 3))
     y = g.conv(x, 8, 1)
@@ -1304,4 +1403,31 @@ def test_op_by_op_candidates_are_counted_on_the_card(cuda_device):
     with torch.inference_mode():
         m(inp)
     assert (epilogue.residual_act.launches - before[0],
-            epilogue.ran_op_by_op.launches - before[1]) == (0, 1)
+            epilogue.ran_op_by_op.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_biases_left_to_pytorch_are_counted_on_the_card(cuda_device):
+    """With the plan's bias passes emptied, each float32 convolution's
+    bias is added by PyTorch (``bias_op_by_op`` a convolution a call, no
+    K5 launch), and the outputs equal the planned model's bit for bit."""
+    m = convert_model(random_init.iris_landmark_ir(17, 1))
+    g = torch.Generator().manual_seed(17)
+    for op in m._ops:
+        if op.name in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            b = getattr(m, m._param_key[op.inputs[2]])
+            b.copy_(0.1 * torch.randn(b.shape, generator=g))
+    m = m.to(cuda_device).eval()
+    convs = len(m._bias_passes) + len(m._bias_folded)
+    x = torch.rand((4, 64, 64, 3), device=cuda_device)
+    with torch.inference_mode():
+        want = m(x)
+        m._epilogues, m._absorbed = {}, frozenset()
+        m._bias_passes, m._bias_folded = {}, frozenset()
+        before = _k5_counts()
+        got = m(x)
+        after = _k5_counts()
+    assert after["residual_act"] - before["residual_act"] == 0
+    assert after["bias_op_by_op"] - before["bias_op_by_op"] == convs
+    for a, w in zip(got, want):
+        assert _same_bits(a, w)
