@@ -260,8 +260,8 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    slab, each equal to the sequential calls bit for bit; the FULL
    readback packed inside the 2-face key's graph against the same
    program captured without it and packed op by op after the replay, on
-   15 of 16 rows (``_graph_pack``: ``_fetch_finish``'s arrays bit for
-   bit, the host µs of the fetch step in turns, the operators the host
+   15 of 16 rows (``_graph_pack``: ``readback.fetch_finish``'s arrays bit
+   for bit, the host µs of the fetch step in turns, the operators the host
    launches for a replayed batch's call and fetch either way);
    ``SelfieSegmentation`` at B = 16, the general segmenter in float32 and
    uint8 and the multiclass one in float32 (``_graph_segmentation``: the
@@ -1380,7 +1380,7 @@ def _k5_per_call(models) -> dict:
         if hasattr(m, "_epilogues"):
             out[role] = len(m._epilogues) + len(m._bias_passes)
         else:
-            last = "_b" if m._dtype is torch.float32 else "_a"
+            last = "_a" if m.runs_bf16 else "_b"
             out[role] = sum(1 for k, _ in m.named_buffers()
                             if k.endswith(last))
     return out
@@ -2554,9 +2554,10 @@ def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
     through ``SelfieSegmentation`` (dispatch and materialize, the upload
     included) after a warm-up, ms a batch and masks/s; split into the
     device program (CUDA events around the size's program, the letterbox,
-    the net and the planes, replayed on frames already on the card; the
-    clone out of the graph included), the readback (host clock
-    around the non-blocking copy to pinned memory and its event) and the
+    the net and the planes packed with the stage stamps, replayed on
+    frames already on the card; the clone out of the graph included), the
+    readback (host clock around ``readback.start`` of the packed rows'
+    non-blocking copy to pinned memory and ``readback.wait``) and the
     host ``upsample`` of the batch's masks to the frames' size.  The
     float32 masks against the CPU on two frames, within
     :data:`SEG_CPU_TOL`."""
@@ -2565,7 +2566,7 @@ def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.models.segmentation import \
         SelfieSegmentation
-    from face_detection_tflite_torch.pipeline.upload import download_async
+    from face_detection_tflite_torch.pipeline import readback
     multiclass = kind == "multiclass"
     net = convert_model(ir, name=f"segmenter-{kind}-random")
     result = {"weights": net.num_params}
@@ -2579,17 +2580,17 @@ def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
             t0 = time.perf_counter()
             masks = seg(frames_np)
             batch_ms.append((time.perf_counter() - t0) * 1e3)
-        prog, _ = seg._program(seg.model, HEIGHT, WIDTH)
+        [(_, prog)] = seg._programs.items()
         with torch.inference_mode():
             device_ms = _median_ms(lambda: prog(frames), iters=5, warmup=1)
-            planes, _ = prog(frames)
+            packed = prog(frames)
             torch.cuda.synchronize()
             reads = []
             for _ in range(5):
                 t0 = time.perf_counter()
-                _, event = download_async(planes)
-                event.synchronize()
+                readback.wait(readback.start(packed))
                 reads.append((time.perf_counter() - t0) * 1e3)
+        nbytes = packed["packed"].numel() * packed["packed"].element_size()
         t0 = time.perf_counter()
         for m in masks:
             m.upsample()
@@ -2603,7 +2604,7 @@ def _segmenter_timing(kind: str, ir, frames, frames_np, card: str) -> dict:
               f"{HEIGHT}x{WIDTH}: ms/batch {['%.2f' % t for t in batch_ms]}, "
               f"median {steady:.2f} ms = {FRAMES * 1e3 / steady:.1f} masks/s; "
               f"device program {device_ms:.3f} ms, readback of "
-              f"{planes.numel() * planes.element_size()} B "
+              f"{nbytes} B "
               f"{statistics.median(reads):.3f} ms, host upsample of the "
               f"batch to {WIDTH}x{HEIGHT} {up_ms:.2f} ms  [{card}]")
         result[dtype] = {"ms": batch_ms, "device_ms": device_ms,
@@ -3681,8 +3682,8 @@ def _eager_fetch_async(out, scale, rows=None):
     """The readback as the detector started it before it was packed inside
     each program: the raw outputs' rows (but the det_* slab) packed op by
     op (``pack_readback``) and their copy to pinned memory started; a
-    handle for ``FaceDetector._fetch_finish``."""
-    from face_detection_tflite_torch.pipeline.detector import pack_readback
+    handle for ``readback.fetch_finish``."""
+    from face_detection_tflite_torch.pipeline.readback import pack_readback
     from face_detection_tflite_torch.pipeline.upload import download_async
     buf, layout = pack_readback({k: v[:rows] for k, v in out.items()
                                  if k not in DET_SLAB}, scale)
@@ -3692,8 +3693,8 @@ def _eager_fetch_async(out, scale, rows=None):
 
 def _eager_readback(out, scale, rows=None) -> dict:
     """:func:`_eager_fetch_async`'s arrays."""
-    from face_detection_tflite_torch import FaceDetector
-    return FaceDetector._fetch_finish(_eager_fetch_async(out, scale, rows))
+    from face_detection_tflite_torch.pipeline.readback import fetch_finish
+    return fetch_finish(_eager_fetch_async(out, scale, rows))
 
 
 def _readback_diff(got: dict, want: dict) -> float:
@@ -3894,6 +3895,7 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
     from face_detection_tflite_torch.pipeline import graphs
     from face_detection_tflite_torch.pipeline.programs import \
         build_pipeline_program
+    from face_detection_tflite_torch.pipeline.readback import fetch
     det = FaceDetector(models=models, device=frames.device,
                        max_faces=MAX_FACES, embed_in_full=embed,
                        allow_untrained_embeddings=True)
@@ -3940,7 +3942,7 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
     with torch.inference_mode():
         steady = det._program(HEIGHT, WIDTH, mode, face_slab=MAX_FACES)
         diffs["steady"] = _readback_diff(
-            det._fetch(steady(frames)), _eager_readback(
+            fetch(steady(frames)), _eager_readback(
                 build_pipeline_program(models, HEIGHT, WIDTH, mode, **kw)(
                     frames), scale))
         spec = det._program(HEIGHT, WIDTH, mode, face_slab=2)
@@ -3949,7 +3951,7 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
         got = spec(frames)
         want = build_pipeline_program(models, HEIGHT, WIDTH, mode,
                                       face_slab=2, **kw)(frames)
-        readback = det._fetch(got)
+        readback = fetch(got)
         diffs["slab 2"] = max(
             _readback_diff(readback, _eager_readback(want, scale)),
             _program_diff(_det_slab(got), _det_slab(want)))
@@ -3960,7 +3962,7 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
         # Captured by the first batch's re-run at 16 faces.
         stage = det._face_stage_program(HEIGHT, WIDTH, mode)
         diffs["overflow re-run"] = _readback_diff(
-            det._fetch(stage(frames, *prefix)), _eager_readback(
+            fetch(stage(frames, *prefix)), _eager_readback(
                 build_pipeline_program(
                     models, HEIGHT, WIDTH, mode, from_detections=True,
                     with_embeddings=embed)(frames, *prefix), scale))
@@ -3977,7 +3979,7 @@ def _graph_cell(label: str, models, frames, frames_np, mode, embed: bool,
 
     # ms a batch in turns, and the host's time to queue one.
     def progs():
-        return det._captured_programs
+        return det._programs.captured()
     med = _in_turns(GRAPH_RUNS,
                     lambda: det.detect_faces_batch(frames_np, mode), progs)
     qmed = _in_turns(GRAPH_RUNS, lambda: det._stream_dispatch(frames, mode),
@@ -4027,6 +4029,7 @@ def _graph_schedule(models, frames, card: str) -> dict:
     from face_detection_tflite_torch.pipeline import graphs
     from face_detection_tflite_torch.pipeline.programs import \
         build_pipeline_program
+    from face_detection_tflite_torch.pipeline.readback import fetch
     mode = FaceDetectionMode.FULL
     n = graphs.CAPTURE_AT_CALL
     det = FaceDetector(models=models, device=frames.device,
@@ -4055,7 +4058,7 @@ def _graph_schedule(models, frames, card: str) -> dict:
         if state != ((0, 1) if how == "eager" else (1, 0)):
             raise AssertionError(f"graphs schedule: call {call} ({how}) "
                                  f"left (captured, pending) {state}")
-        diff = _readback_diff(det._fetch(out), want_rb)
+        diff = _readback_diff(fetch(out), want_rb)
         if diff != 0:
             raise AssertionError(f"graphs schedule: call {call} ({how}) "
                                  f"differs from the eager program by {diff}")
@@ -4114,7 +4117,7 @@ def _graph_b1(models, frames, frames_np, card: str) -> dict:
         if json.dumps(_payload([got[-1]])) != json.dumps(_payload([want])):
             raise AssertionError(f"graphs {label}: replayed faces differ "
                                  f"from the eager call's")
-        med = _in_turns(GRAPH_CALLS, call, lambda: det._captured_programs)
+        med = _in_turns(GRAPH_CALLS, call, det._programs.captured)
         print(f"graphs {label} (B = 1, {WIDTH}x{HEIGHT}, FULL): ms a call, "
               f"median of {2 * GRAPH_CALLS} in turns: replayed "
               f"{med['replayed']:.2f}, eager {med['eager']:.2f}; "
@@ -4157,7 +4160,7 @@ def _graph_standalone(models, frames, frames_np, card: str) -> dict:
                              f"differ from the eager program's, or "
                              f"{launches} K1 launches over {GRAPH_CALLS} "
                              f"calls")
-    (prog,) = fd._programs.values()
+    (prog,) = fd._programs.captured()
     med = _in_turns(GRAPH_CALLS, lambda: fd(frame), lambda: [prog])
     capture_ms = [s * 1e3 for s in prog.capture_s.values()]
     split = _capture_split("FaceDetection", [("size", prog)], card)
@@ -4272,6 +4275,7 @@ def _graph_segmentation(frames, frames_np, card: str) -> dict:
     from face_detection_tflite_torch.models.segmentation import \
         SelfieSegmentation
     from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.pipeline.readback import fetch
     irs = {kind: random_init.segmenter_ir(kind, SEED + 5)
            for kind in dict(SEG_GRAPH_CASES)}
     out = {}
@@ -4286,19 +4290,19 @@ def _graph_segmentation(frames, frames_np, card: str) -> dict:
             seg(frames_np)                         # eager, then captured
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        prog, _ = seg._program(seg.model, HEIGHT, WIDTH)
+        (prog,) = seg._programs.captured()
         capture_ms = [c * 1e3 for c in prog.capture_s.values()]
         with torch.inference_mode():
-            got, stamps = prog(frames)
+            # The planes, less the stage stamps.
+            got = fetch(prog(frames))["planes"]
             with graphs.eager():
-                want, _ = prog(frames)
-            if stamps:   # the planes' bytes, less the stage stamps
-                got, want = got[:-8 * len(stamps)], want[:-8 * len(stamps)]
+                want = fetch(prog(frames))["planes"]
             if got.dtype != want.dtype or got.shape != want.shape:
                 raise AssertionError(f"graphs {label}: planes {got.shape} "
                                      f"{got.dtype} against {want.shape} "
                                      f"{want.dtype}")
-            diff = (got.float() - want.float()).abs().max().item()
+            diff = float(abs(got.astype("float32") -
+                             want.astype("float32")).max())
         if diff != 0:
             raise AssertionError(f"graphs {label}: replayed planes differ "
                                  f"from the eager program's by {diff}")
@@ -4380,7 +4384,7 @@ def _graph_embedding(models, frames, card: str) -> dict:
                                   torch.sin(-theta)], EMBED_SIZE, None,
                     f"embedding site, {label}")
         ms = _in_turns(GRAPH_CALLS, lambda: emb.embed_batch(frame, pairs[:n]),
-                       lambda: emb._programs.values())
+                       emb._programs.captured)
         print(f"graphs {label} (slab {slab}, {WIDTH}x{HEIGHT} frame on the "
               f"card): replayed embeddings equal the eager call's bit for "
               f"bit; K2 {k2[EMBED_SIZE]} launches at {EMBED_SIZE} px over "
@@ -4389,7 +4393,7 @@ def _graph_embedding(models, frames, card: str) -> dict:
               f"{2 * GRAPH_CALLS} in turns: replayed {ms['replayed']:.3f}, "
               f"eager {ms['eager']:.3f}  [{card}]")
         out["by_n"][n] = {"slab": slab, "ms": ms}
-    prog = emb._programs["many"]
+    (prog,) = emb._programs.captured()
     slabs = sorted(k[1][0][1] for k in prog.keys())
     if slabs != [1, 4, 16]:
         raise AssertionError(f"graphs embed_batch: graphs of slabs {slabs}, "
@@ -4435,7 +4439,7 @@ def _graph_single(models, card: str) -> dict:
         if not same:
             raise AssertionError(f"graphs {label}: the replay differs from "
                                  f"the eager call")
-        (prog,) = net._programs.values()
+        (prog,) = net._programs.captured()
         ms = _in_turns(GRAPH_CALLS, lambda: call(x), lambda: [prog])
         capture_ms = [c * 1e3 for c in prog.capture_s.values()]
         split = _capture_split(label, [("input", prog)], card)
@@ -4454,14 +4458,15 @@ def _graph_pack(models, frames, card: str) -> dict:
     """Phase 14's readback on the FULL B = 16 cell, packed inside the
     2-face speculative key's graph against the form before it (the same
     program captured without the pack, which then runs op by op after
-    the replay), on the first 15 rows: ``_fetch_finish``'s arrays bit for
+    the replay), on the first 15 rows: ``readback.fetch_finish``'s arrays
+    bit for
     bit, the host µs of the fetch step (from the replay's outputs to the
     copy's start) in turns, and the operators the host launches for a
     replayed batch's program call and fetch step (copy-in, clones, pack,
     copy to the host), each form."""
     import torch
     from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
-    from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.pipeline import graphs, readback
     from face_detection_tflite_torch.pipeline.programs import \
         build_pipeline_program
     mode = FaceDetectionMode.FULL
@@ -4475,7 +4480,7 @@ def _graph_pack(models, frames, card: str) -> dict:
         min_score=det.min_score, face_slab=2), frames.device)
 
     def fetch(how, out):
-        return (det._fetch_async(out, rows) if how == "folded"
+        return (readback.fetch_async(out, rows) if how == "folded"
                 else _eager_fetch_async(out, scale, rows))
     with torch.inference_mode():
         outs = {}
@@ -4483,8 +4488,8 @@ def _graph_pack(models, frames, card: str) -> dict:
             with graphs.capture_now():
                 prog(frames)                       # eager, then captured
             outs[how] = prog(frames)
-        got = det._fetch_finish(fetch("folded", outs["folded"]))
-        want = det._fetch_finish(fetch("eager", outs["eager"]))
+        got = readback.fetch_finish(fetch("folded", outs["folded"]))
+        want = readback.fetch_finish(fetch("eager", outs["eager"]))
         diff = _readback_diff(got, want)
         if diff != 0:
             raise AssertionError(f"graphs pack: the folded readback differs "
@@ -4496,13 +4501,14 @@ def _graph_pack(models, frames, card: str) -> dict:
                 t0 = time.perf_counter()
                 handle = fetch(how, outs[how])
                 fetch_us[how].append((time.perf_counter() - t0) * 1e6)
-                det._wait(handle)
-        ops = {how: _host_ops(lambda: det._wait(fetch(how, prog(frames))))
+                readback.wait(handle)
+        ops = {how: _host_ops(lambda: readback.wait(fetch(how,
+                                                          prog(frames))))
                for how, prog in (("folded", folded), ("eager", unfolded))}
     med = {how: statistics.median(v) for how, v in fetch_us.items()}
     total = {how: sum(v.values()) for how, v in ops.items()}
     print(f"graphs pack (FULL, slab 2, {rows} of {FRAMES} rows): "
-          f"_fetch_finish's arrays of the pack inside the graph against the "
+          f"fetch_finish's arrays of the pack inside the graph against the "
           f"eager pack's: largest difference {diff:g}; host us of the fetch "
           f"step, median of {2 * FETCH_ROUNDS} in turns: folded "
           f"{med['folded']:.1f}, eager pack {med['eager']:.1f}; operators "

@@ -840,8 +840,11 @@ class ConvertedModel(nn.Module):
             if tier is not None and _TIER_DTYPE[tier] is torch.bfloat16
             for j in _OPERANDS.get(op.name, (0, 1))
             if op.inputs[j] in param_key}
-        self._bf16 = any(t is not None and _TIER_DTYPE[t] is torch.bfloat16
-                         for t in self.tiers)
+        #: Whether an op runs a bf16 tier (the fp32 check then also
+        #: holds bf16 reductions to full precision, :func:`_check_fp32`).
+        self.runs_bf16 = any(t is not None and
+                             _TIER_DTYPE[t] is torch.bfloat16
+                             for t in self.tiers)
         self._make_low()
         self.register_load_state_dict_post_hook(_refresh_low)
 
@@ -930,7 +933,7 @@ class ConvertedModel(nn.Module):
                     x = (x.float() - zp) * s
             env[tix] = x
         device = inputs[0].device
-        _check_fp32(device, bf16=self._bf16)
+        _check_fp32(device, bf16=self.runs_bf16)
         on_card = device.type == "cuda"
         for i, op in enumerate(self._ops):
             if i in self._absorbed:

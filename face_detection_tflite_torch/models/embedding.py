@@ -33,7 +33,6 @@ from __future__ import annotations
 import functools
 import math
 import os
-import threading
 import warnings
 from typing import Optional
 
@@ -232,6 +231,12 @@ class MobileFaceNet(nn.Module):
                 persistent=False)
 
     @property
+    def runs_bf16(self) -> bool:
+        """Whether the convolutions take bf16 operands (the fp32 check then
+        also holds bf16 reductions to full precision)."""
+        return self._dtype is not torch.float32
+
+    @property
     def num_params(self) -> int:
         return sum(b.numel() for b in self.state_dict().values())
 
@@ -284,7 +289,7 @@ class MobileFaceNet(nn.Module):
         if x.dim() != 4 or tuple(x.shape[1:]) != (s, s, 3) or x.shape[0] < 1:
             raise ValueError(f"embedding input expects shape (N, {s}, {s}, 3)"
                              f" with N >= 1, got {tuple(x.shape)}")
-        _check_fp32(x.device, bf16=self._dtype is not torch.float32)
+        _check_fp32(x.device, bf16=self.runs_bf16)
         h = self._conv("stem", x, stride=2)
         h = self._conv("stem_dw", h, groups=64)
         for bi, (t, c, n, stride) in enumerate(_MFN_BLOCKS):
@@ -330,8 +335,7 @@ class FaceEmbedding:
         self.model = model.to(self.device).eval()
         self.is_pretrained = "random-init" not in model.name
         self.allow_untrained = allow_untrained
-        self._programs: dict[str, object] = {}
-        self._programs_lock = threading.Lock()
+        self._programs = graphs.ProgramSet()
 
     @classmethod
     def load(cls, tflite_path: Optional[str] = None, *,
@@ -405,14 +409,8 @@ class FaceEmbedding:
         size and slab.  It closes over ``model``, the caller's snapshot,
         not ``self.model``: a concurrent :meth:`dispose` may null the
         attribute before the program runs."""
-        with self._programs_lock:
-            if "many" not in self._programs:
-                bf16 = getattr(model, "_bf16", False) or getattr(
-                    model, "_dtype", torch.float32) is not torch.float32
-                self._programs["many"] = graphs.program(
-                    functools.partial(embed_rois, model), self.device,
-                    functools.partial(_check_fp32, self.device, bf16=bf16))
-            return self._programs["many"]
+        return self._programs.get(None, lambda: self._programs.wrap(
+            functools.partial(embed_rois, model), self.device, (model,)))
 
     def embed_batch(self, image, eye_pairs) -> np.ndarray:
         """Embeds N faces of ONE image: ``eye_pairs`` is a sequence of
@@ -447,12 +445,8 @@ class FaceEmbedding:
     def dispose(self) -> None:
         """Frees the captured programs and the weights; later embeds
         raise (`face_embedding.dart:343`)."""
-        with self._programs_lock:
-            for prog in self._programs.values():
-                if isinstance(prog, graphs.CapturedProgram):
-                    prog.release()
-            self._programs.clear()
-            self.model = None
+        self._programs.release()
+        self.model = None
 
     # Static helpers mirroring the reference API.
     cosine_similarity = staticmethod(cosine_similarity)

@@ -16,18 +16,18 @@ not held up by the readback.  The mask objects and the padding-aware
 As the JAX class keeps one jitted program per image size, this one keeps
 one program per (height, width): on a card a CUDA graph, captured at
 the size's ``graphs.CAPTURE_AT_CALL``-th call and replayed after
-(``pipeline/graphs.py``), one graph
-a batch size, in the graph memory pool of the device it runs on.
+(``pipeline/graphs.py``, one ``ProgramSet``), one graph a batch size, in
+the graph memory pool of the device it runs on.  The planes come back
+packed as the detector's outputs are (``pipeline/readback.py``).
 
 On a card the program stamps the card's clock at its start (the stage
-group ``segmentation``) and once before its planes are copied out, and the
-stamps ride behind the planes' bytes in the one readback
-(``pipeline/timings.py``, "Stage stamps"); after the mask wait they add
-``device.segmentation`` ms to the timings of the span the caller has
-open.  Three host spans record into those timings too:
-``segment.dispatch`` (the upload, the program's queueing and the
-readback's start), ``segment.wait`` (blocked on the readback) and
-``segment.materialize`` (the mask objects).
+group ``segmentation``) and once before its planes are packed, and the
+stamps ride in every row of the one readback (``pipeline/timings.py``,
+"Stage stamps"); the unpack adds them as ``device.segmentation`` ms to the
+timings of the span the caller has open.  Three host spans record into
+those timings too: ``segment.dispatch`` (the upload, the program's
+queueing and the readback's start), ``segment.wait`` (blocked on the
+readback) and ``segment.materialize`` (the mask objects).
 
 Deliberate differences: :class:`SelfieSegmentation` runs on ``cuda``
 unless the caller passes ``device="cpu"``.  ``place_on`` moves it to
@@ -38,20 +38,17 @@ from __future__ import annotations
 
 import copy
 import enum
-import functools
 import math
-import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..convert.executor import (ConvertedModel, _check_fp32,
-                                fp32_on_the_card, resolve_device)
+from ..convert.executor import (ConvertedModel, fp32_on_the_card,
+                                resolve_device)
 from ..ops.letterbox import letterbox_image, letterbox_params
-from ..pipeline import graphs, timings
+from ..pipeline import graphs, readback
 from ..pipeline.timings import span, stage_range
-from ..pipeline.upload import download_async
 from ..utils.image import decode_image, normalize_channels
 
 __all__ = ["SegmentationClass", "SegmentationMask",
@@ -293,8 +290,7 @@ class SelfieSegmentation:
         self.mask_dtype = mask_dtype
         self.max_output_size = max_output_size
         _, self.in_h, self.in_w, _ = model.input_shapes[0]
-        self._programs: dict[tuple[int, int], tuple] = {}
-        self._programs_lock = threading.Lock()
+        self._programs = graphs.ProgramSet()
 
     def place_on(self, device) -> None:
         """Pins the weights and the work to ``device``: a copy of the
@@ -312,60 +308,29 @@ class SelfieSegmentation:
         if device == self.device:
             return
         fp32_on_the_card(device)
-        with self._programs_lock:
-            self.model = copy.deepcopy(model).to(device).eval()
-            self.device = device
-            self._release()
+        self.model = copy.deepcopy(model).to(device).eval()
+        self.device = device
+        self._programs.release()
 
-    def _release(self) -> None:
-        """Frees the captured programs.  Called under ``_programs_lock``."""
-        for prog, _ in self._programs.values():
-            if isinstance(prog, graphs.CapturedProgram):
-                prog.release()
-        self._programs.clear()
-
-    def captured(self) -> list:
-        """The captured programs, one an image size (none off a card)."""
-        with self._programs_lock:
-            return [p for p, _ in self._programs.values()
-                    if isinstance(p, graphs.CapturedProgram)]
-
-    def _program(self, model: ConvertedModel, img_h: int, img_w: int):
-        """(program, letterbox) of one image size: ``[B, img_h, img_w, 3]``
-        frames -> (the person plane (``[B, h, w, 1]``) or the six softmax
-        planes, as uint8 where asked; the names of its stage stamps).  On
-        a card the planes come as one flat byte buffer with the stamps'
-        int64 values behind them (:meth:`materialize` splits it); off a
-        card the names are empty.  The program closes over ``model``, the
-        caller's snapshot, not ``self.model``: a concurrent
+    def _planes(self, model: ConvertedModel, lbp):
+        """The program of one image size (letterboxed by ``lbp``):
+        ``[B, img_h, img_w, 3]`` frames -> ``planes``, the person plane
+        (``[B, h, w, 1]``) or the six softmax planes, as uint8 where
+        asked, packed for one readback (``pipeline/readback.py``) with the
+        program's stage stamps on a card.  The program closes over
+        ``model``, the caller's snapshot, not ``self.model``: a concurrent
         :meth:`dispose` may null the attribute before the program runs."""
-        with self._programs_lock:
-            key = (img_h, img_w)
-            if key not in self._programs:
-                lbp = letterbox_params(img_h, img_w, self.in_h, self.in_w)
-
-                def planes(images):
-                    with timings.stamping(images.device) as stamps:
-                        with stage_range("fdt.segmentation"):
-                            (raw,) = model(letterbox_image(images, lbp))
-                            raw = raw.reshape(raw.shape[0], self.in_h,
-                                              self.in_w, -1)
-                            out = (torch.softmax(raw, dim=-1)
-                                   if self.multiclass else raw[..., :1])
-                            if self.mask_dtype == "uint8":
-                                out = torch.round(torch.clamp(
-                                    out, 0.0, 1.0) * 255.0).to(torch.uint8)
-                        if stamps is None:
-                            return out, ()
-                        stamps.stamp("pack")
-                    return torch.cat([out.reshape(-1).view(torch.uint8),
-                                      stamps.values().view(torch.uint8)]), \
-                        tuple(stamps.names)
-
-                self._programs[key] = (graphs.program(
-                    planes, self.device, functools.partial(
-                        _check_fp32, self.device, bf16=model._bf16)), lbp)
-            return self._programs[key]
+        def planes(images):
+            with stage_range("fdt.segmentation"):
+                (raw,) = model(letterbox_image(images, lbp))
+                raw = raw.reshape(raw.shape[0], self.in_h, self.in_w, -1)
+                out = (torch.softmax(raw, dim=-1)
+                       if self.multiclass else raw[..., :1])
+                if self.mask_dtype == "uint8":
+                    out = torch.round(torch.clamp(
+                        out, 0.0, 1.0) * 255.0).to(torch.uint8)
+            return {"planes": out}
+        return readback.packed_readback(planes, None)
 
     def dispatch(self, images):
         """Queues the segmentation of a [B, H, W, C] (or one [H, W, C])
@@ -391,11 +356,12 @@ class SelfieSegmentation:
                     f"image {w}x{h} is smaller than minimum "
                     f"{MIN_SEGMENTATION_INPUT_SIZE}x"
                     f"{MIN_SEGMENTATION_INPUT_SIZE}")
-            prog, lbp = self._program(model, h, w)
+            lbp = letterbox_params(h, w, self.in_h, self.in_w)
+            prog = self._programs.get((h, w), lambda: self._programs.wrap(
+                self._planes(model, lbp), self.device, (model,)))
             with torch.inference_mode():
-                out, stamps = prog(images)
-                host, event = download_async(out)
-        return host, event, lbp, b, w, h, stamps
+                fetch = readback.start(prog(images))
+        return fetch, lbp, b, w, h
 
     def materialize(self, handle) -> list[SegmentationMask]:
         """Waits for a :meth:`dispatch` handle's copy (span
@@ -403,18 +369,11 @@ class SelfieSegmentation:
         ``segment.materialize``; multiclass: person = 1 - background).
         The program's stage stamps go to the enclosing span's timings as
         ``device.segmentation`` ms, not into the planes."""
-        host, event, lbp, b, w, h, stamps = handle
+        fetch, lbp, b, w, h = handle
         with span("segment.wait"):
-            if event is not None:
-                event.synchronize()
+            readback.wait(fetch)
         with span("segment.materialize"):
-            planes = host.numpy()
-            if stamps:
-                tail = 8 * len(stamps)
-                timings.record_stamps(stamps, planes[-tail:].view(np.int64))
-                planes = planes[:-tail].view(
-                    np.uint8 if self.mask_dtype == "uint8" else np.float32
-                ).reshape(b, self.in_h, self.in_w, -1)
+            planes = readback.unpack(fetch)["planes"]
             if planes.dtype == np.uint8:
                 planes = planes.astype(np.float32) * (1.0 / 255.0)
             masks: list[SegmentationMask] = []
@@ -442,9 +401,8 @@ class SelfieSegmentation:
     def dispose(self) -> None:
         """Frees the captured programs and drops the network; later calls
         raise (`selfie_segmentation.dart:733`)."""
-        with self._programs_lock:
-            self._release()
-            self.model = None
+        self._programs.release()
+        self.model = None
 
     def dispose_async(self) -> None:
         self.dispose()

@@ -24,19 +24,18 @@ given ``model`` as to a converted file.
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..convert.executor import (ConvertedModel, _check_fp32, convert_file,
+from ..convert.executor import (ConvertedModel, convert_file,
                                 fp32_on_the_card, resolve_device)
 from ..ops.detections import detection_postprocess
 from ..ops.letterbox import (letterbox_image, letterbox_params,
                              normalize_image)
-from ..pipeline import graphs
+from ..pipeline import graphs, readback
 from ..pipeline.config import (IRIS_INPUT_SIZE, MESH_INPUT_SIZE, MODEL_FILES,
                                FaceDetectionModel as Variant)
 from ..pipeline.programs import (_identify_detector_outputs,
@@ -53,13 +52,14 @@ __all__ = ["FaceDetection", "FaceLandmark", "IrisLandmark",
 
 class _Disposable:
     """What the standalone model classes share: their programs, one a key
-    (on a card a CUDA graph a key and input signature, captured at its
-    ``graphs.CAPTURE_AT_CALL``-th call and replayed after,
-    ``pipeline/graphs.py``; on the CPU the eager program), and
-    `dispose()`: the reference frees its interpreters
-    and makes later calls throw (`face_detection_model.dart:525` et al.);
-    here dispose frees the programs, drops the network and poisons
-    further use."""
+    (a ``graphs.ProgramSet``; on a card a CUDA graph a key and input
+    signature, captured at its ``graphs.CAPTURE_AT_CALL``-th call and
+    replayed after, ``pipeline/graphs.py``; on the CPU the eager program),
+    each packing its named outputs for one readback
+    (``pipeline/readback.py``), and `dispose()`: the reference frees its
+    interpreters and makes later calls throw
+    (`face_detection_model.dart:525` et al.); here dispose frees the
+    programs, drops the network and poisons further use."""
 
     _disposed = False
 
@@ -76,24 +76,24 @@ class _Disposable:
                                  precision=precision)
         fp32_on_the_card(self.device)
         self.model = model.with_precision(precision).to(self.device).eval()
-        self._programs: dict = {}
+        self._programs = graphs.ProgramSet()
 
-    def _program_of(self, key, make):
-        """The program of ``key``, made by ``make(model)`` at its first
-        use.  It closes over the network it is given, not ``self.model``,
-        which :meth:`dispose` drops."""
-        if key not in self._programs:
-            self._programs[key] = graphs.program(
-                make(self.model), self.device, functools.partial(
-                    _check_fp32, self.device, bf16=self.model._bf16))
-        return self._programs[key]
+    def _run(self, key, make, *inputs) -> dict:
+        """The arrays of the program of ``key`` on ``inputs``: the program
+        is ``make(model)``'s named outputs packed
+        (``readback.packed_readback``), made at its first use; it closes
+        over the network it is given, not ``self.model``, which
+        :meth:`dispose` drops."""
+        model = self.model
+        prog = self._programs.get(key, lambda: self._programs.wrap(
+            readback.packed_readback(make(model), None), self.device,
+            (model,)))
+        with torch.inference_mode():
+            return readback.fetch(prog(*inputs))
 
     def dispose(self) -> None:
         """Frees the captured programs, then the network."""
-        for prog in self._programs.values():
-            if isinstance(prog, graphs.CapturedProgram):
-                prog.release()
-        self._programs.clear()
+        self._programs.release()
         self._disposed = True
         self.model = None
 
@@ -145,10 +145,10 @@ class FaceDetection(_Disposable):
             self.model, variant.value)).to(self.device)
         self.max_detections = max_detections
 
-    def _program(self, h: int, w: int):
+    def _make(self, h: int, w: int):
         """The program of one image size: ``[1, h, w, 3]`` frames ->
-        ``[D, 18]`` packed boxes, keypoints, scores and valid flags (one
-        buffer, one device-to-host copy)."""
+        ``boxes``, ``keypoints``, ``scores`` and ``valid`` of the
+        ``max_detections`` slab."""
         lbp = letterbox_params(h, w, self.input_size, self.input_size)
 
         def make(model):
@@ -159,12 +159,10 @@ class FaceDetection(_Disposable):
                     raw_boxes, raw_scores, self.anchors,
                     float(self.input_size), lbp.padding,
                     max_detections=self.max_detections)
-                d = boxes.shape[1]
-                return torch.cat([boxes[0], kp[0].reshape(d, 12),
-                                  scores[0, :, None],
-                                  valid[0, :, None].float()], dim=1)
+                return {"boxes": boxes, "keypoints": kp, "scores": scores,
+                        "valid": valid}
             return run
-        return self._program_of((h, w), make)
+        return make
 
     def __call__(self, image) -> list[Detection]:
         self._check_disposed()
@@ -179,15 +177,13 @@ class FaceDetection(_Disposable):
         if self.max_dim is not None:
             image = fit_max_dim(image, self.max_dim)
         h, w = image.shape[:2]
-        with torch.inference_mode():
-            packed = self._program(h, w)(
-                normalize_channels(image[None], self.device)).cpu()
-        packed = packed.numpy()
-        boxes, kp = packed[:, :4], packed[:, 4:16].reshape(-1, 6, 2)
-        scores, valid = packed[:, 16], packed[:, 17] > 0.5
+        out = self._run((h, w), self._make(h, w),
+                        normalize_channels(image[None], self.device))
+        boxes, kp, scores = out["boxes"][0], out["keypoints"][0], \
+            out["scores"][0]
         return [Detection(RectF(*map(float, boxes[i])), float(scores[i]),
                           kp[i])
-                for i in range(len(valid)) if valid[i]]
+                for i, ok in enumerate(out["valid"][0]) if ok]
 
 
 class FaceLandmark(_Disposable):
@@ -206,27 +202,26 @@ class FaceLandmark(_Disposable):
         self.input_size = MESH_INPUT_SIZE
 
     def _make(self, model):
-        """The program: a raw ``[1, 192, 192, C]`` crop -> the landmarks
-        normalized to the crop and the presence score, in one buffer."""
+        """The program: a raw ``[1, 192, 192, C]`` crop -> the
+        ``landmarks`` normalized to the crop and the presence ``score``."""
         def run(crop):
             lm, score = _identify_landmark_outputs(
                 model(normalize_image(crop)))
             lm = _unpack_landmarks(lm, self.input_size, clamp=True,
-                                   normalize_z=True)[0]
+                                   normalize_z=True)
             # -1 is the "no score" sentinel of a graph without one.
-            s = (_sigmoid_clipped(score.reshape(1)) if score is not None
-                 else torch.full((1,), -1.0, device=crop.device))
-            return torch.cat([lm.reshape(-1), s])
+            s = (_sigmoid_clipped(score.reshape(1, 1)) if score is not None
+                 else torch.full((1, 1), -1.0, device=crop.device))
+            return {"landmarks": lm, "score": s}
         return run
 
     def call_with_score(self, face_crop) -> tuple[np.ndarray,
                                                    Optional[float]]:
         self._check_disposed()
-        with torch.inference_mode():
-            packed = self._program_of(None, self._make)(
-                _crop(face_crop, self.input_size, self.device)).cpu().numpy()
-        s = float(packed[-1])
-        return packed[:-1].reshape(-1, 3), (s if s >= 0.0 else None)
+        out = self._run(None, self._make,
+                        _crop(face_crop, self.input_size, self.device))
+        s = float(out["score"][0, 0])
+        return out["landmarks"][0], (s if s >= 0.0 else None)
 
     def __call__(self, face_crop) -> np.ndarray:
         return self.call_with_score(face_crop)[0]
@@ -246,19 +241,20 @@ class IrisLandmark(_Disposable):
         self.input_size = IRIS_INPUT_SIZE
 
     def _make(self, model):
-        """The program: a raw ``[1, 64, 64, C]`` crop -> ``[76, 3]``."""
+        """The program: a raw ``[1, 64, 64, C]`` crop -> ``landmarks``,
+        ``[1, 76, 3]``."""
         def run(crop):
             outs = model(normalize_image(crop))
             flat = torch.cat([o.reshape(-1) for o in outs])
-            return _unpack_landmarks(flat[None], self.input_size,
-                                     clamp=False, normalize_z=False)[0]
+            return {"landmarks": _unpack_landmarks(
+                flat[None], self.input_size, clamp=False,
+                normalize_z=False)}
         return run
 
     def __call__(self, eye_crop) -> np.ndarray:
         self._check_disposed()
-        with torch.inference_mode():
-            return self._program_of(None, self._make)(
-                _crop(eye_crop, self.input_size, self.device)).cpu().numpy()
+        return self._run(None, self._make, _crop(
+            eye_crop, self.input_size, self.device))["landmarks"][0]
 
 
 class FaceBlendshapesModel(_Disposable):
@@ -277,13 +273,13 @@ class FaceBlendshapesModel(_Disposable):
     @staticmethod
     def _make(model):
         """The program: ``[1, 146, 2]`` pixels -> the 52 clamped
-        coefficients and a no-NaN flag, in one buffer."""
+        ``coefficients`` and the no-NaN flag ``ok``."""
         def run(pts):
             (coeffs,) = model(pts)
-            raw = coeffs.reshape(52)
-            ok = ~torch.isnan(raw).any()
-            return torch.cat([torch.clamp(torch.nan_to_num(raw), 0.0, 1.0),
-                              ok.float().reshape(1)])
+            raw = coeffs.reshape(1, 52)
+            ok = ~torch.isnan(raw).any(dim=1, keepdim=True)
+            return {"coefficients": torch.clamp(torch.nan_to_num(raw), 0.0,
+                                                1.0), "ok": ok}
         return run
 
     def __call__(self, landmarks_146) -> Optional[np.ndarray]:
@@ -295,7 +291,5 @@ class FaceBlendshapesModel(_Disposable):
         if pts.shape != (146, 2):
             raise ValueError(
                 f"blendshape input must be [146, 2] pixels, got {pts.shape}")
-        with torch.inference_mode():
-            packed = self._program_of(None, self._make)(
-                upload(pts, self.device)[None]).cpu().numpy()
-        return packed[:52] if packed[52] > 0.5 else None
+        out = self._run(None, self._make, upload(pts, self.device)[None])
+        return out["coefficients"][0] if out["ok"][0, 0] else None

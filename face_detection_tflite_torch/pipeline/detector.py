@@ -43,12 +43,13 @@ mode, face slab, device; the padded batch and the overflow width are the
 inputs' shapes) and dispatched whole: on a card each program key is a
 CUDA graph, captured at the key's ``graphs.CAPTURE_AT_CALL``-th call (in
 ``warmup`` at its first) and replayed after (``pipeline/graphs.py``), so
-a key called only a few times runs eagerly and pays no capture.  The graphs live in their device's graph memory pool,
-which every captured program of the process on that device shares.  Each
-program packs its own readback into one byte buffer
-(:func:`packed_readback`), where the JAX detector runs a packer program
-of its own after it, so a replay clones that buffer and the speculative
-``det_*`` slab rather than every output.
+a key called only a few times runs eagerly and pays no capture.  The
+detector's programs are one ``graphs.ProgramSet``, and their graphs live
+in their device's graph memory pool, which every captured program of the
+process on that device shares.  Each program packs its own readback into
+one byte buffer (``pipeline/readback.py``), where the JAX detector runs a
+packer program of its own after it, so a replay clones that buffer and
+the speculative ``det_*`` slab rather than every output.
 Inside ``pipeline.timings.trace`` the programs run eagerly,
 so that the trace holds their stage ranges.
 
@@ -83,7 +84,6 @@ at "high".  The tiers' counterparts on the card are the executor's
 from __future__ import annotations
 
 import collections
-import functools
 import itertools
 import os
 import threading
@@ -93,7 +93,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..convert.executor import _check_fp32, convert_file
+from ..convert.executor import convert_file
 from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
@@ -106,7 +106,7 @@ from .config import (DEFAULT_MAX_MISSED_FRAMES,
                      DEFAULT_MIN_FACE_PRESENCE_CONFIDENCE, MIN_SCORE,
                      MODEL_FILES, FaceDetectionMode, FaceDetectionModel,
                      SegmentationConfig, SegmentationModel)
-from . import graphs, timings
+from . import graphs, readback, timings
 from .gates import validate_face_gates
 from .programs import (PipelineModels, build_pipeline_program,
                        network_precision, resolve_device)
@@ -114,7 +114,7 @@ from .timings import DetectTimings, span, stage_range
 from .tracker import TemporalFaceTracker, validate_tracking_config
 from .types import Detection, Face, FaceMesh, RectF
 from .types import split_meshes_if_concatenated as _split_meshes
-from .upload import download_async, upload
+from .upload import upload
 from .video import process_video
 from ..utils.image import decode_image, decode_images, load_image, \
     normalize_channels, validate_batch_shape
@@ -143,133 +143,14 @@ def resolve_model_dir(model_dir: Optional[str] = None) -> str:
         "model_dir, or pass models=")
 
 
+#: The networks a pipeline program runs (the segmenter runs its own).
+_NETWORKS = ("detector", "mesh", "iris", "blendshapes", "embedding")
+
+
 def _each(out, fn):
     """``fn`` of a slab dict, or the list of ``fn`` of each shard dict of a
     sharded program's output."""
     return [fn(o) for o in out] if isinstance(out, list) else fn(out)
-
-
-#: Outputs read back as int16 at the readback's quant scale.
-_QUANT_KEYS = frozenset({"mesh", "iris"})
-#: Sections in this order (4-byte, then 2-byte, then 1-byte), so that every
-#: section's offset in a packed row stays aligned for the host's views.
-_RANK = {"f32": 0, "i32": 1, "i16": 2, "u8": 3}
-#: The readback entry of a program's stage stamps (``pipeline/timings.py``):
-#: its int64 stamps as int32 pairs, the same in every row.
-STAMPS = "stamps"
-
-
-def _readback_encoding(name: str, dtype, quant_scale) -> str:
-    if dtype == torch.bool:
-        return "u8"
-    if not dtype.is_floating_point:
-        return "i32"
-    if quant_scale and name in _QUANT_KEYS:
-        return "i16"
-    return "f32"
-
-
-class ReadbackLayout:
-    """Where each output lies in a packed readback row: ``entries`` of
-    (name, shape of a row, encoding) in byte order, the px -> int16
-    scale of the quantized landmarks, and the names of the program's stage
-    stamps in the :data:`STAMPS` entry (empty where it has none).  The
-    host-side half of the JAX detector's readback packer
-    (``_fetch_async``/``_fetch_finish``)."""
-
-    __slots__ = ("entries", "quant_scale", "stamps")
-
-    def __init__(self, entries: tuple, quant_scale: Optional[float],
-                 stamps: tuple = ()):
-        self.entries = entries
-        self.quant_scale = quant_scale
-        self.stamps = stamps
-
-    def unpack(self, host: np.ndarray) -> dict:
-        """The arrays of a packed ``[rows, bytes]`` host buffer."""
-        result = {}
-        off = 0
-        for k, row_shape, enc in self.entries:
-            n = int(np.prod(row_shape))
-            shape = (host.shape[0],) + row_shape
-            if enc == "u8":
-                result[k] = (host[:, off:off + n] > 0).reshape(shape)
-                off += n
-            elif enc == "i16":
-                result[k] = (host[:, off:off + 2 * n].view(np.int16)
-                             .astype(np.float32) / self.quant_scale
-                             ).reshape(shape)
-                off += 2 * n
-            elif enc == "i32":
-                result[k] = host[:, off:off + 4 * n].view(
-                    np.int32).reshape(shape)
-                off += 4 * n
-            else:
-                result[k] = host[:, off:off + 4 * n].view(
-                    np.float32).reshape(shape)
-                off += 4 * n
-        return result
-
-
-def pack_readback(out: dict, quant_scale: Optional[float] = None
-                  ) -> tuple[torch.Tensor, ReadbackLayout]:
-    """Packs a program's ``[B, ...]`` outputs into one ``[B, bytes]`` uint8
-    buffer on their device, for one device-to-host copy: fp32 and int32
-    bitcast, bool as a byte, and the mesh and iris landmarks as int16 at
-    ``quant_scale`` px^-1 where it is given (the JAX detector's readback
-    packer, ``pipeline/detector.py::_fetch_async``).  Rows are packed
-    independently, so a prefix of the buffer's rows is the packing of the
-    outputs' same rows."""
-    entries = sorted(((_readback_encoding(k, v.dtype, quant_scale), k, v)
-                      for k, v in out.items()),
-                     key=lambda e: (_RANK[e[0]], e[1]))
-    segs = []
-    for enc, _, x in entries:
-        x = x.reshape(x.shape[0], -1)
-        if enc == "u8":
-            segs.append(x.to(torch.uint8))
-            continue
-        if enc == "i16":
-            x = torch.clamp(torch.round(x * quant_scale), -32767.0,
-                            32767.0).to(torch.int16)
-        elif enc == "i32":
-            x = x.to(torch.int32)
-        else:
-            x = x.float()
-        segs.append(x.contiguous().view(torch.uint8))
-    layout = ReadbackLayout(tuple((k, tuple(v.shape[1:]), e)
-                                  for e, k, v in entries), quant_scale)
-    return torch.cat(segs, dim=1), layout
-
-
-def packed_readback(fn, quant_scale: Optional[float]):
-    """``fn`` (a pipeline program) with its readback packed inside it:
-    ``{"packed": [B, bytes] uint8, "layout": ReadbackLayout}`` beside the
-    ``det_*`` slab a speculative program keeps on the device for the
-    overflow re-run (its ``det_count`` goes into the packed buffer).  On a
-    card the pack is then part of the program key's CUDA graph, and a
-    replay clones one buffer and the slab, not every output.  On a card
-    the program also stamps the start of each stage group and its end
-    (``timings.stamping``), and the stamps go into the packed buffer
-    (:data:`STAMPS`), so that each call carries its own."""
-    def run(*args):
-        with timings.stamping(args[0].device) as stamps:
-            out = fn(*args)
-            if stamps is not None:
-                stamps.stamp("pack")
-        kept = {k: v for k, v in out.items()
-                if k.startswith("det_") and k != "det_count"}
-        packed = {k: v for k, v in out.items() if k not in kept}
-        with stage_range("fdt.pack"):
-            if stamps is not None:
-                rows = next(iter(packed.values())).shape[0]
-                packed[STAMPS] = stamps.values().view(torch.int32)[
-                    None].expand(rows, -1)
-            buf, layout = pack_readback(packed, quant_scale)
-        if stamps is not None:
-            layout.stamps = tuple(stamps.names)
-        return {"packed": buf, "layout": layout, **kept}
-    return run
 
 
 def _image_from_packed_bytes(data, width: int, height: int, channels: int,
@@ -440,15 +321,13 @@ class FaceDetector:
         #: Per-device networks of replica (device-pinned) serving, made by
         #: _replica_params and dropped by dispose.
         self._replica_params_cache: dict = {}
+        self._replica_lock = threading.Lock()
         #: A score-less mesh graph's zero substitute must not gate on 0.5
         #: (face_detector_core.dart:101-103: a null meshScore passes).
         self._mesh_emits_score = any(
             int(np.prod(s)) == 1 for s in models.mesh.output_shapes)
-        self._programs: dict[tuple, object] = {}
-        self._programs_lock = threading.Lock()
-        #: The captured programs (pipeline/graphs.py), for their count,
-        #: their pools' bytes and their release in dispose.
-        self._captured_programs: list[graphs.CapturedProgram] = []
+        #: The programs, one a key (``pipeline/graphs.py``).
+        self._programs = graphs.ProgramSet()
         #: Sticky speculation bucket per (H, W, mode).
         self._spec_state: dict[tuple, dict] = {}
         self._spec_lock = threading.Lock()
@@ -584,7 +463,7 @@ class FaceDetector:
         """The pipeline program of one image size and mode on ``device``
         (the detector's own by default), sharded over the mesh under
         ``data_parallel``, its readback packed inside it at the size's
-        quant scale (:func:`packed_readback`)."""
+        quant scale (``readback.packed_readback``)."""
         self._check_disposed()
         if face_slab is not None and face_slab >= self.max_faces:
             face_slab = None
@@ -594,46 +473,31 @@ class FaceDetector:
         mfs = 0.0 if self.bucket_images else self.min_face_size
 
         def build(m):
-            return packed_readback(build_pipeline_program(
+            return readback.packed_readback(build_pipeline_program(
                 m, img_h, img_w, mode, max_faces=self.max_faces,
                 min_score=self.min_score, min_face_size=mfs,
                 num_candidates=self.num_candidates, face_slab=face_slab,
                 with_embeddings=self._with_embeddings(mode)),
                 self._readback_scale(img_h, img_w))
-        with self._programs_lock:
-            if key not in self._programs:
-                self._programs[key] = self._sharded(build, models, 1)
-            return self._programs[key]
+        return self._sharded(key, build, models, 1)
 
-    def _sharded(self, build, models, n_batch_args: int):
-        """``build(models)`` captured (:meth:`_captured`), or under
-        ``data_parallel`` the program built and captured on each mesh
-        device's networks and run sharded
-        (:func:`~..parallel.sharding.data_parallel`).  Called under
-        ``_programs_lock``."""
-        if self._mesh is None:
-            return self._captured(build(models), models)
-        mesh_models = self._mesh_models
-        return _sharding.data_parallel(
-            lambda d: self._captured(build(mesh_models[d]), mesh_models[d]),
-            self._mesh, n_batch_args)
+    def _sharded(self, key: tuple, build, models, n_batch_args: int):
+        """The program of ``key`` in the detector's set: ``build(models)``,
+        or under ``data_parallel`` the program built on each mesh device's
+        networks and run sharded
+        (:func:`~..parallel.sharding.data_parallel`)."""
+        def wrapped(m: PipelineModels):
+            return self._programs.wrap(build(m), m.device, [
+                getattr(m, name) for name in _NETWORKS
+                if getattr(m, name) is not None])
 
-    def _captured(self, fn, models: PipelineModels):
-        """The eager program ``fn`` on ``models``' device as a captured
-        program in that device's graph pool (``pipeline/graphs.py``; on
-        the CPU ``fn`` itself), with the executor's fp32 check on every
-        call.  Called under ``_programs_lock``."""
-        dev = models.device
-        nets = [m for m in (models.detector, models.mesh, models.iris,
-                            models.blendshapes, models.embedding)
-                if m is not None]
-        bf16 = any(getattr(m, "_bf16", False) or getattr(
-            m, "_dtype", torch.float32) is not torch.float32 for m in nets)
-        prog = graphs.program(fn, dev, functools.partial(
-            _check_fp32, dev, bf16=bf16))
-        if isinstance(prog, graphs.CapturedProgram):
-            self._captured_programs.append(prog)
-        return prog
+        def make():
+            if self._mesh is None:
+                return wrapped(models)
+            mesh_models = self._mesh_models
+            return _sharding.data_parallel(
+                lambda d: wrapped(mesh_models[d]), self._mesh, n_batch_args)
+        return self._programs.get(key, make)
 
     def _models_key(self, device, key: tuple):
         """(the networks a dispatch on ``device`` runs, its programs' cache
@@ -648,7 +512,7 @@ class FaceDetector:
         own device, else a copy of their weights there (a few MB), made
         once for a ``ReplicaPool`` or a pinned stream."""
         device = resolve_device(device)
-        with self._programs_lock:
+        with self._replica_lock:
             # Checked under the lock: dispose() marks the detector first
             # and clears this cache under the same lock, so a racing call
             # either raises here or its entry is cleared.
@@ -670,14 +534,11 @@ class FaceDetector:
         models, key = self._models_key(device, (img_h, img_w, mode, "stage"))
 
         def build(m):
-            return packed_readback(build_pipeline_program(
+            return readback.packed_readback(build_pipeline_program(
                 m, img_h, img_w, mode, from_detections=True,
                 with_embeddings=self._with_embeddings(mode)),
                 self._readback_scale(img_h, img_w))
-        with self._programs_lock:
-            if key not in self._programs:
-                self._programs[key] = self._sharded(build, models, 5)
-            return self._programs[key]
+        return self._sharded(key, build, models, 5)
 
     # -- readback ------------------------------------------------------------
 
@@ -688,57 +549,6 @@ class FaceDetector:
             return None
         scale = 32000.0 / (2.0 * max(img_h, img_w))
         return scale if scale >= 4.0 else None
-
-    @staticmethod
-    def _fetch_async(out, rows: Optional[int] = None):
-        """Starts the copy of a program's packed readback (its first
-        ``rows`` rows: the batch's pad rows stay on the device) to pinned
-        host memory; :meth:`_fetch_finish` waits and unpacks.  A list of
-        shard outputs (``data_parallel``) is fetched shard by shard, each
-        from its own device; a shard left with no row is not fetched."""
-        with span("pack"):
-            if isinstance(out, list):
-                n = out[0]["packed"].shape[0]
-                rows = len(out) * n if rows is None else rows
-                parts = [(o, min(rows - i * n, n)) for i, o in enumerate(out)
-                         if rows > i * n]
-            else:
-                parts = [(out, rows)]
-            handles = [(*download_async(o["packed"][:r]), o["layout"])
-                       for o, r in parts]
-        return handles if isinstance(out, list) else handles[0]
-
-    @staticmethod
-    def _fetch_finish(handle) -> dict:
-        """Waits for a fetch (span ``compute_wait``) and unpacks it (span
-        ``readback``); a program's stage stamps go to the enclosing span's
-        timings as ``device.<group>`` ms (``timings.record_stamps``), not
-        into the arrays."""
-        if isinstance(handle, list):
-            parts = [FaceDetector._fetch_finish(h) for h in handle]
-            return parts[0] if len(parts) == 1 else {
-                k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-        host, event, layout = handle
-        with span("compute_wait"):
-            if event is not None:
-                event.synchronize()
-        with span("readback"):
-            out = layout.unpack(host.numpy())
-            stamps = out.pop(STAMPS, None)
-            if stamps is not None and len(stamps):
-                timings.record_stamps(layout.stamps,
-                                      stamps[0].view(np.int64))
-            return out
-
-    def _fetch(self, out, rows: Optional[int] = None) -> dict:
-        return self._fetch_finish(self._fetch_async(out, rows))
-
-    @staticmethod
-    def _wait(handle) -> None:
-        """Waits for the device-to-host copies of a fetch handle."""
-        for h in handle if isinstance(handle, list) else (handle,):
-            if h[1] is not None:
-                h[1].synchronize()
 
     # -- speculative single-call dispatch ------------------------------------
 
@@ -788,15 +598,15 @@ class FaceDetector:
         with self.timings.stage(f"dispatch[slab{bucket}]"):
             det = self._program(h, w, mode, face_slab=bucket,
                                 device=device)(inputs)
-        return (bucket, det, self._fetch_async(det, real_b), real_b, inputs,
-                (h, w), device)
+        return (bucket, det, readback.fetch_async(det, real_b), real_b,
+                inputs, (h, w), device)
 
     def _finish_speculative(self, handle, mode: FaceDetectionMode):
         """Waits for a speculative dispatch; re-runs the face stages on a
         wider prefix iff an image overflowed the speculated bucket (on the
         same device's networks, or sharded under ``data_parallel``)."""
         bucket, det, fetch, real_b, inputs, (h, w), device = handle
-        out = self._fetch_finish(fetch)
+        out = readback.fetch_finish(fetch)
         if mode == FaceDetectionMode.FAST:
             return out
         if "det_count" in out:
@@ -819,7 +629,7 @@ class FaceDetector:
             out2 = self._face_stage_program(h, w, mode, device)(
                 inputs, *prefix)
         with self.timings.stage("face_readback"):
-            return self._fetch(out2, real_b)
+            return readback.fetch(out2, real_b)
 
     # -- public detection ----------------------------------------------------
 
@@ -988,7 +798,7 @@ class FaceDetector:
                 with self.timings.stage("dispatch"):
                     dev = self._program(bh, bw, mode, device=device)(
                         self._shard(images))
-                det = self._fetch_async(dev, b)
+                det = readback.fetch_async(dev, b)
         sizes = list(orig_sizes) if orig_sizes is not None else [wh] * b
         return images, det, b, sizes, device, unit
 
@@ -1001,7 +811,7 @@ class FaceDetector:
         with span(None, self.timings, unit):
             with torch.inference_mode(), _sharding.on_device(device):
                 out = (self._finish_speculative(det, mode)
-                       if self.adaptive else self._fetch_finish(det))
+                       if self.adaptive else readback.fetch_finish(det))
             with span("materialize"):
                 return self._postprocess_slab(out, b, images.shape[1],
                                               images.shape[2], orig_sizes,
@@ -1175,7 +985,7 @@ class FaceDetector:
                                     device=dev),
                         boxes, kp, torch.full((b, nf), 0.9, device=dev),
                         torch.ones((b, nf), dtype=torch.bool, device=dev))
-                    self._fetch(out)
+                    readback.fetch(out)
             for d in devices or ():
                 self._replica_params(d)
                 pinned = np.zeros((batch_size, h, w, 3), np.uint8)
@@ -1564,7 +1374,7 @@ class FaceDetector:
                        (*module.parameters(), *module.buffers()))
 
         report: dict = {}
-        for name in ("detector", "mesh", "iris", "blendshapes", "embedding"):
+        for name in _NETWORKS:
             m = getattr(self.models, name, None)
             if m is not None:
                 report[name] = nbytes(m)
@@ -1577,13 +1387,13 @@ class FaceDetector:
         report["epilogue_op_by_op"] = epilogue.ran_op_by_op.launches
         for key in ("bias_folded", "bias_alone", "bias_op_by_op"):
             report[key] = getattr(epilogue, key).launches
-        with self._programs_lock:
+        with self._replica_lock:
             replicas = list(self._replica_params_cache.values())
-            captured = list(self._captured_programs)
-            n_programs = len(self._programs)
-        seg = (self._segmentation.captured()
-               if self._segmentation is not None else [])
-        captured += seg
+        n_programs = len(self._programs)
+        sets = [self._programs]
+        if self._segmentation is not None:
+            sets.append(self._segmentation._programs)
+        captured = [p for s in sets for p in s.captured()]
         # On a card the programs are CUDA graphs, one a key and batch
         # shape (pipeline/graphs.py), in one memory pool a device.
         report["captured_keys"] = sum(len(p.keys()) for p in captured)
@@ -1592,7 +1402,8 @@ class FaceDetector:
         report["eager_calls"] = sum(c["eager"] for c in counts)
         report["replays"] = sum(c["replays"] for c in counts)
         report["segmentation_replays"] = sum(
-            c["replays"] for p in seg for c in p.counts().values())
+            c["replays"] for s in sets[1:] for p in s.captured()
+            for c in p.counts().values())
         report["compiled_programs"] = (
             report["captured_keys"]
             if graphs.graph_maker(self.device) is not None else n_programs)
@@ -1602,9 +1413,8 @@ class FaceDetector:
         if replicas:
             report["replica_copies"] = len(replicas)
             report["replica_weights"] = sum(
-                nbytes(m) for r in replicas for m in (
-                    r.detector, r.mesh, r.iris, r.blendshapes, r.embedding)
-                if m is not None)
+                nbytes(getattr(r, name)) for r in replicas
+                for name in _NETWORKS if getattr(r, name) is not None)
         return report
 
     def cost_report(self, image_shape: tuple,
@@ -1664,11 +1474,8 @@ class FaceDetector:
         the embedding model, the segmenter, the cached device frame and
         the decode cache."""
         self._disposed = True
-        with self._programs_lock:
-            self._programs.clear()
-            for prog in self._captured_programs:
-                prog.release()
-            self._captured_programs.clear()
+        self._programs.release()
+        with self._replica_lock:
             # After _disposed is set: a racing _replica_params either
             # inserted before this clear or raises.
             self._replica_params_cache.clear()

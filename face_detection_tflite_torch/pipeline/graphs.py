@@ -10,8 +10,7 @@ launches from the host.  This module has no JAX counterpart, as
 
 :class:`CapturedProgram` wraps one eager program on one device:
 
-* **Key.**  The owner's cache (``FaceDetector._programs``,
-  ``FaceDetection``'s per-size cache) keys the program by what its
+* **Key.**  The owner's :class:`ProgramSet` keys the program by what its
   closure fixes (image size, mode, face slab, device); the program keys
   its graphs by the shapes and dtypes of its inputs, which carry the
   padded batch and the overflow width ``nb`` of the face-stage re-run.
@@ -87,11 +86,18 @@ Graphs are made through :func:`graph_maker`, the one seam: a CUDA graph on
 a card and none on the CPU, where the owners run the eager program.  The
 tests replace it with a stand-in that re-runs the program into the same
 static outputs at each replay, so results alias as a real graph's do.
+
+Every owner of programs (``FaceDetector``, ``SelfieSegmentation``,
+``FaceEmbedding`` and the standalone model classes) holds them in one
+:class:`ProgramSet`: a key's program is made once, its eager closure
+wrapped here with the fp32 guard of the networks it runs, and the set
+frees every graph it made on the owner's ``dispose``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 import weakref
@@ -99,12 +105,13 @@ from typing import Callable, Optional
 
 import torch
 
+from ..convert.executor import _check_fp32
 from ..kernels import build as _build
 from . import timings
 
-__all__ = ["CapturedProgram", "GraphPool", "graph_maker", "pool_for",
-           "program", "eager", "capture_now", "thread_flags", "flags_set",
-           "CAPTURE_AT_CALL"]
+__all__ = ["CapturedProgram", "GraphPool", "ProgramSet", "graph_maker",
+           "pool_for", "program", "eager", "capture_now", "thread_flags",
+           "flags_set", "CAPTURE_AT_CALL"]
 
 #: The call of an input signature that captures it; the calls before it
 #: run the eager program.  A key is captured once its eager calls have
@@ -499,3 +506,66 @@ def program(fn: Callable, device,
     if maker is None:
         return fn
     return CapturedProgram(fn, pool, maker, guard)
+
+
+class ProgramSet:
+    """The programs of one owner, one a key, under one lock (module
+    docstring).  :meth:`get` makes a key's program at its first use from
+    a ``make`` that wraps its eager closure (:meth:`wrap`; the detector's
+    wraps one a shard under ``data_parallel``).  Every
+    :class:`CapturedProgram` the set wrapped is kept for the owner's
+    report (:meth:`captured`) and freed by :meth:`release`."""
+
+    def __init__(self):
+        #: Held while a key's program is made; re-entrant, since ``make``
+        #: calls :meth:`wrap`.
+        self._lock = threading.RLock()
+        self._programs: dict = {}
+        self._captured: list[CapturedProgram] = []
+
+    def get(self, key, make: Callable[[], Callable]) -> Callable:
+        """The program of ``key``, ``make()`` at its first use."""
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = self._programs[key] = make()
+            return prog
+
+    def wrap(self, fn: Callable, device, nets) -> Callable:
+        """``fn`` as a program on ``device`` (:func:`program`), with the
+        executor's fp32 check on every call, for bf16 products too where
+        one of the networks ``nets`` it runs has a bf16 tier."""
+        device = torch.device(device)
+        bf16 = any(net.runs_bf16 for net in nets)
+        prog = program(fn, device, functools.partial(_check_fp32, device,
+                                                     bf16=bf16))
+        if isinstance(prog, CapturedProgram):
+            with self._lock:
+                self._captured.append(prog)
+        return prog
+
+    def keys(self) -> list:
+        with self._lock:
+            return list(self._programs)
+
+    def items(self) -> list:
+        with self._lock:
+            return list(self._programs.items())
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._programs)
+
+    def captured(self) -> list[CapturedProgram]:
+        """The captured programs the set made (none off a card), the
+        shards of a ``data_parallel`` key each."""
+        with self._lock:
+            return list(self._captured)
+
+    def release(self) -> None:
+        """Frees every captured program's graphs and forgets the keys."""
+        with self._lock:
+            for prog in self._captured:
+                prog.release()
+            self._captured.clear()
+            self._programs.clear()

@@ -19,7 +19,7 @@ name (``fdt.letterbox``, ``fdt.detector``, ``fdt.postprocess``,
 ``fdt.embedding``; ``pipeline/timings.py``), so that a trace attributes
 every op of a program to exactly one stage.  The ranges reorder and split
 no op, and are entered only while a profiler runs (``stage_range``).  On
-a card, the detector's programs (``pipeline/detector.py::packed_readback``)
+a card, the detector's programs (``pipeline/readback.py::packed_readback``)
 run under ``timings.stamping``: entering ``fdt.letterbox``, ``fdt.mesh``,
 ``fdt.iris``, ``fdt.blendshapes`` and ``fdt.embedding`` then also stamps
 the card's clock, so that each stage group's device time is known inside

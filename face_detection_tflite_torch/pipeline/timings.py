@@ -34,8 +34,8 @@ so that a call outside a trace pays a flag read a stage and not
 device time by stage.  A captured program's replay enters no range.
 
 **Stage stamps.**  A program run under :func:`stamping` (the detector's
-programs, ``pipeline/detector.py::packed_readback``, and the segmenter's,
-``models/segmentation.py``) writes the card's
+and the segmenter's, through ``pipeline/readback.py::packed_readback``)
+writes the card's
 ``%globaltimer`` into a small int64 buffer at its start and at the start
 of each top-level stage group (:data:`STAMPED`), through a one-thread
 kernel (``csrc/stamp.cu``) that :func:`stage_range` launches on entry;

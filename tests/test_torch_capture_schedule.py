@@ -40,7 +40,8 @@ from face_detection_tflite_torch.models import embedding as te
 from face_detection_tflite_torch.models import segmentation as t_seg
 from face_detection_tflite_torch.models import standalone as t_standalone
 from face_detection_tflite_torch.ops import warp
-from face_detection_tflite_torch.pipeline import graphs, programs, timings
+from face_detection_tflite_torch.pipeline import (graphs, programs,
+                                                  readback, timings)
 from face_detection_tflite_tpu.models import embedding as je
 from face_detection_tflite_tpu.models import segmentation as j_seg
 from face_detection_tflite_tpu.models import standalone as j_standalone
@@ -99,9 +100,12 @@ class Case:
     input signature, so of one program key)."""
     owner: object
     call: Callable[[int], object]
-    programs: Callable[[], list]
     arrays: Callable[[object], list]
     jax: Callable[[int, object, object], None]
+
+    def programs(self) -> list:
+        """The owner's captured programs (its ``graphs.ProgramSet``)."""
+        return self.owner._programs.captured()
 
 
 def _detector(setup) -> Case:
@@ -116,13 +120,12 @@ def _detector(setup) -> Case:
         with torch.inference_mode():
             out = det._program(H, W, FULL, face_slab=2)(
                 torch.from_numpy(inputs[i]))
-        return {**det._fetch(out), **{k: out[k].numpy() for k in SLAB}}
+        return {**readback.fetch(out), **{k: out[k].numpy() for k in SLAB}}
 
     def jax(i, got, _):
         _assert_full_match(got, _jax_full(jmodels, inputs[i], face_slab=2,
                                           min_score=0.5))
-    return Case(det, call, lambda: list(det._captured_programs),
-                lambda r: [r[k] for k in sorted(r)], jax)
+    return Case(det, call, lambda r: [r[k] for k in sorted(r)], jax)
 
 
 def _face_detection(setup) -> Case:
@@ -135,7 +138,6 @@ def _face_detection(setup) -> Case:
         _assert_same_detections(got, classes.FaceDetection(
             JVariant.BACK_CAMERA, max_detections=8)(inputs[i]))
     return Case(fd, lambda i: fd(inputs[i]),
-                lambda: list(fd._programs.values()),
                 lambda r: [np.asarray(
                     [d.bounding_box.xmin, d.bounding_box.ymin,
                      d.bounding_box.xmax, d.bounding_box.ymax, d.score,
@@ -150,7 +152,6 @@ def _segmentation(setup) -> Case:
     def jax(i, got, _):
         _assert_masks_match(got, j_seg.SelfieSegmentation(jseg)(inputs[i]))
     return Case(seg, lambda i: seg(inputs[i]),
-                lambda: [p for p, _ in seg._programs.values()],
                 lambda r: [m.data for m in r], jax)
 
 
@@ -166,7 +167,7 @@ def _embedding(setup) -> Case:
                                     _FRAME, inputs[i])
         assert np.abs(got - want).max() <= 1e-5
     return Case(emb, lambda i: emb.embed_batch(_FRAME, inputs[i]),
-                lambda: list(emb._programs.values()), lambda r: [r], jax)
+                lambda r: [r], jax)
 
 
 def _crop_network(setup, name: str) -> Case:
@@ -201,7 +202,6 @@ def _crop_network(setup, name: str) -> Case:
         else:
             assert np.abs(got - np.asarray(ref(inputs[i]))).max() <= 1e-5
     return Case(net, lambda i: call(inputs[i]),
-                lambda: list(net._programs.values()),
                 lambda r: [r[0], np.float32(r[1])]
                 if isinstance(r, tuple) else [r], jax)
 
@@ -487,7 +487,7 @@ def test_warmup_captures_each_key_at_once(setup, stand_in):
     det = FaceDetector(models=models, device="cpu", max_faces=MAX_FACES)
     det.warmup((H, W, 3), batch_size=2)
     report = det.memory_report()
-    keys = sum(len(p.keys()) for p in det._captured_programs)
+    keys = sum(len(p.keys()) for p in det._programs.captured())
     assert keys == stand_in.captures == report["captured_keys"] == 5
     assert report["pending_keys"] == 0 and stand_in.replays == 0
     zeros = np.zeros((2, H, W, 3), np.uint8)

@@ -460,7 +460,7 @@ def test_warmup_runs_every_mode(setup):
     _, models, _ = setup
     det = _detector(models, embed_in_full=True)
     det.warmup((H, W, 3), batch_size=3)
-    keys = set(det._programs)
+    keys = set(det._programs.keys())
     for mode in FaceDetectionMode:
         assert (H, W, mode, 1) in keys
     for mode in (FaceDetectionMode.STANDARD, FaceDetectionMode.FULL):

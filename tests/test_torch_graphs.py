@@ -26,7 +26,7 @@ from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
 from face_detection_tflite_torch.kernels import build as _build
 from face_detection_tflite_torch.models.standalone import FaceDetection
 from face_detection_tflite_torch.parallel import sharding
-from face_detection_tflite_torch.pipeline import graphs, timings
+from face_detection_tflite_torch.pipeline import graphs, readback, timings
 from face_detection_tflite_torch.pipeline.config import FaceDetectionModel
 
 from .test_torch_full import _assert_full_match, _jax_full
@@ -135,8 +135,8 @@ def test_captured_detector_matches_eager_and_jax(setup, stand_in, mode):
     with torch.inference_mode(), graphs.capture_now():
         prog(torch.from_numpy(frames))             # captured
         out = prog(torch.from_numpy(frames))       # replayed
-    got = {**det32._fetch(out), **{k: v.numpy() for k, v in out.items()
-                                   if k.startswith("det_")}}
+    got = {**readback.fetch(out), **{k: v.numpy() for k, v in out.items()
+                                     if k.startswith("det_")}}
     assert stand_in.replays == 7
     if mode == FULL:
         _assert_full_match(got, _jax_full(jmodels, frames, face_slab=2,
@@ -266,7 +266,7 @@ def test_keys_differ_by_padded_batch_and_nb(setup, stand_in):
     stage = det._face_stage_program(H, W, FULL)
     imgs = torch.from_numpy(frames)
     with torch.inference_mode(), graphs.capture_now():
-        slab = det._fetch(prog(imgs))
+        slab = readback.fetch(prog(imgs))
         for nb in (2, 4, 2):
             stage(imgs, *(torch.from_numpy(slab[k][:, :nb]) for k in (
                 "boxes", "raw_keypoints", "scores", "valid")))
@@ -289,8 +289,8 @@ def test_dispose_releases_every_graph(setup, stand_in):
             for _ in range(2):
                 det.detect_faces_batch(frames, mode)
         det.detect_faces_batch(frames[:1], mode)   # a key left pending
-    progs = list(det._programs.values())
-    assert progs == det._captured_programs
+    progs = [p for _, p in det._programs.items()]
+    assert progs == det._programs.captured()
     report = det.memory_report()
     assert report["compiled_programs"] == sum(len(p.keys()) for p in progs) \
         >= 2
@@ -298,7 +298,7 @@ def test_dispose_releases_every_graph(setup, stand_in):
         == 2
     assert report["graph_pool_bytes"] == 0   # no card
     det.dispose()
-    assert not det._captured_programs and not det._programs
+    assert not det._programs.captured() and not det._programs.keys()
     assert all(not p.keys() and not p.capture_s and not p.capture_parts
                and not p.pending() for p in progs)
 
@@ -326,7 +326,7 @@ def test_data_parallel_shards_replay(setup, stand_in, monkeypatch):
                     [bb.xmin, bb.ymin, bb.xmax, bb.ymax],
                     [wb.xmin, wb.ymin, wb.xmax, wb.ymax])).max() <= 1e-5
                 assert np.abs(a.mesh.points - b.mesh.points).max() <= 1e-2
-    (prog,) = det._captured_programs
+    (prog,) = det._programs.captured()
     assert prog.pool is graphs.pool_for(CPU)
     # The first shard's first call runs eager and captures (capture_now);
     # every other shard call of the three batches replays.
@@ -354,11 +354,12 @@ def test_standalone_face_detection_keeps_a_program_per_size(setup, stand_in):
             assert a.bounding_box == b.bounding_box and a.score == b.score
             np.testing.assert_array_equal(a.keypoints_xy, b.keypoints_xy)
     assert found >= 3
-    assert sorted(fd._programs) == [(80, 128), (H, W)]
+    assert sorted(fd._programs.keys()) == [(80, 128), (H, W)]
     assert stand_in.captures == 2 and stand_in.replays == 3
-    progs = list(fd._programs.values())
+    progs = fd._programs.captured()
+    assert len(progs) == 2
     fd.dispose()
-    assert not fd._programs and all(not p.keys() for p in progs)
+    assert not fd._programs.keys() and all(not p.keys() for p in progs)
     with pytest.raises(RuntimeError, match="disposed"):
         fd(frames[0])
 

@@ -32,7 +32,7 @@ from face_detection_tflite_torch.models.standalone import (
     FaceBlendshapesModel, FaceLandmark, IrisLandmark)
 from face_detection_tflite_torch.ops import warp
 from face_detection_tflite_torch.parallel import sharding
-from face_detection_tflite_torch.pipeline import graphs
+from face_detection_tflite_torch.pipeline import graphs, readback
 from face_detection_tflite_torch.pipeline.programs import \
     build_pipeline_program
 from face_detection_tflite_tpu.models import embedding as je
@@ -91,7 +91,7 @@ def test_segmentation_replays_match_eager_and_jax(stand_in, kind,
             want = seg(batch)
         _masks_equal(got, want)
     assert stand_in.captures == 1 and stand_in.replays == 2
-    (prog, _), = seg._programs.values()
+    (prog,) = seg._programs.captured()
     assert isinstance(prog, graphs.CapturedProgram)
     ref = j_seg.SelfieSegmentation(jseg, multiclass, mask_dtype=mask_dtype)(
         frames)
@@ -118,21 +118,22 @@ def test_segmentation_keys_and_release(stand_in):
     with graphs.capture_now():                     # each size's first call
         for batch in (frames, small, frames, small):
             seg(batch)
-    assert sorted(seg._programs) == [(80, 128), (H, W)]
+    assert sorted(seg._programs.keys()) == [(80, 128), (H, W)]
     assert stand_in.captures == 2 and stand_in.replays == 2
-    progs = [p for p, _ in seg._programs.values()]
+    progs = seg._programs.captured()
+    assert len(progs) == 2
     seg.place_on("meta")
-    assert not seg._programs and all(not p.keys() for p in progs)
+    assert not seg._programs.keys() and all(not p.keys() for p in progs)
     assert seg.device.type == "meta"
 
     seg = t_seg.SelfieSegmentation(models.segmentation, device="cpu")
     with graphs.capture_now():
         seg(frames)
     seg(frames)
-    progs = [p for p, _ in seg._programs.values()]
+    progs = seg._programs.captured()
     assert progs[0].keys()
     seg.dispose()
-    assert not seg._programs and all(not p.keys() for p in progs)
+    assert not seg._programs.keys() and all(not p.keys() for p in progs)
     with pytest.raises(RuntimeError, match="disposed"):
         seg(frames)
 
@@ -149,8 +150,8 @@ def test_segmentation_and_detector_replay_from_two_threads(stand_in):
         for _ in range(2):  # the 1-face slab and its re-run, then slab 16
             want_faces = _payload(det.detect_faces_batch(frames))
     replays = stand_in.replays
-    (sprog, _), = seg._programs.values()
-    assert sprog.pool is det._captured_programs[0].pool is \
+    (sprog,) = seg._programs.captured()
+    assert sprog.pool is det._programs.captured()[0].pool is \
         graphs.pool_for(CPU)
     errors = []
 
@@ -207,7 +208,7 @@ def test_embed_batch_pads_to_a_power_of_two_slab(stand_in, monkeypatch):
     got4 = mine.embed_batch(_FRAME, four)
     again = mine.embed_batch(_FRAME, pairs)
     assert stand_in.captures == 1 and stand_in.replays == 2
-    prog = mine._programs["many"]
+    (prog,) = mine._programs.captured()
     assert [k[1][0] for k in prog.keys()] == [(1, 4)]
     assert real.launches_by_size == {112: 3}
     with graphs.eager():
@@ -228,7 +229,7 @@ def test_embed_batch_pads_to_a_power_of_two_slab(stand_in, monkeypatch):
         mine.embed_batch(_FRAME, pairs[:1])
     assert sorted(k[1][0] for k in prog.keys()) == [(1, 1), (1, 4)]
     mine.dispose()
-    assert not mine._programs and not prog.keys()
+    assert not mine._programs.keys() and not prog.keys()
     with pytest.raises(RuntimeError, match="disposed"):
         mine.embed_batch(_FRAME, pairs)
 
@@ -273,10 +274,10 @@ def test_single_network_classes_replay_and_release(setup, stand_in):
     assert stand_in.captures == 4
     np.testing.assert_array_equal(lm, mesh.call_with_score(face)[0])
     for net, _, _ in calls:
-        (prog,) = net._programs.values()
+        (prog,) = net._programs.captured()
         assert isinstance(prog, graphs.CapturedProgram) and prog.keys()
         net.dispose()
-        assert not net._programs and not prog.keys()
+        assert not net._programs.keys() and not prog.keys()
     with pytest.raises(RuntimeError, match="disposed"):
         iris(eye)
 
@@ -285,9 +286,9 @@ def test_single_network_classes_replay_and_release(setup, stand_in):
 
 
 def _assert_readback(det, got, want, rows, scale) -> None:
-    """``got`` (``_fetch_finish``'s arrays) equals, bit for bit, the first
-    ``rows`` rows of the raw program outputs ``want`` as the readback
-    encodes them: every output but the device-resident ``det_*`` slab
+    """``got`` (``readback.fetch_finish``'s arrays) equals, bit for bit,
+    the first ``rows`` rows of the raw program outputs ``want`` as the
+    readback encodes them: every output but the device-resident ``det_*`` slab
     (``det_count`` read back), the mesh and iris rounded to int16 at
     ``scale`` px^-1 where it is given."""
     keys = {k for k in want if k == "det_count" or not k.startswith("det_")}
@@ -312,7 +313,7 @@ def _kw(det) -> dict:
 def test_folded_pack_reads_back_the_eager_outputs(setup, stand_in,
                                                   quantized):
     """The speculative program and the overflow re-run pack their own
-    readback: on a batch of 3 padded to 4, ``_fetch_finish`` of a replay
+    readback: on a batch of 3 padded to 4, ``readback.fetch`` of a replay
     gives the first 3 rows of ``build_pipeline_program``'s eager outputs
     bit for bit (fp32 or int16 landmarks), the same arrays as the eager
     program's own pack, and the ``det_*`` slab stays on the device."""
@@ -332,8 +333,8 @@ def test_folded_pack_reads_back_the_eager_outputs(setup, stand_in,
         want = build_pipeline_program(models, H, W, FULL, face_slab=2,
                                       **_kw(det))(images)
         with graphs.eager():
-            eager = det._fetch(prog(images), b)
-        got = det._fetch(out, b)
+            eager = readback.fetch(prog(images), b)
+        got = readback.fetch(out, b)
         _assert_readback(det, got, want, b, scale)
         for k in got:
             np.testing.assert_array_equal(got[k], eager[k], k)
@@ -349,7 +350,7 @@ def test_folded_pack_reads_back_the_eager_outputs(setup, stand_in,
         out2 = stage(images, *prefix)
         want2 = build_pipeline_program(models, H, W, FULL,
                                        from_detections=True)(images, *prefix)
-        _assert_readback(det, det._fetch(out2, b), want2, b, scale)
+        _assert_readback(det, readback.fetch(out2, b), want2, b, scale)
         assert set(out2) == {"packed", "layout"}
     assert stand_in.captures == 2 and stand_in.replays == 2
     assert det.memory_report()["compiled_programs"] == 2
@@ -378,15 +379,15 @@ def test_folded_pack_over_two_shards(setup, stand_in, monkeypatch,
                 prog(images)
             outs = prog(images)
             assert isinstance(outs, list) and len(outs) == 2
-            handle = det._fetch_async(outs, b)
+            handle = readback.fetch_async(outs, b)
             assert len(handle) == fetched
             # Each shard's own eager program: a network's batch of 2 and of
             # 4 may round differently.
             fn = build_pipeline_program(models, H, W, FULL, **_kw(det))
             parts = [fn(x) for x in images.chunk(2)]
             want = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-        _assert_readback(det, det._fetch_finish(handle), want, b, scale)
-    assert len(det._captured_programs) == 1 and stand_in.captures == 2
+        _assert_readback(det, readback.fetch_finish(handle), want, b, scale)
+    assert len(det._programs.captured()) == 1 and stand_in.captures == 2
 
 
 def test_folded_pack_through_the_entry_point(setup, stand_in):

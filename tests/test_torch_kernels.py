@@ -954,7 +954,8 @@ def test_captured_programs_replay_the_eager_program(cuda_device):
     with graphs.eager():
         want = [_faces_bits(det.detect_faces_batch(b)) for b in batches * 2]
     assert got == want and sum(len(per) for per in got[0]) >= 4
-    progs = list(det._programs.values())
+    progs = det._programs.captured()
+    assert len(progs) == len(det._programs.keys()) == 2
     assert all(isinstance(p, graphs.CapturedProgram) for p in progs)
     report = det.memory_report()
     assert report["compiled_programs"] == 2 and report["graph_pool_bytes"] > 0
@@ -1006,13 +1007,12 @@ def test_captured_models_replay_the_eager_programs(cuda_device):
         want = [call() for call in calls]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
-    progs = [p for p, _ in seg._programs.values()] + \
-        list(emb._programs.values()) + \
-        [p for net, _ in crops for p in net._programs.values()]
+    owners = [seg, emb] + [net for net, _ in crops]
+    progs = [p for owner in owners for p in owner._programs.captured()]
     assert len(progs) == 5 and all(
         isinstance(p, graphs.CapturedProgram) and len(p.keys()) == 1
         for p in progs)
-    for owner in [seg, emb] + [net for net, _ in crops]:
+    for owner in owners:
         owner.dispose()
     assert all(not p.keys() for p in progs)
 
@@ -1023,11 +1023,9 @@ def test_replay_stage_stamps_lie_inside_the_replay(cuda_device):
     ``csrc/stamp.cu``) at a replay: they rise through the program's stage
     groups and lie between two stamps launched on the same stream just
     before and just after the replay; the readback names them, and
-    ``_fetch_finish`` adds each group's device ms once to the enclosing
+    ``readback.fetch`` adds each group's device ms once to the enclosing
     span's timings."""
-    from face_detection_tflite_torch.pipeline import graphs, timings
-    from face_detection_tflite_torch.pipeline.detector import (
-        STAMPS, FaceDetector, packed_readback)
+    from face_detection_tflite_torch.pipeline import graphs, readback, timings
 
     def body(x):
         with timings.stage_range("fdt.letterbox"):
@@ -1039,7 +1037,7 @@ def test_replay_stage_stamps_lie_inside_the_replay(cuda_device):
             y = torch.sin(y)
         return {"y": y}
 
-    prog = graphs.program(packed_readback(body, None), cuda_device)
+    prog = graphs.program(readback.packed_readback(body, None), cuda_device)
     assert isinstance(prog, graphs.CapturedProgram)
     x = torch.randn(256, 256, device=cuda_device) / 16
     with graphs.capture_now():
@@ -1052,14 +1050,15 @@ def test_replay_stage_stamps_lie_inside_the_replay(cuda_device):
     (counts,) = prog.counts().values()
     assert counts == {"eager": 1, "replays": 1, "captures": 1}
     assert out["layout"].stamps == ("detect", "mesh", "iris", "pack")
-    rows = out["layout"].unpack(out["packed"].cpu().numpy())[STAMPS]
+    rows = out["layout"].unpack(out["packed"].cpu().numpy())[
+        readback.STAMPS]
     stamps = rows[0].view(np.int64)
     lo, hi = bracket.cpu().tolist()
     assert lo <= stamps[0] and stamps[-1] <= hi, (lo, stamps, hi)
     assert np.all(np.diff(stamps) >= 0) and stamps[2] > stamps[1], stamps
     t = timings.DetectTimings()
     with timings.span(None, t, 1):
-        FaceDetector._fetch_finish(FaceDetector._fetch_async(out))
+        readback.fetch(out)
     assert {k: t.calls[k] for k in t.calls if k.startswith("device.")} == {
         "device.detect": 1, "device.mesh": 1, "device.iris": 1}
     assert t.total_ms["device.mesh"] == pytest.approx(
@@ -1072,13 +1071,14 @@ def test_replay_stage_stamps_lie_inside_the_replay(cuda_device):
 def test_segmenter_replay_stamps_its_group(cuda_device, mask_dtype):
     """The multiclass segmenter's captured program stamps its start and
     its end at every replay, between two stamps launched on the same
-    stream just before and just after it; the stamps ride behind the
-    planes, whose masks equal an eager call's bit for bit, and the mask's
+    stream just before and just after it; the stamps ride in every row
+    beside the planes, whose masks equal an eager call's bit for bit,
+    and the mask's
     build adds ``device.segmentation`` once to the enclosing span's
     timings, with the ``segment.*`` spans."""
     from face_detection_tflite_torch.models.segmentation import \
         SelfieSegmentation
-    from face_detection_tflite_torch.pipeline import graphs, timings
+    from face_detection_tflite_torch.pipeline import graphs, readback, timings
     frames = np.random.default_rng(4).integers(0, 256, (3, 360, 640, 3),
                                                dtype=np.uint8)
     seg = SelfieSegmentation(convert_model(random_init.segmenter_ir(
@@ -1093,18 +1093,21 @@ def test_segmenter_replay_stamps_its_group(cuda_device, mask_dtype):
     timings._cuda_stamp(bracket, 0)
     handle = seg.dispatch(x)
     timings._cuda_stamp(bracket, 1)
-    assert handle[-1] == ("segmentation", "pack")
+    (host, _, layout), *_ = handle
+    assert layout.stamps == ("segmentation", "pack")
     t = timings.DetectTimings()
     with timings.span(None, t, 1):
         got = seg.materialize(handle)
     torch.cuda.synchronize()
-    (prog,) = seg.captured()
+    (prog,) = seg._programs.captured()
     (counts,) = prog.counts().values()
     assert counts["replays"] == 1 and counts["captures"] == 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.class_data, w.class_data)
         np.testing.assert_array_equal(g.data, w.data)
-    stamps = handle[0].numpy()[-16:].view(np.int64)
+    rows = layout.unpack(host.numpy())[readback.STAMPS]
+    assert rows.shape == (len(frames), 4) and (rows == rows[0]).all()
+    stamps = rows[0].view(np.int64)
     lo, hi = bracket.cpu().tolist()
     assert lo <= stamps[0] < stamps[1] <= hi, (lo, stamps, hi)
     assert dict(t.calls) == {"segment.wait": 1, "segment.materialize": 1,

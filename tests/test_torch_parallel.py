@@ -297,7 +297,7 @@ def test_data_parallel_stream_bucketing_and_refusals(setup, mesh_of):
         ReplicaPool(det, devices=["cpu"])
     # The warm-up's overflow re-run runs sharded at the padded batch.
     bucketed.warmup((H, W, 3), batch_size=3, modes=[STANDARD])
-    assert (256, 256, STANDARD, "stage") in bucketed._programs
+    assert (256, 256, STANDARD, "stage") in bucketed._programs.keys()
 
 
 # -- ReplicaPool -----------------------------------------------------------

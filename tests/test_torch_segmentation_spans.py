@@ -25,8 +25,13 @@ from torch.profiler import ProfilerActivity, profile
 from face_detection_tflite_torch import (FaceDetectionMode, FaceDetector,
                                          SegmentationConfig,
                                          SegmentationModel, ServingPipeline)
+from face_detection_tflite_torch.convert.executor import convert_model
 from face_detection_tflite_torch.models import random_init
-from face_detection_tflite_torch.pipeline import graphs, timings
+from face_detection_tflite_torch.models.segmentation import \
+    SelfieSegmentation
+from face_detection_tflite_torch.ops.letterbox import (letterbox_image,
+                                                       letterbox_params)
+from face_detection_tflite_torch.pipeline import graphs, readback, timings
 from h100_bench.harness import manifest
 from h100_bench.harness.runner import Context
 
@@ -76,6 +81,12 @@ def _detector(models, mask_dtype="float32"):
                             mask_dtype=mask_dtype, precision="highest"))
 
 
+def _layout(handle):
+    """The readback layout of a ``SelfieSegmentation.dispatch`` handle."""
+    (_, _, layout), *_ = handle
+    return layout
+
+
 def _planes(masks):
     return [np.stack([m.data for m in masks]),
             np.stack([m.class_data for m in masks])]
@@ -87,7 +98,7 @@ def _planes(masks):
 def test_the_segmenters_program_stamps_its_group(setup, monkeypatch,
                                                  mask_dtype):
     """Under a stamper the program stamps its start and its end: the
-    stamps ride behind the planes in the readback, the masks equal an
+    stamps ride in every row of the readback, the masks equal an
     unstamped run's bit for bit, and after the mask wait the enclosing
     span's owner gets ``device.segmentation`` once, with the three
     ``segment.*`` spans."""
@@ -95,13 +106,13 @@ def test_the_segmenters_program_stamps_its_group(setup, monkeypatch,
     seg = _detector(models, mask_dtype)._segmentation
     want = _planes(seg(frames))
     handle = seg.dispatch(frames)
-    assert handle[-1] == ()              # no stamper: no stamps
+    assert _layout(handle).stamps == ()  # no stamper: no stamps
     seg.materialize(handle)
     values = itertools.count(1000)
     monkeypatch.setattr(timings, "stamper", lambda device: (
         lambda buf, slot: buf.__setitem__(slot, next(values))))
     handle = seg.dispatch(frames)
-    assert handle[-1] == ("segmentation", "pack")
+    assert _layout(handle).stamps == ("segmentation", "pack")
     t = timings.DetectTimings()
     with timings.span(None, t, 5):
         got = _planes(seg.materialize(handle))
@@ -129,6 +140,53 @@ def test_each_replay_stamps_its_own_call(setup, stand_in, counter_stamps):
     assert stand_in.replays == 2
     assert t.calls["device.segmentation"] == 2
     assert t.calls["segment.dispatch"] == 2
+
+
+@pytest.mark.parametrize("mask_dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("kind", ["general", "multiclass"])
+def test_the_segmenters_readback_holds_the_networks_planes(counter_stamps,
+                                                          kind, mask_dtype):
+    """The segmenter reads its planes back through
+    ``pipeline/readback.py``: the masks equal the plain network's planes
+    (the person plane, or the six softmax planes; uint8 as ``round(clip(p,
+    0, 1) * 255)``), each batch adds ``device.segmentation`` once, and
+    uint8 codes come back as codes, not as flags."""
+    multiclass = kind == "multiclass"
+    net = convert_model(random_init.segmenter_ir(kind, SEED + 5,
+                                                 SMALL_SEGMENTER))
+    seg = SelfieSegmentation(net, multiclass, mask_dtype=mask_dtype,
+                             device="cpu")
+    frames = np.random.default_rng(SEED + 1).integers(0, 256, (B, H, W, 3),
+                                                      dtype=np.uint8)
+    with torch.inference_mode():
+        (raw,) = net(letterbox_image(torch.from_numpy(frames),
+                                     letterbox_params(H, W, seg.in_h,
+                                                      seg.in_w)))
+        raw = raw.reshape(B, seg.in_h, seg.in_w, -1)
+        planes = torch.softmax(raw, dim=-1) if multiclass else raw[..., :1]
+        codes = torch.round(torch.clamp(planes, 0.0, 1.0) * 255.0).to(
+            torch.uint8).numpy()
+    want = (codes.astype(np.float32) * (1.0 / 255.0)
+            if mask_dtype == "uint8" else planes.numpy())
+    t = timings.DetectTimings()
+    for unit in (1, 2):
+        handle = seg.dispatch(frames)
+        with timings.span(None, t, unit):
+            masks = seg.materialize(handle)
+        got = readback.unpack(handle[0])["planes"]   # no span: no stamps
+        if mask_dtype == "uint8":
+            assert got.dtype == np.uint8 and got.max() > 1
+            np.testing.assert_array_equal(got, codes)
+        else:
+            assert got.dtype == np.float32
+        for m, w in zip(masks, want):
+            if multiclass:
+                np.testing.assert_array_equal(m.class_data, w)
+                np.testing.assert_array_equal(m.data, 1.0 - w[..., 0])
+            else:
+                np.testing.assert_array_equal(m.data, w[..., 0])
+    assert t.calls["device.segmentation"] == 2
+    assert t.total_ms["device.segmentation"] == pytest.approx(2e-6)
 
 
 # -- spans ---------------------------------------------------------------------
@@ -242,20 +300,20 @@ def test_memory_report_counts_the_segmenters_programs(setup, stand_in):
     frames, models = setup
     det = _detector(models)
     det.detect_faces_with_segmentation_batch(frames)
-    (seg,) = det._segmentation.captured()
+    (seg,) = det._segmentation._programs.captured()
 
     def total(key):
-        return sum(c[key] for p in det._captured_programs + [seg]
+        return sum(c[key] for p in det._programs.captured() + [seg]
                    for c in p.counts().values())
     report = det.memory_report()
-    progs = det._captured_programs + [seg]
+    progs = det._programs.captured() + [seg]
     assert report["pending_keys"] == sum(len(p.pending()) for p in progs)
     assert len(seg.pending()) == 1 and report["captured_keys"] == 0
     with graphs.capture_now():
         det.detect_faces_with_segmentation_batch(frames)
     det.detect_faces_with_segmentation_batch(frames)
     report = det.memory_report()
-    progs = det._captured_programs + [seg]
+    progs = det._programs.captured() + [seg]
     assert report["captured_keys"] == sum(len(p.keys()) for p in progs)
     assert len(seg.keys()) == 1 and not seg.pending()
     assert report["pending_keys"] == sum(len(p.pending()) for p in progs)
@@ -291,7 +349,7 @@ def test_a_pipeline_submitted_under_capture_now_captures_on_the_worker(
             pipe.submit(frames).result(timeout=120)
         report = det.memory_report()
         assert report["pending_keys"] == 0 and report["captured_keys"] > 0
-        assert len(det._segmentation.captured()[0].keys()) == 1
+        assert len(det._segmentation._programs.captured()[0].keys()) == 1
         pipe.submit(frames).result(timeout=120)
     assert det.memory_report()["segmentation_replays"] == 1
 

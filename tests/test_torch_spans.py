@@ -24,8 +24,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from face_detection_tflite_torch import FaceDetectionMode, FaceDetector
-from face_detection_tflite_torch.pipeline import detector as t_detector
-from face_detection_tflite_torch.pipeline import graphs, timings
+from face_detection_tflite_torch.pipeline import graphs, readback, timings
 from h100_bench.harness import manifest
 from h100_bench.harness.runner import Context
 from h100_bench.harness.trace import Trace
@@ -218,7 +217,7 @@ def test_memory_report_sums_the_counts(setup, stand_in):
     det.detect_faces_batch(frames)
     after = det.memory_report()
     assert after["replays"] > warm["replays"]
-    want = sum(c["eager"] for p in det._captured_programs
+    want = sum(c["eager"] for p in det._programs.captured()
                for c in p.counts().values())
     assert after["eager_calls"] == want
     det.dispose()
@@ -237,7 +236,7 @@ def test_memory_report_counts_are_zero_off_a_card(setup):
 def test_pack_and_unpack_carry_the_stamps(setup, counter_stamps):
     """The FULL program stamps its groups and its end; the stamps travel
     in every row of the packed readback, the layout names them, and
-    ``_fetch_finish`` takes them out of the arrays."""
+    ``readback.fetch_finish`` takes them out of the arrays."""
     frames, models, _ = setup
     det = _detector(models)
     h, w = frames.shape[1:3]
@@ -245,15 +244,15 @@ def test_pack_and_unpack_carry_the_stamps(setup, counter_stamps):
     layout = out["layout"]
     assert layout.stamps == FULL_STAMPS
     arrays = layout.unpack(out["packed"].numpy())
-    rows = arrays[t_detector.STAMPS]
+    rows = arrays[readback.STAMPS]
     assert rows.shape == (len(frames), 2 * len(FULL_STAMPS))
     assert (rows == rows[0]).all()
     stamps = rows[0].view(np.int64)
     assert (np.diff(stamps) == 1).all()
     t = timings.DetectTimings()
     with timings.span(None, t, 1):
-        fetched = det._fetch(out)
-    assert t_detector.STAMPS not in fetched
+        fetched = readback.fetch(out)
+    assert readback.STAMPS not in fetched
     assert dict(t.calls) == {"compute_wait": 1, "readback": 1, "pack": 1,
                              **{f"device.{g}": 1 for g in FULL_STAMPS[:-1]}}
     assert t.total_ms["device.iris"] == pytest.approx(1e-6)
@@ -302,7 +301,7 @@ def test_no_stamps_off_a_card(setup):
     h, w = frames.shape[1:3]
     out = det._program(h, w, FULL)(torch.from_numpy(frames))
     assert out["layout"].stamps == ()
-    assert t_detector.STAMPS not in out["layout"].unpack(
+    assert readback.STAMPS not in out["layout"].unpack(
         out["packed"].numpy())
 
 
