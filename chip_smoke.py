@@ -23,14 +23,20 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    bit for bit at the largest tensor of each of its sites on the main
    paths, each with its convolution's bias (iris 512 x 32x32x64 and mesh
    256 x 96x96x16 with a residual and PReLU, the mesh's channel pad
-   256 x 48x48x32 from 16, MobileFaceNet 256 x 56x56x128 PReLU alone,
+   256 x 48x48x32 from 16, MobileFaceNet's stem 256 x 56x56x64 PReLU alone,
    the detector 16 x 128x128x24 with a residual and ReLU, the multiclass
    segmenter's standalone ReLU 16 x 128x128x48 and its bare residual ADD
    16 x 128x128x24, and in place the bias alone of the iris net's
    depthwise convolution 512 x 32x32x64 and the detector stem's bias
    and ReLU 16 x 128x128x24; seeded values with -0.0, NaN and +-inf
    planted in y, the residual and the bias), with its ms, device ms, the
-   plain version's ms and its byte bound;
+   plain version's ms and its byte bound; K6, MobileFaceNet's 1x1
+   convolutions with their bias, PReLU or residual (``pointwise_conv``),
+   at each of its 32 sites at 256 crops against its plain version (cuDNN,
+   then K5) within the float32 rounding of its sums, with its ms, device
+   ms, the plain version's and cuDNN's convolution's device ms and its
+   bound, and 32 launches a forward (``--pointwise-phase`` runs the build
+   and this step alone);
 4. drives the STANDARD main path (``_drive_main_path``): ``FaceDetector``
    over 16 seeded 853x1280 uint8 frames with the full-depth, full-width
    seeded BlazeFace-back, FaceMesh, iris and blendshape nets; prints ms
@@ -691,6 +697,8 @@ def _layer(kernel_name: str) -> str:
         return "K2 warp_normalize"
     if "residual_act" in n:
         return "K5 residual_act"
+    if "pointwise_conv" in n:
+        return "K6 pointwise_conv"
     if any(t in n for t in ("conv", "cudnn", "implicit", "winograd", "nhwc",
                             "fprop")):
         return "convolutions"
@@ -982,7 +990,10 @@ def _time_mobilefacenet(net, frames, roi, card: str) -> dict:
     """MobileFaceNet alone on the embedding path's own ``[B * D]`` crops:
     event ms, device ms summed over its kernels and device launches per
     call (:func:`_stage_ms`), and the least time of its convolutions' fp32
-    operations (``torch.utils.flop_counter``) at the fp32 peak."""
+    operations (``torch.utils.flop_counter`` over a CPU copy on one crop,
+    which runs every convolution through PyTorch, K6's too) at the fp32
+    peak."""
+    import copy
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from face_detection_tflite_torch.ops import warp as warp_mod
@@ -990,8 +1001,8 @@ def _time_mobilefacenet(net, frames, roi, card: str) -> dict:
         x = warp_mod.warp_normalize(frames, *roi, out_size=EMBED_SIZE
                                     ).reshape(-1, EMBED_SIZE, EMBED_SIZE, 3)
         with FlopCounterMode(display=False) as counter:
-            net(x)
-        flops = counter.get_total_flops()
+            copy.deepcopy(net).cpu()(x[:1].cpu())
+        flops = counter.get_total_flops() * x.shape[0]
         ms, dev_ms, launches, layers = _stage_ms(lambda: net(x), iters=10)
     bound = flops / PEAK_FP32_OPS_PER_S * 1e3
     print(f"MobileFaceNet on the path's {x.shape[0]} crops: {ms:.3f} ms event,"
@@ -1124,7 +1135,7 @@ K5_SITES = {
     "iris": (512, 32, 32, 64, 64, "PRELU", False),
     "mesh": (256, 96, 96, 16, 16, "PRELU", False),
     "mesh_pad": (256, 48, 48, 32, 16, "PRELU", False),
-    "mobilefacenet": (256, 56, 56, 128, 0, "PRELU", False),
+    "mobilefacenet": (256, 56, 56, 64, 0, "PRELU", False),
     "detector": (16, 128, 128, 24, 24, "RELU", False),
     "segmenter_relu": (16, 128, 128, 48, 0, "RELU", False),
     "segmenter_add": (16, 128, 128, 24, 24, None, False),
@@ -1207,6 +1218,180 @@ def _k5_sites(card: str) -> dict:
               f"{100 * bound_ms / dev_ms:.0f}% of it)  [{card}]")
         del y, r
     return out
+
+
+#: Crops a batch on the embedding path: 16 frames x 16 faces.
+K6_CROPS = 256
+
+
+def _k6_site_shapes(crops: int) -> list:
+    """MobileFaceNet's 32 1x1 convolutions at ``crops`` crops, in the
+    network's order: ``(name, M, K, N, PReLU, residual)``, M the NHWC rows
+    (``crops`` x H x W)."""
+    from face_detection_tflite_torch.models.embedding import \
+        _pointwise_sites
+    return [(name, crops * hw * hw, k, n, prelu, res)
+            for name, hw, k, n, prelu, res in _pointwise_sites()]
+
+
+def _k6_sites(card: str, net=None) -> dict:
+    """Holds K6 against its plain version (cuDNN's convolution, then K5)
+    at each of MobileFaceNet's 32 1x1 convolutions at the embedding
+    path's 256 crops, with seeded weights, nonzero biases and PReLU slopes
+    (within ``pointwise.rounding_bound``), one launch a call, and times
+    it: its event and device ms, the plain version's device ms (cuDNN's
+    kernels, its transposes and the K5 pass), cuDNN's convolution alone,
+    the short library route on the NHWC rows (cuBLAS's ``addmm`` with the
+    bias, then a K5 pass of the PReLU or residual where the site has one;
+    and ``mm``, then a K5 pass of the bias with them, held to the same
+    bound), and its bound (the larger of 2 M K N operations at the fp32 peak and x,
+    the filter, the bias, the residual read and the output written once
+    over HBM3 bandwidth).  Then one forward of the network at 256 crops:
+    32 K6 launches.  Returns the ``kernels`` fields by site and their
+    sums."""
+    import torch
+    import torch.nn.functional as F
+    from face_detection_tflite_torch.convert.executor import \
+        fp32_on_the_card
+    from face_detection_tflite_torch.models.embedding import \
+        build_mobilefacenet
+    from face_detection_tflite_torch.ops import epilogue, pointwise
+    dev = torch.device("cuda")
+    fp32_on_the_card(dev)
+    if net is None:
+        net = build_mobilefacenet(SEED + 21)
+        g = torch.Generator().manual_seed(SEED + 21)
+        for key, b in net.named_buffers():
+            if key.endswith("_b"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=g))
+            elif key.endswith("_a"):
+                b.copy_(torch.rand(b.shape, generator=g) - 0.5)
+        net = net.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    out, sums = {}, {"device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                     "addmm_k5_ms": 0.0, "mm_k5_ms": 0.0, "bound_ms": 0.0}
+    for name, m, k, n, prelu, res in _k6_site_shapes(K6_CROPS):
+        hw = round((m // K6_CROPS) ** 0.5)
+        x = torch.randn((K6_CROPS, hw, hw, k), generator=g, device=dev)
+        r = (torch.randn((K6_CROPS, hw, hw, n), generator=g, device=dev)
+             if res else None)
+        w = net._buffers[f"_kn_{name}_w"]
+        bias = getattr(net, f"{name}_b")
+        act = "PRELU" if prelu else None
+        alpha = getattr(net, f"{name}_a") if prelu else None
+        oihw = getattr(net, f"{name}_w")
+
+        def kernel():
+            return pointwise.pointwise_conv(x, w, bias, act, alpha, r)
+
+        def plain():
+            return pointwise.pointwise_conv_plain(x, w, bias, act, alpha, r)
+
+        def library():
+            return F.conv2d(x.permute(0, 3, 1, 2), oihw)
+
+        def addmm_k5():
+            y = torch.addmm(bias, x.view(-1, k), w).view(*x.shape[:3], n)
+            if act is None and r is None:
+                return y
+            return epilogue.residual_act(y, r, act, alpha)
+
+        def mm_k5():
+            y = torch.mm(x.view(-1, k), w).view(*x.shape[:3], n)
+            return epilogue.residual_act(y, r, act, alpha, bias,
+                                         inplace=act is None and r is None)
+
+        with torch.inference_mode():
+            before = pointwise.pointwise_conv.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if pointwise.pointwise_conv.launches != before + 1:
+                raise AssertionError(f"K6 {name}: "
+                                     f"{pointwise.pointwise_conv.launches - before}"
+                                     f" launches a call")
+            want = plain()
+            tol = pointwise.rounding_bound(x, w, bias, alpha, r)
+            for label, alt in (("addmm + K5", addmm_k5), ("mm + K5", mm_k5)):
+                if not bool(((alt() - want).abs().double() <= tol).all()):
+                    raise AssertionError(f"{label} {name}: outside the "
+                                         f"rounding bound of the plain "
+                                         f"version")
+            gap = (got - want).abs()
+            if not bool((gap.double() <= tol).all()):
+                worst = (gap.double() / tol).max().item()
+                raise AssertionError(f"K6 {name}: the kernel differs from its "
+                                     f"plain version by {worst:.3g} times the "
+                                     f"rounding bound")
+            err = gap.max().item()
+            ratio = (gap.double() / tol).max().item()
+            del got, want, gap, tol
+            ms, dev_ms, dev_by = _kernel_ms(kernel, "K6 pointwise_conv",
+                                            iters=10)
+            _, plain_ms, _, _ = _stage_ms(plain, iters=5)
+            _, lib_ms, _, _ = _stage_ms(library, iters=5)
+            _, addmm_ms, _, _ = _stage_ms(addmm_k5, iters=10)
+            _, mm_ms, _, _ = _stage_ms(mm_k5, iters=10)
+        nbytes = 4 * (m * k + k * n + n + m * n * (2 if res else 1))
+        bound_ms, bound_by = _bound(nbytes, 2 * m * k * n)
+        out[name] = {"shape": [m, k, n], "act": act, "residual": res,
+                     "bias": True, "max_abs_err": err,
+                     "err_over_bound": ratio, "ms": ms, "device_ms": dev_ms,
+                     "device_ms_by": dev_by, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "addmm_k5_ms": addmm_ms,
+                     "mm_k5_ms": mm_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        for key in sums:
+            sums[key] += out[name][key] or 0.0
+        print(f"K6 pointwise_conv {name} M={m} K={k} N={n}"
+              f"{', PReLU' if prelu else ''}{', residual' if res else ''}: "
+              f"max_abs_err={err:.3g} ({ratio:.3g} of the rounding bound); "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms, {dev_by}), "
+              f"plain {_num(plain_ms, '.4f')} ms device, cuDNN's convolution "
+              f"{_num(lib_ms, '.4f')} ms device, addmm + K5 "
+              f"{_num(addmm_ms, '.4f')} ms device, mm + K5 "
+              f"{_num(mm_ms, '.4f')} ms device, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {100 * bound_ms / dev_ms:.0f}% of the device "
+              f"time)  [{card}]")
+        del x, r
+    x = torch.rand((K6_CROPS, EMBED_SIZE, EMBED_SIZE, 3), generator=g,
+                   device=dev) * 2 - 1
+    before = pointwise.pointwise_conv.launches
+    with torch.inference_mode():
+        net(x)
+    torch.cuda.synchronize()
+    launches = pointwise.pointwise_conv.launches - before
+    if launches != len(out):
+        raise AssertionError(f"K6: one MobileFaceNet forward launched it "
+                             f"{launches} times, want {len(out)}")
+    print(f"K6 pointwise_conv, the 32 sites at {K6_CROPS} crops: device "
+          f"{sums['device_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+          f"({100 * sums['bound_ms'] / sums['device_ms']:.0f}%), plain "
+          f"(cuDNN and K5) {sums['plain_ms']:.4f} ms, cuDNN's convolutions "
+          f"alone {sums['library_ms']:.4f} ms, addmm + K5 "
+          f"{sums['addmm_k5_ms']:.4f} ms, mm + K5 {sums['mm_k5_ms']:.4f} ms; "
+          f"{launches} launches a forward"
+          f"  [{card}]")
+    return {"sites": out, "totals": sums, "forward_launches": launches}
+
+
+def _pointwise_phase_alone() -> int:
+    """``python3 chip_smoke.py --pointwise-phase``: the build and K6's
+    sites alone (:func:`_k6_sites`)."""
+    from face_detection_tflite_torch.kernels import build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    for line in build.build_log().splitlines():
+        if "pointwise" in line or "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    _k6_sites(card)
+    print(card)
+    return 0
 
 
 def _embedding_phase(models, cpu_models, frames, frames_np, runs: int,
@@ -1338,15 +1523,19 @@ _K5_COUNTS = {"residual_act": "residual_act", "op_by_op": "ran_op_by_op",
 
 
 def _reset_k5_counts() -> None:
-    from face_detection_tflite_torch.ops import epilogue
+    """Sets K5's counters and K6's launches to 0."""
+    from face_detection_tflite_torch.ops import epilogue, pointwise
     for attr in _K5_COUNTS.values():
         getattr(epilogue, attr).launches = 0
+    pointwise.pointwise_conv.launches = 0
 
 
 def _k5_counts() -> dict:
-    from face_detection_tflite_torch.ops import epilogue
-    return {key: getattr(epilogue, attr).launches
-            for key, attr in _K5_COUNTS.items()}
+    """K5's counters and K6's launches (``pointwise_conv``)."""
+    from face_detection_tflite_torch.ops import epilogue, pointwise
+    return {**{key: getattr(epilogue, attr).launches
+               for key, attr in _K5_COUNTS.items()},
+            "pointwise_conv": pointwise.pointwise_conv.launches}
 
 
 def _reset_launches() -> None:
@@ -1366,12 +1555,20 @@ def _launches() -> dict:
             **_k5_counts()}
 
 
+def _k6_per_call(models) -> int:
+    """K6 launches one MobileFaceNet call makes on a card: one a float32
+    1x1 convolution (each has a ``[K, N]`` filter copy), none at a bf16
+    tier or without the network."""
+    m = getattr(models, "embedding", None)
+    return sum(1 for k in getattr(m, "_buffers", {}) if k.startswith("_kn_"))
+
+
 def _k5_per_call(models) -> dict:
     """K5 launches one call of each network makes: its planned passes
     (``ConvertedModel._epilogues`` and its convolutions' own bias passes,
     ``_bias_passes``); MobileFaceNet one a convolution in float32 (its
-    bias with the PReLU, the residual or alone), else one a PReLU."""
-    import torch
+    bias with the PReLU, the residual or alone) but its 1x1 convolutions,
+    which run in K6 (:func:`_k6_per_call`), else one a PReLU."""
     out = {}
     for role in ("detector", "mesh", "iris", "blendshapes", "embedding"):
         m = getattr(models, role, None)
@@ -1382,13 +1579,13 @@ def _k5_per_call(models) -> dict:
         else:
             last = "_a" if m.runs_bf16 else "_b"
             out[role] = sum(1 for k, _ in m.named_buffers()
-                            if k.endswith(last))
+                            if k.endswith(last)) - _k6_per_call(models)
     return out
 
 
 def _k5_want(models, calls: int, reruns: int, full: bool,
              embed: bool) -> dict:
-    """K5 and op-by-op launches of ``calls`` calls of a path with
+    """K5, op-by-op and K6 launches of ``calls`` calls of a path with
     ``reruns`` overflow re-runs of the face stages: the detector's passes
     a call, the face networks' a call and a re-run."""
     per = _k5_per_call(models)
@@ -1396,7 +1593,9 @@ def _k5_want(models, calls: int, reruns: int, full: bool,
                            if full else 0) + (per["embedding"] if embed
                                               else 0)
     return {"residual_act": calls * per["detector"] + (calls + reruns) * faces,
-            "op_by_op": 0, "bias_op_by_op": 0}
+            "op_by_op": 0, "bias_op_by_op": 0,
+            "pointwise_conv": (calls + reruns) * _k6_per_call(models)
+            if embed else 0}
 
 
 def _reruns(det) -> int:
@@ -4525,7 +4724,7 @@ def _graph_launches(graphs: dict, kernel: str, size=None) -> dict:
     cell and its replayed B = 1 calls (K1 also over the standalone
     calls)."""
     def count(launches):
-        n = launches[kernel]
+        n = launches.get(kernel, 0)
         return n.get(size, 0) if size is not None else n
     out = {"graph_launches": {
         **{label: count(c["launches"]) for label, c in
@@ -4980,6 +5179,8 @@ def main() -> int:
         return _trace_phase()
     if sys.argv[1:] == ["--graphs-phase"]:
         return _graphs_phase_alone()
+    if sys.argv[1:] == ["--pointwise-phase"]:
+        return _pointwise_phase_alone()
     from face_detection_tflite_torch import FaceDetectionMode
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
@@ -5093,6 +5294,7 @@ def main() -> int:
         raise AssertionError(f"K2: kernel differs from plain by {k2_err}")
     print(f"K2 warp_normalize 16x16x{s}^2 mixed flips: max_abs_err={k2_err:.3g}")
     k5_sites = _k5_sites(card)
+    k6 = _k6_sites(card)
 
     # -- 4. the STANDARD main path --------------------------------------------
     t0 = time.perf_counter()
@@ -5406,6 +5608,19 @@ def main() -> int:
          "dp_launches": scale["dp_launches"]["residual_act"],
          **_graph_launches(graphs, "residual_act"),
          **k5_sites["iris"], "sites": k5_sites},
+        {"name": "pointwise_conv", "route": "cuda",
+         "source": f"{PACKAGE}/csrc/pointwise.cu", "replaces": None,
+         "fuses": "MobileFaceNet's 1x1 convolutions (cuDNN's NCHW implicit "
+                  "GEMM and its two transposes) with the K5 pass after "
+                  "each: bias, PReLU, residual add",
+         "per_call": _k6_per_call(models),
+         "launches": std["launches"]["pointwise_conv"],
+         "full_launches": full["launches"]["pointwise_conv"],
+         "embed_launches": emb["launches"]["pointwise_conv"],
+         "forward_launches": k6["forward_launches"],
+         **_graph_launches(graphs, "pointwise_conv"),
+         **k6["sites"]["b0_0_e"], "totals": k6["totals"],
+         "sites": k6["sites"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -76,6 +76,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.epilogue import bias_op_by_op, ran_op_by_op, residual_act
+from ..ops.pointwise import library_convs
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
 __all__ = ["ConvertedModel", "SUPPORTED_OPS", "conv2d", "convert_model",
@@ -202,7 +203,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     convolution runs without it and returns it, for a K5 pass
     (:func:`ops.epilogue.residual_act`) to add, alone or with the op
     after the convolution.  The one path of every convolution's bias,
-    the executor's and MobileFaceNet's."""
+    the executor's and MobileFaceNet's.  On a card a float32 1x1
+    convolution with groups 1, stride 1 and no pad, one K6 could take,
+    counts in ``ops.pointwise.library_convs``."""
     (pt, pb), (pl, pr) = pads
     xc = x.permute(0, 3, 1, 2)
     if pt == pb and pl == pr:
@@ -213,6 +216,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     y = F.conv2d(xc, w, None, stride=stride, padding=padding,
                  dilation=dilation, groups=groups).permute(0, 2, 3, 1)
     if y.dtype is torch.float32:
+        if (y.is_cuda and groups == 1 and w.shape[2:] == (1, 1)
+                and tuple(stride) == (1, 1) and not (pt or pb or pl or pr)):
+            library_convs()
         return y, bias
     y = y.float()
     return (y if bias is None else y + bias), None

@@ -61,6 +61,10 @@ _SIGNATURES = {
     # stream (K5, ops/epilogue.py)
     "fdt_residual_act": (_VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I, _I,
                          _I, _I, _VP),
+    # x, w, bias, alpha, residual, out, rows, k, n, act, device, stream
+    # (K6, ops/pointwise.py)
+    "fdt_pointwise_conv": (_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong,
+                           _I, _I, _I, _I, _VP),
 }
 
 _lock = threading.Lock()

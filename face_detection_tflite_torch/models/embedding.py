@@ -9,8 +9,9 @@ crop's down axis), the 192-dim embedding, its L2 normalisation (:386-400)
 and the cosine and euclidean comparisons (:283-334).
 
 The crop is K2 (``ops/warp.py``, the ROI warp fused with the [-1, 1]
-normalize) at 112 px with the alignment angle negated; the network runs on
-cuDNN in fp32 with TF32 off, or at another tier of the executor
+normalize) at 112 px with the alignment angle negated; the network runs in
+fp32 with TF32 off, its 1x1 convolutions in K6 (``ops/pointwise.py``) and
+the others on cuDNN, or at another tier of the executor
 (``convert/executor.py``; "default" feeds the convolutions bf16 operands).  The trained ``mobilefacenet.tflite`` is not
 in the repository: given one, :meth:`FaceEmbedding.load` converts it like
 every other graph; otherwise it builds :class:`MobileFaceNet` at the
@@ -45,6 +46,7 @@ from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
                                 _same_pads, _tier, conv2d, convert_file,
                                 fp32_on_the_card, resolve_device)
 from ..ops.epilogue import residual_act
+from ..ops.pointwise import pointwise_conv
 from ..ops.warp import extract_rois_normalized
 from ..pipeline import graphs
 from ..pipeline.config import EMBEDDING_DIM, EMBEDDING_INPUT_SIZE
@@ -171,6 +173,24 @@ def _mfn_layers(embedding_dim: int) -> list[tuple]:
                      ("out", 1, 1, 512, embedding_dim, 1, False)]
 
 
+def _pointwise_sites(embedding_dim: int = EMBEDDING_DIM) -> list[tuple]:
+    """``(name, hw, k, n, prelu, residual)`` of each of the 1x1
+    convolutions, in the network's order: the side of its (square) NHWC
+    input, its channels in and out, whether a PReLU follows it and
+    whether it takes its bottleneck's residual."""
+    sites, hw, c_in = [], EMBEDDING_INPUT_SIZE // 2, 64
+    for bi, (t, c, n, stride) in enumerate(_MFN_BLOCKS):
+        for ri in range(n):
+            st = stride if ri == 0 else 1
+            sites.append((f"b{bi}_{ri}_e", hw, c_in, c_in * t, True, False))
+            hw //= st
+            sites.append((f"b{bi}_{ri}_p", hw, c_in * t, c, False,
+                          st == 1 and c_in == c))
+            c_in = c
+    return sites + [("head", hw, c_in, 512, True, False),
+                    ("out", 1, 512, embedding_dim, False, False)]
+
+
 def params_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """The JAX ``build_mobilefacenet`` params (filters in HWIO) as the state
     dict of :class:`MobileFaceNet` (filters in OIHW); the keys stay."""
@@ -190,13 +210,16 @@ class MobileFaceNet(nn.Module):
     bottleneck adds its input where its stride is 1 and its channels stay.
     The network runs on NHWC tensors; each convolution goes through
     ``executor.conv2d`` and its bias, with the PReLU or the residual add
-    after it, through one ``ops.epilogue.residual_act`` pass.
+    after it, through one ``ops.epilogue.residual_act`` pass, except that
+    a float32 1x1 convolution and all of that are one
+    ``ops.pointwise.pointwise_conv`` call (K6 on a card).
     Weights are buffers keyed as the JAX params.  ``precision`` is a tier
     of the executor for every convolution ("highest", "high" or
     "default"; the JAX function's ``precision``): at "default" they take
     bf16 operands (the filters' bf16 copies are non-persistent buffers,
     re-derived when a state dict loads) and the bias and PReLU run in
-    fp32.
+    fp32; at a float32 tier the 1x1 filters have ``[K, N]`` copies for
+    K6, derived the same way.
     """
 
     def __init__(self, embedding_dim: int = EMBEDDING_DIM,
@@ -221,14 +244,19 @@ class MobileFaceNet(nn.Module):
         self.register_load_state_dict_post_hook(_refresh_low)
 
     def _make_low(self) -> None:
-        """(Re)makes the filters' copies in the tier's operand dtype."""
-        if self._dtype is torch.float32:
-            return
-        for key in [k for k in self._buffers
-                    if k.endswith("_w") and not k.startswith("_bf_")]:
-            self.register_buffer(f"_bf_{key}", self._buffers[key].to(
-                self._dtype, memory_format=torch.preserve_format),
-                persistent=False)
+        """(Re)makes the filters' derived copies: in the tier's operand
+        dtype at a bf16 tier, and at a float32 tier each 1x1 filter's
+        ``[K, N]`` transpose, K6's operand."""
+        for key in [k for k in self._buffers if k.endswith("_w")
+                    and not k.startswith(("_bf_", "_kn_"))]:
+            w = self._buffers[key]
+            if self._dtype is not torch.float32:
+                self.register_buffer(f"_bf_{key}", w.to(
+                    self._dtype, memory_format=torch.preserve_format),
+                    persistent=False)
+            elif w.shape[2:] == (1, 1):
+                self.register_buffer(f"_kn_{key}", w.reshape(
+                    w.shape[:2]).t().contiguous(), persistent=False)
 
     @property
     def runs_bf16(self) -> bool:
@@ -258,8 +286,16 @@ class MobileFaceNet(nn.Module):
         one ``ops.epilogue.residual_act`` pass (the K5 kernel on a card)
         with its PReLU or the bottleneck's residual add (in place where
         it has neither); at a bf16 tier ``executor.conv2d`` adds the bias
-        and the pass takes only the PReLU."""
+        and the pass takes only the PReLU.  A float32 1x1 convolution
+        (groups 1, stride 1) is one ``ops.pointwise.pointwise_conv`` call
+        with all of that: K6 on a card, its plain version (the same
+        ``executor.conv2d`` and pass) on the CPU."""
         low = self._dtype is not torch.float32
+        kn = self._buffers.get(f"_kn_{name}_w")
+        if kn is not None and groups == 1 and stride == 1:
+            return pointwise_conv(
+                x, kn, getattr(self, f"{name}_b"), "PRELU" if prelu else None,
+                getattr(self, f"{name}_a") if prelu else None, residual)
         w = getattr(self, f"_bf_{name}_w" if low else f"{name}_w")
         pads = ((_same_pads(x.shape[1], stride, w.shape[2]),
                  _same_pads(x.shape[2], stride, w.shape[3])) if same

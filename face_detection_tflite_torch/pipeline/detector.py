@@ -98,7 +98,7 @@ from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
 from ..models.segmentation import SegmentationMask, SelfieSegmentation
-from ..ops import epilogue
+from ..ops import epilogue, pointwise
 from ..parallel import sharding as _sharding
 from ..utils.camera import (CameraRotation, _plane_field,
                             camera_frame_from_planes, decode_camera_frame)
@@ -1362,8 +1362,12 @@ class FaceDetector:
         and its float32 convolutions' biases added on a card in a K5 pass
         that also did the op after the convolution (``bias_folded``), in
         a K5 pass alone (``bias_alone``) and by PyTorch
-        (``bias_op_by_op``) (all five 0 off a card; a captured program's
-        replays count what its capture recorded); where replicas
+        (``bias_op_by_op``) (a bias K6 adds counts as folded), and its
+        float32 1x1 convolutions (groups 1, stride 1, no pad) run on a
+        card in K6 (``pointwise_kernel``, ``ops.pointwise``) and by
+        ``F.conv2d`` (``pointwise_library``) (all seven 0 off a card; a
+        captured program's replays count what its capture recorded);
+        where replicas
         were made
         (:meth:`_replica_params`), their count and the weight bytes of
         each replica's networks together."""
@@ -1387,6 +1391,8 @@ class FaceDetector:
         report["epilogue_op_by_op"] = epilogue.ran_op_by_op.launches
         for key in ("bias_folded", "bias_alone", "bias_op_by_op"):
             report[key] = getattr(epilogue, key).launches
+        report["pointwise_kernel"] = pointwise.pointwise_conv.launches
+        report["pointwise_library"] = pointwise.library_convs.launches
         with self._replica_lock:
             replicas = list(self._replica_params_cache.values())
         n_programs = len(self._programs)

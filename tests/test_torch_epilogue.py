@@ -666,10 +666,15 @@ def test_planned_networks_match_the_jax_executor(role):
 
 def test_mobilefacenet_prelus_run_in_the_pass():
     """Each of MobileFaceNet's 50 convolutions runs without its bias and
-    one ``residual_act`` pass on the NHWC output adds it: with the PReLU
-    (33), with the bottleneck's residual (12 stride-1 projections) or
-    alone in place (5); its output equals the unfused ops (the bias add,
-    the NCHW ``where``, ``h + x``) bit for bit, on seeded nonzero biases."""
+    one pass on the NHWC output adds it: with the PReLU (33), with the
+    bottleneck's residual (12 stride-1 projections) or alone (5).  Its 18
+    convolutions that are not 1x1 take a ``residual_act`` pass after
+    ``executor.conv2d`` (gdconv's bias alone in place); its 32 1x1
+    convolutions take the pass inside ``ops.pointwise.pointwise_conv``
+    (K6 on a card, ``executor.conv2d`` and the plain pass here).  Its
+    output equals the unfused ops (the bias add, the NCHW ``where``,
+    ``h + x``) bit for bit, on seeded nonzero biases."""
+    from face_detection_tflite_torch.convert.executor import conv2d
     net = embedding.build_mobilefacenet(seed=3)
     g = torch.Generator().manual_seed(4)
     for key, b in net.named_buffers():
@@ -678,12 +683,17 @@ def test_mobilefacenet_prelus_run_in_the_pass():
     x = torch.from_numpy(np.random.default_rng(2).uniform(
         -1, 1, (2, 112, 112, 3)).astype(np.float32))
     calls = []
-    real = embedding.residual_act
+    real, real_pointwise = embedding.residual_act, embedding.pointwise_conv
 
     def counted(y, residual, act, alpha=None, bias=None, inplace=False):
-        calls.append((tuple(y.shape), residual is not None, act,
+        calls.append(("pass", tuple(y.shape), residual is not None, act,
                       bias is not None, inplace))
         return real(y, residual, act, alpha, bias, inplace)
+
+    def counted_pointwise(x, w, bias, act=None, alpha=None, residual=None):
+        calls.append(("pointwise", (*x.shape[:3], w.shape[1]),
+                      residual is not None, act, bias is not None, False))
+        return real_pointwise(x, w, bias, act, alpha, residual)
 
     def unfused(y, residual, act, alpha=None, bias=None, inplace=False):
         y = y.permute(0, 3, 1, 2) + bias[:, None, None]
@@ -693,19 +703,32 @@ def test_mobilefacenet_prelus_run_in_the_pass():
             y = y + residual.permute(0, 3, 1, 2)
         return y.permute(0, 2, 3, 1)
 
+    def unfused_pointwise(x, w, bias, act=None, alpha=None, residual=None):
+        k, n = w.shape
+        y, bias = conv2d(x, w.t().reshape(n, k, 1, 1), bias, stride=(1, 1),
+                         pads=((0, 0), (0, 0)))
+        return unfused(y, residual, act, alpha, bias)
+
     embedding.residual_act = counted
+    embedding.pointwise_conv = counted_pointwise
     try:
         (got,) = net(x)
         embedding.residual_act = unfused
+        embedding.pointwise_conv = unfused_pointwise
         (want,) = net(x)
     finally:
         embedding.residual_act = real
+        embedding.pointwise_conv = real_pointwise
     assert len(calls) == 50
-    assert calls[0] == ((2, 56, 56, 64), False, "PRELU", True, False)
-    kinds = [c[1:] for c in calls]
-    assert kinds.count((False, "PRELU", True, False)) == 33
-    assert kinds.count((True, None, True, False)) == 12
-    assert kinds.count((False, None, True, True)) == 5
+    assert [c[0] for c in calls].count("pointwise") == 32
+    assert calls[0] == ("pass", (2, 56, 56, 64), False, "PRELU", True,
+                        False)
+    kinds = [c[2:5] for c in calls]
+    assert kinds.count((False, "PRELU", True)) == 33
+    assert kinds.count((True, None, True)) == 12
+    assert kinds.count((False, None, True)) == 5
+    assert [c for c in calls if c[0] == "pass" and c[5]] == [
+        ("pass", (2, 1, 1, 512), False, None, True, True)]
     assert torch.equal(_bits(got), _bits(want))
 
 

@@ -25,6 +25,8 @@ from face_detection_tflite_torch.ops.detections import _topk_candidates
 from face_detection_tflite_torch.ops.letterbox import letterbox_params
 from face_detection_tflite_torch.pipeline.config import FaceDetectionMode
 
+from .test_torch_pointwise import SITES
+
 FULL_MODE = FaceDetectionMode.FULL
 
 
@@ -1345,17 +1347,20 @@ def test_every_fused_site_runs_k5_on_nhwc_inputs(cuda_device, monkeypatch,
     segmenter takes K5 at B = 16 and B = 1 (the wrapper raises on an input
     that is not NHWC contiguous, so none is), one launch a planned pass
     (each convolution's own bias pass among them; one a convolution of
-    MobileFaceNet), none op by op, each convolution's bias counted once,
-    folded or alone, and none added by PyTorch; the network's outputs on
-    seeded nonzero biases equal those with the plain version at every
-    site bit for bit."""
+    MobileFaceNet but its 1x1 convolutions, which K6 runs with their
+    bias), none op by op, each convolution's bias counted once, folded or
+    alone, and none added by PyTorch; the network's outputs on seeded
+    nonzero biases equal those with the plain version at every site bit
+    for bit."""
     from face_detection_tflite_torch.convert import executor
     from face_detection_tflite_torch.models import embedding
     model = EPILOGUE_NETWORKS[role]().eval()
     g = torch.Generator().manual_seed(16)
     if role == "embedding":
+        # On the card the 32 1x1 convolutions run in K6, which folds
+        # their biases; K5 takes the other 18, 17 with a PReLU.
         biases = [b for k, b in model.named_buffers() if k.endswith("_b")]
-        passes, folded = len(biases), len(biases) - 5
+        passes, folded = len(biases) - 32, len(biases) - 1
     else:
         biases = [getattr(model, model._param_key[op.inputs[2]])
                   for i, op in enumerate(model._ops)
@@ -1434,3 +1439,166 @@ def test_biases_left_to_pytorch_are_counted_on_the_card(cuda_device):
     assert after["bias_op_by_op"] - before["bias_op_by_op"] == convs
     for a, w in zip(got, want):
         assert _same_bits(a, w)
+
+
+# -- K6, MobileFaceNet's 1x1 convolutions with their epilogue ---------------
+
+def _k6_net(device):
+    """The seeded network with nonzero biases and PReLU slopes."""
+    net = build_mobilefacenet(21)
+    g = torch.Generator().manual_seed(22)
+    for key, b in net.named_buffers():
+        if key.endswith("_b"):
+            b.copy_(0.1 * torch.randn(b.shape, generator=g))
+        elif key.endswith("_a"):
+            b.copy_(torch.rand(b.shape, generator=g) - 0.5)
+    return net.to(device).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crops", [1, 3, 16, 256])
+def test_k6_matches_its_plain_version_at_every_site(cuda_device, crops):
+    """K6 against its plain version at each of MobileFaceNet's 32 1x1
+    sites at 1, 3, 16 and 256 crops (3 crops of 7x7 and 1 crop of 1x1
+    leave a ragged last tile of rows), one launch a call, within the
+    float32 rounding of the two sums (``pointwise.rounding_bound``)."""
+    from face_detection_tflite_torch.ops import pointwise
+    net = _k6_net(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(crops)
+    for name, hw, k, n, prelu, res in SITES:
+        x = torch.randn((crops, hw, hw, k), generator=g, device=cuda_device)
+        r = (torch.randn((crops, hw, hw, n), generator=g, device=cuda_device)
+             if res else None)
+        args = (x, net._buffers[f"_kn_{name}_w"], getattr(net, f"{name}_b"),
+                "PRELU" if prelu else None,
+                getattr(net, f"{name}_a") if prelu else None, r)
+        before = pointwise.pointwise_conv.launches
+        with torch.inference_mode():
+            got = pointwise.pointwise_conv(*args)
+            want = pointwise.pointwise_conv_plain(*args)
+        torch.cuda.synchronize()
+        assert pointwise.pointwise_conv.launches - before == 1
+        assert got.shape == want.shape == (crops, hw, hw, n)
+        gap = (got - want).abs().double()
+        assert bool((gap <= pointwise.rounding_bound(
+            *args[:3], args[4], r)).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n", [(20, 36), (13, 130), (130, 7), (3, 1)])
+def test_k6_takes_each_epilogue_and_any_width(cuda_device, k, n):
+    """Every act with and without a bias and a residual, on widths that
+    are multiples of 4 but of neither tile (K 20, N 36) and widths that
+    are not multiples of 4 (rows not 16-byte aligned, scalar loads and
+    stores), with NaN and inf planted: one K6 launch a call, within the
+    rounding bound of its plain version where the plain output is finite,
+    and NaN and inf where it has them."""
+    from face_detection_tflite_torch.ops import pointwise
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((2, 9, 11, k), generator=g, device=cuda_device)
+    x.view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -0.0])
+    w = torch.randn((k, n), generator=g, device=cuda_device)
+    for act in (None, "RELU", "PRELU"):
+        for bias in (None, torch.randn(n, generator=g, device=cuda_device)):
+            for r in (None, torch.randn((2, 9, 11, n), generator=g,
+                                        device=cuda_device)):
+                alpha = (torch.rand(n, generator=g, device=cuda_device)
+                         - 0.5 if act == "PRELU" else None)
+                before = pointwise.pointwise_conv.launches
+                with torch.inference_mode():
+                    got = pointwise.pointwise_conv(x, w, bias, act, alpha, r)
+                    want = pointwise.pointwise_conv_plain(x, w, bias, act,
+                                                          alpha, r)
+                assert pointwise.pointwise_conv.launches - before == 1
+                finite = torch.isfinite(want)
+                assert torch.equal(torch.isnan(got), torch.isnan(want))
+                assert torch.equal(got[~finite & ~torch.isnan(want)],
+                                   want[~finite & ~torch.isnan(want)])
+                xs = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+                tol = pointwise.rounding_bound(xs, w, bias, alpha, r)
+                assert bool(((got - want).abs()[finite].double()
+                             <= tol[finite]).all()), (act, bias, r)
+
+
+@pytest.mark.cuda
+def test_one_mobilefacenet_forward_launches_k6_32_times(cuda_device):
+    """At the float32 tiers each of the 32 1x1 convolutions is one K6
+    launch a forward, its bias counted as folded; the executor's
+    networks on the card count their 1x1 convolutions as run by the
+    library; an ``embedding_dim`` of 130 runs its ``out`` in K6 as well,
+    none in the library; the "default" tier (bf16 operands) does not
+    enter K6; the card's embeddings stay within 1e-5 of the CPU's."""
+    from face_detection_tflite_torch.ops import pointwise
+    x = torch.rand(16, 112, 112, 3,
+                   generator=torch.Generator().manual_seed(23)) * 2 - 1
+    cpu = build_mobilefacenet(0)
+    with torch.inference_mode():
+        (want,) = cpu(x)
+    for precision in ("highest", "high"):
+        net = build_mobilefacenet(0, precision=precision).to(cuda_device)
+        before = (pointwise.pointwise_conv.launches,
+                  epilogue.bias_folded.launches)
+        with torch.inference_mode():
+            (got,) = net(x.to(cuda_device))
+        torch.cuda.synchronize()
+        assert (pointwise.pointwise_conv.launches - before[0],
+                epilogue.bias_folded.launches - before[1]) == (32, 49)
+        unit = want / want.norm(dim=-1, keepdim=True)
+        got = got.cpu()
+        assert (got / got.norm(dim=-1, keepdim=True) - unit).abs().max() \
+            <= 1e-5
+    # An embedding width that is not a multiple of 4: ``out`` runs in K6
+    # too, and no 1x1 convolution reaches the library.
+    odd = build_mobilefacenet(0, embedding_dim=130).to(cuda_device)
+    before = (pointwise.pointwise_conv.launches,
+              pointwise.library_convs.launches)
+    with torch.inference_mode():
+        (got,) = odd(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (pointwise.pointwise_conv.launches - before[0],
+            pointwise.library_convs.launches - before[1]) == (32, 0)
+    with torch.inference_mode():
+        (want,) = build_mobilefacenet(0, embedding_dim=130)(x)
+    got = got.cpu()
+    assert got.shape == (16, 130)
+    assert (got / got.norm(dim=-1, keepdim=True)
+            - want / want.norm(dim=-1, keepdim=True)).abs().max() <= 1e-5
+    low = build_mobilefacenet(0, precision="default").to(cuda_device)
+    before = pointwise.pointwise_conv.launches
+    with torch.inference_mode():
+        low(x.to(cuda_device))
+    assert pointwise.pointwise_conv.launches == before
+    mesh = convert_model(random_init.face_mesh_ir(12)).to(cuda_device).eval()
+    ones = sum(1 for op in mesh._ops if op.name == "CONV_2D"
+               and tuple(getattr(mesh, mesh._param_key[op.inputs[1]]
+                                 ).shape[2:]) == (1, 1)
+               and op.options["stride_h"] == op.options["stride_w"] == 1)
+    before = pointwise.library_convs.launches
+    with torch.inference_mode():
+        mesh(torch.rand((2, 192, 192, 3), device=cuda_device))
+    assert pointwise.library_convs.launches - before == ones > 0
+
+
+@pytest.mark.cuda
+def test_k6_replays_equal_the_eager_program(cuda_device):
+    """``embed_batch``'s captured program replays K6 with the eager
+    program's every bit, and a replay counts the capture's 32 K6
+    launches."""
+    from face_detection_tflite_torch.models.embedding import FaceEmbedding
+    from face_detection_tflite_torch.ops import pointwise
+    from face_detection_tflite_torch.pipeline import graphs
+    rng = np.random.default_rng(24)
+    frame = rng.integers(0, 256, (427, 640, 3), dtype=np.uint8)
+    pairs = [((100.0 + 20 * i, 100.0 + 10 * i), (150.0 + 20 * i, 104.0))
+             for i in range(16)]
+    emb = FaceEmbedding(_k6_net("cpu"), allow_untrained=True,
+                        device=cuda_device)
+    with graphs.capture_now():
+        emb.embed_batch(frame, pairs)              # eager, then captured
+    before = pointwise.pointwise_conv.launches
+    got = emb.embed_batch(frame, pairs)
+    assert pointwise.pointwise_conv.launches - before == 32
+    with graphs.eager():
+        want = emb.embed_batch(frame, pairs)
+    np.testing.assert_array_equal(got, want)
+    emb.dispose()
