@@ -30,7 +30,12 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    depthwise convolution 512 x 32x32x64 and the detector stem's bias
    and ReLU 16 x 128x128x24; seeded values with -0.0, NaN and +-inf
    planted in y, the residual and the bias), with its ms, device ms, the
-   plain version's ms and its byte bound; K6, MobileFaceNet's 1x1
+   plain version's ms and its byte bound; K5's affine instance
+   (``residual_act_affine``: the pass, then a batch norm the graph keeps
+   as a per-channel MUL and ADD) the same way at iresnet50's stem, a
+   stage-1 block's end and its head at 256 crops (on its main path, see
+   6b; ``--affine-phase`` runs the build, these sites and 6b alone);
+   K6, MobileFaceNet's 1x1
    convolutions with their bias, PReLU or residual (``pointwise_conv``),
    at each of its 32 sites at 256 crops against its plain version (cuDNN,
    then K5) within the float32 rounding of its sums, with its ms, device
@@ -83,6 +88,14 @@ Run from the repository root: ``python3 chip_smoke.py``.  It
    their fused embeddings (fp32 readback, within 1e-3) and checks that
    the frame was uploaded once; the card-vs-CPU check adds the
    embeddings;
+6b. drives FULL with the fused embedding stage and iresnet50 at its
+   published widths as the embedding network (the cell
+   ``full_arcface.stream16``'s path) through ``detect_faces_batch_stream``
+   at depth 2 over replayed batches: 25 K5 affine launches a call and
+   re-run, none op by op, K5's other passes, K1 and K2 as on the other
+   paths, unit 512-dim embeddings, the last batch's embeddings bit for
+   bit those of the eager program with the plain affine passes
+   (``_arcface_phase``);
 7. serving, on the same frames and networks: times one batch's upload,
    pinned (``pipeline/upload.py``) against pageable; runs
    ``detect_faces_batch_stream`` over the FULL batches at depth 2 against
@@ -695,6 +708,8 @@ def _layer(kernel_name: str) -> str:
         return "launch floor"
     if "warp_normalize" in n:
         return "K2 warp_normalize"
+    if "residual_act_affine" in n:
+        return "K5 residual_act_affine"
     if "residual_act" in n:
         return "K5 residual_act"
     if "pointwise_conv" in n:
@@ -948,15 +963,15 @@ def _check_full_faces(faces, slab) -> None:
                              "pick another seed")
 
 
-def _check_embeddings(faces) -> None:
-    """Every face of the fused embedding stage has a finite 192-dim
+def _check_embeddings(faces, dim: int = 192) -> None:
+    """Every face of the fused embedding stage has a finite ``dim``-dim
     embedding of norm 1 (within 1e-4)."""
     import numpy as np
     for face in (f for per in faces for f in per):
         e = face.embedding
-        if e is None or e.shape != (192,) or not np.isfinite(e).all() or \
+        if e is None or e.shape != (dim,) or not np.isfinite(e).all() or \
                 abs(float(np.linalg.norm(e)) - 1.0) > 1e-4:
-            raise AssertionError("a face lacks a unit 192-dim embedding")
+            raise AssertionError(f"a face lacks a unit {dim}-dim embedding")
 
 
 def _check_standalone_embeddings(models, frames_np, card: str) -> None:
@@ -1218,6 +1233,222 @@ def _k5_sites(card: str) -> dict:
               f"{100 * bound_ms / dev_ms:.0f}% of it)  [{card}]")
         del y, r
     return out
+
+
+#: K5's affine sites (``ops/epilogue.py::residual_act_affine``): name ->
+#: (N, H, W, C, act, residual, keep), iresnet50's at 256 crops: the stem's
+#: PReLU and a stage-1 block's end, both kept for the identity or the
+#: downsample, and the head's BN2d after the last block, written alone;
+#: each with its convolution's bias.
+K5_AFFINE_SITES = {
+    "stem_prelu": (256, 112, 112, 64, "PRELU", False, True),
+    "block_end_56": (256, 56, 56, 64, None, True, True),
+    "head_7": (256, 7, 7, 512, None, True, False),
+}
+
+
+def _k5_affine_sites(card: str) -> dict:
+    """Holds K5's affine instance bit for bit against its plain version
+    (the pass, then the graph's MUL and ADD one by one) at each site of
+    :data:`K5_AFFINE_SITES` on seeded values with -0.0, NaN and +-inf
+    planted, one launch a call, and times both, with the bound of its
+    bytes (y and the residual read once, z and, where kept, the pass's
+    output written once).  Returns the ``kernels`` fields by site."""
+    import torch
+    from face_detection_tflite_torch.ops import epilogue
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+    def draw(shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        flat = x.view(-1)
+        picks = torch.randint(0, flat.numel(), (5 * 64,), generator=g,
+                              device=dev)
+        for j, v in enumerate((-0.0, 0.0, float("nan"), float("inf"),
+                               float("-inf"))):
+            flat[picks[j::5]] = v
+        return x
+
+    out = {}
+    for site, (n, h, w, c, act, res, keep) in K5_AFFINE_SITES.items():
+        y = draw((n, h, w, c))
+        r = draw((n, h, w, c)) if res else None
+        alpha = ((torch.rand(c, generator=g, device=dev) - 0.5)
+                 if act == "PRELU" else None)
+        bias, scale, shift = (torch.randn(c, generator=g, device=dev)
+                              for _ in range(3))
+
+        def kernel():
+            return epilogue.residual_act_affine(y, r, act, alpha, bias,
+                                                scale, shift, keep)
+
+        def plain():
+            return epilogue.residual_act_affine_plain(y, r, act, alpha, bias,
+                                                      scale, shift, keep)
+
+        before = epilogue.residual_act_affine.launches
+        want_out, want = plain()
+        got_out, got = kernel()
+        torch.cuda.synchronize()
+        if epilogue.residual_act_affine.launches != before + 1:
+            raise AssertionError(f"K5 affine {site}: not one launch a call")
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)) \
+                or (got_out is None) != (want_out is None) or (
+                    keep and not torch.equal(got_out.view(torch.int32),
+                                             want_out.view(torch.int32))):
+            raise AssertionError(f"K5 affine {site}: the kernel differs "
+                                 f"from its plain version")
+        del got_out, got, want_out, want
+        ms, dev_ms, dev_by = _kernel_ms(kernel, "K5 residual_act_affine")
+        plain_ms = _median_ms(plain, iters=5, warmup=1)
+        nbytes = 4 * y.numel() * ((2 if res else 1) + (2 if keep else 1))
+        bound_ms, bound_by = _bound(nbytes, 3 * y.numel())
+        out[site] = {"shape": [n, h, w, c], "act": act, "residual": res,
+                     "keep": keep, "bias": True, "max_abs_err": 0.0,
+                     "ms": ms, "device_ms": dev_ms, "device_ms_by": dev_by,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+        print(f"K5 residual_act_affine {site} {n}x{h}x{w}x{c}, {act}, "
+              f"residual {res}, bias, out kept {keep}: bit for bit; kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms, {dev_by}), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; the "
+              f"device time {100 * bound_ms / dev_ms:.0f}% of it)  [{card}]")
+        del y, r
+    return out
+
+
+#: Replayed batches of the iresnet50 path (:func:`_arcface_phase`).
+ARC_RUNS = 4
+
+
+def _arcface_phase(models, frames_np, card: str) -> dict:
+    """Phase 6b, the path of the cell ``full_arcface.stream16``: FULL with
+    ``embed_in_full`` and iresnet50 at its published widths as the
+    embedding network (``tests/iresnet_reference.py``, seeded; the main
+    path's other networks and frames), through
+    ``detect_faces_batch_stream`` at depth :data:`STREAM_DEPTH`.  Warmed
+    under ``graphs.capture_now`` (each key captured on its first call),
+    then :data:`ARC_RUNS` replayed batches with every count set to 0 just
+    before: one K5 affine launch a planned pair of each embedding call
+    (25 a call of ``FRAMES * MAX_FACES`` crops, and of each overflow
+    re-run), none op by op, K5's other passes, K1 and K2 as on the other
+    paths (:func:`_k5_want`), and a unit 512-dim embedding a face; the
+    last batch's embeddings bit for bit those of the same detector's
+    eager program with ``residual_act_affine_plain`` in place of the
+    kernel.  Returns the counts for the ``kernels`` entry."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch import FaceDetector
+    from face_detection_tflite_torch.convert import executor
+    from face_detection_tflite_torch.ops import epilogue
+    from face_detection_tflite_torch.pipeline import graphs
+    from face_detection_tflite_torch.pipeline.programs import PipelineModels
+    from tests import iresnet_reference as ires
+    from tests.iresnet_ir import to_ir
+    net = executor.convert_model(to_ir(ires.tflite_form(ires.seeded(
+        ires.IResNet(), SEED + 27))), name="iresnet50")
+    arc = PipelineModels(models.detector, models.variant, mesh=models.mesh,
+                         iris=models.iris, blendshapes=models.blendshapes,
+                         embedding=net, device=models.device)
+    det = FaceDetector(models=arc, device=models.device, max_faces=MAX_FACES,
+                       embed_in_full=True, allow_untrained_embeddings=True)
+    def stream():
+        return list(det.detect_faces_batch_stream([frames_np] * ARC_RUNS,
+                                                  depth=STREAM_DEPTH))
+
+    # As the benchmark warms a cell: until no program key is left
+    # uncaptured.
+    t0 = time.perf_counter()
+    for cycle in range(4):
+        with graphs.capture_now():
+            stream()
+        before = det.memory_report()
+        if before["pending_keys"] == 0:
+            break
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reruns0 = _reruns(det)
+    _reset_launches()
+    t0 = time.perf_counter()
+    faces = stream()
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3 / ARC_RUNS
+    launches, reruns = _launches(), _reruns(det) - reruns0
+    after = det.memory_report()
+    calls = {k: after[k] - before[k] for k in ("eager_calls", "replays",
+                                               "captured_keys")}
+    per_call = _affine_per_call(arc)
+    want = {"detection_postprocess": ARC_RUNS,
+            "warp_normalize": {s: ARC_RUNS + reruns
+                               for s in (MESH_SIZE, IRIS_SIZE, EMBED_SIZE)},
+            **_k5_want(arc, ARC_RUNS, reruns, True, True)}
+    if per_call != 25 or before["pending_keys"] or calls["eager_calls"] \
+            or calls["captured_keys"] or calls["replays"] < ARC_RUNS or \
+            {k: launches[k] for k in want} != want:
+        raise AssertionError(f"iresnet50 path: {per_call} affine passes a "
+                             f"call (want 25); after {cycle + 1} warm-up "
+                             f"cycles {before['pending_keys']} keys pending;"
+                             f" over {ARC_RUNS} batches {calls}; launches "
+                             f"{launches}, want {want}")
+    _check_embeddings([per for batch in faces for per in batch], 512)
+    real = executor.residual_act_affine
+    executor.residual_act_affine = epilogue.residual_act_affine_plain
+    try:
+        with graphs.eager():
+            plain = det.detect_faces_batch(frames_np)
+    finally:
+        executor.residual_act_affine = real
+    got = [f.embedding for per in faces[-1] for f in per]
+    ref = [f.embedding for per in plain for f in per]
+    if len(got) != len(ref) or not all(
+            np.array_equal(a.view(np.uint32), b.view(np.uint32))
+            for a, b in zip(got, ref)):
+        raise AssertionError("iresnet50 path: the replayed embeddings differ "
+                             "from the plain affine passes'")
+    print(f"iresnet50 path (FULL + embed_in_full, stream depth "
+          f"{STREAM_DEPTH}): warm-up and captures {warm_s:.1f} s ({cycle + 1}"
+          f" cycles); {ARC_RUNS} replayed batches of {FRAMES} x {HEIGHT}x"
+          f"{WIDTH} ({calls['replays']} replays, no eager call, {reruns} "
+          f"re-runs), {batch_ms:.2f} ms a batch; K5 affine "
+          f"{launches['affine']} launches ({per_call} a call), op by op "
+          f"{launches['affine_op_by_op']}, other K5 passes "
+          f"{launches['residual_act']}; the last batch's {len(got)} "
+          f"embeddings bit for bit with the plain affine passes  [{card}]")
+    det.dispose()
+    return {"per_call": per_call, "calls": ARC_RUNS, "reruns": reruns,
+            "launches": launches["affine"],
+            "op_by_op": launches["affine_op_by_op"],
+            "residual_act": launches["residual_act"]}
+
+
+def _affine_phase_alone() -> int:
+    """``python3 chip_smoke.py --affine-phase``: the build, K5's affine
+    sites (:func:`_k5_affine_sites`) and the iresnet50 path
+    (:func:`_arcface_phase`, on the main path's seeded networks and
+    frames) alone."""
+    import numpy as np
+    import torch
+    from face_detection_tflite_torch.kernels import build
+    from face_detection_tflite_torch.models import random_init
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    for line in build.build_log().splitlines():
+        if "affine" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    _k5_affine_sites(card)
+    frames_np = np.random.default_rng(SEED).integers(
+        0, 256, (FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8)
+    models = random_init.random_pipeline_models(
+        torch.from_numpy(frames_np).to("cuda"), seed=SEED)[0]
+    _arcface_phase(models, frames_np, card)
+    print(card)
+    return 0
 
 
 #: Crops a batch on the embedding path: 16 frames x 16 faces.
@@ -1519,7 +1750,9 @@ def _payload(faces) -> list:
 #: K5's counters (``ops/epilogue.py``) as the launch dicts name them.
 _K5_COUNTS = {"residual_act": "residual_act", "op_by_op": "ran_op_by_op",
               "bias_folded": "bias_folded", "bias_alone": "bias_alone",
-              "bias_op_by_op": "bias_op_by_op"}
+              "bias_op_by_op": "bias_op_by_op",
+              "affine": "residual_act_affine",
+              "affine_op_by_op": "affine_op_by_op"}
 
 
 def _reset_k5_counts() -> None:
@@ -1575,12 +1808,24 @@ def _k5_per_call(models) -> dict:
         if m is None:
             continue
         if hasattr(m, "_epilogues"):
-            out[role] = len(m._epilogues) + len(m._bias_passes)
+            out[role] = sum(ep.scale is None for ep in m._epilogues.values()
+                            ) + len(m._bias_passes)
         else:
             last = "_a" if m.runs_bf16 else "_b"
             out[role] = sum(1 for k, _ in m.named_buffers()
                             if k.endswith(last)) - _k6_per_call(models)
     return out
+
+
+def _affine_per_call(models) -> int:
+    """K5 affine launches one call of the networks makes: one a planned
+    pass that takes a per-channel affine pair (none in the main paths'
+    networks)."""
+    return sum(ep.scale is not None
+               for role in ("detector", "mesh", "iris", "blendshapes",
+                            "embedding")
+               for ep in getattr(getattr(models, role, None), "_epilogues",
+                                 {}).values())
 
 
 def _k5_want(models, calls: int, reruns: int, full: bool,
@@ -1594,6 +1839,8 @@ def _k5_want(models, calls: int, reruns: int, full: bool,
                                               else 0)
     return {"residual_act": calls * per["detector"] + (calls + reruns) * faces,
             "op_by_op": 0, "bias_op_by_op": 0,
+            "affine": (calls + reruns) * _affine_per_call(models),
+            "affine_op_by_op": 0,
             "pointwise_conv": (calls + reruns) * _k6_per_call(models)
             if embed else 0}
 
@@ -5181,6 +5428,8 @@ def main() -> int:
         return _graphs_phase_alone()
     if sys.argv[1:] == ["--pointwise-phase"]:
         return _pointwise_phase_alone()
+    if sys.argv[1:] == ["--affine-phase"]:
+        return _affine_phase_alone()
     from face_detection_tflite_torch import FaceDetectionMode
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
@@ -5294,6 +5543,7 @@ def main() -> int:
         raise AssertionError(f"K2: kernel differs from plain by {k2_err}")
     print(f"K2 warp_normalize 16x16x{s}^2 mixed flips: max_abs_err={k2_err:.3g}")
     k5_sites = _k5_sites(card)
+    k5_affine = {"sites": _k5_affine_sites(card)}
     k6 = _k6_sites(card)
 
     # -- 4. the STANDARD main path --------------------------------------------
@@ -5415,6 +5665,7 @@ def main() -> int:
     # -- 6. FULL with the fused embedding stage --------------------------------
     emb, embed_site = _embedding_phase(models, cpu_models, frames, frames_np,
                                        runs, card)
+    arcface = _arcface_phase(models, frames_np, card)
 
     stamp("1-6")
 
@@ -5608,6 +5859,27 @@ def main() -> int:
          "dp_launches": scale["dp_launches"]["residual_act"],
          **_graph_launches(graphs, "residual_act"),
          **k5_sites["iris"], "sites": k5_sites},
+        {"name": "residual_act_affine", "route": "cuda",
+         "source": f"{PACKAGE}/csrc/epilogue.cu", "replaces": None,
+         "fuses": "face_detection_tflite_tpu/convert/executor.py MUL and "
+                  "ADD of one constant a channel (a batch norm kept in the "
+                  "graph) after a K5 pass",
+         "per_call": _affine_per_call(models),
+         "launches": std["launches"]["affine"],
+         "full_launches": full["launches"]["affine"],
+         "embed_launches": emb["launches"]["affine"],
+         "op_by_op_launches": {
+             key: path["launches"]["affine_op_by_op"] for key, path in (
+                 ("launches", std), ("full_launches", full),
+                 ("embed_launches", emb))},
+         "arcface_per_call": arcface["per_call"],
+         "arcface_launches": arcface["launches"],
+         "arcface_calls": arcface["calls"],
+         "arcface_reruns": arcface["reruns"],
+         "arcface_op_by_op_launches": arcface["op_by_op"],
+         "arcface_residual_act_launches": arcface["residual_act"],
+         **k5_affine["sites"]["block_end_56"],
+         "sites": k5_affine["sites"]},
         {"name": "pointwise_conv", "route": "cuda",
          "source": f"{PACKAGE}/csrc/pointwise.cu", "replaces": None,
          "fuses": "MobileFaceNet's 1x1 convolutions (cuDNN's NCHW implicit "

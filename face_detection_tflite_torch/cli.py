@@ -346,7 +346,7 @@ def _cmd_embed(args) -> int:
             print(json.dumps({"image": args.images[0],
                               "embedding": [float(v) for v in embs[0]]}))
         else:
-            print(f"{args.images[0]}: 192-dim embedding, "
+            print(f"{args.images[0]}: {len(embs[0])}-dim embedding, "
                   f"first 8 = {[round(float(v), 4) for v in embs[0][:8]]}")
         return 0
     sim = FaceDetector.compare_faces(embs[0], embs[1])
@@ -596,7 +596,8 @@ def _cmd_import_weights(args) -> int:
                       f"finite={bool(np.isfinite(vec).all())}); "
                       "nothing was installed", file=sys.stderr)
                 return 1
-            print(f"forward pass ok: 192-dim embedding, L2 norm {norm:.6f}")
+            print(f"forward pass ok: {vec.size}-dim embedding, L2 norm "
+                  f"{norm:.6f}")
         os.replace(staged, dst)
     finally:
         if os.path.exists(staged):

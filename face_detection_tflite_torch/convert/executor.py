@@ -58,11 +58,11 @@ Differences from the JAX executor, all deliberate:
 Conversion-time passes (numpy, no device work) are those of the JAX
 executor: constant fp16 ``DEQUANTIZE`` and ``DENSIFY`` fold into fp32
 weights, and static shape arithmetic folds into constants.  One more
-pass plans, from the graph's structure, which ADD, RELU, PRELU and
-channel-PAD ops run as one residual-add-and-activation pass
-(:func:`_plan_epilogues`, ``ops/epilogue.py``; on a card the K5 kernel),
-whose every value equals the ops' one by one; parameters and the state
-dict do not change.
+pass plans, from the graph's structure, which ADD, RELU, PRELU,
+channel-PAD and per-channel MUL and ADD ops run as one
+residual-add-and-activation pass (:func:`_plan_epilogues`,
+``ops/epilogue.py``; on a card the K5 kernel), whose every value equals
+the ops' one by one; parameters and the state dict do not change.
 """
 
 from __future__ import annotations
@@ -75,7 +75,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.epilogue import bias_op_by_op, ran_op_by_op, residual_act
+from ..ops.epilogue import (affine_op_by_op, affine_pass, bias_op_by_op,
+                            ran_op_by_op, residual_act, residual_act_affine)
 from ..ops.pointwise import library_convs
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
@@ -395,18 +396,27 @@ class _Epilogue(NamedTuple):
     """A planned run of :func:`ops.epilogue.residual_act` in place of the
     ops it absorbs: ``act((env[y] + bias) + pad(env[residual]))``,
     ``alpha`` the PRELU's weight tensor, ``bias`` that of the convolution
-    that writes ``y`` (run without it) where the pass takes it."""
+    that writes ``y`` (run without it) where the pass takes it.  Where
+    ``scale`` is set, the pass is :func:`ops.epilogue.residual_act_affine`
+    and also writes ``env[z] = out * env[scale] + env[shift]``, the
+    per-channel MUL and ADD after it; ``keep`` says whether ``out`` has
+    a reader besides them."""
     y: int
     residual: Optional[int]
     act: Optional[str]
     alpha: Optional[int]
     bias: Optional[int] = None
+    scale: Optional[int] = None
+    shift: Optional[int] = None
+    z: Optional[int] = None
+    keep: bool = True
 
 
 def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
                     shapes: dict, dtypes: dict, param_key: dict,
                     statics: dict, tiers: tuple
-                    ) -> tuple[dict, frozenset, frozenset, dict, frozenset]:
+                    ) -> tuple[dict, frozenset, frozenset, dict, frozenset,
+                               frozenset]:
     """Which ops run as one bias, residual-add-and-activation pass, from
     the graph's structure alone.  Two patterns fuse:
 
@@ -434,10 +444,23 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
     where it has one (any other fused activation runs after it); the
     snap of an output on a grid still follows the convolution.
 
+    Last, a per-channel affine pair, a 4-D MUL with no activation by one
+    constant a channel whose output's only reader is an ADD with no
+    activation of one constant a channel (a batch norm the converter
+    could not fold, as before a zero-padded convolution), joins the pass
+    that writes the MUL's input; the pass then writes the ADD's output
+    too, and its own output only where another op reads it or it is a
+    graph output.  Neither the pass's output nor the MUL's may lie on a
+    grid, and the ADD's output may not either, and the pass must be one
+    that K5's affine instance has (``ops.epilogue.affine_pass``: a PReLU
+    with the bias and no residual, or the bias and a same-width residual
+    with no activation); any other pair runs op by op.
+
     Returns (anchor op index -> :class:`_Epilogue`, the absorbed op
     indices, the candidates (every PRELU, every ADD with a fused RELU)
     that run op by op, convolution op index -> the act (None or "RELU")
-    of its own bias pass, the convolutions whose bias a pass takes)."""
+    of its own bias pass, the convolutions whose bias a pass takes, the
+    ADDs of the affine pairs that run op by op)."""
     readers: dict[int, int] = {}
     reader: dict[int, int] = {}  # tensor -> an op that reads it
     for i, op in enumerate(ops):
@@ -559,8 +582,53 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
         else:
             plan[fold[0]] = fold[1]
             folded.add(i)
+
+    # The per-channel affine pairs: into the pass that writes their input.
+    def affine_pair(m) -> Optional[tuple[int, int, int, int, int]]:
+        """(input, scale, ADD op index, shift, z) where MUL op ``m`` begins
+        an affine pair over a 4-D activation."""
+        op = ops[m]
+        if op.name != "MUL" or op.options.get("activation") is not None:
+            return None
+        a, b = op.inputs[:2]
+        x, s = (b, a) if a in param_key else (a, b)
+        mid = op.outputs[0]
+        if not activation(x) or shapes[mid] != shapes[x] or \
+                not per_channel(s, x) or not absorbable(mid):
+            return None
+        j = reader[mid]
+        add = ops[j]
+        if add.name != "ADD" or add.options.get("activation") is not None:
+            return None
+        t = next(u for u in add.inputs[:2] if u != mid)
+        z = add.outputs[0]
+        if not per_channel(t, x) or shapes[z] != shapes[x] or \
+                z in act_quant:
+            return None
+        return x, s, j, t, z
+
+    pairs: dict[int, list] = {}  # input tensor -> [(MUL index, pair)]
+    for m in range(len(ops)):
+        if (p := affine_pair(m)) is not None:
+            pairs.setdefault(p[0], []).append((m, p))
+    taken = set()
+    for k, ep in list(plan.items()):
+        out = ops[k].outputs[0]
+        found = pairs.get(out, [])
+        width = None if ep.residual is None else (
+            "same" if shapes[ep.residual][-1] == shapes[ep.y][-1]
+            else "padded")
+        if out in act_quant or len(found) != 1 or \
+                not affine_pass(ep.act, width, ep.bias is not None):
+            continue
+        m, (_, s, j, t, z) = found[0]
+        plan[k] = ep._replace(scale=s, shift=t, z=z,
+                              keep=readers[out] > 1 or out in outputs)
+        absorbed.update((m, j))
+        taken.add(j)
+    affine_op_by_op = {p[2] for f in pairs.values() for _, p in f} - taken
     return (plan, frozenset(absorbed), frozenset(candidates - set(plan)),
-            bias_passes, frozenset(folded))
+            bias_passes, frozenset(folded), frozenset(affine_op_by_op))
 
 
 def _refresh_low(module, incompatible_keys=None) -> None:
@@ -832,10 +900,12 @@ class ConvertedModel(nn.Module):
         #: by op (each counted by ``ops.epilogue.ran_op_by_op`` where it
         #: runs on a card), the float32 convolutions followed by a bias
         #: pass of their own (-> its act) and those whose bias a pass
-        #: takes.  A float32 convolution in neither has its bias added by
-        #: PyTorch (``ops.epilogue.bias_op_by_op`` on a card).
+        #: takes, and the ADDs of the per-channel affine pairs left op by
+        #: op (``ops.epilogue.affine_op_by_op`` on a card).  A float32
+        #: convolution in neither has its bias added by PyTorch
+        #: (``ops.epilogue.bias_op_by_op`` on a card).
         (self._epilogues, self._absorbed, self._op_by_op, self._bias_passes,
-         self._bias_folded) = _plan_epilogues(
+         self._bias_folded, self._affine_op_by_op) = _plan_epilogues(
             ops, output_ixs, self._act_quant, shapes, dtypes, param_key,
             statics, self.tiers)
         # Weight tensor -> the key of its bf16 copy, for the weights that
@@ -949,14 +1019,22 @@ class ConvertedModel(nn.Module):
                 self._run_op(i, op, env, n)
                 if on_card and i in self._op_by_op:
                     ran_op_by_op()
+                if on_card and i in self._affine_op_by_op:
+                    affine_op_by_op()
             else:
-                env[op.outputs[0]] = residual_act(
-                    env[ep.y], None if ep.residual is None
-                    else env[ep.residual], ep.act,
-                    None if ep.alpha is None
-                    else getattr(self, self._param_key[ep.alpha]).reshape(-1),
-                    None if ep.bias is None
-                    else getattr(self, self._param_key[ep.bias]))
+                args = [env[ep.y], None if ep.residual is None
+                        else env[ep.residual], ep.act] + [
+                    None if t is None else
+                    getattr(self, self._param_key[t]).reshape(-1)
+                    for t in (ep.alpha, ep.bias)]
+                if ep.scale is None:
+                    env[op.outputs[0]] = residual_act(*args)
+                else:
+                    out, env[ep.z] = residual_act_affine(
+                        *args, *(getattr(self, self._param_key[t]).reshape(-1)
+                                 for t in (ep.scale, ep.shift)), ep.keep)
+                    if out is not None:
+                        env[op.outputs[0]] = out
             for t in op.outputs:
                 if t in self._act_quant and t in env:
                     env[t] = _fake_quant(env[t], self._qscale[self._qslot[t]],

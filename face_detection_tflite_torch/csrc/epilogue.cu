@@ -40,6 +40,23 @@
 // neither pointer __restrict__, so no read goes through the read-only
 // path of a buffer the kernel writes.  It allocates nothing: the wrapper
 // allocates the output, or passes y as the output.
+//
+// The affine instance (residual_act_affine_kernel) also applies a batch
+// norm that a graph keeps as a per-channel MUL and ADD after the pass
+// (iResNet's pre-activation BN, which a zero-padded convolution follows,
+// so no converter folds it):
+//
+//   z[n,h,w,c] = (out[n,h,w,c] * s[c]) + t[c]
+//
+// rounded as the two PyTorch ops (__fmul_rn, then __fadd_rn; -fmad=false
+// forbids the contraction too), and writes z beside out, or z alone
+// where out has no other reader.  It reads what the plain pass reads and
+// writes 4 or 8 bytes an element: the two graph ops' own 16 bytes an
+// element (read out, write the product, read it, write z) are gone.  It
+// has instances only for the two passes such a batch norm follows in
+// iResNet (kAffinePass): a PReLU with the bias and no residual (the
+// stem), and the bias and a same-width residual with no activation (a
+// block's end); the entry point refuses the others.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +98,15 @@ __device__ __forceinline__ float4 apply(float4 y, float4 b, float4 r,
                      one<A, R, B>(y.w, b.w, r.w, a.w));
 }
 
+__device__ __forceinline__ float affine(float v, float s, float t) {
+  return __fadd_rn(__fmul_rn(v, s), t);
+}
+
+__device__ __forceinline__ float4 affine(float4 v, float4 s, float4 t) {
+  return make_float4(affine(v.x, s.x, t.x), affine(v.y, s.y, t.y),
+                     affine(v.z, s.z, t.z), affine(v.w, s.w, t.w));
+}
+
 template <typename V>
 __device__ __forceinline__ V zero();
 template <>
@@ -91,24 +117,30 @@ __device__ __forceinline__ float4 zero<float4>() {
 }
 
 // V is float4 (c, cr and n counted in vectors) or float; n fits 31 bits.
-// InPlace: out is y, read with plain loads.
-template <typename V, int A, int R, bool B, bool InPlace>
+// InPlace: out is y, read with plain loads.  F (affine): z = out * s + t
+// is written too, and out only where it is not null.
+template <typename V, int A, int R, bool B, bool InPlace, bool F>
 __device__ __forceinline__ void body(const V* y, const V* r, const V* alpha,
-                                     const V* bias, V* out, unsigned n,
-                                     unsigned c, unsigned cr) {
+                                     const V* bias, const V* scale,
+                                     const V* shift, V* out, V* z,
+                                     unsigned n, unsigned c, unsigned cr) {
   const unsigned base = blockIdx.x * (kThreads * kItems) + threadIdx.x;
-  V yv[kItems], rv[kItems], av[kItems], bv[kItems];
+  V yv[kItems], rv[kItems], av[kItems], bv[kItems], sv[kItems], tv[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const unsigned i = base + k * kThreads;
-    yv[k] = rv[k] = av[k] = bv[k] = zero<V>();
+    yv[k] = rv[k] = av[k] = bv[k] = sv[k] = tv[k] = zero<V>();
     if (i >= n) continue;
     yv[k] = InPlace ? y[i] : __ldg(y + i);
-    if (A == kActPrelu || R == kResPadded || B) {
+    if (A == kActPrelu || R == kResPadded || B || F) {
       const unsigned row = i / c;
       const unsigned ch = i - row * c;
       if (A == kActPrelu) av[k] = __ldg(alpha + ch);
       if (B) bv[k] = __ldg(bias + ch);
+      if (F) {
+        sv[k] = __ldg(scale + ch);
+        tv[k] = __ldg(shift + ch);
+      }
       if (R == kResPadded && ch < cr) rv[k] = __ldg(r + row * cr + ch);
     }
     if (R == kResSame) rv[k] = __ldg(r + i);
@@ -116,7 +148,14 @@ __device__ __forceinline__ void body(const V* y, const V* r, const V* alpha,
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const unsigned i = base + k * kThreads;
-    if (i < n) out[i] = apply<A, R, B>(yv[k], bv[k], rv[k], av[k]);
+    if (i >= n) continue;
+    const V v = apply<A, R, B>(yv[k], bv[k], rv[k], av[k]);
+    if (F) {
+      if (out != nullptr) out[i] = v;
+      z[i] = affine(v, sv[k], tv[k]);
+    } else {
+      out[i] = v;
+    }
   }
 }
 
@@ -126,7 +165,8 @@ residual_act_kernel(const V* __restrict__ y, const V* __restrict__ r,
                     const V* __restrict__ alpha, const V* __restrict__ bias,
                     V* __restrict__ out, unsigned n, unsigned c,
                     unsigned cr) {
-  body<V, A, R, B, false>(y, r, alpha, bias, out, n, c, cr);
+  body<V, A, R, B, false, false>(y, r, alpha, bias, nullptr, nullptr, out,
+                                 nullptr, n, c, cr);
 }
 
 // The in-place bias pass (act none or ReLU): x is both y and the output.
@@ -134,7 +174,23 @@ template <typename V, int A>
 __global__ void __launch_bounds__(kThreads)
 residual_act_inplace_kernel(V* x, const V* __restrict__ bias, unsigned n,
                             unsigned c) {
-  body<V, A, kResNone, true, true>(x, nullptr, nullptr, bias, x, n, c, 0);
+  body<V, A, kResNone, true, true, false>(x, nullptr, nullptr, bias, nullptr,
+                                          nullptr, x, nullptr, n, c, 0);
+}
+
+// The pass, then the per-channel affine pair after it: z, and out where
+// it is not null.
+template <typename V, int A, int R, bool B>
+__global__ void __launch_bounds__(kThreads)
+residual_act_affine_kernel(const V* __restrict__ y, const V* __restrict__ r,
+                           const V* __restrict__ alpha,
+                           const V* __restrict__ bias,
+                           const V* __restrict__ scale,
+                           const V* __restrict__ shift, V* __restrict__ out,
+                           V* __restrict__ z, unsigned n, unsigned c,
+                           unsigned cr) {
+  body<V, A, R, B, false, true>(y, r, alpha, bias, scale, shift, out, z, n,
+                                c, cr);
 }
 
 struct Args {
@@ -142,15 +198,27 @@ struct Args {
   const float* r;
   const float* alpha;
   const float* bias;
-  float* out;
+  const float* scale;  // the affine pair's, or null
+  const float* shift;
+  float* out;          // null in an affine pass whose out has no reader
+  float* z;
   long long rows;
   int c, cr;   // in floats
   int width;   // floats a vector
   cudaStream_t stream;
 };
 
+// The passes the affine instance has: see the header.
+template <int A, int R, bool B>
+constexpr bool kAffinePass =
+    B && ((A == kActPrelu && R == kResNone) ||
+          (A == kActNone && R == kResSame));
+
 template <typename V, int A, int R, bool B>
 cudaError_t run(const Args& a) {
+  if constexpr (!kAffinePass<A, R, B>) {
+    if (a.z != nullptr) return cudaErrorInvalidValue;
+  }
   const long long cv = a.c / a.width;
   const long long crv = a.cr / a.width;
   const long long chunk = kMaxVectors / cv > 0 ? kMaxVectors / cv : 1;
@@ -159,11 +227,27 @@ cudaError_t run(const Args& a) {
         (a.rows - row0 < chunk ? a.rows - row0 : chunk) * cv;
     const unsigned blocks = static_cast<unsigned>(
         (n + kThreads * kItems - 1) / (kThreads * kItems));
-    V* out = reinterpret_cast<V*>(a.out + row0 * a.c);
+    V* out = a.out ? reinterpret_cast<V*>(a.out + row0 * a.c) : nullptr;
     const V* bias = reinterpret_cast<const V*>(a.bias);
+    const V* yv = reinterpret_cast<const V*>(a.y + row0 * a.c);
+    const V* rv =
+        a.r ? reinterpret_cast<const V*>(a.r + row0 * a.cr) : nullptr;
+    const V* alpha = reinterpret_cast<const V*>(a.alpha);
     bool launched = false;
+    if constexpr (kAffinePass<A, R, B>) {
+      if (a.z != nullptr) {
+        residual_act_affine_kernel<V, A, R, B>
+            <<<blocks, kThreads, 0, a.stream>>>(
+                yv, rv, alpha, bias, reinterpret_cast<const V*>(a.scale),
+                reinterpret_cast<const V*>(a.shift), out,
+                reinterpret_cast<V*>(a.z + row0 * a.c),
+                static_cast<unsigned>(n), static_cast<unsigned>(cv),
+                static_cast<unsigned>(crv));
+        launched = true;
+      }
+    }
     if constexpr (R == kResNone && B && A != kActPrelu) {
-      if (a.out == a.y) {
+      if (!launched && a.out == a.y) {
         residual_act_inplace_kernel<V, A>
             <<<blocks, kThreads, 0, a.stream>>>(
                 out, bias, static_cast<unsigned>(n),
@@ -173,11 +257,8 @@ cudaError_t run(const Args& a) {
     }
     if (!launched)
       residual_act_kernel<V, A, R, B><<<blocks, kThreads, 0, a.stream>>>(
-          reinterpret_cast<const V*>(a.y + row0 * a.c),
-          a.r ? reinterpret_cast<const V*>(a.r + row0 * a.cr) : nullptr,
-          reinterpret_cast<const V*>(a.alpha), bias, out,
-          static_cast<unsigned>(n), static_cast<unsigned>(cv),
-          static_cast<unsigned>(crv));
+          yv, rv, alpha, bias, out, static_cast<unsigned>(n),
+          static_cast<unsigned>(cv), static_cast<unsigned>(crv));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -213,6 +294,38 @@ bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// Checks the arguments both entry points share, makes `device` current
+// for the launch only (as in warp.cu) and launches.
+int launch(Args a, int act_code, int device) {
+  if (a.rows < 0 || a.c < 1 || a.cr < 0 || a.cr > a.c ||
+      (a.r == nullptr) != (a.cr == 0) || act_code < kActNone ||
+      act_code > kActPrelu || (act_code == kActPrelu && a.alpha == nullptr) ||
+      (act_code == kActNone && a.r == nullptr && a.bias == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.rows == 0) return 0;
+  if (act_code != kActPrelu) a.alpha = nullptr;
+  int previous = device;
+  cudaError_t err = cudaGetDevice(&previous);
+  if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  const bool vec = a.c % 4 == 0 && a.cr % 4 == 0 && aligned16(a.y) &&
+                   aligned16(a.r) && aligned16(a.alpha) &&
+                   aligned16(a.bias) && aligned16(a.scale) &&
+                   aligned16(a.shift) && aligned16(a.out) && aligned16(a.z);
+  if (vec) {
+    a.width = 4;
+    err = by_act<float4>(act_code, a);
+  } else {
+    a.width = 1;
+    err = by_act<float>(act_code, a);
+  }
+  if (previous != device) cudaSetDevice(previous);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // y, out: [rows, c] float32; r: [rows, cr] or null (cr 0); alpha: [c] for
@@ -223,38 +336,35 @@ extern "C" int fdt_residual_act(const void* y, const void* r,
                                 const void* alpha, const void* bias,
                                 void* out, long long rows, int c, int cr,
                                 int act_code, int device, void* stream) {
-  const bool in_place = out == y;
-  if (rows < 0 || c < 1 || cr < 0 || cr > c || (r == nullptr) != (cr == 0) ||
-      act_code < kActNone || act_code > kActPrelu ||
-      (act_code == kActPrelu && alpha == nullptr) ||
-      (act_code == kActNone && r == nullptr && bias == nullptr) ||
-      (in_place && (r != nullptr || bias == nullptr ||
+  if (out == nullptr ||
+      (out == y && (r != nullptr || bias == nullptr ||
                     act_code == kActPrelu)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (rows == 0) return 0;
-  // `device` is made current for the launch only, as in warp.cu.
-  int previous = device;
-  cudaError_t err = cudaGetDevice(&previous);
-  if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(err);
-  }
-  Args a{static_cast<const float*>(y),
-         static_cast<const float*>(r),
-         act_code == kActPrelu ? static_cast<const float*>(alpha) : nullptr,
-         static_cast<const float*>(bias),
-         static_cast<float*>(out),
+  Args a{static_cast<const float*>(y), static_cast<const float*>(r),
+         static_cast<const float*>(alpha), static_cast<const float*>(bias),
+         nullptr, nullptr, static_cast<float*>(out), nullptr,
          rows, c, cr, 1, static_cast<cudaStream_t>(stream)};
-  const bool vec = c % 4 == 0 && cr % 4 == 0 && aligned16(a.y) &&
-                   aligned16(a.r) && aligned16(a.alpha) &&
-                   aligned16(a.bias) && aligned16(a.out);
-  if (vec) {
-    a.width = 4;
-    err = by_act<float4>(act_code, a);
-  } else {
-    err = by_act<float>(act_code, a);
-  }
-  if (previous != device) cudaSetDevice(previous);
-  return static_cast<int>(err);
+  return launch(a, act_code, device);
+}
+
+// The pass of fdt_residual_act, then z = out * scale + shift ([c] each),
+// both rounded: z [rows, c] always, out where it is not null.  Never in
+// place: z and out are buffers of their own.  Only for a PReLU with the
+// bias and no residual, or the bias and a same-width residual (cr == c)
+// with act 0; any other pass returns cudaErrorInvalidValue.
+extern "C" int fdt_residual_act_affine(const void* y, const void* r,
+                                       const void* alpha, const void* bias,
+                                       const void* scale, const void* shift,
+                                       void* out, void* z, long long rows,
+                                       int c, int cr, int act_code,
+                                       int device, void* stream) {
+  if (scale == nullptr || shift == nullptr || z == nullptr || z == y ||
+      z == r || out == y || (out != nullptr && out == z))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const float*>(y), static_cast<const float*>(r),
+         static_cast<const float*>(alpha), static_cast<const float*>(bias),
+         static_cast<const float*>(scale), static_cast<const float*>(shift),
+         static_cast<float*>(out), static_cast<float*>(z),
+         rows, c, cr, 1, static_cast<cudaStream_t>(stream)};
+  return launch(a, act_code, device);
 }

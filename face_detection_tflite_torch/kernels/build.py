@@ -61,6 +61,10 @@ _SIGNATURES = {
     # stream (K5, ops/epilogue.py)
     "fdt_residual_act": (_VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _I, _I,
                          _I, _I, _VP),
+    # y, residual, alpha, bias, scale, shift, out (or null), z, rows, c,
+    # c_residual, act, device, stream (K5 with the affine pair after it)
+    "fdt_residual_act_affine": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                ctypes.c_longlong, _I, _I, _I, _I, _VP),
     # x, w, bias, alpha, residual, out, rows, k, n, act, device, stream
     # (K6, ops/pointwise.py)
     "fdt_pointwise_conv": (_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong,

@@ -5,8 +5,10 @@ Port of the JAX package's ``models/embedding.py`` (the reference's
 `lib/src/models/face_embedding.dart`): the 112 px eye-aligned crop
 (`computeEmbeddingAlignment`, face_embedding.dart:362-384: size =
 2.5 * eye distance, centre 0.15 * size below the eye midpoint along the
-crop's down axis), the 192-dim embedding, its L2 normalisation (:386-400)
-and the cosine and euclidean comparisons (:283-334).
+crop's down axis), the embedding (192-dim from MobileFaceNet; any
+network with a ``[1, 112, 112, 3]`` input and an ``[1, E]`` output is
+carried at its own width E), its L2 normalisation (:386-400) and the
+cosine and euclidean comparisons (:283-334).
 
 The crop is K2 (``ops/warp.py``, the ROI warp fused with the [-1, 1]
 normalize) at 112 px with the alignment angle negated; the network runs in
@@ -110,10 +112,10 @@ def embed_rois(model, frames: torch.Tensor, cx, cy, sizes, theta
                ) -> torch.Tensor:
     """THE embedding math, shared by :class:`FaceEmbedding` and the fused
     FULL stage: ``frames [B, H, W, 3]`` and ``[B, F]`` ROIs -> ``[B, F, D]``
-    unit embeddings.  K2 crops at 112 px with the negated angle
-    (face_detector_core.dart:433-440) in one launch, the network runs once
-    on ``[B * F, 112, 112, 3]``, then the L2 normalisation
-    (face_embedding.dart:386-400)."""
+    unit embeddings, D the network's output width.  K2 crops at 112 px
+    with the negated angle (face_detector_core.dart:433-440) in one
+    launch, the network runs once on ``[B * F, 112, 112, 3]``, then the
+    L2 normalisation (face_embedding.dart:386-400)."""
     crops = extract_rois_normalized(frames, cx, cy, sizes, -theta,
                                     out_size=EMBEDDING_INPUT_SIZE)
     b, f = crops.shape[:2]
@@ -369,6 +371,8 @@ class FaceEmbedding:
         self.device = resolve_device(device)
         fp32_on_the_card(self.device)
         self.model = model.to(self.device).eval()
+        #: The network's output width: each embedding's length.
+        self.embedding_dim = int(np.prod(model.output_shapes[0][1:]))
         self.is_pretrained = "random-init" not in model.name
         self.allow_untrained = allow_untrained
         self._programs = graphs.ProgramSet()
@@ -450,7 +454,8 @@ class FaceEmbedding:
 
     def embed_batch(self, image, eye_pairs) -> np.ndarray:
         """Embeds N faces of ONE image: ``eye_pairs`` is a sequence of
-        (left_eye, right_eye) pixel points; returns ``[N, 192]``.  One K2
+        (left_eye, right_eye) pixel points; returns ``[N, D]``, D the
+        network's :attr:`embedding_dim` (192 for MobileFaceNet).  One K2
         launch cuts the crops and the network runs once on them, in the
         ``fdt.embed`` range.  N is padded to a power-of-two slab with a
         unit ROI at the origin, as in the JAX package, so that a stream of
@@ -465,7 +470,7 @@ class FaceEmbedding:
             self._check_roi(a[2])
         n = len(aligns)
         if n == 0:
-            return np.zeros((0, EMBEDDING_DIM), np.float32)
+            return np.zeros((0, self.embedding_dim), np.float32)
         slab = 1 << (n - 1).bit_length()
         aligns += [(0.0, 0.0, 1.0, 0.0)] * (slab - n)
         with stage_range("fdt.embed"):

@@ -18,14 +18,27 @@ run without their bias and which of a graph's ADD, RELU, PRELU and PAD
 ops run here; MobileFaceNet (``models/embedding.py``) runs each
 convolution's bias here, with its PReLU or its residual.
 
+:func:`residual_act_affine` is the same pass with a batch norm that the
+graph keeps after it as a per-channel MUL and ADD (iResNet's
+pre-activation batch norm, before a zero-padded convolution)::
+
+    z = (out * scale) + shift      scale, shift: one value a channel
+
+rounded as ``torch.mul`` then ``torch.add``; it returns ``z`` and, where
+the caller keeps it, ``out``.  The kernel has it only for the passes
+:func:`affine_pass` names, those iResNet has.
+
 Counters (``kernels.build.count_launch``: a captured program's replays
 add what its capture recorded), read by ``FaceDetector.memory_report()``:
 ``residual_act.launches`` (every K5 launch), :data:`ran_fused` (passes
 that took a PRELU or an ADD with a fused RELU), :data:`ran_op_by_op`
 (such an activation that ran op by op), :data:`bias_folded` (a
 convolution's bias added in a pass that also did the op after it),
-:data:`bias_alone` (a bias pass alone) and :data:`bias_op_by_op` (a
-float32 convolution's bias added by PyTorch on a card).
+:data:`bias_alone` (a bias pass alone), :data:`bias_op_by_op` (a
+float32 convolution's bias added by PyTorch on a card),
+``residual_act_affine.launches`` (every launch of the affine instance),
+:data:`affine_folded` (a per-channel MUL and ADD pair run in a pass) and
+:data:`affine_op_by_op` (such a pair run op by op on a card).
 """
 
 from __future__ import annotations
@@ -37,8 +50,10 @@ import torch.nn.functional as F
 
 from ..kernels import build as _build
 
-__all__ = ["ACTS", "bias_alone", "bias_folded", "bias_op_by_op",
-           "ran_fused", "ran_op_by_op", "residual_act", "residual_act_plain"]
+__all__ = ["ACTS", "affine_folded", "affine_op_by_op", "affine_pass",
+           "bias_alone", "bias_folded", "bias_op_by_op", "ran_fused", "ran_op_by_op",
+           "residual_act", "residual_act_affine",
+           "residual_act_affine_plain", "residual_act_plain"]
 
 #: The activations the pass takes besides none (``act=None``): ReLU,
 #: PReLU.  A pass with no activation carries a bias, a residual or both.
@@ -96,6 +111,40 @@ def residual_act_plain(y: torch.Tensor, residual: Optional[torch.Tensor],
     return x
 
 
+def _check_card(**tensors) -> None:
+    """On a card every tensor given must be float32, contiguous (NHWC with
+    C innermost) and on ``y``'s device: anything else raises."""
+    y = tensors["y"]
+    if y.device.type != "cuda":
+        raise ValueError(f"residual_act: unsupported device {y.device}")
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != y.device:
+            raise ValueError(f"residual_act: {name} is on {t.device}, y on "
+                             f"{y.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"residual_act: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"residual_act: {name} must be contiguous "
+                             f"(NHWC, C innermost), got strides {t.stride()}")
+
+
+def _count_pass(act, residual, bias) -> None:
+    """The counters of one pass that ran on a card."""
+    if act == "PRELU" or (act == "RELU" and residual is not None):
+        ran_fused()
+    if bias is not None:
+        (bias_alone if act is None and residual is None
+         else bias_folded)()
+
+
+def _index(y: torch.Tensor) -> int:
+    return (y.device.index if y.device.index is not None
+            else torch.cuda.current_device())
+
+
 def residual_act(y: torch.Tensor, residual: Optional[torch.Tensor],
                  act: Optional[str], alpha: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None,
@@ -115,28 +164,13 @@ def residual_act(y: torch.Tensor, residual: Optional[torch.Tensor],
     if y.device.type == "cpu":
         return residual_act_plain(y, residual, act, alpha, bias, inplace)
     _check(y, residual, act, alpha, bias, inplace)
-    if y.device.type != "cuda":
-        raise ValueError(f"residual_act: unsupported device {y.device}")
-    for name, t in (("y", y), ("residual", residual), ("alpha", alpha),
-                    ("bias", bias)):
-        if t is None:
-            continue
-        if t.device != y.device:
-            raise ValueError(f"residual_act: {name} is on {t.device}, y on "
-                             f"{y.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"residual_act: {name} must be float32, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"residual_act: {name} must be contiguous "
-                             f"(NHWC, C innermost), got strides {t.stride()}")
+    _check_card(y=y, residual=residual, alpha=alpha, bias=bias)
     out = y if inplace else torch.empty(y.shape, dtype=torch.float32,
                                         device=y.device)
     c = y.shape[3]
     rows = y.numel() // c if c else 0
     if rows:
-        index = (y.device.index if y.device.index is not None
-                 else torch.cuda.current_device())
+        index = _index(y)
         rc = _build.load().fdt_residual_act(
             y.data_ptr(), None if residual is None else residual.data_ptr(),
             None if alpha is None else alpha.data_ptr(),
@@ -145,14 +179,99 @@ def residual_act(y: torch.Tensor, residual: Optional[torch.Tensor],
             _ACT_CODE[act], index, _build.stream(index))
         _build.check(rc, "residual_act")
         _build.count_launch(residual_act)
-        if act == "PRELU" or (act == "RELU" and residual is not None):
-            ran_fused()
-        if bias is not None:
-            (bias_alone if act is None and residual is None
-             else bias_folded)()
+        _count_pass(act, residual, bias)
     return out
 
 
+residual_act.launches = 0
+
+
+def _check_affine(y, scale, shift) -> None:
+    c = y.shape[3] if y.dim() == 4 else -1
+    for name, t in (("scale", scale), ("shift", shift)):
+        if t is None or t.dim() != 1 or t.shape[0] != c:
+            raise ValueError(f"residual_act_affine: {name} must be [C] = "
+                             f"[{c}], got "
+                             f"{None if t is None else tuple(t.shape)}")
+
+
+def affine_pass(act: Optional[str], residual: Optional[str],
+                bias: bool) -> bool:
+    """Whether K5's affine instance has the pass of ``act``, ``residual``
+    (None, ``"same"`` width as ``y`` or ``"padded"``) and ``bias`` (given
+    or not): a PReLU with the bias and no residual (iResNet's stem), or
+    the bias and a same-width residual with no activation (its blocks'
+    ends)."""
+    return bias and (act, residual) in (("PRELU", None), (None, "same"))
+
+
+def residual_act_affine_plain(y: torch.Tensor,
+                              residual: Optional[torch.Tensor],
+                              act: Optional[str],
+                              alpha: Optional[torch.Tensor],
+                              bias: Optional[torch.Tensor],
+                              scale: torch.Tensor, shift: torch.Tensor,
+                              keep: bool = True
+                              ) -> tuple[Optional[torch.Tensor],
+                                         torch.Tensor]:
+    """Plain version of the affine pass: :func:`residual_act_plain`, then
+    ``torch.add(torch.mul(out, scale), shift)``, the graph's MUL and ADD;
+    returns ``(out if keep else None, z)``."""
+    _check_affine(y, scale, shift)
+    out = residual_act_plain(y, residual, act, alpha, bias)
+    return (out if keep else None), torch.add(torch.mul(out, scale), shift)
+
+
+def residual_act_affine(y: torch.Tensor, residual: Optional[torch.Tensor],
+                        act: Optional[str], alpha: Optional[torch.Tensor],
+                        bias: Optional[torch.Tensor], scale: torch.Tensor,
+                        shift: torch.Tensor, keep: bool = True
+                        ) -> tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The pass of :func:`residual_act` (never in place) and the
+    per-channel affine pair after it, ``z = (out * scale) + shift`` with
+    ``scale`` and ``shift`` ``[C]``: ``(out, z)``, ``out`` None where
+    ``keep`` is false (the pair was its only reader; the kernel then
+    writes ``z`` alone).  One launch of K5's affine instance on a card
+    (``residual_act_affine.launches``; the pass's counters as in
+    :func:`residual_act`, and :data:`affine_folded`), the plain version
+    for CPU tensors, with the same refusals as :func:`residual_act`; off
+    the CPU, a pass that :func:`affine_pass` does not name raises."""
+    if y.device.type == "cpu":
+        return residual_act_affine_plain(y, residual, act, alpha, bias,
+                                         scale, shift, keep)
+    _check(y, residual, act, alpha, bias, False)
+    _check_affine(y, scale, shift)
+    width = None if residual is None else (
+        "same" if residual.shape[3] == y.shape[3] else "padded")
+    if not affine_pass(act, width, bias is not None):
+        raise ValueError(f"residual_act_affine: the kernel has no pass of "
+                         f"act {act!r}, residual {width!r} and bias "
+                         f"{bias is not None}")
+    _check_card(y=y, residual=residual, alpha=alpha, bias=bias, scale=scale,
+                shift=shift)
+    out = (torch.empty(y.shape, dtype=torch.float32, device=y.device)
+           if keep else None)
+    z = torch.empty(y.shape, dtype=torch.float32, device=y.device)
+    c = y.shape[3]
+    rows = y.numel() // c if c else 0
+    if rows:
+        index = _index(y)
+        rc = _build.load().fdt_residual_act_affine(
+            y.data_ptr(), None if residual is None else residual.data_ptr(),
+            None if alpha is None else alpha.data_ptr(),
+            None if bias is None else bias.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), None if out is None else out.data_ptr(),
+            z.data_ptr(), rows, c,
+            0 if residual is None else residual.shape[3], _ACT_CODE[act],
+            index, _build.stream(index))
+        _build.check(rc, "residual_act_affine")
+        _build.count_launch(residual_act_affine)
+        _count_pass(act, residual, bias)
+        affine_folded()
+    return out, z
+
+
+residual_act_affine.launches = 0
 residual_act.launches = 0
 
 
@@ -183,3 +302,10 @@ bias_alone = _Count()
 #: A float32 convolution's bias added by PyTorch on a card, where no plan
 #: gave it to :func:`residual_act`.
 bias_op_by_op = _Count()
+#: A 4-D MUL by one constant a channel and the ADD of one constant a
+#: channel after it, run in a pass of :func:`residual_act_affine`.
+affine_folded = _Count()
+#: Such a pair that ran op by op on a card, where no plan put it in a
+#: pass (with :data:`affine_folded`, the share of the pairs that ran in
+#: the pass).
+affine_op_by_op = _Count()

@@ -128,6 +128,8 @@ DETECTOR_INPUT_SIZE = {
 MESH_INPUT_SIZE = 192
 IRIS_INPUT_SIZE = 64
 EMBEDDING_INPUT_SIZE = 112
+#: MobileFaceNet's output width; another embedding network is carried at
+#: its own (``FaceEmbedding.embedding_dim``).
 EMBEDDING_DIM = 192
 
 # Iris stream layout: 71 eye-contour + 5 iris points per eye, left block

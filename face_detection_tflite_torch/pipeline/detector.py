@@ -998,7 +998,8 @@ class FaceDetector:
     # -- embeddings ------------------------------------------------------------
 
     def get_face_embedding(self, face: Face, image) -> np.ndarray:
-        """192-dim L2-normalised embedding for a detected face
+        """L2-normalised embedding for a detected face, at the embedding
+        network's width (192 for MobileFaceNet)
         (`face_detector.dart:685`): aligned on its two eye points,
         iris-refined in FULL mode."""
         lm = face.landmarks
@@ -1365,8 +1366,11 @@ class FaceDetector:
         (``bias_op_by_op``) (a bias K6 adds counts as folded), and its
         float32 1x1 convolutions (groups 1, stride 1, no pad) run on a
         card in K6 (``pointwise_kernel``, ``ops.pointwise``) and by
-        ``F.conv2d`` (``pointwise_library``) (all seven 0 off a card; a
-        captured program's replays count what its capture recorded);
+        ``F.conv2d`` (``pointwise_library``), and its per-channel MUL and
+        ADD pairs (a batch norm kept in the graph) run on a card in a K5
+        pass (``affine_folded``) and op by op (``affine_op_by_op``) (all
+        nine 0 off a card; a captured program's replays count what its
+        capture recorded);
         where replicas
         were made
         (:meth:`_replica_params`), their count and the weight bytes of
@@ -1389,7 +1393,8 @@ class FaceDetector:
         report["total_weights"] = sum(report.values())
         report["epilogue_fused"] = epilogue.ran_fused.launches
         report["epilogue_op_by_op"] = epilogue.ran_op_by_op.launches
-        for key in ("bias_folded", "bias_alone", "bias_op_by_op"):
+        for key in ("bias_folded", "bias_alone", "bias_op_by_op",
+                    "affine_folded", "affine_op_by_op"):
             report[key] = getattr(epilogue, key).launches
         report["pointwise_kernel"] = pointwise.pointwise_conv.launches
         report["pointwise_library"] = pointwise.library_convs.launches

@@ -10,7 +10,7 @@ plain function over an image batch ``[B, H, W, 3]``:
     -> eye ROIs -> K2 at 64 px, right eyes mirrored -> iris net
     -> blendshape packing -> blendshape MLP-Mixer -> head pose
     -> iris-refined keypoints                                   (full)
-    -> eye alignment -> K2 at 112 px -> MobileFaceNet -> L2
+    -> eye alignment -> K2 at 112 px -> embedding network -> L2
                                           (full, ``with_embeddings``)
 
 Each stage runs in a ``torch.profiler.record_function`` range of a fixed
@@ -31,7 +31,8 @@ dimensions are written out: the detector runs once on ``[B, S, S, 3]``
 FULL and FULL_SPARSE),
 the mesh net once on ``[B * slab, 192, 192, 3]``, the iris net once on
 ``[B * 2 * slab, 64, 64, 3]``, the blendshape net once on
-``[B * slab, 146, 2]`` and MobileFaceNet once on
+``[B * slab, 146, 2]`` and the embedding network (MobileFaceNet, or
+any graph with a ``[1, 112, 112, 3]`` input) once on
 ``[B * slab, 112, 112, 3]``.
 """
 
@@ -206,9 +207,9 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
     keypoints ``[D, 6, 2]`` (iris-refined eyes), iris ``[D, 152, 3]``,
     blendshapes ``[D, 52]``, blendshapes_valid ``[D]`` and head_angles
     ``[D, 3]`` (pitch, yaw, roll in degrees; NaN for a degenerate head
-    frame); FULL ``with_embeddings`` adds embeddings ``[D, 192]``
-    (MobileFaceNet on the crops aligned on the iris-refined eyes, L2
-    normalised).
+    frame); FULL ``with_embeddings`` adds embeddings ``[D, E]`` (the
+    embedding network on the crops aligned on the iris-refined eyes, L2
+    normalised; E its output width, 192 for MobileFaceNet).
 
     ``face_slab`` < max_faces is the speculative form: NMS still emits the
     full max_faces slab (returned compacted as det_boxes,
@@ -325,11 +326,11 @@ def build_pipeline_program(models: PipelineModels, img_h: int, img_w: int,
             return kp
 
     def embedding_stage(images, refined_kp):
-        """[B, F, 192] embeddings, aligned (`face_embedding.dart:362-384`)
+        """[B, F, E] embeddings, aligned (`face_embedding.dart:362-384`)
         on the iris-refined eye centres, as the reference's
         getFaceEmbedding does (face_detector.dart:703-711): K2 at 112 px
-        on all [B, F] ROIs in one launch, then MobileFaceNet once
-        (:func:`embed_rois`, shared with ``FaceEmbedding``)."""
+        on all [B, F] ROIs in one launch, then the embedding network
+        once (:func:`embed_rois`, shared with ``FaceEmbedding``)."""
         with stage_range("fdt.embedding"):
             cx, cy, esize, theta = alignment_from_eyes(
                 refined_kp[..., 0, 0] * img_w,

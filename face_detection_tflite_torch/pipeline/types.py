@@ -344,8 +344,9 @@ class Face:
         self.original_size = original_size  # (width, height)
         self._blendshape_scores = blendshape_scores
         self.tracking_id = tracking_id
-        #: 192-dim L2-normalized embedding, present when the detector ran
-        #: with embed_in_full (fused MobileFaceNet stage; the reference
+        #: L2-normalized embedding at the embedding network's width (192
+        #: for MobileFaceNet), present when the detector ran with
+        #: embed_in_full (the fused embedding stage; the reference
         #: computes embeddings via separate getFaceEmbedding calls,
         #: face_detector.dart:685).
         self.embedding = embedding
@@ -509,7 +510,7 @@ class Face:
         (`face_detector.dart:1160-1181`).
 
         The heavyweight arrays (468-pt mesh, per-contour point lists,
-        iris contours, 192-dim embedding) are opt-in so a detection
+        iris contours, the embedding) are opt-in so a detection
         response stays small by default.  All values are plain Python
         floats/ints/lists — ``json.dumps`` works directly.
         """
