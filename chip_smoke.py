@@ -714,6 +714,8 @@ def _layer(kernel_name: str) -> str:
         return "K5 residual_act"
     if "pointwise_conv" in n:
         return "K6 pointwise_conv"
+    if "depthwise_conv" in n:
+        return "K7 depthwise_conv"
     if any(t in n for t in ("conv", "cudnn", "implicit", "winograd", "nhwc",
                             "fprop")):
         return "convolutions"
@@ -1625,6 +1627,173 @@ def _pointwise_phase_alone() -> int:
     return 0
 
 
+#: The batch each network of the stream16 cells runs its depthwise
+#: convolutions at: 16 frames (the detector, the multiclass segmenter),
+#: 256 face slots (the mesh), 512 eye slots (the iris net), 256 crops
+#: (MobileFaceNet).
+K7_BATCH = {"detector": 16, "mesh": 256, "iris": 512, "embedding": 256,
+            "segmenter": 16}
+#: The batch of FULL's networks in the single720 cell: one frame, the
+#: 2-face slab, its 4 eyes.
+K7_SINGLE_BATCH = {"detector": 1, "mesh": 2, "iris": 4}
+
+
+def _k7_site_shapes() -> list:
+    """Every distinct depthwise convolution of the benchmark's five
+    networks as K7 runs it, with how many a network call runs:
+    ``((role, h, w, c, k, stride, pads, act), count)``, from the seeded
+    full-depth graphs' plans and MobileFaceNet's layers."""
+    from face_detection_tflite_torch.convert.executor import (
+        _conv_padding, _same_pads, convert_model)
+    from face_detection_tflite_torch.models import random_init
+    from face_detection_tflite_torch.models.embedding import \
+        _depthwise_sites
+    counts = collections.Counter()
+    for role, ir in (("detector", random_init.blazeface_back_ir(SEED)),
+                     ("mesh", random_init.face_mesh_ir(SEED)),
+                     ("iris", random_init.iris_landmark_ir(SEED)),
+                     ("segmenter", random_init.selfie_multiclass_ir(SEED))):
+        m = convert_model(ir)
+        for i, dw in m._depthwise.items():
+            op = m._ops[i]
+            _, h, w, c = m._shapes[op.inputs[0]]
+            k = m._shapes[op.inputs[1]][1]
+            pads = tuple(map(tuple, _conv_padding(op.options, h, w, k, k)))
+            counts[(role, h, w, c, k, op.options["stride_h"], pads,
+                    dw.act)] += 1
+    for _, hw, c, k, st, prelu, same in _depthwise_sites():
+        pads = (_same_pads(hw, st, k),) * 2 if same else ((0, 0), (0, 0))
+        counts[("embedding", hw, hw, c, k, st, pads,
+                "PRELU" if prelu else None)] += 1
+    return list(counts.items())
+
+
+def _k7_sites(card: str) -> dict:
+    """Holds K7 against its plain version (cuDNN's convolution, then K5's
+    plain pass) at every distinct depthwise site of the five networks at
+    the stream16 cells' batch (:data:`K7_BATCH`), and FULL's at the
+    single720 cell's (:data:`K7_SINGLE_BATCH`), within the float32
+    rounding of its sums (``depthwise.rounding_bound``), on seeded inputs,
+    filters, nonzero biases and PReLU slopes, one launch a call; and
+    times it: its device ms, its bound (the input read and the output
+    written once, with the filter, bias and slope, over HBM3 bandwidth;
+    the 2 k^2 operations an output are far below the fp32 peak) and its
+    share of it, beside the route it replaces on the same inputs
+    (``library_ms``: ``executor.conv2d``, cuDNN with its ``F.pad`` copy
+    where the pads are asymmetric, then the K5 pass the plan gave it, in
+    place where it has no PReLU).  Inputs repeat across the timed calls,
+    so a site whose input fits in the 50 MB L2 reads it warm.  Sums over
+    a batch weight each site by the network calls' count of it.  Returns
+    the ``kernels`` fields by site and the sums."""
+    import torch
+    from face_detection_tflite_torch.convert.executor import (
+        conv2d, fp32_on_the_card)
+    from face_detection_tflite_torch.ops import depthwise, epilogue
+    dev = torch.device("cuda")
+    fp32_on_the_card(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    out = {}
+    sums = {group: {"device_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+            for group in ("full", "embedding", "segmenter", "single720")}
+    runs = [(site, count, K7_BATCH[site[0]], "")
+            for site, count in _k7_site_shapes()]
+    runs += [(site, count, K7_SINGLE_BATCH[site[0]], "single720_")
+             for site, count, _, _ in runs if site[0] in K7_SINGLE_BATCH]
+    for (role, h, w, c, k, st, pads, act), count, n, tag in runs:
+        x = torch.randn((n, h, w, c), generator=g, device=dev)
+        wt = torch.randn((c, 1, k, k), generator=g, device=dev) / k
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        alpha = (torch.rand(c, generator=g, device=dev) - 0.5
+                 if act == "PRELU" else None)
+
+        def kernel():
+            return depthwise.depthwise_conv(x, wt, bias, stride=st,
+                                            pads=pads, act=act, alpha=alpha)
+
+        def library():
+            y, rest = conv2d(x, wt, bias, stride=(st, st), pads=pads,
+                             groups=c)
+            return epilogue.residual_act(y, None, act, alpha, rest,
+                                         inplace=act != "PRELU")
+
+        with torch.inference_mode():
+            before = depthwise.depthwise_conv.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            if depthwise.depthwise_conv.launches != before + 1:
+                raise AssertionError(f"K7 {role} {(h, w, c, k, st)}: "
+                                     f"{depthwise.depthwise_conv.launches - before}"
+                                     f" launches a call")
+            want = depthwise.depthwise_conv_plain(
+                x, wt, bias, stride=st, pads=pads, act=act, alpha=alpha)
+            tol = depthwise.rounding_bound(x, wt, bias, alpha, stride=st,
+                                           pads=pads)
+            gap = (got - want).abs().double()
+            if not bool((gap <= tol).all()):
+                raise AssertionError(
+                    f"K7 {role} {(h, w, c, k, st, pads, act)}: the kernel "
+                    f"differs from its plain version by "
+                    f"{(gap / tol).max().item():.3g} times the rounding "
+                    f"bound")
+            err, ratio = gap.max().item(), (gap / tol).max().item()
+            oh, ow = got.shape[1:3]
+            del got, want, gap, tol
+            ms, dev_ms, dev_by = _kernel_ms(kernel, "K7 depthwise_conv",
+                                            iters=10)
+            _, lib_ms, _, _ = _stage_ms(library, iters=10)
+        nbytes = 4 * (x.numel() + n * oh * ow * c + c * k * k + 2 * c)
+        bound_ms, bound_by = _bound(nbytes, 2 * k * k * n * oh * ow * c)
+        name = f"{tag}{role}_{h}x{w}x{c}_k{k}s{st}_{act or 'none'}"
+        if name in out:
+            name += f"_pad{pads[0][0]}{pads[0][1]}"
+        out[name] = {"count": count, "shape": [n, h, w, c], "k": k,
+                     "stride": st, "pads": pads, "act": act, "bias": True,
+                     "max_abs_err": err, "err_over_bound": ratio, "ms": ms,
+                     "device_ms": dev_ms, "device_ms_by": dev_by,
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "bound_share": 100 * bound_ms / dev_ms}
+        group = "single720" if tag else "full" if role in (
+            "detector", "mesh", "iris") else role
+        for key in sums[group]:
+            sums[group][key] += count * (out[name][key] or 0.0)
+        print(f"K7 depthwise_conv {name} x{count}: max_abs_err={err:.3g} "
+              f"({ratio:.3g} of the rounding bound); device {dev_ms:.4f} ms "
+              f"({dev_by}), bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / dev_ms:.0f}%), library (cuDNN and K5) "
+              f"{_num(lib_ms, '.4f')} ms  [{card}]")
+        del x
+    sums["full_embedding"] = {key: sums["full"][key] + sums["embedding"][key]
+                              for key in sums["full"]}
+    for group, tot in sums.items():
+        print(f"K7 depthwise_conv, {group} sites a batch: device "
+              f"{tot['device_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+              f"({100 * tot['bound_ms'] / tot['device_ms']:.1f}%), library "
+              f"(cuDNN and K5) {tot['library_ms']:.4f} ms  [{card}]")
+    return {"sites": out, "totals": sums}
+
+
+def _depthwise_phase_alone() -> int:
+    """``python3 chip_smoke.py --depthwise-phase``: the build and K7's
+    sites alone (:func:`_k7_sites`)."""
+    from face_detection_tflite_torch.kernels import build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    t0 = time.perf_counter()
+    build.load()
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    for line in build.build_log().splitlines():
+        if "depthwise" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    k7 = _k7_sites(card)
+    print(card)
+    print(json.dumps({"card": card, **k7}))
+    return 0
+
+
 def _embedding_phase(models, cpu_models, frames, frames_np, runs: int,
                      card: str) -> tuple[dict, dict]:
     """Step 6: FULL with the fused embedding stage through
@@ -1756,19 +1925,25 @@ _K5_COUNTS = {"residual_act": "residual_act", "op_by_op": "ran_op_by_op",
 
 
 def _reset_k5_counts() -> None:
-    """Sets K5's counters and K6's launches to 0."""
-    from face_detection_tflite_torch.ops import epilogue, pointwise
+    """Sets K5's counters and K6's and K7's launches to 0."""
+    from face_detection_tflite_torch.ops import depthwise, epilogue, pointwise
     for attr in _K5_COUNTS.values():
         getattr(epilogue, attr).launches = 0
     pointwise.pointwise_conv.launches = 0
+    depthwise.depthwise_conv.launches = 0
+    depthwise.library_depthwise.launches = 0
 
 
 def _k5_counts() -> dict:
-    """K5's counters and K6's launches (``pointwise_conv``)."""
-    from face_detection_tflite_torch.ops import epilogue, pointwise
+    """K5's counters, K6's launches (``pointwise_conv``), K7's
+    (``depthwise_conv``) and the depthwise convolutions ``F.conv2d`` ran
+    (``depthwise_library``)."""
+    from face_detection_tflite_torch.ops import depthwise, epilogue, pointwise
     return {**{key: getattr(epilogue, attr).launches
                for key, attr in _K5_COUNTS.items()},
-            "pointwise_conv": pointwise.pointwise_conv.launches}
+            "pointwise_conv": pointwise.pointwise_conv.launches,
+            "depthwise_conv": depthwise.depthwise_conv.launches,
+            "depthwise_library": depthwise.library_depthwise.launches}
 
 
 def _reset_launches() -> None:
@@ -1796,12 +1971,28 @@ def _k6_per_call(models) -> int:
     return sum(1 for k in getattr(m, "_buffers", {}) if k.startswith("_kn_"))
 
 
+def _k7_per_call(models) -> dict:
+    """K7 launches one call of each network makes: one a depthwise
+    convolution its plan gives K7 (``ConvertedModel._depthwise``);
+    MobileFaceNet's 17 at a float32 tier, none at a bf16 tier."""
+    from face_detection_tflite_torch.models.embedding import \
+        _depthwise_sites
+    out = {}
+    for role in ("detector", "mesh", "iris", "blendshapes", "embedding"):
+        m = getattr(models, role, None)
+        if m is not None:
+            out[role] = len(m._depthwise) if hasattr(m, "_depthwise") else \
+                0 if m.runs_bf16 else len(_depthwise_sites())
+    return out
+
+
 def _k5_per_call(models) -> dict:
     """K5 launches one call of each network makes: its planned passes
     (``ConvertedModel._epilogues`` and its convolutions' own bias passes,
     ``_bias_passes``); MobileFaceNet one a convolution in float32 (its
-    bias with the PReLU, the residual or alone) but its 1x1 convolutions,
-    which run in K6 (:func:`_k6_per_call`), else one a PReLU."""
+    bias with the PReLU, the residual or alone) but its 1x1 and depthwise
+    convolutions, which run in K6 and K7 (:func:`_k6_per_call`,
+    :func:`_k7_per_call`), else one a PReLU."""
     out = {}
     for role in ("detector", "mesh", "iris", "blendshapes", "embedding"):
         m = getattr(models, role, None)
@@ -1813,7 +2004,8 @@ def _k5_per_call(models) -> dict:
         else:
             last = "_a" if m.runs_bf16 else "_b"
             out[role] = sum(1 for k, _ in m.named_buffers()
-                            if k.endswith(last)) - _k6_per_call(models)
+                            if k.endswith(last)) - _k6_per_call(models) \
+                - _k7_per_call(models)["embedding"]
     return out
 
 
@@ -1830,14 +2022,20 @@ def _affine_per_call(models) -> int:
 
 def _k5_want(models, calls: int, reruns: int, full: bool,
              embed: bool) -> dict:
-    """K5, op-by-op and K6 launches of ``calls`` calls of a path with
+    """K5, op-by-op, K6 and K7 launches of ``calls`` calls of a path with
     ``reruns`` overflow re-runs of the face stages: the detector's passes
-    a call, the face networks' a call and a re-run."""
-    per = _k5_per_call(models)
-    faces = per["mesh"] + (per["iris"] + per.get("blendshapes", 0)
-                           if full else 0) + (per["embedding"] if embed
-                                              else 0)
-    return {"residual_act": calls * per["detector"] + (calls + reruns) * faces,
+    a call, the face networks' a call and a re-run; no depthwise
+    convolution left to ``F.conv2d``."""
+    per, dw = _k5_per_call(models), _k7_per_call(models)
+
+    def faces(p):
+        return p["mesh"] + (p["iris"] + p.get("blendshapes", 0)
+                            if full else 0) + (p["embedding"] if embed
+                                               else 0)
+    return {"residual_act": calls * per["detector"]
+            + (calls + reruns) * faces(per),
+            "depthwise_conv": calls * dw["detector"]
+            + (calls + reruns) * faces(dw), "depthwise_library": 0,
             "op_by_op": 0, "bias_op_by_op": 0,
             "affine": (calls + reruns) * _affine_per_call(models),
             "affine_op_by_op": 0,
@@ -5430,6 +5628,8 @@ def main() -> int:
         return _pointwise_phase_alone()
     if sys.argv[1:] == ["--affine-phase"]:
         return _affine_phase_alone()
+    if sys.argv[1:] == ["--depthwise-phase"]:
+        return _depthwise_phase_alone()
     from face_detection_tflite_torch import FaceDetectionMode
     from face_detection_tflite_torch.convert.executor import convert_model
     from face_detection_tflite_torch.kernels import build
@@ -5545,6 +5745,7 @@ def main() -> int:
     k5_sites = _k5_sites(card)
     k5_affine = {"sites": _k5_affine_sites(card)}
     k6 = _k6_sites(card)
+    k7 = _k7_sites(card)
 
     # -- 4. the STANDARD main path --------------------------------------------
     t0 = time.perf_counter()
@@ -5893,6 +6094,19 @@ def main() -> int:
          **_graph_launches(graphs, "pointwise_conv"),
          **k6["sites"]["b0_0_e"], "totals": k6["totals"],
          "sites": k6["sites"]},
+        {"name": "depthwise_conv", "route": "cuda",
+         "source": f"{PACKAGE}/csrc/depthwise.cu", "replaces": None,
+         "fuses": "every float32 DEPTHWISE_CONV_2D with multiplier 1 and "
+                  "dilation 1 (cuDNN's conv2d_c1_k1_nhwc, the F.pad copy "
+                  "of an asymmetric pad) with the K5 pass after it: bias, "
+                  "ReLU or PReLU",
+         "per_call": _k7_per_call(models),
+         "launches": std["launches"]["depthwise_conv"],
+         "full_launches": full["launches"]["depthwise_conv"],
+         "embed_launches": emb["launches"]["depthwise_conv"],
+         **_graph_launches(graphs, "depthwise_conv"),
+         **k7["sites"][next(iter(k7["sites"]))], "totals": k7["totals"],
+         "sites": k7["sites"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

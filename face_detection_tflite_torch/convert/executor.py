@@ -77,6 +77,7 @@ from torch import nn
 
 from ..ops.epilogue import (affine_op_by_op, affine_pass, bias_op_by_op,
                             ran_op_by_op, residual_act, residual_act_affine)
+from ..ops.depthwise import depthwise_conv, library_depthwise, takes
 from ..ops.pointwise import library_convs
 from .tflite import ModelIR, OpIR, PADDING_SAME, densify, parse_tflite
 
@@ -206,7 +207,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     after the convolution.  The one path of every convolution's bias,
     the executor's and MobileFaceNet's.  On a card a float32 1x1
     convolution with groups 1, stride 1 and no pad, one K6 could take,
-    counts in ``ops.pointwise.library_convs``."""
+    counts in ``ops.pointwise.library_convs``, and a depthwise
+    convolution (``groups`` > 1) in ``ops.depthwise.library_depthwise``."""
     (pt, pb), (pl, pr) = pads
     xc = x.permute(0, 3, 1, 2)
     if pt == pb and pl == pr:
@@ -216,6 +218,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
         padding = (0, 0)
     y = F.conv2d(xc, w, None, stride=stride, padding=padding,
                  dilation=dilation, groups=groups).permute(0, 2, 3, 1)
+    if y.is_cuda and groups > 1:
+        library_depthwise()
     if y.dtype is torch.float32:
         if (y.is_cuda and groups == 1 and w.shape[2:] == (1, 1)
                 and tuple(stride) == (1, 1) and not (pt or pb or pl or pr)):
@@ -412,11 +416,22 @@ class _Epilogue(NamedTuple):
     keep: bool = True
 
 
+class _Depthwise(NamedTuple):
+    """A planned run of :func:`ops.depthwise.depthwise_conv` (K7) in place
+    of a DEPTHWISE_CONV_2D: ``env[out] = act(conv + bias)``, ``bias`` the
+    convolution's where K7 adds it, ``alpha`` the PRELU's weight tensor;
+    ``out`` is the convolution's output, or that of the pass K7 took."""
+    act: Optional[str]
+    alpha: Optional[int]
+    bias: Optional[int]
+    out: int
+
+
 def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
                     shapes: dict, dtypes: dict, param_key: dict,
                     statics: dict, tiers: tuple
                     ) -> tuple[dict, frozenset, frozenset, dict, frozenset,
-                               frozenset]:
+                               frozenset, dict]:
     """Which ops run as one bias, residual-add-and-activation pass, from
     the graph's structure alone.  Two patterns fuse:
 
@@ -442,7 +457,14 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
     convolution have no fused activation.  Every other such convolution
     is followed by an in-place bias pass of its own, with its fused RELU
     where it has one (any other fused activation runs after it); the
-    snap of an output on a grid still follows the convolution.
+    snap of an output on a grid still follows the convolution.  A
+    DEPTHWISE_CONV_2D that K7 has (``ops.depthwise.takes``) runs there
+    instead, with what its pass would have done: the bias and fused RELU
+    of a bias pass of its own (it then has none), or the whole of a RELU
+    or PRELU pass with no residual that would take its bias, where that
+    pass's output is on no grid, no graph output and read by no affine
+    pair (the pass's op is absorbed), or its fused RELU where it has no
+    bias.  Any other pass after it stays, with the bias it took.
 
     Last, a per-channel affine pair, a 4-D MUL with no activation by one
     constant a channel whose output's only reader is an ADD with no
@@ -460,7 +482,8 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
     indices, the candidates (every PRELU, every ADD with a fused RELU)
     that run op by op, convolution op index -> the act (None or "RELU")
     of its own bias pass, the convolutions whose bias a pass takes, the
-    ADDs of the affine pairs that run op by op)."""
+    ADDs of the affine pairs that run op by op, depthwise convolution op
+    index -> its :class:`_Depthwise`)."""
     readers: dict[int, int] = {}
     reader: dict[int, int] = {}  # tensor -> an op that reads it
     for i, op in enumerate(ops):
@@ -539,51 +562,7 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
                                     op.inputs[1])
                 absorbed.update(found[2] + [add])
 
-    # The convolutions' biases: into the pass that reads the output, else
-    # a pass of their own.
-    bias_passes: dict[int, Optional[str]] = {}
-    folded: set[int] = set()
-    for i, op in enumerate(ops):
-        out = op.outputs[0]
-        if op.name not in ("CONV_2D", "DEPTHWISE_CONV_2D") or \
-                _TIER_DTYPE[tiers[i]] is not torch.float32 or \
-                len(op.inputs) < 3 or op.inputs[2] < 0 or \
-                op.inputs[2] not in param_key or not activation(out) or \
-                shapes.get(op.inputs[2]) != (shapes[out][3],):
-            continue
-        fused_act = op.options.get("activation")
-        if fused_act is not None or not absorbable(out):
-            bias_passes[i] = "RELU" if fused_act == "RELU" else None
-            continue
-        b, j = op.inputs[2], reader[out]
-        fold = None
-        for k, ep in plan.items():
-            if ep.bias is None and ep.y == out:
-                fold = k, ep._replace(bias=b)
-            elif ep.bias is None and ep.residual == out and \
-                    shapes[ep.y] == shapes[out]:
-                fold = k, ep._replace(y=out, residual=ep.y, bias=b)
-            if fold is not None:
-                break
-        if fold is None and j not in plan and j not in absorbed and \
-                activation(ops[j].outputs[0]):
-            if ops[j].name == "RELU":
-                fold = j, _Epilogue(out, None, "RELU", None, b)
-            elif ops[j].name == "ADD" and \
-                    ops[j].options.get("activation") is None:
-                found = add_operands(ops[j])
-                if found is not None:
-                    y, r, pads = found
-                    fold = j, _Epilogue(out, r if y == out else y, None,
-                                        None, b)
-                    absorbed.update(pads)
-        if fold is None:
-            bias_passes[i] = None
-        else:
-            plan[fold[0]] = fold[1]
-            folded.add(i)
-
-    # The per-channel affine pairs: into the pass that writes their input.
+    # The per-channel affine pairs, by the tensor they read.
     def affine_pair(m) -> Optional[tuple[int, int, int, int, int]]:
         """(input, scale, ADD op index, shift, z) where MUL op ``m`` begins
         an affine pair over a 4-D activation."""
@@ -611,6 +590,86 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
     for m in range(len(ops)):
         if (p := affine_pair(m)) is not None:
             pairs.setdefault(p[0], []).append((m, p))
+
+    def k7(op) -> bool:
+        """Whether K7 has DEPTHWISE_CONV_2D ``op``."""
+        o = op.options
+        xs, ws = shapes.get(op.inputs[0], ()), shapes.get(op.inputs[1], ())
+        return len(xs) == 4 and len(ws) == 4 and takes(
+            xs[3], (ws[3], 1, ws[1], ws[2]), (o["stride_h"], o["stride_w"]),
+            (o.get("dilation_h", 1), o.get("dilation_w", 1)))
+
+    # The convolutions' biases: into K7, into the pass that reads the
+    # output, else a pass of their own.
+    bias_passes: dict[int, Optional[str]] = {}
+    folded: set[int] = set()
+    depthwise: dict[int, _Depthwise] = {}
+    for i, op in enumerate(ops):
+        out = op.outputs[0]
+        if op.name not in ("CONV_2D", "DEPTHWISE_CONV_2D") or \
+                _TIER_DTYPE[tiers[i]] is not torch.float32:
+            continue
+        dw = op.name == "DEPTHWISE_CONV_2D" and k7(op)
+        fused_act = op.options.get("activation")
+        relu = "RELU" if fused_act == "RELU" else None
+        if len(op.inputs) < 3 or op.inputs[2] < 0:
+            if dw:
+                depthwise[i] = _Depthwise(relu, None, None, out)
+            continue
+        b = op.inputs[2]
+        if b not in param_key or not activation(out) or \
+                shapes.get(b) != (shapes[out][3],):
+            continue
+        if fused_act is not None or not absorbable(out):
+            if dw:
+                depthwise[i] = _Depthwise(relu, None, b, out)
+            else:
+                bias_passes[i] = relu
+            continue
+        j = reader[out]
+        fold = None
+        for k, ep in plan.items():
+            if ep.bias is None and ep.y == out:
+                fold = k, ep._replace(bias=b)
+            elif ep.bias is None and ep.residual == out and \
+                    shapes[ep.y] == shapes[out]:
+                fold = k, ep._replace(y=out, residual=ep.y, bias=b)
+            if fold is not None:
+                break
+        if fold is None and j not in plan and j not in absorbed and \
+                activation(ops[j].outputs[0]):
+            if ops[j].name == "RELU":
+                fold = j, _Epilogue(out, None, "RELU", None, b)
+            elif ops[j].name == "ADD" and \
+                    ops[j].options.get("activation") is None:
+                found = add_operands(ops[j])
+                if found is not None:
+                    y, r, pads = found
+                    fold = j, _Epilogue(out, r if y == out else y, None,
+                                        None, b)
+                    absorbed.update(pads)
+        if fold is None:
+            if dw:
+                depthwise[i] = _Depthwise(None, None, b, out)
+            else:
+                bias_passes[i] = None
+            continue
+        k, ep = fold
+        z = ops[k].outputs[0]
+        if dw and ep.residual is None and ep.act is not None and \
+                z not in act_quant and z not in outputs and z not in pairs:
+            # K7 runs the RELU or PRELU too: its op goes.
+            depthwise[i] = _Depthwise(ep.act, ep.alpha, b, z)
+            plan.pop(k, None)
+            candidates.discard(k)
+            absorbed.add(k)
+            continue
+        plan[k] = ep
+        folded.add(i)
+        if dw:
+            depthwise[i] = _Depthwise(None, None, None, out)
+
+    # The per-channel affine pairs: into the pass that writes their input.
     taken = set()
     for k, ep in list(plan.items()):
         out = ops[k].outputs[0]
@@ -628,7 +687,8 @@ def _plan_epilogues(ops: list[OpIR], output_ixs, act_quant: dict,
         taken.add(j)
     affine_op_by_op = {p[2] for f in pairs.values() for _, p in f} - taken
     return (plan, frozenset(absorbed), frozenset(candidates - set(plan)),
-            bias_passes, frozenset(folded), frozenset(affine_op_by_op))
+            bias_passes, frozenset(folded), frozenset(affine_op_by_op),
+            depthwise)
 
 
 def _refresh_low(module, incompatible_keys=None) -> None:
@@ -900,12 +960,14 @@ class ConvertedModel(nn.Module):
         #: by op (each counted by ``ops.epilogue.ran_op_by_op`` where it
         #: runs on a card), the float32 convolutions followed by a bias
         #: pass of their own (-> its act) and those whose bias a pass
-        #: takes, and the ADDs of the per-channel affine pairs left op by
-        #: op (``ops.epilogue.affine_op_by_op`` on a card).  A float32
-        #: convolution in neither has its bias added by PyTorch
-        #: (``ops.epilogue.bias_op_by_op`` on a card).
+        #: takes, the ADDs of the per-channel affine pairs left op by op
+        #: (``ops.epilogue.affine_op_by_op`` on a card), and the depthwise
+        #: convolutions K7 runs (-> their :class:`_Depthwise`).  A float32
+        #: convolution in none of these with a bias has it added by
+        #: PyTorch (``ops.epilogue.bias_op_by_op`` on a card).
         (self._epilogues, self._absorbed, self._op_by_op, self._bias_passes,
-         self._bias_folded, self._affine_op_by_op) = _plan_epilogues(
+         self._bias_folded, self._affine_op_by_op,
+         self._depthwise) = _plan_epilogues(
             ops, output_ixs, self._act_quant, shapes, dtypes, param_key,
             statics, self.tiers)
         # Weight tensor -> the key of its bf16 copy, for the weights that
@@ -1086,12 +1148,24 @@ class ConvertedModel(nn.Module):
             dtype = _TIER_DTYPE[self.tiers[i]]
             x = self._operand(env, op.inputs[0], dtype)
             w = self._operand(env, op.inputs[1], dtype)  # OIHW / [C*m, 1, kh, kw]
+            pads = _conv_padding(o, x.shape[1], x.shape[2], w.shape[2],
+                                 w.shape[3])
+            dw = self._depthwise.get(i)
+            if dw is not None:
+                # K7: the convolution with its bias and activation.
+                param = [None if t is None else
+                         getattr(self, self._param_key[t]).reshape(-1)
+                         for t in (dw.bias, dw.alpha)]
+                y = depthwise_conv(x.contiguous(), w, param[0],
+                                   stride=o["stride_h"], pads=pads,
+                                   act=dw.act, alpha=param[1])
+                act = o["activation"]
+                env[dw.out] = _act(y, None if act == "RELU" else act)
+                return
             y, bias = conv2d(
                 x, w, get(op.inputs[2]) if len(op.inputs) > 2 and
                 op.inputs[2] >= 0 else None,
-                stride=(o["stride_h"], o["stride_w"]),
-                pads=_conv_padding(o, x.shape[1], x.shape[2], w.shape[2],
-                                   w.shape[3]),
+                stride=(o["stride_h"], o["stride_w"]), pads=pads,
                 dilation=(o["dilation_h"], o["dilation_w"]),
                 groups=x.shape[3] if nm == "DEPTHWISE_CONV_2D" else 1)
             act = o["activation"]

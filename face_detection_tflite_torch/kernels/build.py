@@ -69,6 +69,10 @@ _SIGNATURES = {
     # (K6, ops/pointwise.py)
     "fdt_pointwise_conv": (_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong,
                            _I, _I, _I, _I, _VP),
+    # x, w, bias, alpha, out, n, h, w, c, k, stride, pt, pl, oh, ow, act,
+    # device, stream (K7, ops/depthwise.py)
+    "fdt_depthwise_conv": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _VP),
 }
 
 _lock = threading.Lock()

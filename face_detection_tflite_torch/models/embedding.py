@@ -12,8 +12,9 @@ cosine and euclidean comparisons (:283-334).
 
 The crop is K2 (``ops/warp.py``, the ROI warp fused with the [-1, 1]
 normalize) at 112 px with the alignment angle negated; the network runs in
-fp32 with TF32 off, its 1x1 convolutions in K6 (``ops/pointwise.py``) and
-the others on cuDNN, or at another tier of the executor
+fp32 with TF32 off, its 1x1 convolutions in K6 (``ops/pointwise.py``), its
+depthwise convolutions in K7 (``ops/depthwise.py``) and the stem on cuDNN,
+or at another tier of the executor
 (``convert/executor.py``; "default" feeds the convolutions bf16 operands).  The trained ``mobilefacenet.tflite`` is not
 in the repository: given one, :meth:`FaceEmbedding.load` converts it like
 every other graph; otherwise it builds :class:`MobileFaceNet` at the
@@ -47,6 +48,7 @@ from ..convert.checkpoint import load_params_npz, swap_params
 from ..convert.executor import (_TIER_DTYPE, _check_fp32, _refresh_low,
                                 _same_pads, _tier, conv2d, convert_file,
                                 fp32_on_the_card, resolve_device)
+from ..ops.depthwise import depthwise_conv, takes
 from ..ops.epilogue import residual_act
 from ..ops.pointwise import pointwise_conv
 from ..ops.warp import extract_rois_normalized
@@ -193,6 +195,22 @@ def _pointwise_sites(embedding_dim: int = EMBEDDING_DIM) -> list[tuple]:
                     ("out", 1, 512, embedding_dim, False, False)]
 
 
+def _depthwise_sites() -> list[tuple]:
+    """``(name, hw, c, k, stride, prelu, same)`` of each of the 17
+    depthwise convolutions, in the network's order: the side of its
+    (square) NHWC input, its channels, its filter size and stride, whether
+    a PReLU follows it and whether its pads are TF SAME (else VALID)."""
+    sites, hw = [("stem_dw", EMBEDDING_INPUT_SIZE // 2, 64, 3, 1, True,
+                  True)], EMBEDDING_INPUT_SIZE // 2
+    c_in = 64
+    for bi, (t, c, n, stride) in enumerate(_MFN_BLOCKS):
+        for ri in range(n):
+            st = stride if ri == 0 else 1
+            sites.append((f"b{bi}_{ri}_d", hw, c_in * t, 3, st, True, True))
+            hw, c_in = -(-hw // st), c
+    return sites + [("gdconv", hw, 512, 7, 1, False, False)]
+
+
 def params_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """The JAX ``build_mobilefacenet`` params (filters in HWIO) as the state
     dict of :class:`MobileFaceNet` (filters in OIHW); the keys stay."""
@@ -214,7 +232,9 @@ class MobileFaceNet(nn.Module):
     ``executor.conv2d`` and its bias, with the PReLU or the residual add
     after it, through one ``ops.epilogue.residual_act`` pass, except that
     a float32 1x1 convolution and all of that are one
-    ``ops.pointwise.pointwise_conv`` call (K6 on a card).
+    ``ops.pointwise.pointwise_conv`` call (K6 on a card), and a float32
+    depthwise convolution with its bias and PReLU one
+    ``ops.depthwise.depthwise_conv`` call (K7 on a card).
     Weights are buffers keyed as the JAX params.  ``precision`` is a tier
     of the executor for every convolution ("highest", "high" or
     "default"; the JAX function's ``precision``): at "default" they take
@@ -290,8 +310,10 @@ class MobileFaceNet(nn.Module):
         it has neither); at a bf16 tier ``executor.conv2d`` adds the bias
         and the pass takes only the PReLU.  A float32 1x1 convolution
         (groups 1, stride 1) is one ``ops.pointwise.pointwise_conv`` call
-        with all of that: K6 on a card, its plain version (the same
-        ``executor.conv2d`` and pass) on the CPU."""
+        with all of that, and a float32 depthwise convolution (groups > 1,
+        no residual) one ``ops.depthwise.depthwise_conv`` call: K6 and K7
+        on a card, their plain versions (the same ``executor.conv2d`` and
+        pass) on the CPU."""
         low = self._dtype is not torch.float32
         kn = self._buffers.get(f"_kn_{name}_w")
         if kn is not None and groups == 1 and stride == 1:
@@ -302,6 +324,12 @@ class MobileFaceNet(nn.Module):
         pads = ((_same_pads(x.shape[1], stride, w.shape[2]),
                  _same_pads(x.shape[2], stride, w.shape[3])) if same
                 else ((0, 0), (0, 0)))
+        if not low and groups > 1 and residual is None and \
+                takes(x.shape[3], w.shape, (stride, stride)):
+            return depthwise_conv(
+                x, w, getattr(self, f"{name}_b"), stride=stride, pads=pads,
+                act="PRELU" if prelu else None,
+                alpha=getattr(self, f"{name}_a") if prelu else None)
         y, bias = conv2d(x.to(self._dtype) if low else x, w,
                          getattr(self, f"{name}_b"), stride=(stride, stride),
                          pads=pads, groups=groups)

@@ -98,7 +98,7 @@ from ..kernels import build as _build
 from ..models.embedding import (FaceEmbedding, compute_embedding_alignment,
                                 cosine_similarity, euclidean_distance, roi_ok)
 from ..models.segmentation import SegmentationMask, SelfieSegmentation
-from ..ops import epilogue, pointwise
+from ..ops import depthwise, epilogue, pointwise
 from ..parallel import sharding as _sharding
 from ..utils.camera import (CameraRotation, _plane_field,
                             camera_frame_from_planes, decode_camera_frame)
@@ -1363,14 +1363,16 @@ class FaceDetector:
         and its float32 convolutions' biases added on a card in a K5 pass
         that also did the op after the convolution (``bias_folded``), in
         a K5 pass alone (``bias_alone``) and by PyTorch
-        (``bias_op_by_op``) (a bias K6 adds counts as folded), and its
-        float32 1x1 convolutions (groups 1, stride 1, no pad) run on a
+        (``bias_op_by_op``) (a bias K6 or K7 adds counts as folded), and
+        its float32 1x1 convolutions (groups 1, stride 1, no pad) run on a
         card in K6 (``pointwise_kernel``, ``ops.pointwise``) and by
-        ``F.conv2d`` (``pointwise_library``), and its per-channel MUL and
-        ADD pairs (a batch norm kept in the graph) run on a card in a K5
-        pass (``affine_folded``) and op by op (``affine_op_by_op``) (all
-        nine 0 off a card; a captured program's replays count what its
-        capture recorded);
+        ``F.conv2d`` (``pointwise_library``), its depthwise convolutions
+        run on a card in K7 (``depthwise_kernel``, ``ops.depthwise``) and
+        by ``F.conv2d`` (``depthwise_library``), and its per-channel MUL
+        and ADD pairs (a batch norm kept in the graph) run on a card in a
+        K5 pass (``affine_folded``) and op by op (``affine_op_by_op``)
+        (all eleven 0 off a card; a captured program's replays count what
+        its capture recorded);
         where replicas
         were made
         (:meth:`_replica_params`), their count and the weight bytes of
@@ -1398,6 +1400,8 @@ class FaceDetector:
             report[key] = getattr(epilogue, key).launches
         report["pointwise_kernel"] = pointwise.pointwise_conv.launches
         report["pointwise_library"] = pointwise.library_convs.launches
+        report["depthwise_kernel"] = depthwise.depthwise_conv.launches
+        report["depthwise_library"] = depthwise.library_depthwise.launches
         with self._replica_lock:
             replicas = list(self._replica_params_cache.values())
         n_programs = len(self._programs)

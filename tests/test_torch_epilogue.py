@@ -319,6 +319,7 @@ def _unplan(m):
     PyTorch after its convolution."""
     m._epilogues, m._absorbed = {}, frozenset()
     m._bias_passes, m._bias_folded = {}, frozenset()
+    m._depthwise = {}
 
 
 def _check_planned_against_unplanned(ir, n=3, seed=0, specials=False):
@@ -585,13 +586,16 @@ def test_bias_on_a_grid_and_at_a_bf16_tier():
 
 #: role -> (full-width, full-depth seeded graph, convolutions whose bias
 #: a pass of another op takes, convolutions with a pass of their own, of
-#: them with a fused RELU, the new passes' anchors).
+#: them with a fused RELU, the new passes' anchors, the depthwise
+#: convolutions whose bias K7 adds, of them with the standalone RELU
+#: after them).
 BIAS_NETWORKS = {
-    "detector": (lambda: random_init.blazeface_back_ir(5), 31, 38, 2, {}),
-    "mesh": (lambda: random_init.face_mesh_ir(5), 21, 21, 0, {}),
-    "iris": (lambda: random_init.iris_landmark_ir(5), 35, 36, 0, {}),
+    "detector": (lambda: random_init.blazeface_back_ir(5), 31, 6, 2, {},
+                 32, 0),
+    "mesh": (lambda: random_init.face_mesh_ir(5), 21, 2, 0, {}, 19, 0),
+    "iris": (lambda: random_init.iris_landmark_ir(5), 35, 2, 0, {}, 34, 0),
     "multiclass_segmenter": (lambda: random_init.selfie_multiclass_ir(5),
-                             32, 53, 15, {"RELU": 18, "ADD": 14}),
+                             23, 44, 15, {"RELU": 9, "ADD": 14}, 18, 9),
 }
 
 
@@ -600,15 +604,20 @@ def test_plan_takes_the_biases_of_the_benchmark_networks(role):
     """On the seeded full-depth detector, mesh, iris net and multiclass
     segmenter every convolution's bias is planned: into the BlazeBlocks'
     passes (the 1x1 convolution before each ADD, the first before its
-    PReLU), the segmenter's standalone RELUs and bare residual ADDs, or
-    a pass of its own (the depthwise convolutions, the heads, the stems);
-    no PRELU or RELU ADD runs op by op."""
-    build, folded, alone, alone_relu, new = BIAS_NETWORKS[role]
+    PReLU), the segmenter's standalone RELUs and bare residual ADDs, a
+    pass of its own (the heads, the stems) or K7 (every depthwise
+    convolution, with the segmenter's standalone RELUs after them, whose
+    passes go); no PRELU or RELU ADD runs op by op."""
+    build, folded, alone, alone_relu, new, k7, k7_relu = BIAS_NETWORKS[role]
     m = convert_model(build())
     convs = {i for i, op in enumerate(m._ops)
              if op.name in ("CONV_2D", "DEPTHWISE_CONV_2D")}
+    depthwise = {i for i in convs if m._ops[i].name == "DEPTHWISE_CONV_2D"}
     assert (len(m._bias_folded), len(m._bias_passes)) == (folded, alone)
-    assert set(m._bias_passes) | m._bias_folded == convs
+    assert set(m._depthwise) == depthwise and len(depthwise) == k7
+    assert all(dw.bias is not None for dw in m._depthwise.values())
+    assert sum(dw.act == "RELU" for dw in m._depthwise.values()) == k7_relu
+    assert set(m._bias_passes) | m._bias_folded | depthwise == convs
     assert sum(a == "RELU" for a in m._bias_passes.values()) == alone_relu
     assert not m._op_by_op
     producer = {t: i for i, op in enumerate(m._ops) for t in op.outputs}
@@ -667,13 +676,14 @@ def test_planned_networks_match_the_jax_executor(role):
 def test_mobilefacenet_prelus_run_in_the_pass():
     """Each of MobileFaceNet's 50 convolutions runs without its bias and
     one pass on the NHWC output adds it: with the PReLU (33), with the
-    bottleneck's residual (12 stride-1 projections) or alone (5).  Its 18
-    convolutions that are not 1x1 take a ``residual_act`` pass after
-    ``executor.conv2d`` (gdconv's bias alone in place); its 32 1x1
-    convolutions take the pass inside ``ops.pointwise.pointwise_conv``
-    (K6 on a card, ``executor.conv2d`` and the plain pass here).  Its
-    output equals the unfused ops (the bias add, the NCHW ``where``,
-    ``h + x``) bit for bit, on seeded nonzero biases."""
+    bottleneck's residual (12 stride-1 projections) or alone (5).  Its
+    stem takes a ``residual_act`` pass after ``executor.conv2d``; its 32
+    1x1 convolutions take the pass inside ``ops.pointwise.pointwise_conv``
+    (K6 on a card) and its 17 depthwise convolutions inside
+    ``ops.depthwise.depthwise_conv`` (K7 on a card; gdconv's bias alone),
+    both ``executor.conv2d`` and the plain pass here.  Its output equals
+    the unfused ops (the bias add, the NCHW ``where``, ``h + x``) bit for
+    bit, on seeded nonzero biases."""
     from face_detection_tflite_torch.convert.executor import conv2d
     net = embedding.build_mobilefacenet(seed=3)
     g = torch.Generator().manual_seed(4)
@@ -684,6 +694,7 @@ def test_mobilefacenet_prelus_run_in_the_pass():
         -1, 1, (2, 112, 112, 3)).astype(np.float32))
     calls = []
     real, real_pointwise = embedding.residual_act, embedding.pointwise_conv
+    real_depthwise = embedding.depthwise_conv
 
     def counted(y, residual, act, alpha=None, bias=None, inplace=False):
         calls.append(("pass", tuple(y.shape), residual is not None, act,
@@ -694,6 +705,14 @@ def test_mobilefacenet_prelus_run_in_the_pass():
         calls.append(("pointwise", (*x.shape[:3], w.shape[1]),
                       residual is not None, act, bias is not None, False))
         return real_pointwise(x, w, bias, act, alpha, residual)
+
+    def counted_depthwise(x, w, bias, *, stride, pads, act=None,
+                          alpha=None):
+        y = real_depthwise(x, w, bias, stride=stride, pads=pads, act=act,
+                           alpha=alpha)
+        calls.append(("depthwise", tuple(y.shape), False, act,
+                      bias is not None, False))
+        return y
 
     def unfused(y, residual, act, alpha=None, bias=None, inplace=False):
         y = y.permute(0, 3, 1, 2) + bias[:, None, None]
@@ -709,26 +728,35 @@ def test_mobilefacenet_prelus_run_in_the_pass():
                          pads=((0, 0), (0, 0)))
         return unfused(y, residual, act, alpha, bias)
 
+    def unfused_depthwise(x, w, bias, *, stride, pads, act=None,
+                          alpha=None):
+        y, bias = conv2d(x, w, bias, stride=(stride, stride), pads=pads,
+                         groups=x.shape[3])
+        return unfused(y, None, act, alpha, bias)
+
     embedding.residual_act = counted
     embedding.pointwise_conv = counted_pointwise
+    embedding.depthwise_conv = counted_depthwise
     try:
         (got,) = net(x)
         embedding.residual_act = unfused
         embedding.pointwise_conv = unfused_pointwise
+        embedding.depthwise_conv = unfused_depthwise
         (want,) = net(x)
     finally:
         embedding.residual_act = real
         embedding.pointwise_conv = real_pointwise
+        embedding.depthwise_conv = real_depthwise
     assert len(calls) == 50
     assert [c[0] for c in calls].count("pointwise") == 32
-    assert calls[0] == ("pass", (2, 56, 56, 64), False, "PRELU", True,
-                        False)
+    assert [c[0] for c in calls].count("depthwise") == 17
     kinds = [c[2:5] for c in calls]
     assert kinds.count((False, "PRELU", True)) == 33
     assert kinds.count((True, None, True)) == 12
     assert kinds.count((False, None, True)) == 5
-    assert [c for c in calls if c[0] == "pass" and c[5]] == [
-        ("pass", (2, 1, 1, 512), False, None, True, True)]
+    assert [c for c in calls if c[0] == "pass"] == [
+        ("pass", (2, 56, 56, 64), False, "PRELU", True, False)]
+    assert ("depthwise", (2, 1, 1, 512), False, None, True, False) in calls
     assert torch.equal(_bits(got), _bits(want))
 
 

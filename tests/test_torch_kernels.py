@@ -1346,27 +1346,31 @@ def test_every_fused_site_runs_k5_on_nhwc_inputs(cuda_device, monkeypatch,
     """Every planned site of the main path's networks and the multiclass
     segmenter takes K5 at B = 16 and B = 1 (the wrapper raises on an input
     that is not NHWC contiguous, so none is), one launch a planned pass
-    (each convolution's own bias pass among them; one a convolution of
-    MobileFaceNet but its 1x1 convolutions, which K6 runs with their
-    bias), none op by op, each convolution's bias counted once, folded or
-    alone, and none added by PyTorch; the network's outputs on seeded
-    nonzero biases equal those with the plain version at every site bit
-    for bit."""
+    (each convolution's own bias pass among them; MobileFaceNet's stem
+    alone, since K6 runs its 1x1 convolutions and K7 its depthwise ones
+    with their bias), none op by op, each convolution's bias counted
+    once, folded (by K5, K6 or K7) or alone, and none added by PyTorch;
+    the network's outputs on seeded nonzero biases equal those with K5's
+    plain version at every site bit for bit."""
     from face_detection_tflite_torch.convert import executor
     from face_detection_tflite_torch.models import embedding
+    from face_detection_tflite_torch.ops import depthwise
     model = EPILOGUE_NETWORKS[role]().eval()
     g = torch.Generator().manual_seed(16)
     if role == "embedding":
-        # On the card the 32 1x1 convolutions run in K6, which folds
-        # their biases; K5 takes the other 18, 17 with a PReLU.
+        # On the card the 32 1x1 convolutions run in K6 and the 17
+        # depthwise ones in K7, which fold their biases; K5 takes the
+        # stem's, with its PReLU.
         biases = [b for k, b in model.named_buffers() if k.endswith("_b")]
-        passes, folded = len(biases) - 32, len(biases) - 1
+        passes, folded, k7 = 1, len(biases), 17
     else:
         biases = [getattr(model, model._param_key[op.inputs[2]])
                   for i, op in enumerate(model._ops)
-                  if i in model._bias_folded or i in model._bias_passes]
+                  if i in model._bias_folded or i in model._bias_passes
+                  or i in model._depthwise]
         passes = len(model._epilogues) + len(model._bias_passes)
-        folded = len(model._bias_folded) + sum(
+        k7 = len(model._depthwise)
+        folded = len(model._bias_folded) + k7 + sum(
             a is not None for a in model._bias_passes.values())
     for b in biases:
         b.copy_(0.1 * torch.randn(b.shape, generator=g))
@@ -1377,6 +1381,7 @@ def test_every_fused_site_runs_k5_on_nhwc_inputs(cuda_device, monkeypatch,
     for n in (16, 1):
         x = torch.rand((n,) + shape, device=cuda_device) * 2 - 1
         before = _k5_counts()
+        launches = depthwise.depthwise_conv.launches
         with torch.inference_mode():
             got = model(x)
         torch.cuda.synchronize()
@@ -1385,6 +1390,7 @@ def test_every_fused_site_runs_k5_on_nhwc_inputs(cuda_device, monkeypatch,
             "residual_act": passes, "ran_op_by_op": 0,
             "bias_folded": folded, "bias_alone": len(biases) - folded,
             "bias_op_by_op": 0}
+        assert depthwise.depthwise_conv.launches - launches == k7
         with monkeypatch.context() as m:
             m.setattr(executor, "residual_act", epilogue.residual_act_plain)
             m.setattr(embedding, "residual_act", epilogue.residual_act_plain)
@@ -1416,9 +1422,13 @@ def test_op_by_op_candidates_are_counted_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_biases_left_to_pytorch_are_counted_on_the_card(cuda_device):
-    """With the plan's bias passes emptied, each float32 convolution's
-    bias is added by PyTorch (``bias_op_by_op`` a convolution a call, no
-    K5 launch), and the outputs equal the planned model's bit for bit."""
+    """With the plan's bias passes and K7's sites emptied, each float32
+    convolution's bias is added by PyTorch (``bias_op_by_op`` a
+    convolution a call, no K5 or K7 launch), and the outputs equal bit for
+    bit the planned model's with K7's plain version (cuDNN, then the plain
+    pass) at its sites."""
+    from face_detection_tflite_torch.convert import executor
+    from face_detection_tflite_torch.ops import depthwise
     m = convert_model(random_init.iris_landmark_ir(17, 1))
     g = torch.Generator().manual_seed(17)
     for op in m._ops:
@@ -1426,16 +1436,24 @@ def test_biases_left_to_pytorch_are_counted_on_the_card(cuda_device):
             b = getattr(m, m._param_key[op.inputs[2]])
             b.copy_(0.1 * torch.randn(b.shape, generator=g))
     m = m.to(cuda_device).eval()
-    convs = len(m._bias_passes) + len(m._bias_folded)
+    convs = len(m._bias_passes) + len(m._bias_folded) + len(m._depthwise)
     x = torch.rand((4, 64, 64, 3), device=cuda_device)
     with torch.inference_mode():
-        want = m(x)
+        real = executor.depthwise_conv
+        executor.depthwise_conv = depthwise.depthwise_conv_plain
+        try:
+            want = m(x)
+        finally:
+            executor.depthwise_conv = real
         m._epilogues, m._absorbed = {}, frozenset()
         m._bias_passes, m._bias_folded = {}, frozenset()
+        m._depthwise = {}
         before = _k5_counts()
+        launches = depthwise.depthwise_conv.launches
         got = m(x)
         after = _k5_counts()
     assert after["residual_act"] - before["residual_act"] == 0
+    assert depthwise.depthwise_conv.launches == launches
     assert after["bias_op_by_op"] - before["bias_op_by_op"] == convs
     for a, w in zip(got, want):
         assert _same_bits(a, w)
@@ -1523,7 +1541,8 @@ def test_k6_takes_each_epilogue_and_any_width(cuda_device, k, n):
 @pytest.mark.cuda
 def test_one_mobilefacenet_forward_launches_k6_32_times(cuda_device):
     """At the float32 tiers each of the 32 1x1 convolutions is one K6
-    launch a forward, its bias counted as folded; the executor's
+    launch a forward, its bias counted as folded (with K7's 17 and the
+    stem's PReLU pass); the executor's
     networks on the card count their 1x1 convolutions as run by the
     library; an ``embedding_dim`` of 130 runs its ``out`` in K6 as well,
     none in the library; the "default" tier (bf16 operands) does not
@@ -1542,7 +1561,7 @@ def test_one_mobilefacenet_forward_launches_k6_32_times(cuda_device):
             (got,) = net(x.to(cuda_device))
         torch.cuda.synchronize()
         assert (pointwise.pointwise_conv.launches - before[0],
-                epilogue.bias_folded.launches - before[1]) == (32, 49)
+                epilogue.bias_folded.launches - before[1]) == (32, 50)
         unit = want / want.norm(dim=-1, keepdim=True)
         got = got.cpu()
         assert (got / got.norm(dim=-1, keepdim=True) - unit).abs().max() \
@@ -1598,6 +1617,226 @@ def test_k6_replays_equal_the_eager_program(cuda_device):
     before = pointwise.pointwise_conv.launches
     got = emb.embed_batch(frame, pairs)
     assert pointwise.pointwise_conv.launches - before == 32
+    with graphs.eager():
+        want = emb.embed_batch(frame, pairs)
+    np.testing.assert_array_equal(got, want)
+    emb.dispose()
+
+
+# -- K7, every float32 depthwise convolution with its bias and activation --
+
+def _k7_check(got, want, tol):
+    """K7 within the float32 rounding bound of the plain version at every
+    finite output; NaN and +-inf where the plain version has them."""
+    finite = torch.isfinite(want)
+    assert torch.equal(finite, torch.isfinite(got))
+    assert torch.equal(torch.isnan(want), torch.isnan(got))
+    assert torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+    gap = (got[finite] - want[finite]).abs().double()
+    assert bool((gap <= tol[finite]).all()), \
+        (gap / tol[finite]).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 1])
+def test_k7_matches_its_plain_version_at_every_site(cuda_device, n):
+    """At every depthwise site of the benchmark's five networks (each
+    distinct shape, filter, stride, pad and act), at batches 3 and 1, K7
+    equals its plain version (cuDNN's convolution, then K5's plain pass)
+    within the float32 rounding bound of its k^2-term sums, -0.0, NaN and
+    inf planted in the input; one launch a call, its bias counted as
+    folded and its PReLU as fused."""
+    from face_detection_tflite_torch.ops import depthwise
+    from .depthwise_sites import SITES, site_args
+    for j, site in enumerate(SITES):
+        x, w, bias, s, pads, act, alpha = site_args(site, j, n, cuda_device)
+        before = (depthwise.depthwise_conv.launches,
+                  epilogue.bias_folded.launches, epilogue.ran_fused.launches)
+        with torch.inference_mode():
+            got = depthwise.depthwise_conv(x, w, bias, stride=s, pads=pads,
+                                           act=act, alpha=alpha)
+            torch.cuda.synchronize()
+            after = (depthwise.depthwise_conv.launches,
+                     epilogue.bias_folded.launches,
+                     epilogue.ran_fused.launches)
+            want = depthwise.depthwise_conv_plain(
+                x, w, bias, stride=s, pads=pads, act=act, alpha=alpha)
+        assert [a - b for a, b in zip(after, before)] == \
+            [1, 1, int(act == "PRELU")], site
+        tol = depthwise.rounding_bound(x.nan_to_num(0.0, 0.0, 0.0), w, bias,
+                                       alpha, stride=s, pads=pads)
+        _k7_check(got, want, tol)
+
+
+#: The batch each network runs its depthwise convolutions at in the
+#: benchmark's stream16 cells (frames, face slots, eye slots, crops).
+K7_CELL_BATCH = {"detector": 16, "mesh": 256, "iris": 512,
+                 "multiclass_segmenter": 16, "embedding": 256}
+
+
+@pytest.mark.cuda
+def test_k7_matches_its_plain_version_at_the_cells_batches(cuda_device):
+    """At every depthwise site at the batch the stream16 cells run it,
+    where K7's tiling takes runs of four outputs, 16-vector channel
+    groups and several images a thread (and at the 5x5 and 7x7 sites its
+    taps in shared memory), K7 equals its plain version within the
+    rounding bound, NaN and inf planted in the input."""
+    from face_detection_tflite_torch.ops import depthwise
+    from .depthwise_sites import SITES
+    g = torch.Generator(device=cuda_device).manual_seed(27)
+    for role, h, w, c, k, s, pads, act in SITES:
+        n = K7_CELL_BATCH[role]
+        x = torch.randn((n, h, w, c), generator=g, device=cuda_device)
+        flat = x.view(-1)
+        picks = torch.randint(0, flat.numel(), (12,), generator=g,
+                              device=cuda_device)
+        flat[picks] = torch.tensor([-0.0, float("nan"), float("inf"),
+                                    float("-inf")] * 3, device=cuda_device)
+        wt = torch.randn((c, 1, k, k), generator=g, device=cuda_device) / k
+        bias = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+        alpha = (torch.rand(c, generator=g, device=cuda_device) - 0.5
+                 if act == "PRELU" else None)
+        with torch.inference_mode():
+            got = depthwise.depthwise_conv(x, wt, bias, stride=s, pads=pads,
+                                           act=act, alpha=alpha)
+            want = depthwise.depthwise_conv_plain(
+                x, wt, bias, stride=s, pads=pads, act=act, alpha=alpha)
+        tol = depthwise.rounding_bound(x.nan_to_num(0.0, 0.0, 0.0), wt, bias,
+                                       alpha, stride=s, pads=pads)
+        _k7_check(got, want, tol)
+        del x, got, want, tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("act", [None, "RELU", "PRELU"])
+def test_k7_takes_every_filter_stride_pad_and_width(cuda_device, k, stride,
+                                                    act):
+    """Every filter size and stride K7 has, with no pad, symmetric and
+    asymmetric pads (more at the end, more at the start), odd and even
+    maps, widths that are and are not multiples of 4, with and without a
+    bias, and an input 4 bytes off the 16-byte alignment (the scalar
+    instance): within the rounding bound of the plain version."""
+    from face_detection_tflite_torch.ops import depthwise
+    g = torch.Generator(device=cuda_device).manual_seed(k * 10 + stride)
+    for c, h, w, pads, bias_on, offset in (
+            (8, 9, 12, ((0, 0), (0, 0)), True, 0),
+            (6, 10, 7, ((k // 2, k // 2), (k // 2, k // 2)), False, 0),
+            (13, 11, 11, ((0, k - 1), (1, k - 2)), True, 0),
+            (128, 6, 5, ((k - 1, 0), (k // 2, k - 1 - k // 2)), True, 0),
+            (20, 7, 9, ((1, 1), (0, 2)), True, 1),
+            (1024, 4, 4, ((k // 2,) * 2, (k // 2,) * 2), True, 0)):
+        if h + sum(pads[0]) < k or w + sum(pads[1]) < k:
+            continue
+        n = 2 * h * w * c
+        x = torch.randn(n + offset, generator=g,
+                        device=cuda_device)[offset:]
+        picks = torch.randperm(n, generator=g, device=cuda_device)[:6]
+        x[picks] = torch.tensor([-0.0, -0.0, float("nan"), float("inf"),
+                                 float("-inf"), -0.0], device=cuda_device)
+        x = x.view(2, h, w, c)
+        wt = torch.randn((c, 1, k, k), generator=g, device=cuda_device) / k
+        bias = (0.1 * torch.randn(c, generator=g, device=cuda_device)
+                if bias_on else None)
+        alpha = (torch.rand(c, generator=g, device=cuda_device) - 0.5
+                 if act == "PRELU" else None)
+        with torch.inference_mode():
+            got = depthwise.depthwise_conv(x, wt, bias, stride=stride,
+                                           pads=pads, act=act, alpha=alpha)
+            want = depthwise.depthwise_conv_plain(
+                x, wt, bias, stride=stride, pads=pads, act=act, alpha=alpha)
+        assert got.shape == want.shape, (c, h, w, pads)
+        tol = depthwise.rounding_bound(x.nan_to_num(0.0, 0.0, 0.0), wt, bias,
+                                       alpha, stride=stride, pads=pads)
+        _k7_check(got, want, tol)
+
+
+@pytest.mark.cuda
+def test_k7_wrapper_raises_on_the_card_before_a_launch(cuda_device):
+    """A bias or filter on another device, a PReLU slope on the CPU: the
+    wrapper raises and launches nothing."""
+    from face_detection_tflite_torch.ops import depthwise
+    x = torch.rand((2, 8, 8, 16), device=cuda_device)
+    w = torch.rand((16, 1, 3, 3), device=cuda_device)
+    before = depthwise.depthwise_conv.launches
+    pads = ((1, 1), (1, 1))
+    with pytest.raises(ValueError, match="is on cpu"):
+        depthwise.depthwise_conv(x, w.cpu(), None, stride=1, pads=pads)
+    with pytest.raises(ValueError, match="is on cpu"):
+        depthwise.depthwise_conv(x, w, torch.ones(16), stride=1, pads=pads)
+    with pytest.raises(ValueError, match="is on cpu"):
+        depthwise.depthwise_conv(x, w, None, stride=1, pads=pads,
+                                 act="PRELU", alpha=torch.ones(16))
+    assert depthwise.depthwise_conv.launches == before
+
+
+@pytest.mark.cuda
+def test_k7_runs_every_depthwise_convolution_of_the_networks(cuda_device):
+    """On the card each float32 depthwise convolution of the main path's
+    networks and the multiclass segmenter is one K7 launch a forward,
+    none reaches ``F.conv2d`` (``library_depthwise``); at the "default"
+    tier (bf16 operands) and with a channel multiplier of 2 they do, and
+    K7 launches nothing."""
+    from face_detection_tflite_torch.ops import depthwise
+    for role, build_model in EPILOGUE_NETWORKS.items():
+        model = build_model().to(cuda_device).eval()
+        want = 17 if role == "embedding" else len(model._depthwise)
+        shape = tuple(model.input_shapes[0][1:])
+        x = torch.rand((2,) + shape, device=cuda_device)
+        before = (depthwise.depthwise_conv.launches,
+                  depthwise.library_depthwise.launches)
+        with torch.inference_mode():
+            model(x)
+        assert (depthwise.depthwise_conv.launches - before[0],
+                depthwise.library_depthwise.launches - before[1]) == \
+            (want, 0), role
+    mesh = convert_model(random_init.face_mesh_ir(12), precision="default")
+    mesh = mesh.to(cuda_device).eval()
+    dws = sum(op.name == "DEPTHWISE_CONV_2D" for op in mesh._ops)
+    before = (depthwise.depthwise_conv.launches,
+              depthwise.library_depthwise.launches)
+    with torch.inference_mode():
+        mesh(torch.rand((2, 192, 192, 3), device=cuda_device))
+    assert (depthwise.depthwise_conv.launches - before[0],
+            depthwise.library_depthwise.launches - before[1]) == (0, dws)
+    g = random_init._Graph(np.random.default_rng(0))
+    inp = g.tensor((1, 8, 8, 4))
+    wt = g.weight(np.ones((1, 3, 3, 8), np.float32))
+    out = g.op("DEPTHWISE_CONV_2D", [inp, wt, g.weight(np.zeros(8,
+                                                                np.float32))],
+               (1, 8, 8, 8), padding=0, stride_w=1, stride_h=1,
+               depth_multiplier=2, activation=None, dilation_w=1,
+               dilation_h=1)
+    m = convert_model(g.ir([inp], [out], "t")).to(cuda_device).eval()
+    assert not m._depthwise
+    before = depthwise.library_depthwise.launches
+    with torch.inference_mode():
+        m(torch.rand((2, 8, 8, 4), device=cuda_device))
+    assert depthwise.library_depthwise.launches - before == 1
+
+
+@pytest.mark.cuda
+def test_k7_replays_equal_the_eager_program(cuda_device):
+    """``embed_batch``'s captured program replays K7 with the eager
+    program's every bit, and a replay counts the capture's 17 K7 launches
+    (with K6's 32)."""
+    from face_detection_tflite_torch.models.embedding import FaceEmbedding
+    from face_detection_tflite_torch.ops import depthwise, pointwise
+    from face_detection_tflite_torch.pipeline import graphs
+    rng = np.random.default_rng(25)
+    frame = rng.integers(0, 256, (427, 640, 3), dtype=np.uint8)
+    pairs = [((100.0 + 20 * i, 100.0 + 10 * i), (150.0 + 20 * i, 104.0))
+             for i in range(16)]
+    emb = FaceEmbedding(_k6_net("cpu"), allow_untrained=True,
+                        device=cuda_device)
+    with graphs.capture_now():
+        emb.embed_batch(frame, pairs)              # eager, then captured
+    before = (depthwise.depthwise_conv.launches,
+              pointwise.pointwise_conv.launches)
+    got = emb.embed_batch(frame, pairs)
+    assert (depthwise.depthwise_conv.launches - before[0],
+            pointwise.pointwise_conv.launches - before[1]) == (17, 32)
     with graphs.eager():
         want = emb.embed_batch(frame, pairs)
     np.testing.assert_array_equal(got, want)
